@@ -1,0 +1,58 @@
+"""`ViterbiDecoder`: a `DecodeSpec` bound to one HMM, as in `repro.core.decoder`.
+
+    dec = ViterbiDecoder(FusedSpec(), log_pi, log_A)     # on cuda
+    path,  score  = dec.decode(em)                       # one (T, K) sequence
+    paths, scores = dec.decode_batch(ems, lengths=ln)    # ragged (B, T, K)
+
+The decoder owns the device: the HMM tensors are placed on it once, and
+emissions handed in as numpy arrays or tensors elsewhere are moved to it.
+``device=None`` means ``cuda``, and raises without a GPU.  PyTorch runs
+eagerly, so there is no compile cache; ``decode_sharded`` and
+``make_streaming`` wait for the distributed and streaming slices.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .batch import viterbi_decode_batch
+from .device import resolve_device
+from .spec import DecodeSpec, as_decode_spec
+
+__all__ = ["ViterbiDecoder"]
+
+
+class ViterbiDecoder:
+    """A `DecodeSpec` bound to one HMM on one device."""
+
+    def __init__(self, spec: DecodeSpec, log_pi, log_A, device=None):
+        self.spec = as_decode_spec(spec)
+        self.device = resolve_device(device)
+        self.log_pi = self._tensor(log_pi)
+        self.log_A = self._tensor(log_A)
+
+    def __repr__(self):
+        return (f"ViterbiDecoder({self.spec!r}, K={int(self.log_A.shape[0])}, "
+                f"device={self.device})")
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32).to(self.device)
+
+    # -- single sequence ----------------------------------------------------
+    def decode(self, emissions) -> tuple[torch.Tensor, torch.Tensor]:
+        """Decode one (T, K) sequence -> (path (T,) int32, score)."""
+        return self.spec.run(self.log_pi, self.log_A, self._tensor(emissions))
+
+    # -- ragged batch -------------------------------------------------------
+    def decode_batch(self, emissions, lengths=None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Decode a (B, T, K) batch; `lengths` (B,) makes rows ragged.
+
+        Inherits the `viterbi_decode_batch` contract: pad frames run as
+        tropical-identity steps, so `paths[i, :lengths[i]]` is bit-identical
+        to `decode(emissions[i, :lengths[i]])`.
+        """
+        return viterbi_decode_batch(
+            self._tensor(emissions), self.log_pi, self.log_A, lengths,
+            method=self.spec.batch_method, constraint=self.spec.constraint,
+            **self.spec.batch_tunables())

@@ -1,0 +1,164 @@
+"""Typed decode specs, as in `repro.core.spec`: the configuration objects
+behind every decoder.
+
+A `DecodeSpec` is a frozen, hashable dataclass that pins one algorithm plus
+exactly the tunables it consumes.  Nonsense is rejected eagerly: ``bt=0``
+raises `ValueError` at construction, an unknown tunable raises `TypeError`
+from the dataclass constructor.
+
+Ported so far: `VanillaSpec` and `FusedSpec`.  The other methods of the JAX
+package, and the ``constraint`` field's values, raise `NotImplementedError`
+naming the ROADMAP item that ports them.  The JAX spec's ``jittable`` flag has
+no counterpart: PyTorch runs eagerly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, ClassVar, Mapping, Optional
+
+from ..kernels.ops import viterbi_decode_fused
+from .batch import NOT_PORTED, not_ported
+from .vanilla import viterbi_vanilla
+
+__all__ = [
+    "ResourceBudget", "DecodeSpec", "VanillaSpec", "FusedSpec",
+    "SPEC_BY_METHOD", "spec_from_tunables", "as_decode_spec",
+]
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_pos(value: Any, name: str) -> None:
+    _check(isinstance(value, int) and not isinstance(value, bool)
+           and value >= 1, f"{name} must be an int >= 1, got {value!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ResourceBudget:
+    """Deployment resource envelope handed to the planner.
+
+    memory_bytes: cap on live decoder-state bytes; None = unlimited.
+    latency_hint: "latency" (default), "memory", or None.
+    """
+    memory_bytes: int | None = None
+    latency_hint: str | None = None
+
+    def __post_init__(self):
+        if self.memory_bytes is not None:
+            _check_pos(self.memory_bytes, "memory_bytes")
+        _check(self.latency_hint in (None, "latency", "memory"),
+               f"latency_hint must be None, 'latency' or 'memory', "
+               f"got {self.latency_hint!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeSpec:
+    """Base class: one decoding algorithm + its (validated) tunables.
+
+    Subclasses set the class-level contract:
+      method          -- the method name, as in the JAX package.
+      batch_method    -- name in `core.batch.BATCH_METHODS`, or None.
+      legacy_tunables -- legacy kwarg name -> field name map.
+
+    ``constraint`` is kept as a kw-only field for parity; constrained
+    decoding is not ported yet, so a value other than None raises.
+    """
+    method: ClassVar[str] = ""
+    batch_method: ClassVar[str | None] = None
+    legacy_tunables: ClassVar[Mapping[str, str]] = {}
+    constraint: Optional[Any] = dataclasses.field(default=None, kw_only=True)
+
+    def __post_init__(self):
+        if self.constraint is not None:
+            raise not_ported("constraint")
+        self.validate()
+
+    def validate(self) -> None:
+        """Eager validation; subclasses raise ValueError on nonsense."""
+
+    def run(self, log_pi, log_A, emissions):
+        """Decode one (T, K) sequence; returns (path (T,) int32, score)."""
+        raise NotImplementedError
+
+    def batch_tunables(self) -> dict[str, Any]:
+        """Tunables forwarded to `viterbi_decode_batch` (batchable specs)."""
+        return {}
+
+
+@dataclasses.dataclass(frozen=True)
+class VanillaSpec(DecodeSpec):
+    """Textbook DP with the full backpointer table: the exact oracle."""
+    method: ClassVar[str] = "vanilla"
+    batch_method: ClassVar[str | None] = "vanilla"
+
+    def run(self, log_pi, log_A, emissions):
+        return viterbi_vanilla(log_pi, log_A, emissions)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedSpec(DecodeSpec):
+    """The fused forward kernel, then the backtrack kernel.
+
+    `bt` is kept for parity with the TPU kernel's time-block size; it has no
+    effect on the card.
+    """
+    method: ClassVar[str] = "fused"
+    batch_method: ClassVar[str | None] = "fused"
+    legacy_tunables: ClassVar[Mapping[str, str]] = {"bt": "bt"}
+    bt: int = 8
+
+    def validate(self):
+        _check_pos(self.bt, "bt")
+
+    def run(self, log_pi, log_A, emissions):
+        return viterbi_decode_fused(log_pi, log_A, emissions, bt=self.bt)
+
+    def batch_tunables(self):
+        return {"bt": self.bt}
+
+
+SPEC_BY_METHOD: dict[str, type[DecodeSpec]] = {
+    cls.method: cls for cls in (VanillaSpec, FusedSpec)
+}
+
+
+def spec_from_tunables(method: str, tunables: dict[str, Any],
+                       ) -> tuple[DecodeSpec, tuple[str, ...]]:
+    """Build the spec for a legacy (method, kwargs) call.
+
+    Returns (spec, ignored): `ignored` names the tunables `method` does not
+    consume.
+    """
+    if "constraint" in tunables:
+        raise TypeError(
+            "constraint= is not a legacy tunable; construct a typed spec")
+    if method in NOT_PORTED:
+        raise not_ported(method)
+    try:
+        cls = SPEC_BY_METHOD[method]
+    except KeyError:
+        raise ValueError(f"unknown method {method!r}; choose from "
+                         f"{tuple(SPEC_BY_METHOD)}") from None
+    fields: dict[str, Any] = {}
+    ignored: list[str] = []
+    for name, value in tunables.items():
+        target = cls.legacy_tunables.get(name)
+        if target is None:
+            ignored.append(name)
+        else:
+            fields[target] = value
+    return cls(**fields), tuple(ignored)
+
+
+def as_decode_spec(obj: Any) -> DecodeSpec:
+    """Coerce a spec-like object (spec, or anything with `.to_spec()`)."""
+    if isinstance(obj, DecodeSpec):
+        return obj
+    to_spec = getattr(obj, "to_spec", None)
+    if callable(to_spec):
+        return to_spec()
+    raise TypeError(f"expected a DecodeSpec (or an object with .to_spec()), "
+                    f"got {type(obj).__name__}")

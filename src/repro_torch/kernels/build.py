@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source is compiled by nvcc, for Hopper (``sm_90a``), into
+its own shared library with a plain C interface, which is loaded with ctypes.
+Libraries go to ``build/repro_torch_kernels/<hash>/`` at the root of the
+checkout, where ``<hash>`` covers the flags and every source, so an edit to a
+source builds afresh.  Nothing is built when the package is imported: the
+first launch builds (`load`), or a caller builds everything up front
+(`build_all`, one nvcc run per source).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "viterbi_dp.cu",)
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+# No fast-math: the kernels must reproduce the reference's f32 rounding.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+_VOID = ctypes.c_void_p
+_I32 = ctypes.c_int
+_I64 = ctypes.c_int64
+# argtypes of each C entry point; pointers and the stream are c_void_p
+SIGNATURES = {
+    "viterbi_dp": {
+        "viterbi_fwd_batch": (_VOID, _VOID, _I64, _I64, _VOID, _VOID,
+                              _I32, _I32, _I32, _VOID, _VOID, _VOID),
+        "viterbi_backtrack_batch": (_VOID, _VOID, _I32, _I32, _I32, _VOID,
+                                    _VOID, _VOID),
+    },
+}
+
+
+def nvcc() -> str:
+    """The nvcc of $CUDA_HOME, else the one on PATH, else /usr/local/cuda's."""
+    home = os.environ.get("CUDA_HOME")
+    if home:
+        return str(Path(home) / "bin" / "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def library_path(source: Path) -> Path:
+    return build_dir() / f"lib{source.stem}.so"
+
+
+def nvcc_command(source: Path, out: Path) -> list[str]:
+    return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)]
+
+
+def build_all() -> dict[str, str]:
+    """Build every source not yet built; returns {name: nvcc's output} for
+    the sources this call built.
+
+    The output holds ptxas's report (registers, shared memory, spills).
+    Raises if a build fails.  With one source the builds run one after
+    another; a second source is the time to start them all together.
+    """
+    build_dir().mkdir(parents=True, exist_ok=True)
+    logs = {}
+    for src in SOURCES:
+        lib = library_path(src)
+        if lib.exists():
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        done = subprocess.run(nvcc_command(src, tmp), capture_output=True,
+                              text=True)
+        log = done.stdout + done.stderr
+        if done.returncode != 0:
+            raise RuntimeError(f"kernel build failed: {src.name}: nvcc "
+                               f"exited {done.returncode}\n{log}")
+        os.replace(tmp, lib)
+        logs[src.stem] = log
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu``, built if need be."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = library_path(CSRC / f"{name}.cu")
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib
+
+
+__all__ = ["SOURCES", "NVCC_FLAGS", "nvcc_command", "build_all", "load",
+           "library_path"]

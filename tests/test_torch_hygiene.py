@@ -1,0 +1,89 @@
+"""Import and device hygiene of the PyTorch port.
+
+`repro_torch` and `chip_smoke.py` import neither jax nor the JAX package
+`repro`; entry points never fall back to the CPU; the kernels' nvcc command
+targets Hopper without fast-math.  No nvcc runs here.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(
+        ".__init__") for p in PKG.rglob("*.py"))
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+
+
+def test_ast_scan_tells_repro_from_repro_torch(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import repro_torch.core\nfrom repro_torch import kernels\n")
+    assert _imported_roots(f) == {"repro_torch"}
+    f.write_text("from repro.core import hmm\n")
+    assert _imported_roots(f) == {"repro"}
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "from repro_torch.kernels import build\n"
+        "assert not build._loaded   # importing builds and loads nothing\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "repro_torch.kernels.build" in MODULES
+
+
+def test_decoder_without_device_raises_on_a_cpu_only_host():
+    from repro_torch.core import FusedSpec, ViterbiDecoder
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ViterbiDecoder(FusedSpec(), np.zeros(4), np.zeros((4, 4)))
+    dec = ViterbiDecoder(FusedSpec(), np.zeros(4), np.zeros((4, 4)),
+                         device="cpu")
+    assert dec.log_A.device.type == "cpu"
+
+
+def test_nvcc_command_targets_sm90a_without_fast_math():
+    from repro_torch.kernels import build
+    assert build.SOURCES
+    for src in build.SOURCES:
+        cmd = build.nvcc_command(src, Path("/nonexistent/out.so"))
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert not any("fast" in a and "math" in a for a in cmd)
+        assert not any("ftz" in a or "use_fast" in a for a in cmd)
+        inputs = [a for a in cmd if a.endswith((".cu", ".cuh", ".cpp"))]
+        assert inputs == [str(src)]
+        assert Path(inputs[0]).resolve().is_relative_to(PKG / "kernels" / "csrc")
+    assert build.library_path(build.SOURCES[0]).is_relative_to(
+        ROOT / "build" / "repro_torch_kernels")
+

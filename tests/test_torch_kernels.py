@@ -1,0 +1,211 @@
+"""Parity of the port's kernel tier (`repro_torch.kernels`) with the JAX
+package's (`repro.kernels`) on the CPU.
+
+The cases are the viterbi cases of tests/test_kernels.py.  Inputs are made
+once with numpy from a seed and handed to both packages; the JAX side runs
+its Pallas kernel in interpret mode (or its ref fallback where K % 128 != 0),
+the port runs its kernels' plain versions, because the tensors lie on the
+CPU.  Tolerance: psi, paths, delta_T and scores are bitwise equal.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.core import viterbi_vanilla as j_vanilla
+from repro_torch.core import erdos_renyi_hmm, left_to_right_hmm, random_emissions
+from repro_torch.core import viterbi_vanilla
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import viterbi_dp as vdp
+
+CPU = torch.device("cpu")
+
+
+def _normal(seed, *shapes):
+    g = np.random.default_rng(seed)
+    return [g.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def _eq(torch_x, jax_x):
+    return np.array_equal(torch_x.numpy(), np.asarray(jax_x))
+
+
+def _hmm(seed, K, **kw):
+    """A port-generated HMM as (port tensors, numpy arrays)."""
+    hmm = erdos_renyi_hmm(np.random.default_rng(seed), K, device=CPU, **kw)
+    return hmm, (hmm.log_pi.numpy(), hmm.log_A.numpy())
+
+
+@pytest.mark.parametrize("T,K", [(16, 128), (33, 128), (24, 256), (7, 384)])
+def test_viterbi_forward_kernel(T, K):
+    A, em, d0 = _normal(T * 31 + K, (K, K), (T, K), (K,))
+    psi, dT = ops.viterbi_forward(_t(A), _t(em), _t(d0))
+    psi_j, dT_j = jops.viterbi_forward(A, em, d0)
+    assert psi.dtype == torch.int32 and psi.shape == (T, K)
+    assert _eq(psi, psi_j)
+    assert _eq(dT, dT_j)
+
+
+@pytest.mark.parametrize("K", [100, 200])
+def test_viterbi_forward_unaligned_k(K):
+    """K % 128 != 0 takes JAX's XLA fallback; the port has no fallback."""
+    A, em, d0 = _normal(K, (K, K), (12, K), (K,))
+    psi, dT = ops.viterbi_forward(_t(A), _t(em), _t(d0))
+    psi_j, dT_j = jops.viterbi_forward(A, em, d0)
+    assert _eq(psi, psi_j) and _eq(dT, dT_j)
+
+
+@pytest.mark.parametrize("T", [7, 13, 31, 97])
+def test_viterbi_forward_prime_lengths(T):
+    K = 128
+    A, em, d0 = _normal(T, (K, K), (T, K), (K,))
+    psi, dT = ops.viterbi_forward(_t(A), _t(em), _t(d0))
+    psi_j, dT_j = jops.viterbi_forward(A, em, d0)
+    assert psi.shape == (T, K)
+    assert _eq(psi, psi_j) and _eq(dT, dT_j)
+
+
+def test_viterbi_forward_empty_and_chunk_step():
+    K = 128
+    A, em, d0 = _normal(8, (K, K), (5, K), (K,))
+    psi, dT = ops.viterbi_forward(_t(A), _t(em[:0]), _t(d0))
+    assert psi.shape == (0, K) and torch.equal(dT, _t(d0))
+    psi, dT = ops.viterbi_chunk_step(_t(A), _t(em), _t(d0))
+    psi_j, dT_j = jops.viterbi_chunk_step(A, em, d0)
+    assert _eq(psi, psi_j) and _eq(dT, dT_j)
+
+
+def test_viterbi_decode_fused_prime_length_matches_vanilla():
+    hmm, (lp, la) = _hmm(97, 128, edge_prob=0.4)
+    em = random_emissions(np.random.default_rng(97), 97, 128, device=CPU)
+    p, s = ops.viterbi_decode_fused(hmm.log_pi, hmm.log_A, em)
+    p_j, s_j = jops.viterbi_decode_fused(lp, la, em.numpy())
+    assert _eq(p, p_j) and float(s) == float(s_j)
+    p_v, s_v = viterbi_vanilla(hmm.log_pi, hmm.log_A, em)
+    assert torch.equal(p, p_v)
+    np.testing.assert_allclose(float(s), float(s_v), rtol=1e-6)
+
+
+@pytest.mark.parametrize("K,lengths", [(128, [20, 7, 1, 20]),
+                                       (100, [20, 4, 1, 11])])
+def test_viterbi_forward_batch_ragged(K, lengths):
+    """Ragged batch (K = 100 is JAX's fallback path): the whole psi, identity
+    pad rows included, and delta_T bitwise equal to JAX's; each row equal to
+    the port's own single-sequence pass on its prefix."""
+    B, T = len(lengths), 20
+    A, em, d0 = _normal(3 + K, (K, K), (B, T, K), (B, K))
+    psi, dT = ops.viterbi_forward_batch(_t(A), _t(em), _t(d0), lengths)
+    psi_j, dT_j = jops.viterbi_forward_batch(A, em, d0, jnp.asarray(lengths))
+    assert _eq(psi, psi_j) and _eq(dT, dT_j)
+    eye = torch.arange(K, dtype=torch.int32)
+    for i, L in enumerate(lengths):
+        p1, d1 = ops.viterbi_forward(_t(A), _t(em[i, :L]), _t(d0[i]))
+        assert torch.equal(psi[i, :L], p1) and torch.equal(dT[i], d1), i
+        assert torch.equal(psi[i, L:], eye.expand(T - L, K)), i
+
+
+def test_viterbi_forward_batch_left_to_right_ties():
+    """The serve model: off-band transitions and log_pi are NEG_INF, so most
+    maxima tie exactly; the lowest index must win as in jnp.argmax."""
+    B, T, K = 3, 24, 128
+    hmm = left_to_right_hmm(np.random.default_rng(5), K, 16, device=CPU)
+    em_full = 2.0 * _normal(5, (B, T + 1, K))[0]
+    d0 = hmm.log_pi.numpy()[None] + em_full[:, 0]
+    lengths = [T, 9, 0]
+    psi, dT = ops.viterbi_forward_batch(hmm.log_A, _t(em_full)[:, 1:], _t(d0),
+                                        lengths)
+    psi_j, dT_j = jops.viterbi_forward_batch(hmm.log_A.numpy(), em_full[:, 1:],
+                                             d0, jnp.asarray(lengths))
+    assert _eq(psi, psi_j) and _eq(dT, dT_j)
+    assert torch.equal(dT[2], _t(d0[2]))          # nfeed = 0: frozen
+
+
+def test_viterbi_slot_step_nfeed_zero():
+    S, block, K = 4, 8, 128
+    A, em, d = _normal(11, (K, K), (S, block, K), (S, K))
+    nfeed = [8, 0, 3, 0]
+    psi, d2 = ops.viterbi_slot_step(_t(A), _t(em), _t(d), nfeed)
+    psi_j, d2_j = jops.viterbi_slot_step(A, em, d, jnp.asarray(nfeed))
+    assert _eq(psi, psi_j) and _eq(d2, d2_j)
+    assert torch.equal(d2[1], _t(d[1])) and torch.equal(d2[3], _t(d[3]))
+
+
+def test_viterbi_decode_fused_batch_matches_loop():
+    B, T, K = 4, 19, 128
+    lengths = [19, 8, 1, 13]
+    hmm, (lp, la) = _hmm(6, K, edge_prob=0.4)
+    em = random_emissions(np.random.default_rng(6), B * T, K,
+                          device=CPU).reshape(B, T, K)
+    paths, scores = ops.viterbi_decode_fused_batch(hmm.log_pi, hmm.log_A, em,
+                                                   lengths)
+    paths_j, scores_j = jops.viterbi_decode_fused_batch(
+        lp, la, em.numpy(), jnp.asarray(lengths))
+    assert _eq(paths, paths_j) and _eq(scores, scores_j)
+    for i, L in enumerate(lengths):
+        p, s = ops.viterbi_decode_fused(hmm.log_pi, hmm.log_A, em[i, :L])
+        assert torch.equal(paths[i, :L], p), i
+        assert float(scores[i]) == float(s), i
+
+
+def test_viterbi_decode_fused_batch_T1():
+    hmm, (lp, la) = _hmm(7, 128)
+    em = random_emissions(np.random.default_rng(7), 3, 128,
+                          device=CPU).reshape(3, 1, 128)
+    paths, scores = ops.viterbi_decode_fused_batch(hmm.log_pi, hmm.log_A, em)
+    paths_j, scores_j = jops.viterbi_decode_fused_batch(lp, la, em.numpy())
+    assert paths.dtype == torch.int32
+    assert _eq(paths, paths_j) and _eq(scores, scores_j)
+
+
+def test_viterbi_decode_fused_matches_vanilla():
+    hmm, (lp, la) = _hmm(5, 128, edge_prob=0.4)
+    em = random_emissions(np.random.default_rng(5), 33, 128, device=CPU)
+    p1, s1 = ops.viterbi_decode_fused(hmm.log_pi, hmm.log_A, em)
+    p2, s2 = viterbi_vanilla(hmm.log_pi, hmm.log_A, em)
+    p_j, s_j = j_vanilla(lp, la, em.numpy())
+    assert torch.equal(p1, p2) and _eq(p1, p_j)
+    assert float(s1) == float(s2) == float(s_j)
+
+
+def test_backtrack_ref_follows_psi():
+    """paths[T] is the lowest-index argmax; each earlier state is psi's entry."""
+    psi = torch.tensor([[[1, 0, 2], [2, 2, 0]]], dtype=torch.int32)
+    dT = torch.tensor([[1.0, 3.0, 3.0]])
+    paths, scores = vdp.viterbi_backtrack_batch(psi, dT)
+    assert paths.tolist() == [[2, 2, 1]] and scores.tolist() == [3.0]
+    assert torch.equal(paths, ref.viterbi_backtrack_ref(psi, dT)[0])
+
+
+def test_wrappers_on_cpu_use_plain_versions_and_count_nothing():
+    K = 16
+    A, em, d0 = _normal(1, (K, K), (2, 5, K), (2, K))
+    vdp.reset_launches()
+    psi, dT = vdp.viterbi_forward_batch(_t(A), _t(em), _t(d0))
+    vdp.viterbi_backtrack_batch(psi, dT)
+    assert vdp.launches == {"viterbi_fwd_batch": 0,
+                            "viterbi_backtrack_batch": 0}
+    psi_r, dT_r = ref.viterbi_forward_ref(_t(A), _t(em), _t(d0))
+    assert torch.equal(psi, psi_r) and torch.equal(dT, dT_r)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    K = 16
+    A, em, d0 = (_t(x) for x in _normal(2, (K, K), (2, 5, K), (2, K)))
+    with pytest.raises(ValueError, match="float32"):
+        vdp.viterbi_forward_batch(A.double(), em, d0)
+    with pytest.raises(ValueError, match="log_A"):
+        vdp.viterbi_forward_batch(A[:8], em, d0)
+    with pytest.raises(ValueError, match="delta0"):
+        vdp.viterbi_forward_batch(A, em, d0[:1])
+    with pytest.raises(ValueError, match="pad"):
+        vdp.viterbi_forward_batch(A, em, d0, torch.zeros(2, 4))
+    with pytest.raises(ValueError, match="devices"):
+        vdp.viterbi_forward_batch(A, em.to("meta"), d0)
+    with pytest.raises(ValueError, match="int32"):
+        vdp.viterbi_backtrack_batch(torch.zeros(2, 5, K, dtype=torch.int64), d0)

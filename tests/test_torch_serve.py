@@ -1,0 +1,98 @@
+"""Parity of the port's serving tier (`repro_torch.serving`, `launch.serve`)
+with the JAX package's on the CPU.
+
+The HMM is made by the JAX package and carried across with `HMM.from_numpy`;
+the same numpy requests go through both schedulers and alignment heads.
+Tolerance: every served path and score is bitwise equal.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import FusedSpec as JFused, left_to_right_hmm as j_l2r
+from repro.serving.alignment import make_alignment_head as j_head
+from repro.serving.scheduler import BatchScheduler as JScheduler
+from repro_torch.core import HMM, FusedSpec, VanillaSpec, ViterbiDecoder
+from repro_torch.launch import serve
+from repro_torch.serving import (AlignmentConfig, BatchScheduler,
+                                 make_alignment_head)
+
+K = 16
+
+
+@pytest.fixture(scope="module")
+def served():
+    """(JAX results, numpy requests, HMM) for one seeded request stream."""
+    jhmm = j_l2r(jax.random.key(0), K, 8)
+    hmm = HMM.from_numpy(np.asarray(jhmm.log_pi), np.asarray(jhmm.log_A),
+                         np.asarray(jhmm.log_B), device="cpu")
+    rng = np.random.default_rng(0)
+    reqs = [(rng.standard_normal((T, K)) * 2.0).astype(np.float32)
+            for T in rng.choice([5, 12, 16, 20, 31], size=7)]
+    sched = JScheduler(j_head(jhmm.log_pi, jhmm.log_A, JFused()), max_batch=3,
+                       buckets=(16, 32))
+    for em in reqs:
+        sched.submit(em)
+    done = {r.rid: r.result for r in sched.drain()}
+    return done, reqs, hmm
+
+
+def _serve(head_or_decoder, reqs):
+    sched = BatchScheduler(head_or_decoder, max_batch=3, buckets=(16, 32))
+    for em in reqs:
+        sched.submit(em)
+    return {r.rid: r.result for r in sched.drain()}, sched
+
+
+@pytest.mark.parametrize("cfg", [FusedSpec(), VanillaSpec(),
+                                 AlignmentConfig(), AlignmentConfig("vanilla")])
+def test_scheduler_and_alignment_head_match_jax(served, cfg):
+    done_j, reqs, hmm = served
+    head = make_alignment_head(hmm.log_pi, hmm.log_A, cfg, device="cpu")
+    done, sched = _serve(head, reqs)
+    assert sched.stats["requests"] == len(reqs)
+    assert done.keys() == done_j.keys()
+    for rid, (path, score) in done.items():
+        assert isinstance(path, np.ndarray)         # converted once per batch
+        assert path.shape == (len(reqs[rid]),)
+        assert np.array_equal(path, done_j[rid][0]), rid
+        assert score == done_j[rid][1], rid
+
+
+def test_scheduler_accepts_port_decoder(served):
+    done_j, reqs, hmm = served
+    dec = ViterbiDecoder(FusedSpec(), hmm.log_pi, hmm.log_A, device="cpu")
+    done, _ = _serve(dec, reqs)
+    for rid, (path, score) in done.items():
+        assert np.array_equal(path, done_j[rid][0]) and score == done_j[rid][1]
+
+
+def test_alignment_head_default_is_fused_and_unported_raise():
+    assert AlignmentConfig().to_spec() == FusedSpec()
+    with pytest.raises(TypeError):      # FLASH-BS tunables: not ported yet
+        AlignmentConfig("fused", beam_width=8)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        AlignmentConfig("flash_bs").to_spec()
+
+
+@pytest.mark.parametrize("method", ["fused", "vanilla"])
+def test_serve_main_smoke(capsys, method):
+    done = serve.main(["--device", "cpu", "--states", "16", "--requests", "4",
+                       "--method", method])
+    assert len(done) == 4 and all(r.done for r in done)
+    out = capsys.readouterr().out
+    assert "served 4 requests" in out
+    assert "mean=0.00e+00 max=0.00e+00" in out
+
+
+def test_serve_main_rejects_unported_and_missing_device():
+    for flag in ("--budget-kb", "--beam", "--parallelism"):
+        with pytest.raises(NotImplementedError, match="item 4"):
+            serve.main(["--device", "cpu", flag, "64"])
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", "--method", "flash_bs"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main(["--states", "16", "--requests", "1"])
