@@ -7,18 +7,38 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
 
   0. build every kernel from `src/repro_torch/kernels/csrc` with nvcc for
      sm_90a and print ptxas's register / spill report;
-  1. hold each kernel against its plain PyTorch version on the card, bitwise
-     (`torch.equal`) at the serve shapes (B, T, K) = (8, 511, 512) on a
-     left-to-right HMM with ragged lengths including 1 and 0 and on an
-     Erdos-Renyi HMM (p = 0.253), and at K in {100, 200, 384, 1024, 1500};
+  1. hold the forward and backtrack kernels against their plain PyTorch
+     versions on the card, bitwise (`torch.equal`) at the serve shapes
+     (B, T, K) = (8, 511, 512) on a left-to-right HMM with ragged lengths
+     including 1 and 0 and on an Erdos-Renyi HMM (p = 0.253), and at K in
+     {100, 200, 384, 1024, 1500};
+  1b. hold the constraint-masked forward kernel and the banded kernel
+     against their plain versions, bitwise: (8, 511, 512) with the serve
+     lexicon's tmask and smask, (8, 511, 1024) on the map-matching grid with
+     the band's smask, K in {100, 384, 1500} with each mask alone and both,
+     and the banded kernel at the map-matching shape and on a band clipped
+     at both ends of the state range;
   2. serve the default 32 requests at K = 512 through
      `repro_torch.launch.serve.main`, with the launch counters set to 0 just
-     before and read just after: each kernel must have launched once per
-     batch, and every served path and score must equal the exact
-     `viterbi_vanilla` decode (relative error exactly 0) and, on a sample,
-     the numpy oracle `viterbi_numpy`;
-  3. time each kernel and its plain version with CUDA events at the serve
-     shapes (B = 8, T in {128, 256, 512}, K = 512).
+     before and read just after: the forward and backtrack kernels must have
+     launched once per batch and the other kernels never, and every served
+     path and score must equal the exact `viterbi_vanilla` decode (relative
+     error exactly 0) and, on a sample, the numpy oracle `viterbi_numpy`;
+  4. serve the same 32 requests through the lexicon-constrained alignment
+     head (`make_lexicon_align_head`, 128 four-state words): the masked
+     kernel and the backtrack once per batch, the unmasked forward never;
+     every path and score bitwise equal to `viterbi_vanilla` over
+     `constrain_inputs`, 3 sampled also to `viterbi_numpy`;
+  5. map matching on a 32 x 32 road grid (K = 1024, T = 512): a ragged batch
+     of 8 sensors through `ViterbiDecoder(FusedSpec(constraint=band))`
+     (one masked-kernel launch) and one trajectory through
+     `FusedSpec(constraint=band).run` (one banded-kernel launch), each
+     bitwise equal to the dense oracle;
+  3. time each kernel and its plain version with CUDA events: the forward
+     and backtrack kernels at the serve shapes (B = 8, T in {128, 256, 512},
+     K = 512), the masked kernel at (8, 511, 512) with both masks and at
+     (8, 511, 1024) with smask alone, the banded kernel at the map-matching
+     shape.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no
@@ -30,6 +50,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -41,6 +62,15 @@ F32_OPS_PER_S = 67e12
 
 SERVE_T = (128, 256, 512)
 SERVE_B, SERVE_K = 8, 512
+
+# the serve lexicon: word w is the four-state chain (4w, 4w+1, 4w+2, 4w+3)
+LEXICON = tuple(((4 * w, 4 * w + 1, 4 * w + 2, 4 * w + 3),)
+                for w in range(SERVE_K // 4))
+# map matching: a G x G road grid, T fixes from B sensors, GPS noise SIGMA
+# (cell units), band half-width 3 grid rows (Kb = 193)
+GRID_G, GRID_T, GRID_B, GRID_SIGMA = 32, 512, 8, 0.45
+GRID_WIDTH = 3 * GRID_G
+GRID_LENGTHS = (512, 501, 483, 9, 384, 256, 130, 1)
 
 
 def card_line() -> str:
@@ -158,6 +188,185 @@ def phase_kernels(dev) -> dict[str, float]:
     return err
 
 
+def masked_bound(B: int, T: int, K: int, has_t: bool, has_s: bool,
+                 real_steps: int):
+    """em and psi once each, log_A, tmask and smask once, delta0, delta_T
+    and pad once; an add and a compare per score of each real step (the
+    tmask add, K*K once, is left out)."""
+    nbytes = 4 * (2 * B * T * K + K * K + (K * K if has_t else 0)
+                  + (T * K if has_s else 0) + 2 * B * K + B * T)
+    return bound_ms(nbytes, 2.0 * real_steps * K * K)
+
+
+def banded_bound(K: int, starts: torch.Tensor, Kb: int):
+    """The log_A entries the windows touch, em and the penalty inputs inside
+    the windows, log_pi's window, centers and starts once; psi and delta_w
+    written once; an add and a compare per score of T-1 steps."""
+    T = starts.numel()
+    touched = torch.zeros((K, K), dtype=torch.bool, device=starts.device)
+    s = starts.tolist()
+    for t in range(1, T):
+        touched[s[t - 1]:s[t - 1] + Kb, s[t]:s[t] + Kb] = True
+    nbytes = 4 * (int(touched.sum()) + T * Kb + Kb + 2 * T
+                  + (T - 1) * Kb + Kb)
+    return bound_ms(nbytes, 2.0 * (T - 1) * Kb * Kb)
+
+
+def lexicon_problem(dev, g, B: int, T: int):
+    """The serve model (left-to-right HMM, K = 512, 64 classes) with the
+    serve lexicon's penalties compiled for T + 1 steps, and B sequences of
+    emissions: (log_A, tmask, em (B, T, K) strided, smask (T, K), delta0)."""
+    from repro_torch.core import (LexiconConstraint, compiled_penalties,
+                                  left_to_right_hmm)
+    K = SERVE_K
+    hmm = left_to_right_hmm(g, K, 64, device=dev)
+    t_pen, pi_pen, s_pen = compiled_penalties(LexiconConstraint(LEXICON), K,
+                                              T + 1)
+    tmask, pi_pen, s_pen = (torch.from_numpy(x).to(dev)
+                            for x in (t_pen, pi_pen, s_pen))
+    em_full = torch.from_numpy(
+        (2.0 * g.standard_normal((B, T + 1, K))).astype(np.float32)).to(dev)
+    delta0 = (hmm.log_pi + pi_pen)[None, :] + (em_full[:, 0] + s_pen[0])
+    return hmm.log_A, tmask, em_full[:, 1:], s_pen[1:], delta0
+
+
+def grid_problem(dev, seed: int = 7):
+    """Map matching on a GRID_G x GRID_G road grid, as in
+    examples/map_matching.py at G = 32: a dense grid HMM whose move cost
+    decays with squared cell distance, a random-walk trajectory, GRID_B
+    sensors' noisy fixes and their emissions -||obs - cell||^2 / (2 s^2),
+    and the band of half-width GRID_WIDTH around the sensors' consensus.
+
+    Returns (log_pi, log_A, em (B, T, K), truth (T,) numpy, band)."""
+    from repro_torch.core import BandConstraint
+    G, T, B, sigma = GRID_G, GRID_T, GRID_B, GRID_SIGMA
+    K = G * G
+    rng = np.random.default_rng(seed)
+    pos = torch.from_numpy(np.stack(
+        np.meshgrid(np.arange(G), np.arange(G), indexing="ij"),
+        -1).reshape(K, 2).astype(np.float32)).to(dev)
+    d2 = ((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1)
+    log_A = torch.log_softmax(-0.7 * d2, dim=1).contiguous()
+    log_pi = torch.log_softmax(torch.zeros(K, device=dev), dim=0)
+    steps = rng.integers(-1, 2, size=(T, 2))
+    truth_xy = np.clip(np.cumsum(np.vstack([[[G // 2, G // 2]], steps[1:]]),
+                                 0), 0, G - 1)
+    truth = truth_xy[:, 0] * G + truth_xy[:, 1]
+    obs = truth_xy[None] + rng.normal(0, sigma, size=(B, T, 2))
+    obs_t = torch.from_numpy(obs.astype(np.float32)).to(dev)
+    em = -((obs_t[:, :, None, :] - pos[None, None]) ** 2).sum(-1) / (
+        2 * sigma ** 2)
+    cxy = np.clip(np.round(obs.mean(0)), 0, G - 1)
+    band = BandConstraint(centers=tuple(int(x * G + y) for x, y in cxy),
+                          width=GRID_WIDTH)
+    return log_pi, log_A, em.contiguous(), truth, band
+
+
+def check_masked(vdp, ref, log_A, em, delta0, pad, tmask, smask,
+                 what: str) -> float:
+    """Masked kernel and a backtrack of its psi vs the plain versions,
+    bitwise; returns max |delta_T difference|."""
+    psi, dT = vdp.viterbi_forward_batch_masked(log_A, em, delta0, pad,
+                                               tmask, smask)
+    mask = (torch.zeros(em.shape[:2], dtype=torch.bool, device=em.device)
+            if pad is None else pad > 0.5)
+    psi_r, dT_r = ref.viterbi_forward_masked_pen_ref(log_A, em, delta0, mask,
+                                                     tmask, smask)
+    paths, scores = vdp.viterbi_backtrack_batch(psi, dT)
+    paths_r, scores_r = ref.viterbi_backtrack_ref(psi_r, dT_r)
+    torch.cuda.synchronize()
+    if not (torch.equal(psi, psi_r) and torch.equal(dT, dT_r)
+            and torch.equal(paths, paths_r) and torch.equal(scores, scores_r)):
+        raise SystemExit(f"FAIL masked forward {what}: "
+                         f"{int((psi != psi_r).sum())} psi entries differ, "
+                         f"max |delta_T diff| "
+                         f"{float((dT - dT_r).abs().max())}")
+    print(f"masked forward kernel == plain (bitwise) at {what}")
+    return float((dT - dT_r).abs().max())
+
+
+def check_banded(vdp, ref, log_A, log_pi, em, centers, width: int,
+                 what: str) -> float:
+    """Banded kernel and a backtrack of its psi vs the plain versions,
+    bitwise; returns max |delta_w difference|."""
+    from repro_torch.kernels.ops import band_windows
+    K = em.shape[1]
+    c, starts = (x.to(em.device) for x in band_windows(centers, K, width))
+    psi, dw = vdp.viterbi_banded_forward(log_A, log_pi, em, c, starts, width)
+    psi_r, dw_r = ref.viterbi_banded_forward_ref(log_A, log_pi, em, c, starts,
+                                                 width)
+    paths, _ = vdp.viterbi_backtrack_batch(psi[None], dw[None])
+    paths_r, _ = ref.viterbi_backtrack_ref(psi_r[None], dw_r[None])
+    torch.cuda.synchronize()
+    if not (torch.equal(psi, psi_r) and torch.equal(dw, dw_r)
+            and torch.equal(paths, paths_r)):
+        raise SystemExit(f"FAIL banded {what}: "
+                         f"{int((psi != psi_r).sum())} psi entries differ")
+    print(f"banded kernel == plain (bitwise) at {what}")
+    return float((dw - dw_r).abs().max())
+
+
+def phase_masked_kernels(dev) -> dict[str, float]:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import viterbi_dp as vdp
+    from repro_torch.core import compiled_penalties
+
+    err = {"viterbi_fwd_batch_masked": 0.0, "viterbi_banded_fwd": 0.0}
+    g = np.random.default_rng(3)
+    B, T = SERVE_B, 511
+    lengths = [511, 300, 1, 0, 128, 511, 77, 255]
+    log_A, tmask, em, smask, delta0 = lexicon_problem(dev, g, B, T)
+    cases = [(f"lexicon tmask+smask (B,T,K)=({B},{T},{SERVE_K}) "
+              f"lengths={lengths}", log_A, em, delta0, pad_of(lengths, T, dev),
+              tmask, smask)]
+
+    log_pi_g, log_A_g, em_g, _, band = grid_problem(dev)
+    Kg, Tg = log_A_g.shape[0], GRID_T - 1
+    _, _, s_pen = compiled_penalties(band, Kg, GRID_T)
+    s_pen = torch.from_numpy(s_pen).to(dev)
+    delta0_g = log_pi_g[None, :] + (em_g[:, 0] + s_pen[0])
+    grid_len = [n - 1 for n in GRID_LENGTHS]
+    cases.append((f"grid band smask (B,T,K)=({GRID_B},{Tg},{Kg}) "
+                  f"lengths={grid_len}", log_A_g, em_g[:, 1:], delta0_g,
+                  pad_of(grid_len, Tg, dev), None, s_pen[1:]))
+
+    for K in (100, 384, 1500):
+        b, t = 3, 37
+        A, e, d0 = (torch.from_numpy(
+            g.standard_normal(shape).astype(np.float32)).to(dev)
+            for shape in ((K, K), (b, t, K), (b, K)))
+        tm, sm = (torch.from_numpy(np.where(
+            g.random(shape) < frac, np.float32(-1.0e9),
+            np.float32(0.0)).astype(np.float32)).to(dev)
+            for shape, frac in (((K, K), 0.5), ((t, K), 0.3)))
+        for name, tk, sk in (("tmask", tm, None), ("smask", None, sm),
+                             ("tmask+smask", tm, sm)):
+            cases.append((f"{name} (B,T,K)=({b},{t},{K}) lengths=[{t}, 1, 0]",
+                          A, 2.0 * e, d0, pad_of([t, 1, 0], t, dev), tk, sk))
+
+    for what, A, e, d0, pad, tk, sk in cases:
+        err["viterbi_fwd_batch_masked"] = max(
+            err["viterbi_fwd_batch_masked"],
+            check_masked(vdp, ref, A, e, d0, pad, tk, sk, what))
+
+    # banded: the map-matching shape, then a band clipped at 0 and at K-1
+    banded = [(f"map matching (T,K,width)=({GRID_T},{Kg},{GRID_WIDTH})",
+               log_A_g, log_pi_g, em_g[0], band.centers, GRID_WIDTH)]
+    Kc, Tc = 300, 64
+    A, lp, e = (torch.from_numpy(g.standard_normal(shape).astype(
+        np.float32)).to(dev) for shape in ((Kc, Kc), (Kc,), (Tc, Kc)))
+    sweep = tuple(int(c) for c in np.linspace(-20, Kc + 20, Tc))
+    banded.append((f"clipped at both ends (T,K,width)=({Tc},{Kc},96)",
+                   A, lp, e, sweep, 96))
+    banded.append((f"single step (T,K,width)=(1,{Kc},96)", A, lp, e[:1],
+                   sweep[:1], 96))
+    for what, A, lp, e, centers, width in banded:
+        err["viterbi_banded_fwd"] = max(
+            err["viterbi_banded_fwd"],
+            check_banded(vdp, ref, A, lp, e, centers, width, what))
+    return err
+
+
 def expected_batches(requests) -> list[tuple[int, int]]:
     """(bucket, requests) of each batch the scheduler forms for these
     payloads, replayed without decoding."""
@@ -176,6 +385,16 @@ def expected_batches(requests) -> list[tuple[int, int]]:
         sched.submit(r.payload)
     sched.drain()
     return formed
+
+
+def check_launches(what: str, launches: dict[str, int], expected: int,
+                   ran: tuple[str, ...]) -> None:
+    """Each kernel in `ran` launched `expected` times, every other never."""
+    for name, n in launches.items():
+        want = expected if name in ran else 0
+        if n != want:
+            raise SystemExit(f"FAIL {what}: {name} launched {n} times, "
+                             f"expected {want}")
 
 
 def phase_serve(dev) -> dict[str, int]:
@@ -198,10 +417,8 @@ def phase_serve(dev) -> dict[str, int]:
           f"launches {launches}")
     if len(done) != 32:
         raise SystemExit(f"FAIL serve: {len(done)} of 32 requests served")
-    for name, n in launches.items():
-        if n != batches:
-            raise SystemExit(f"FAIL serve: {name} launched {n} times for "
-                             f"{batches} batches")
+    check_launches("serve", launches, batches,
+                   ("viterbi_fwd_batch", "viterbi_backtrack_batch"))
 
     # the same model serve.main built from its default seed and sizes
     hmm = left_to_right_hmm(np.random.default_rng(0), 512, 64, device=dev)
@@ -223,6 +440,123 @@ def phase_serve(dev) -> dict[str, int]:
     print("serve: all 32 paths == viterbi_vanilla, relative error 0; "
           "3 sampled == viterbi_numpy")
     return launches
+
+
+def serve_requests(n: int = 32, seed: int = 0) -> list[np.ndarray]:
+    """The requests `launch/serve.py` makes at its defaults: n emission
+    matrices with T in {96, 128, 200, 256, 384, 512} at K = 512."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        T = int(rng.choice([96, 128, 200, 256, 384, 512]))
+        out.append(rng.standard_normal((T, SERVE_K)).astype(np.float32) * 2.0)
+    return out
+
+
+def phase_lexicon(dev) -> dict[str, int]:
+    from repro_torch.core import (constrain_inputs, left_to_right_hmm,
+                                  viterbi_vanilla)
+    from repro_torch.core.reference import viterbi_numpy
+    from repro_torch.kernels import viterbi_dp as vdp
+    from repro_torch.launch.serve import BUCKETS
+    from repro_torch.serving import BatchScheduler, make_lexicon_align_head
+
+    hmm = left_to_right_hmm(np.random.default_rng(0), SERVE_K, 64, device=dev)
+    head = make_lexicon_align_head(hmm.log_pi, hmm.log_A, LEXICON)
+    sched = BatchScheduler(head, max_batch=SERVE_B, buckets=BUCKETS)
+    for em in serve_requests():
+        sched.submit(em)
+    vdp.reset_launches()
+    t0 = time.perf_counter()
+    done = sched.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(vdp.launches)
+
+    formed = expected_batches(done)
+    print(f"lexicon serve: {len(done)} requests in {wall:.4f} s on the host "
+          f"clock, {len(formed)} batches (bucket x requests: "
+          f"{', '.join(f'{b} x {n}' for b, n in formed)}), {len(LEXICON)} "
+          f"words, launches {launches}")
+    if len(done) != 32:
+        raise SystemExit(f"FAIL lexicon serve: {len(done)} of 32 served")
+    check_launches("lexicon serve", launches, len(formed),
+                   ("viterbi_fwd_batch_masked", "viterbi_backtrack_batch"))
+    for r in done:
+        em = torch.from_numpy(r.payload).to(dev)
+        p_ref, s_ref = viterbi_vanilla(*constrain_inputs(
+            head.constraint, hmm.log_pi, hmm.log_A, em))
+        path, score = r.result
+        if not (np.array_equal(path, p_ref.cpu().numpy())
+                and np.float32(score) == np.float32(float(s_ref))):
+            raise SystemExit(f"FAIL lexicon serve: request {r.rid} != "
+                             f"viterbi_vanilla over constrain_inputs")
+    for r in done[:3]:
+        lp, la, em = (x.cpu().numpy() for x in constrain_inputs(
+            head.constraint, hmm.log_pi, hmm.log_A,
+            torch.from_numpy(r.payload).to(dev)))
+        p_np, s_np = viterbi_numpy(lp, la, em)
+        if not (np.array_equal(r.result[0], p_np) and r.result[1] == s_np):
+            raise SystemExit(f"FAIL lexicon serve: request {r.rid} != "
+                             f"viterbi_numpy over the masked inputs")
+    print("lexicon serve: all 32 paths and scores == viterbi_vanilla over "
+          "constrain_inputs (relative error 0); 3 sampled == viterbi_numpy")
+    return launches
+
+
+def phase_map_matching(dev) -> dict[str, int]:
+    from repro_torch.core import (FusedSpec, ViterbiDecoder,
+                                  banded_state_bytes, constrain_inputs,
+                                  viterbi_vanilla)
+    from repro_torch.kernels import viterbi_dp as vdp
+
+    log_pi, log_A, em, truth, band = grid_problem(dev)
+    B, T, K = em.shape
+    spec = FusedSpec(constraint=band)
+    lengths = np.asarray(GRID_LENGTHS, np.int32)
+
+    def oracle(e):
+        return viterbi_vanilla(*constrain_inputs(band, log_pi, log_A, e))
+
+    # (a) ragged batch of sensors: one masked-kernel launch
+    dec = ViterbiDecoder(spec, log_pi, log_A)
+    vdp.reset_launches()
+    paths, scores = dec.decode_batch(em, lengths)
+    torch.cuda.synchronize()
+    batch_launches = dict(vdp.launches)
+    print(f"map matching batch: (B,T,K)=({B},{T},{K}), lengths "
+          f"{lengths.tolist()}, launches {batch_launches}")
+    check_launches("map matching batch", batch_launches, 1,
+                   ("viterbi_fwd_batch_masked", "viterbi_backtrack_batch"))
+    for i, L in enumerate(lengths):
+        p_o, s_o = oracle(em[i, :L])
+        if not (torch.equal(paths[i, :L], p_o) and
+                float(scores[i]) == float(s_o)):
+            raise SystemExit(f"FAIL map matching batch: sensor {i} != "
+                             f"dense oracle")
+
+    # (b) one trajectory: the band covers the horizon, one banded launch
+    vdp.reset_launches()
+    path, score = spec.run(log_pi, log_A, em[0])
+    torch.cuda.synchronize()
+    run_launches = dict(vdp.launches)
+    print(f"map matching trajectory: (T,K,width)=({T},{K},{band.width}), "
+          f"launches {run_launches}")
+    check_launches("map matching trajectory", run_launches, 1,
+                   ("viterbi_banded_fwd", "viterbi_backtrack_batch"))
+    p_o, s_o = oracle(em[0])
+    if not (torch.equal(path, p_o) and float(score) == float(s_o)):
+        raise SystemExit("FAIL map matching trajectory != dense oracle")
+    acc = float(np.mean(path.cpu().numpy() == truth))
+    acc_b = [float(np.mean(paths[i, :L].cpu().numpy() == truth[:L]))
+             for i, L in enumerate(lengths)]
+    dense = K * T * 4 + K * 8 + band.mask_bytes(K, T)
+    print(f"map matching: batch and trajectory == dense oracle (bitwise); "
+          f"match accuracy vs truth {acc:.4f} (trajectory), "
+          f"{min(acc_b):.4f}..{max(acc_b):.4f} (sensors); state bytes "
+          f"banded {banded_state_bytes(K, T, band.width):,} vs dense + mask "
+          f"{dense:,}")
+    return {n: batch_launches[n] + run_launches[n] for n in batch_launches}
 
 
 def phase_timing(dev, card: str) -> dict[str, dict]:
@@ -259,7 +593,52 @@ def phase_timing(dev, card: str) -> dict[str, dict]:
             print(f"timing {name} (B,T,K)=({B},{T},{K}): kernel {ms:.4f} ms, "
                   f"plain {plain:.4f} ms, bound {bms:.6f} ms ({by}); {card}")
             rows[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
-    return rows       # the last, largest serve shape (T = 511 steps)
+
+    # the masked kernel: the lexicon serve shape with both masks (kept for
+    # the kernels line), then the map-matching batch with the band's smask
+    from repro_torch.core import compiled_penalties
+    from repro_torch.kernels.ops import band_windows
+    T = SERVE_T[-1] - 1
+    log_A, tmask, em, smask, delta0 = lexicon_problem(dev, g, B, T)
+    log_pi_g, log_A_g, em_g, _, band = grid_problem(dev)
+    Kg = log_A_g.shape[0]
+    s_pen = torch.from_numpy(compiled_penalties(band, Kg, GRID_T)[2]).to(dev)
+    delta0_g = log_pi_g[None, :] + (em_g[:, 0] + s_pen[0])
+    masked = [(log_A, em, delta0, tmask, smask, "tmask+smask"),
+              (log_A_g, em_g[:, 1:], delta0_g, None, s_pen[1:], "smask")]
+    for i, (A, e, d0, tm, sm, what) in enumerate(masked):
+        B, T, Km = e.shape
+        pad = pad_of([T] * B, T, dev)
+        mask = pad > 0.5
+        ms = cuda_ms(lambda: vdp.viterbi_forward_batch_masked(
+            A, e, d0, pad, tm, sm), reps=5)
+        plain = cuda_ms(lambda: ref.viterbi_forward_masked_pen_ref(
+            A, e, d0, mask, tm, sm), reps=2, warmup=1)
+        bms, by = masked_bound(B, T, Km, tm is not None, sm is not None,
+                               B * T)
+        print(f"timing viterbi_fwd_batch_masked {what} (B,T,K)=({B},{T},"
+              f"{Km}): kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bms:.6f} ms ({by}); {card}")
+        if i == 0:
+            rows["viterbi_fwd_batch_masked"] = dict(
+                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+
+    # the banded kernel at the map-matching shape
+    c, starts = (x.to(dev) for x in band_windows(band.centers, Kg,
+                                                 band.width))
+    e0 = em_g[0]
+    Kb = min(2 * band.width + 1, Kg)
+    ms = cuda_ms(lambda: vdp.viterbi_banded_forward(
+        log_A_g, log_pi_g, e0, c, starts, band.width), reps=10)
+    plain = cuda_ms(lambda: ref.viterbi_banded_forward_ref(
+        log_A_g, log_pi_g, e0, c, starts, band.width), reps=2, warmup=1)
+    bms, by = banded_bound(Kg, starts, Kb)
+    print(f"timing viterbi_banded_fwd (T,K,Kb)=({GRID_T},{Kg},{Kb}): kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.6f} ms ({by}); "
+          f"{card}")
+    rows["viterbi_banded_fwd"] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
+                                      bound_by=by)
+    return rows   # fwd and backtrack at T = 511; masked with both masks
 
 
 def main() -> int:
@@ -283,16 +662,23 @@ def main() -> int:
                 print(f"  {line.strip()}")
 
     errs = phase_kernels(dev)
+    errs |= phase_masked_kernels(dev)
     launches = phase_serve(dev)
+    for phase in (phase_lexicon, phase_map_matching):
+        for name, n in phase(dev).items():
+            launches[name] += n
     timing = phase_timing(dev, card)
 
     source = "src/repro_torch/kernels/csrc/viterbi_dp.cu"
     replaces = {"viterbi_fwd_batch": "src/repro/kernels/viterbi_dp.py:45",
+                "viterbi_fwd_batch_masked":
+                    "src/repro/kernels/viterbi_dp.py:120",
+                "viterbi_banded_fwd": "src/repro/kernels/ops.py:360",
                 "viterbi_backtrack_batch": "src/repro/kernels/ops.py:213"}
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=errs[name], **timing[name], library_ms=None)
-               for name in ("viterbi_fwd_batch", "viterbi_backtrack_batch")]
+               for name in replaces]
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

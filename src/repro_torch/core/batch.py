@@ -8,19 +8,22 @@ padded steps repeat the sequence's final decoded state; slice row i to
 
 Methods ported so far:
   * ``fused``   -- one forward-kernel launch and one backtrack-kernel launch
-                   for the whole bucket (`kernels.ops.viterbi_decode_fused_batch`).
+                   for the whole bucket (`kernels.ops.viterbi_decode_fused_batch`);
+                   with ``constraint=``, one masked-forward-kernel launch
+                   (`kernels.ops.viterbi_decode_fused_batch_masked`).
   * ``vanilla`` -- the masked plain loop per sequence (exact oracle).
 
-``flash`` and ``flash_bs``, ``mesh=`` and ``constraint=`` raise
-`NotImplementedError` naming the ROADMAP item that ports them; nothing
-silently takes another path.
+``flash``, ``flash_bs`` and ``mesh=`` raise `NotImplementedError` naming the
+ROADMAP item that ports them; nothing silently takes another path.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.ops import viterbi_decode_fused_batch
+from ..kernels.ops import (viterbi_decode_fused_batch,
+                           viterbi_decode_fused_batch_masked)
+from .constraints import compiled_penalties, constrain_inputs
 from .vanilla import viterbi_vanilla_masked
 
 BATCH_METHODS = ("vanilla", "flash", "flash_bs", "fused")
@@ -33,7 +36,6 @@ NOT_PORTED = {
 } | {
     "online": "ROADMAP Queue 1 item 6 (streaming)",
     "online_beam": "ROADMAP Queue 1 item 6 (streaming)",
-    "constraint": "ROADMAP Queue 1 item 5 (constrained decoding)",
     "mesh": "ROADMAP Queue 1 item 8 (distributed)",
 }
 
@@ -83,7 +85,13 @@ def viterbi_decode_batch(
         raised eagerly.  There is no clipping.
       method: one of ``BATCH_METHODS``; ``vanilla`` and ``fused`` are ported.
       bt: fused-kernel time-block size (no effect on the card).
-      mesh, constraint: not ported; a value other than None raises.
+      mesh: not ported; a value other than None raises.
+      constraint: optional `core.constraints.ConstraintSpec`, shared by the
+        whole bucket (per-step schedules index *absolute* step t, so ragged
+        tails never reach the later rows).  ``fused`` keeps the inputs dense
+        and fuses the penalty adds into the masked kernel; ``vanilla`` (and
+        T == 1) pre-masks the inputs with `constrain_inputs`.  Both are
+        bit-identical to decoding the pre-masked model.
 
     Returns:
       (paths (B, T) int32, scores (B,)): paths[i, :lengths[i]] is the decode
@@ -97,13 +105,20 @@ def viterbi_decode_batch(
         raise not_ported(method)
     if mesh is not None:
         raise not_ported("mesh")
-    if constraint is not None:
-        raise not_ported("constraint")
-    B, T = emissions.shape[:2]
+    B, T, K = emissions.shape
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32)
     lengths = torch.as_tensor(lengths, dtype=torch.int32)
     _validate_lengths(lengths, T)
+
+    if constraint is not None:
+        if method == "fused" and T > 1:
+            t_pen, pi_pen, s_pen = compiled_penalties(constraint, K, T)
+            return viterbi_decode_fused_batch_masked(
+                log_pi, log_A, emissions, lengths,
+                t_pen=t_pen, pi_pen=pi_pen, s_pen=s_pen, bt=bt)
+        log_pi, log_A, emissions = constrain_inputs(
+            constraint, log_pi, log_A, emissions)
 
     if T == 1:
         d0 = log_pi[None, :] + emissions[:, 0, :]

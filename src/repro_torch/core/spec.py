@@ -6,10 +6,11 @@ exactly the tunables it consumes.  Nonsense is rejected eagerly: ``bt=0``
 raises `ValueError` at construction, an unknown tunable raises `TypeError`
 from the dataclass constructor.
 
-Ported so far: `VanillaSpec` and `FusedSpec`.  The other methods of the JAX
-package, and the ``constraint`` field's values, raise `NotImplementedError`
-naming the ROADMAP item that ports them.  The JAX spec's ``jittable`` flag has
-no counterpart: PyTorch runs eagerly.
+Ported so far: `VanillaSpec` and `FusedSpec`, each with an optional
+``constraint`` (`core.constraints.ConstraintSpec`).  The other methods of the
+JAX package raise `NotImplementedError` naming the ROADMAP item that ports
+them.  The JAX spec's ``jittable`` flag has no counterpart: PyTorch runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -17,8 +18,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, ClassVar, Mapping, Optional
 
-from ..kernels.ops import viterbi_decode_fused
+from ..kernels.ops import (viterbi_decode_banded, viterbi_decode_fused,
+                           viterbi_decode_fused_masked)
 from .batch import NOT_PORTED, not_ported
+from .constraints import ConstraintSpec, compiled_penalties, constrain_inputs
 from .vanilla import viterbi_vanilla
 
 __all__ = [
@@ -63,17 +66,24 @@ class DecodeSpec:
       batch_method    -- name in `core.batch.BATCH_METHODS`, or None.
       legacy_tunables -- legacy kwarg name -> field name map.
 
-    ``constraint`` is kept as a kw-only field for parity; constrained
-    decoding is not ported yet, so a value other than None raises.
+    Every spec carries an optional `constraint`: a frozen, hashable
+    description of which states and transitions are legal.  `run` applies it
+    by masking the inputs with tropical-identity adds (`constrain_inputs`),
+    so a constrained decode is bit-identical to the same method over the
+    pre-masked model; `FusedSpec` overrides `_run_constrained` to make the
+    same adds inside its kernels instead.
     """
     method: ClassVar[str] = ""
     batch_method: ClassVar[str | None] = None
     legacy_tunables: ClassVar[Mapping[str, str]] = {}
-    constraint: Optional[Any] = dataclasses.field(default=None, kw_only=True)
+    constraint: Optional[ConstraintSpec] = dataclasses.field(
+        default=None, kw_only=True)
 
     def __post_init__(self):
-        if self.constraint is not None:
-            raise not_ported("constraint")
+        if self.constraint is not None and \
+                not isinstance(self.constraint, ConstraintSpec):
+            raise TypeError(f"constraint must be a ConstraintSpec or None, "
+                            f"got {type(self.constraint).__name__}")
         self.validate()
 
     def validate(self) -> None:
@@ -81,7 +91,19 @@ class DecodeSpec:
 
     def run(self, log_pi, log_A, emissions):
         """Decode one (T, K) sequence; returns (path (T,) int32, score)."""
+        if self.constraint is None:
+            return self._run(log_pi, log_A, emissions)
+        return self._run_constrained(log_pi, log_A, emissions,
+                                     self.constraint)
+
+    def _run(self, log_pi, log_A, emissions):
+        """The unconstrained decode; what subclasses implement."""
         raise NotImplementedError
+
+    def _run_constrained(self, log_pi, log_A, emissions, constraint):
+        """Constrained decode; default = the method over pre-masked inputs."""
+        return self._run(*constrain_inputs(constraint, log_pi, log_A,
+                                           emissions))
 
     def batch_tunables(self) -> dict[str, Any]:
         """Tunables forwarded to `viterbi_decode_batch` (batchable specs)."""
@@ -94,7 +116,7 @@ class VanillaSpec(DecodeSpec):
     method: ClassVar[str] = "vanilla"
     batch_method: ClassVar[str | None] = "vanilla"
 
-    def run(self, log_pi, log_A, emissions):
+    def _run(self, log_pi, log_A, emissions):
         return viterbi_vanilla(log_pi, log_A, emissions)
 
 
@@ -113,8 +135,27 @@ class FusedSpec(DecodeSpec):
     def validate(self):
         _check_pos(self.bt, "bt")
 
-    def run(self, log_pi, log_A, emissions):
+    def _run(self, log_pi, log_A, emissions):
         return viterbi_decode_fused(log_pi, log_A, emissions, bt=self.bt)
+
+    def _run_constrained(self, log_pi, log_A, emissions, constraint):
+        # The constraint is applied inside the kernels: a BandConstraint that
+        # covers the horizon decodes over sliding windows (the banded
+        # kernel, never a K-wide row), anything else fuses the penalty adds
+        # into the masked forward kernel.  Both reproduce the masked-input
+        # adds operand for operand, so results stay bit-identical to the
+        # generic path.
+        T = emissions.shape[0]
+        band = constraint.band()
+        if band is not None and len(band[0]) >= T:
+            centers, width = band
+            return viterbi_decode_banded(log_pi, log_A, emissions,
+                                         centers[:T], width=width)
+        K = log_A.shape[-1]
+        t_pen, pi_pen, s_pen = compiled_penalties(constraint, K, T)
+        return viterbi_decode_fused_masked(log_pi, log_A, emissions,
+                                           t_pen=t_pen, pi_pen=pi_pen,
+                                           s_pen=s_pen, bt=self.bt)
 
     def batch_tunables(self):
         return {"bt": self.bt}
@@ -134,7 +175,9 @@ def spec_from_tunables(method: str, tunables: dict[str, Any],
     """
     if "constraint" in tunables:
         raise TypeError(
-            "constraint= is not a legacy tunable; construct a typed spec")
+            "constraint= is not a legacy tunable; construct a typed spec "
+            "instead, e.g. FusedSpec(constraint=...) or "
+            "with_constraint(spec, constraint)")
     if method in NOT_PORTED:
         raise not_ported(method)
     try:

@@ -36,6 +36,11 @@ SIGNATURES = {
     "viterbi_dp": {
         "viterbi_fwd_batch": (_VOID, _VOID, _I64, _I64, _VOID, _VOID,
                               _I32, _I32, _I32, _VOID, _VOID, _VOID),
+        "viterbi_fwd_batch_masked": (_VOID, _VOID, _VOID, _I64, _I64, _VOID,
+                                     _I64, _VOID, _VOID, _I32, _I32, _I32,
+                                     _VOID, _VOID, _VOID),
+        "viterbi_banded_fwd": (_VOID, _VOID, _VOID, _I64, _VOID, _VOID, _I32,
+                               _I32, _I32, _I32, _VOID, _VOID, _VOID),
         "viterbi_backtrack_batch": (_VOID, _VOID, _I32, _I32, _I32, _VOID,
                                     _VOID, _VOID),
     },

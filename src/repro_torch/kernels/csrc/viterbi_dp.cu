@@ -1,4 +1,5 @@
-// Fused Viterbi forward pass and batched backtrack for NVIDIA Hopper (sm_90a).
+// Fused Viterbi forward pass (plain and constraint-masked), the banded
+// forward pass and the batched backtrack for NVIDIA Hopper (sm_90a).
 //
 // viterbi_fwd_batch replaces the Pallas TPU kernel `_viterbi_fwd_kernel`
 // behind `viterbi_forward_batch` (src/repro/kernels/viterbi_dp.py:45, :74).
@@ -33,6 +34,40 @@
 // left-to-right HMM every off-band transition is -1e9 and -1e9 + em rounds
 // back to -1e9 in f32.  Build without --use_fast_math.
 //
+// viterbi_fwd_batch_masked replaces the Pallas TPU kernel
+// `_viterbi_fwd_masked_kernel` behind `viterbi_forward_batch_masked`
+// (src/repro/kernels/viterbi_dp.py:120, :175).  It is the same kernel with
+// two optional additive penalties ({0, -1e9} f32, compiled from a
+// constraint): tmask (K, K) on log_A and smask (T, K), shared by the batch,
+// on em:
+//     delta_t[j] = max_k (delta[k] + (log_A[k, j] + tmask[k, j]))
+//                  + (em[b, t, j] + smask[t, j])
+// One template, instantiated on <HAS_T, HAS_S>, carries both; the unmasked
+// viterbi_fwd_batch is its <false, false> instance.  Pad steps ignore smask.
+// What bounds it: the TPU kernel adds tmask once per grid step into VMEM;
+// here no K*K masked copy fits in shared memory either, so every score reads
+// log_A and tmask both from L2, doubling the per-step L2 stream that already
+// bounds the unmasked kernel.  smask adds one (K,) row a step, nothing.
+// Keeping log_A + tmask resident across a cluster is the redesign shared
+// with viterbi_fwd_batch.  Exactness: each score is
+// cur[k] + (log_A[k, j] + tmask[k, j]), never (cur[k] + log_A) + tmask, and
+// the max comes first, then best + (em + smask): the TPU kernel's operand
+// order (viterbi_dp.py:151, :160).  -1e9 + -1e9, -1e9 + em and -2e9 + delta
+// all round in f32, so any other grouping changes bits and tie order.
+//
+// viterbi_banded_fwd replaces the lax.scan of `viterbi_decode_banded`
+// (src/repro/kernels/ops.py:387-411), which is not Pallas.  One block walks
+// the whole time loop over a Kb = min(2*width + 1, K) wide window of states
+// that starts at starts[t]: thread j scores
+//     delta_w[k] + log_A[starts[t-1] + k, starts[t] + j]
+// and adds em[t, starts[t] + j] + pen, pen = 0 if
+// |starts[t] + j - centers[t]| <= width, else -1e9.  delta_w is
+// double-buffered in shared memory.  It is bound by the latency of T
+// dependent steps (2*T*Kb^2 operations, a few microseconds of the card's
+// f32 rate), so one block is enough; the Kb*Kb block of log_A each step
+// reads comes from L2.  Bit-identity with the dense masked decode needs a
+// dense log_A (see `viterbi_decode_banded`'s docstring in the JAX package).
+//
 // viterbi_backtrack_batch replaces the XLA reverse scans of
 // `viterbi_decode_fused_batch` (src/repro/kernels/ops.py:213-220).  One
 // thread per sequence takes the lowest-index argmax of delta_T[b] and walks
@@ -47,10 +82,16 @@
 
 namespace {
 
+constexpr float kNegInf = -1.0e9f;
+
+template <bool HAS_T, bool HAS_S>
 __global__ void viterbi_fwd_batch_kernel(
     const float* __restrict__ log_A,   // (K, K) [src, dst], contiguous
+    const float* __restrict__ tmask,   // (K, K) contiguous; read iff HAS_T
     const float* __restrict__ em,      // (B, T, K), strides (em_sb, em_st, 1)
     int64_t em_sb, int64_t em_st,
+    const float* __restrict__ smask,   // (T, K), strides (sm_st, 1); iff HAS_S
+    int64_t sm_st,
     const float* __restrict__ delta0,  // (B, K) contiguous
     const float* __restrict__ pad,     // (B, T) contiguous, or nullptr
     int T, int K,
@@ -76,17 +117,20 @@ __global__ void viterbi_fwd_batch_kernel(
         continue;
       }
       const float* a = log_A + j;
-      float best = cur[0] + a[0];
+      const float* m = HAS_T ? tmask + j : nullptr;
+      float best = HAS_T ? cur[0] + (a[0] + m[0]) : cur[0] + a[0];
       int arg = 0;
 #pragma unroll 8
       for (int k = 1; k < K; ++k) {
-        const float v = cur[k] + a[(int64_t)k * K];
+        const int64_t kk = (int64_t)k * K;
+        const float v = HAS_T ? cur[k] + (a[kk] + m[kk]) : cur[k] + a[kk];
         if (v > best) {
           best = v;
           arg = k;
         }
       }
-      nxt[j] = best + em_t[j];
+      nxt[j] = HAS_S ? best + (em_t[j] + smask[(int64_t)t * sm_st + j])
+                     : best + em_t[j];
       psi_t[j] = arg;
     }
     __syncthreads();                     // nxt complete, cur no longer read
@@ -95,6 +139,57 @@ __global__ void viterbi_fwd_batch_kernel(
     nxt = tmp;
   }
   for (int j = threadIdx.x; j < K; j += blockDim.x) delta_T[b * K + j] = cur[j];
+}
+
+__global__ void viterbi_banded_fwd_kernel(
+    const float* __restrict__ log_A,    // (K, K) contiguous
+    const float* __restrict__ log_pi,   // (K,)
+    const float* __restrict__ em,       // (T, K), strides (em_st, 1)
+    int64_t em_st,
+    const int* __restrict__ centers,    // (T,) clipped into [0, K-1]
+    const int* __restrict__ starts,     // (T,) in [0, K-Kb]
+    int width, int T, int K, int Kb,
+    int* __restrict__ psi,              // (T-1, Kb) contiguous, local ids
+    float* __restrict__ delta_w) {      // (Kb,)
+  extern __shared__ float smem[];
+  float* cur = smem;
+  float* nxt = smem + Kb;
+  {
+    const int s0 = starts[0], c0 = centers[0];
+    for (int j = threadIdx.x; j < Kb; j += blockDim.x) {
+      const int idx = s0 + j;
+      const float pen = abs(idx - c0) <= width ? 0.0f : kNegInf;
+      cur[j] = log_pi[idx] + (em[idx] + pen);
+    }
+  }
+  __syncthreads();
+  for (int t = 1; t < T; ++t) {
+    const int prev = starts[t - 1], start = starts[t], c = centers[t];
+    const float* em_t = em + (int64_t)t * em_st;
+    int* psi_t = psi + (int64_t)(t - 1) * Kb;
+    for (int j = threadIdx.x; j < Kb; j += blockDim.x) {
+      const int idx = start + j;
+      const float* a = log_A + (int64_t)prev * K + idx;
+      float best = cur[0] + a[0];
+      int arg = 0;
+#pragma unroll 8
+      for (int k = 1; k < Kb; ++k) {
+        const float v = cur[k] + a[(int64_t)k * K];
+        if (v > best) {
+          best = v;
+          arg = k;
+        }
+      }
+      const float pen = abs(idx - c) <= width ? 0.0f : kNegInf;
+      nxt[j] = best + (em_t[idx] + pen);
+      psi_t[j] = arg;
+    }
+    __syncthreads();
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+  for (int j = threadIdx.x; j < Kb; j += blockDim.x) delta_w[j] = cur[j];
 }
 
 __global__ void viterbi_backtrack_batch_kernel(
@@ -124,6 +219,37 @@ __global__ void viterbi_backtrack_batch_kernel(
   }
 }
 
+// Threads for a row of n columns: one per column, whole warps, at most 1024.
+int row_threads(int n) {
+  const int threads = ((n + 31) / 32) * 32;
+  return threads > 1024 ? 1024 : threads;
+}
+
+// Opts a kernel into more than 48 KB of dynamic shared memory when it needs it.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <bool HAS_T, bool HAS_S>
+int launch_fwd(const void* log_A, const void* tmask, const void* em,
+               int64_t em_sb, int64_t em_st, const void* smask,
+               int64_t sm_st, const void* delta0, const void* pad, int B,
+               int T, int K, void* psi, void* delta_T, void* stream) {
+  auto kernel = viterbi_fwd_batch_kernel<HAS_T, HAS_S>;
+  const size_t smem = 2 * (size_t)K * sizeof(float);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, row_threads(K), smem, (cudaStream_t)stream>>>(
+      (const float*)log_A, (const float*)tmask, (const float*)em, em_sb,
+      em_st, (const float*)smask, sm_st, (const float*)delta0,
+      (const float*)pad, T, K, (int*)psi, (float*)delta_T);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int viterbi_fwd_batch(const void* log_A, const void* em,
@@ -131,19 +257,47 @@ extern "C" int viterbi_fwd_batch(const void* log_A, const void* em,
                                  const void* delta0, const void* pad,
                                  int B, int T, int K, void* psi, void* delta_T,
                                  void* stream) {
-  const size_t smem = 2 * (size_t)K * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(viterbi_fwd_batch_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  int threads = ((K + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  viterbi_fwd_batch_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)log_A, (const float*)em, em_sb, em_st,
-      (const float*)delta0, (const float*)pad, T, K, (int*)psi,
-      (float*)delta_T);
+  return launch_fwd<false, false>(log_A, nullptr, em, em_sb, em_st, nullptr,
+                                  0, delta0, pad, B, T, K, psi, delta_T,
+                                  stream);
+}
+
+// tmask and smask may each be null (no penalty on that operand).
+extern "C" int viterbi_fwd_batch_masked(
+    const void* log_A, const void* tmask, const void* em, int64_t em_sb,
+    int64_t em_st, const void* smask, int64_t sm_st, const void* delta0,
+    const void* pad, int B, int T, int K, void* psi, void* delta_T,
+    void* stream) {
+  if (tmask != nullptr && smask != nullptr)
+    return launch_fwd<true, true>(log_A, tmask, em, em_sb, em_st, smask,
+                                  sm_st, delta0, pad, B, T, K, psi, delta_T,
+                                  stream);
+  if (tmask != nullptr)
+    return launch_fwd<true, false>(log_A, tmask, em, em_sb, em_st, smask,
+                                   sm_st, delta0, pad, B, T, K, psi, delta_T,
+                                   stream);
+  if (smask != nullptr)
+    return launch_fwd<false, true>(log_A, tmask, em, em_sb, em_st, smask,
+                                   sm_st, delta0, pad, B, T, K, psi, delta_T,
+                                   stream);
+  return launch_fwd<false, false>(log_A, tmask, em, em_sb, em_st, smask,
+                                  sm_st, delta0, pad, B, T, K, psi, delta_T,
+                                  stream);
+}
+
+extern "C" int viterbi_banded_fwd(const void* log_A, const void* log_pi,
+                                  const void* em, int64_t em_st,
+                                  const void* centers, const void* starts,
+                                  int width, int T, int K, int Kb, void* psi,
+                                  void* delta_w, void* stream) {
+  const size_t smem = 2 * (size_t)Kb * sizeof(float);
+  cudaError_t err = allow_smem(viterbi_banded_fwd_kernel, smem);
+  if (err != cudaSuccess) return err;
+  viterbi_banded_fwd_kernel<<<1, row_threads(Kb), smem,
+                              (cudaStream_t)stream>>>(
+      (const float*)log_A, (const float*)log_pi, (const float*)em, em_st,
+      (const int*)centers, (const int*)starts, width, T, K, Kb, (int*)psi,
+      (float*)delta_w);
   return cudaGetLastError();
 }
 

@@ -1,20 +1,24 @@
 """Public wrappers around the fused Viterbi kernels, as in `repro.kernels.ops`.
 
 Same functions, signatures and results as the JAX package's ops, without the
-TPU's fit rule (`_kernel_fits`: 12 MiB of VMEM, K % 128): the Hopper kernel
-takes any K >= 1, and no shape falls back to another path.  ``bt`` stays in
-the signatures for parity; it has no effect on the card, whose kernel runs
-the whole time loop in one block per sequence.  The TPU's ``interpret`` and
-``vmem_limit_bytes`` have no counterpart.
+TPU's fit rules (`_kernel_fits` and `_kernel_fits_masked`: 12 MiB of VMEM,
+K % 128): the Hopper kernels take any K >= 1, and no shape falls back to
+another path.  ``bt`` stays in the signatures for parity; it has no effect
+on the card, whose kernels run the whole time loop in one block per
+sequence.  The TPU's ``interpret`` and ``vmem_limit_bytes`` have no
+counterpart.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .viterbi_dp import viterbi_backtrack_batch
+from .viterbi_dp import viterbi_banded_forward as _banded_fwd
 from .viterbi_dp import viterbi_forward as _fwd
 from .viterbi_dp import viterbi_forward_batch as _fwd_batch
+from .viterbi_dp import viterbi_forward_batch_masked as _fwd_batch_masked
 
 
 def _pad_mask(T: int, lengths, device: torch.device) -> torch.Tensor:
@@ -117,6 +121,141 @@ def viterbi_decode_fused_batch(log_pi: torch.Tensor, log_A: torch.Tensor,
     return viterbi_backtrack_batch(psi, delta_T)
 
 
+def _penalty(pen, like: torch.Tensor) -> torch.Tensor | None:
+    """A compiled {0, NEG_INF} penalty (numpy or tensor) as a tensor of
+    `like`'s dtype and device."""
+    if pen is None:
+        return None
+    return torch.as_tensor(pen, dtype=like.dtype, device=like.device)
+
+
+def viterbi_forward_batch_masked(log_A: torch.Tensor, em: torch.Tensor,
+                                 delta0: torch.Tensor, lengths=None, *,
+                                 tmask=None, smask=None, bt: int = 8):
+    """Constraint-masked batched forward pass: one masked-kernel launch.
+
+    `tmask` (K, K) / `smask` (T, K) are additive f32 penalties ({0, NEG_INF},
+    compiled by `core.constraints`); `smask` row t masks `em[:, t]` and is
+    shared across the batch.  Results are bit-identical to
+    `viterbi_forward_batch(log_A + tmask, em + smask, ...)` without the
+    masked operands ever being materialised.
+    """
+    B, T, K = em.shape
+    tmask = _penalty(tmask, em)
+    smask = _penalty(smask, em)
+    if T == 0:
+        return (torch.zeros((B, 0, K), dtype=torch.int32, device=em.device),
+                delta0)
+    pad = None if lengths is None else _pad_mask(T, lengths, em.device)
+    return _fwd_batch_masked(log_A, em, delta0, pad, tmask, smask)
+
+
+def viterbi_decode_fused_masked(log_pi: torch.Tensor, log_A: torch.Tensor,
+                                em: torch.Tensor, *, t_pen=None, pi_pen=None,
+                                s_pen=None, bt: int = 8):
+    """Constrained fused decode: penalty adds fused into the DP step.
+
+    The penalties come from `core.constraints.compiled_penalties`; every add
+    here reproduces `constrain_inputs`' elementwise adds operand for operand,
+    so the result is bit-identical to `viterbi_decode_fused` over the
+    pre-masked inputs.  Returns (path (T,) int32, score).
+    """
+    if pi_pen is not None:
+        log_pi = log_pi + _penalty(pi_pen, log_pi)
+    em0 = em[0]
+    smask = None
+    if s_pen is not None:
+        s_pen = _penalty(s_pen, em)
+        em0 = em0 + s_pen[0]
+        smask = s_pen[1:]
+    delta0 = log_pi + em0
+    psi, delta_T = viterbi_forward_batch_masked(
+        log_A, em[None, 1:], delta0[None], tmask=t_pen, smask=smask, bt=bt)
+    paths, scores = viterbi_backtrack_batch(psi, delta_T)
+    return paths[0], scores[0]
+
+
+def viterbi_decode_fused_batch_masked(log_pi: torch.Tensor,
+                                      log_A: torch.Tensor, em: torch.Tensor,
+                                      lengths=None, *, t_pen=None,
+                                      pi_pen=None, s_pen=None, bt: int = 8):
+    """Constrained batched fused decode (ragged lengths, shared schedule).
+
+    The per-step penalty indexes *absolute* step t, so ragged tails never
+    reach the later rows; pad steps stay tropical identities.  Bit-identical
+    to `viterbi_decode_fused_batch` over pre-masked inputs.
+    """
+    if pi_pen is not None:
+        log_pi = log_pi + _penalty(pi_pen, log_pi)
+    em0 = em[:, 0, :]
+    smask = None
+    if s_pen is not None:
+        s_pen = _penalty(s_pen, em)
+        em0 = em0 + s_pen[0][None]
+        smask = s_pen[1:]
+    delta0 = log_pi[None, :] + em0
+    if em.shape[1] == 1:
+        q = delta0.argmax(dim=1).to(torch.int32)
+        return q[:, None], delta0.amax(dim=1)
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                  device=em.device)
+        lengths = (lengths - 1).clamp(min=0)
+    psi, delta_T = viterbi_forward_batch_masked(
+        log_A, em[:, 1:], delta0, lengths, tmask=t_pen, smask=smask, bt=bt)
+    return viterbi_backtrack_batch(psi, delta_T)
+
+
+def band_windows(centers, K: int, width: int):
+    """(centers clipped into [0, K-1], window starts clipped into
+    [0, K - Kb]) as (T,) int32 CPU tensors, Kb = min(2*width + 1, K)."""
+    Kb = min(2 * width + 1, K)
+    c = np.clip(np.asarray(centers, np.int64), 0, K - 1)
+    starts = np.clip(c - width, 0, K - Kb)
+    return (torch.from_numpy(c.astype(np.int32)),
+            torch.from_numpy(starts.astype(np.int32)))
+
+
+def viterbi_decode_banded(log_pi: torch.Tensor, log_A: torch.Tensor,
+                          em: torch.Tensor, centers, *, width: int):
+    """Banded Viterbi decode: O(T * Kb^2) work, Kb = 2*width+1 window.
+
+    At step t only states within `width` of `centers[t]` (clipped into
+    [0, K-1]) are legal: the `BandConstraint` semantics.  The DP slides a
+    contiguous Kb window over the state axis, so K-wide rows are never
+    materialised: live state is the Kb frontier plus T windows of local
+    backpointers (`core.constraints.banded_state_bytes`).  One launch of the
+    banded kernel runs the forward pass; the backtrack kernel walks the local
+    (T-1, Kb) backpointers, and the window starts map them back to states.
+
+    Bit-identity with the dense masked decode holds because (a) the window
+    always contains the whole allowed band, (b) the in-window penalty add is
+    the same `em + s_pen` elementwise add the dense path performs, and (c)
+    out-of-band states sit >= ~1e9 below every in-band score (NEG_INF is a
+    finite sentinel), so they can neither win nor tie a max/argmax, and the
+    contiguous window preserves dense argmax tie order.  Requires in-band
+    states to keep feasible paths (dense `log_A`); with sparse transitions,
+    pre-mask `log_A` instead.
+
+    `centers` must cover the horizon (at least T entries; extra ones are
+    ignored).  Returns (path (T,) int32 of *global* state ids, score).
+    """
+    T, K = em.shape
+    w = int(width)
+    if T == 0:
+        raise ValueError("viterbi_decode_banded needs T >= 1")
+    if len(centers) < T:
+        raise ValueError(f"the band's {len(centers)} centers do not cover "
+                         f"the horizon T={T}")
+    c, starts = band_windows(centers[:T], K, w)
+    c_dev, starts_dev = c.to(em.device), starts.to(em.device)
+    psi, delta_w = _banded_fwd(log_A, log_pi, em, c_dev, starts_dev, w)
+    loc, scores = viterbi_backtrack_batch(psi[None], delta_w[None])
+    return (starts_dev + loc[0]).to(torch.int32), scores[0]
+
+
 __all__ = ["viterbi_forward", "viterbi_forward_batch", "viterbi_chunk_step",
            "viterbi_slot_step", "viterbi_decode_fused",
-           "viterbi_decode_fused_batch"]
+           "viterbi_decode_fused_batch", "viterbi_forward_batch_masked",
+           "viterbi_decode_fused_masked", "viterbi_decode_fused_batch_masked",
+           "viterbi_decode_banded", "band_windows"]

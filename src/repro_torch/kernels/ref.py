@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+NEG_INF = -1.0e9
+
 
 def _step(delta: torch.Tensor, log_A: torch.Tensor
           ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -54,6 +56,51 @@ def viterbi_forward_masked_ref(log_A: torch.Tensor, em: torch.Tensor,
     return psi, delta
 
 
+def viterbi_forward_masked_pen_ref(log_A: torch.Tensor, em: torch.Tensor,
+                                   delta0: torch.Tensor, pad: torch.Tensor,
+                                   tmask: torch.Tensor | None = None,
+                                   smask: torch.Tensor | None = None):
+    """Reference for the constraint-masked forward kernel.
+
+    `tmask` (K, K) and `smask` (T, K), shared across a batch, are additive
+    {0, NEG_INF} penalties.  The reference is the pad-masked recursion over
+    the pre-masked inputs, ``log_A + tmask`` and ``em + smask``: the same
+    adds the kernel makes per score and per row, so both give the same bits.
+    """
+    if tmask is not None:
+        log_A = log_A + tmask
+    if smask is not None:
+        em = em + smask
+    return viterbi_forward_masked_ref(log_A, em, delta0, pad)
+
+
+def viterbi_banded_forward_ref(log_A: torch.Tensor, log_pi: torch.Tensor,
+                               em: torch.Tensor, centers: torch.Tensor,
+                               starts: torch.Tensor, width: int):
+    """Reference for the banded forward kernel (the step loop of the JAX
+    package's `viterbi_decode_banded`).
+
+    At step t the DP holds the Kb = min(2*width + 1, K) states from
+    ``starts[t]`` on; state ``starts[t] + j`` gets the penalty 0 if it lies
+    within `width` of ``centers[t]``, else NEG_INF, added to its emission.
+    em (T, K), centers and starts (T,) int -> (psi (T-1, Kb) int32 of local
+    window indices, delta_w (Kb,)).
+    """
+    T, K = em.shape
+    Kb = min(2 * width + 1, K)
+    idx = starts.long()[:, None] + torch.arange(Kb, device=em.device)  # (T, Kb)
+    pen = torch.zeros(idx.shape, dtype=em.dtype, device=em.device)
+    pen[(idx - centers.long()[:, None]).abs() > width] = NEG_INF
+    em_w = em.gather(1, idx) + pen
+    psi = torch.empty((T - 1, Kb), dtype=torch.int32, device=em.device)
+    delta = log_pi[idx[0]] + em_w[0]
+    for t in range(1, T):
+        a_sub = log_A[idx[t - 1][:, None], idx[t][None, :]]
+        best, psi[t - 1] = _step(delta, a_sub)
+        delta = best + em_w[t]
+    return psi, delta
+
+
 def viterbi_backtrack_ref(psi: torch.Tensor, delta_T: torch.Tensor):
     """Reference for the backtrack kernel.
 
@@ -73,4 +120,5 @@ def viterbi_backtrack_ref(psi: torch.Tensor, delta_T: torch.Tensor):
 
 
 __all__ = ["viterbi_forward_ref", "viterbi_forward_masked_ref",
+           "viterbi_forward_masked_pen_ref", "viterbi_banded_forward_ref",
            "viterbi_backtrack_ref"]

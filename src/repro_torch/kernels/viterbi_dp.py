@@ -2,10 +2,13 @@
 
 `viterbi_forward_batch` replaces the Pallas TPU kernel `_viterbi_fwd_kernel`
 (src/repro/kernels/viterbi_dp.py:45, :74) and `viterbi_forward` is its B = 1
-view (:237).  `viterbi_backtrack_batch` replaces the XLA reverse-scan
-backtracks of `repro.kernels.ops` (ops.py:177-182, 213-220).  The source
-comment in the .cu file says what bounds each kernel on the card and what
-its design does about it.
+view (:237).  `viterbi_forward_batch_masked` replaces the constraint-masked
+Pallas kernel `_viterbi_fwd_masked_kernel` (:120, :175).
+`viterbi_banded_forward` replaces the `lax.scan` step loop of
+`viterbi_decode_banded` (src/repro/kernels/ops.py:387-411), and
+`viterbi_backtrack_batch` the XLA reverse-scan backtracks (ops.py:177-182,
+213-220).  The source comment in the .cu file says what bounds each kernel
+on the card and what its design does about it.
 
 Each wrapper checks device, dtype, shape and strides and raises on what the
 kernel does not take.  For tensors on the CPU it runs the plain version in
@@ -21,7 +24,8 @@ from . import build
 from . import ref as _ref
 
 #: kernel launches per kernel since the last `reset_launches()`
-launches = {"viterbi_fwd_batch": 0, "viterbi_backtrack_batch": 0}
+launches = {"viterbi_fwd_batch": 0, "viterbi_fwd_batch_masked": 0,
+            "viterbi_banded_fwd": 0, "viterbi_backtrack_batch": 0}
 
 #: largest K whose two f32 delta rows fit in one block's 227 KB shared memory
 MAX_K = 232448 // 8
@@ -56,6 +60,56 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _forward_args(log_A, em, delta0, pad, tmask=None, smask=None) -> bool:
+    """Checks the forward kernels' arguments; True if they lie on CUDA."""
+    _require(em.dim() == 3, f"em must be (B, T, K), got {tuple(em.shape)}")
+    B, T, K = em.shape
+    _require(K >= 1, "K must be >= 1")
+    _require(log_A.shape == (K, K), f"log_A must be ({K}, {K})")
+    _require(delta0.shape == (B, K), f"delta0 must be ({B}, {K})")
+    tensors = [x for x in (log_A, em, delta0, pad, tmask, smask)
+               if x is not None]
+    _require(all(t.dtype == torch.float32 for t in tensors),
+             "log_A, em, delta0, pad, tmask and smask must be float32")
+    _require(pad is None or pad.shape == (B, T), f"pad must be ({B}, {T})")
+    _require(tmask is None or tmask.shape == (K, K),
+             f"tmask must be ({K}, {K})")
+    _require(smask is None or smask.shape == (T, K),
+             f"smask must be ({T}, {K})")
+    if not _on_cuda(*tensors):
+        return False
+    _require(K <= MAX_K, f"K={K} exceeds the kernel's limit of {MAX_K}")
+    _require(all(x is None or x.is_contiguous()
+                 for x in (log_A, delta0, pad, tmask)),
+             "log_A, delta0, pad and tmask must be contiguous")
+    _require(em.stride(2) == 1, "em must have unit stride along K")
+    _require(smask is None or smask.stride(1) == 1,
+             "smask must have unit stride along K")
+    return True
+
+
+def _launch_forward(name: str, em: torch.Tensor, *args):
+    """Allocates psi and delta_T and launches the C entry `name` with
+    ``args + (B, T, K, psi, delta_T, stream)``; counts the launch."""
+    B, T, K = em.shape
+    dev = em.device
+    psi = torch.empty((B, T, K), dtype=torch.int32, device=dev)
+    delta_T = torch.empty((B, K), dtype=torch.float32, device=dev)
+    if B == 0:
+        return psi, delta_T
+    lib = build.load("viterbi_dp")
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(*args, B, T, K, psi.data_ptr(),
+                                 delta_T.data_ptr(), _stream(dev))
+    _check_cuda(err, name)
+    launches[name] += 1
+    return psi, delta_T
+
+
+def _ptr(x: torch.Tensor | None):
+    return None if x is None else x.data_ptr()
+
+
 def viterbi_forward_batch(log_A: torch.Tensor, em: torch.Tensor,
                           delta0: torch.Tensor, pad: torch.Tensor | None = None):
     """Batched fused forward pass.
@@ -71,40 +125,13 @@ def viterbi_forward_batch(log_A: torch.Tensor, em: torch.Tensor,
     Returns:
       (psi (B, T, K) int32, delta_T (B, K) float32).
     """
-    _require(em.dim() == 3, f"em must be (B, T, K), got {tuple(em.shape)}")
-    B, T, K = em.shape
-    _require(K >= 1, "K must be >= 1")
-    _require(log_A.shape == (K, K), f"log_A must be ({K}, {K})")
-    _require(delta0.shape == (B, K), f"delta0 must be ({B}, {K})")
-    tensors = [log_A, em, delta0] + ([] if pad is None else [pad])
-    _require(all(t.dtype == torch.float32 for t in tensors),
-             "log_A, em, delta0 and pad must be float32")
-    if pad is not None:
-        _require(pad.shape == (B, T), f"pad must be ({B}, {T})")
-    if not _on_cuda(*tensors):
+    if not _forward_args(log_A, em, delta0, pad):
         if pad is None:
             return _ref.viterbi_forward_ref(log_A, em, delta0)
         return _ref.viterbi_forward_masked_ref(log_A, em, delta0, pad > 0.5)
-
-    _require(K <= MAX_K, f"K={K} exceeds the kernel's limit of {MAX_K}")
-    _require(log_A.is_contiguous() and delta0.is_contiguous()
-             and (pad is None or pad.is_contiguous()),
-             "log_A, delta0 and pad must be contiguous")
-    _require(em.stride(2) == 1, "em must have unit stride along K")
-    dev = em.device
-    psi = torch.empty((B, T, K), dtype=torch.int32, device=dev)
-    delta_T = torch.empty((B, K), dtype=torch.float32, device=dev)
-    if B == 0:
-        return psi, delta_T
-    lib = build.load("viterbi_dp")
-    with torch.cuda.device(dev):
-        err = lib.viterbi_fwd_batch(
-            log_A.data_ptr(), em.data_ptr(), em.stride(0), em.stride(1),
-            delta0.data_ptr(), None if pad is None else pad.data_ptr(),
-            B, T, K, psi.data_ptr(), delta_T.data_ptr(), _stream(dev))
-    _check_cuda(err, "viterbi_fwd_batch")
-    launches["viterbi_fwd_batch"] += 1
-    return psi, delta_T
+    return _launch_forward(
+        "viterbi_fwd_batch", em, log_A.data_ptr(), em.data_ptr(),
+        em.stride(0), em.stride(1), delta0.data_ptr(), _ptr(pad))
 
 
 def viterbi_forward(log_A: torch.Tensor, em: torch.Tensor,
@@ -116,6 +143,88 @@ def viterbi_forward(log_A: torch.Tensor, em: torch.Tensor,
     psi, delta_T = viterbi_forward_batch(
         log_A, em[None], delta0[None], None if pad is None else pad[None])
     return psi[0], delta_T[0]
+
+
+def viterbi_forward_batch_masked(log_A: torch.Tensor, em: torch.Tensor,
+                                 delta0: torch.Tensor,
+                                 pad: torch.Tensor | None = None,
+                                 tmask: torch.Tensor | None = None,
+                                 smask: torch.Tensor | None = None):
+    """Batched fused forward pass with fused constraint penalties.
+
+    Args:
+      log_A, em, delta0, pad: as in `viterbi_forward_batch`.
+      tmask: optional (K, K) float32 additive transition penalty, contiguous.
+      smask: optional (T, K) float32 additive per-step state penalty, shared
+             across the batch, unit stride along K; row t masks em[:, t].
+
+    Returns:
+      (psi (B, T, K) int32, delta_T (B, K) float32), bit-identical to
+      `viterbi_forward_batch(log_A + tmask, em + smask, delta0, pad)`.
+    """
+    if not _forward_args(log_A, em, delta0, pad, tmask, smask):
+        mask = (torch.zeros(em.shape[:2], dtype=torch.bool) if pad is None
+                else pad > 0.5)
+        return _ref.viterbi_forward_masked_pen_ref(log_A, em, delta0, mask,
+                                                   tmask, smask)
+    return _launch_forward(
+        "viterbi_fwd_batch_masked", em, log_A.data_ptr(), _ptr(tmask),
+        em.data_ptr(), em.stride(0), em.stride(1), _ptr(smask),
+        0 if smask is None else smask.stride(0), delta0.data_ptr(),
+        _ptr(pad))
+
+
+def viterbi_banded_forward(log_A: torch.Tensor, log_pi: torch.Tensor,
+                           em: torch.Tensor, centers: torch.Tensor,
+                           starts: torch.Tensor, width: int):
+    """Banded forward pass over a window of Kb = min(2*width + 1, K) states.
+
+    Args:
+      log_A:   (K, K) float32, contiguous.
+      log_pi:  (K,) float32, contiguous.
+      em:      (T, K) float32, T >= 1, unit stride along K.
+      centers: (T,) int32, contiguous, each in [0, K-1] (already clipped).
+      starts:  (T,) int32, contiguous, each in [0, K-Kb]: step t's window is
+               states starts[t] .. starts[t] + Kb - 1.
+      width:   band half-width; states farther than it from centers[t] get
+               a NEG_INF penalty on their emission.
+
+    Returns:
+      (psi (T-1, Kb) int32 local window indices, delta_w (Kb,) float32).
+    """
+    _require(em.dim() == 2, f"em must be (T, K), got {tuple(em.shape)}")
+    T, K = em.shape
+    _require(T >= 1 and K >= 1, "em must have T >= 1 and K >= 1")
+    _require(isinstance(width, int) and width >= 0, "width must be an int >= 0")
+    Kb = min(2 * width + 1, K)
+    _require(log_A.shape == (K, K), f"log_A must be ({K}, {K})")
+    _require(log_pi.shape == (K,), f"log_pi must be ({K},)")
+    _require(centers.shape == (T,) and starts.shape == (T,),
+             f"centers and starts must be ({T},)")
+    _require(all(t.dtype == torch.float32 for t in (log_A, log_pi, em)),
+             "log_A, log_pi and em must be float32")
+    _require(centers.dtype == torch.int32 and starts.dtype == torch.int32,
+             "centers and starts must be int32")
+    if not _on_cuda(log_A, log_pi, em, centers, starts):
+        return _ref.viterbi_banded_forward_ref(log_A, log_pi, em, centers,
+                                               starts, width)
+
+    _require(Kb <= MAX_K, f"Kb={Kb} exceeds the kernel's limit of {MAX_K}")
+    _require(all(t.is_contiguous() for t in (log_A, log_pi, centers, starts)),
+             "log_A, log_pi, centers and starts must be contiguous")
+    _require(em.stride(1) == 1, "em must have unit stride along K")
+    dev = em.device
+    psi = torch.empty((T - 1, Kb), dtype=torch.int32, device=dev)
+    delta_w = torch.empty((Kb,), dtype=torch.float32, device=dev)
+    lib = build.load("viterbi_dp")
+    with torch.cuda.device(dev):
+        err = lib.viterbi_banded_fwd(
+            log_A.data_ptr(), log_pi.data_ptr(), em.data_ptr(), em.stride(0),
+            centers.data_ptr(), starts.data_ptr(), width, T, K, Kb,
+            psi.data_ptr(), delta_w.data_ptr(), _stream(dev))
+    _check_cuda(err, "viterbi_banded_fwd")
+    launches["viterbi_banded_fwd"] += 1
+    return psi, delta_w
 
 
 def viterbi_backtrack_batch(psi: torch.Tensor, delta_T: torch.Tensor):
@@ -152,4 +261,5 @@ def viterbi_backtrack_batch(psi: torch.Tensor, delta_T: torch.Tensor):
 
 
 __all__ = ["viterbi_forward", "viterbi_forward_batch",
+           "viterbi_forward_batch_masked", "viterbi_banded_forward",
            "viterbi_backtrack_batch", "launches", "reset_launches", "MAX_K"]

@@ -3,15 +3,16 @@
 
 The head is a thin wrapper around `core.ViterbiDecoder`: the alignment config
 resolves to a typed `DecodeSpec`, and the decoder object owns the device and
-the ragged `lengths` contract.  ``mesh=``, the lexicon head and the
-end-to-end encoder step wait for later slices (ROADMAP Queue 1 items 5, 8
-and 11).
+the ragged `lengths` contract.  `make_lexicon_align_head` adds a
+`LexiconConstraint` to the spec.  ``mesh=`` and the end-to-end encoder step
+wait for later slices (ROADMAP Queue 1 items 8 and 11).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from ..core.constraints import LexiconConstraint, with_constraint
 from ..core.decoder import ViterbiDecoder
 from ..core.spec import as_decode_spec, spec_from_tunables
 
@@ -51,4 +52,34 @@ def make_alignment_head(hmm_log_pi, hmm_log_A, cfg, *, device=None):
     return align
 
 
-__all__ = ["AlignmentConfig", "make_alignment_head"]
+def make_lexicon_align_head(hmm_log_pi, hmm_log_A, words, *, cfg=None,
+                            self_loops: bool = True, loop_words: bool = True,
+                            device=None):
+    """Lexicon-constrained forced alignment: only lexicon arcs survive.
+
+    `words` is the `LexiconConstraint` vocabulary: a sequence of words, each
+    a sequence of pronunciation alternatives, each a state sequence (e.g.
+    ``[((0, 1, 2), (0, 3, 2)), ((4, 5),)]``).  The constraint compiles the
+    trie's arcs into additive {0, NEG_INF} penalties that the decode fuses
+    into its DP adds, so results are bit-identical to decoding the
+    `constrain_inputs`-masked HMM densely.
+
+    `cfg` is a `DecodeSpec` or legacy `AlignmentConfig`; None means
+    `AlignmentConfig()`, which is ``fused`` until FLASH-BS is ported (the
+    JAX package's default profile is FLASH-BS).  Its `constraint` field is
+    replaced.  Returns the same ``align(emissions, lengths=None)`` callable
+    as `make_alignment_head`, with ``align.decoder`` and ``align.constraint``
+    attached.  ``device=None`` means ``cuda``.
+    """
+    constraint = LexiconConstraint(words, self_loops=self_loops,
+                                   loop_words=loop_words)
+    spec = as_decode_spec(AlignmentConfig() if cfg is None else cfg)
+    align = make_alignment_head(hmm_log_pi, hmm_log_A,
+                                with_constraint(spec, constraint),
+                                device=device)
+    align.constraint = constraint
+    return align
+
+
+__all__ = ["AlignmentConfig", "make_alignment_head",
+           "make_lexicon_align_head"]

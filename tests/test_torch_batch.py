@@ -22,7 +22,8 @@ from repro.core import (ViterbiDecoder as JDecoder, FusedSpec as JFused,
                         viterbi_vanilla as j_vanilla,
                         viterbi_vanilla_masked as j_vanilla_masked)
 from repro.core import reference as j_reference
-from repro_torch.core import (HMM, NEG_INF, BATCH_METHODS, FusedSpec,
+from repro_torch.core import (HMM, NEG_INF, BATCH_METHODS, BandConstraint,
+                              FusedSpec,
                               ResourceBudget, VanillaSpec, ViterbiDecoder,
                               as_decode_spec, erdos_renyi_hmm,
                               left_to_right_hmm, path_score, random_emissions,
@@ -118,13 +119,21 @@ def test_batch_unknown_method_raises(batch_problem):
 
 @pytest.mark.parametrize("kw", [dict(method="flash"), dict(method="flash_bs"),
                                 dict(mesh=object()),
-                                dict(constraint=object())])
+                                dict(method="flash",
+                                     constraint=BandConstraint((0,), 1))])
 def test_batch_unported_paths_raise(batch_problem, kw):
-    """Nothing silently takes another path: each names its ROADMAP item."""
+    """Nothing silently takes another path: each names its ROADMAP item.
+    A constraint does not route an unported method around its raise."""
     hmm, em = batch_problem
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         viterbi_decode_batch(em, hmm.log_pi, hmm.log_A, **kw)
     assert set(BATCH_METHODS) == {"vanilla", "flash", "flash_bs", "fused"}
+
+
+def test_batch_rejects_a_constraint_that_is_not_one(batch_problem):
+    hmm, em = batch_problem
+    with pytest.raises(TypeError, match="ConstraintSpec"):
+        viterbi_decode_batch(em, hmm.log_pi, hmm.log_A, constraint=object())
 
 
 @pytest.mark.parametrize("name", ["parallelism", "lanes", "beam_width",
@@ -263,7 +272,7 @@ def test_spec_validation_is_eager():
         FusedSpec(beam_width=8)                 # unknown tunable
     with pytest.raises(TypeError):
         VanillaSpec(bt=8)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(TypeError, match="ConstraintSpec"):
         FusedSpec(constraint=object())
     with pytest.raises(ValueError):
         ResourceBudget(memory_bytes=0)

@@ -87,3 +87,15 @@ def test_nvcc_command_targets_sm90a_without_fast_math():
     assert build.library_path(build.SOURCES[0]).is_relative_to(
         ROOT / "build" / "repro_torch_kernels")
 
+
+
+def test_every_c_entry_has_its_ctypes_signature():
+    """A C entry cannot be added to a source without its argtypes."""
+    import re
+    from repro_torch.kernels import build
+    assert set(build.SIGNATURES["viterbi_dp"]) == {
+        "viterbi_fwd_batch", "viterbi_fwd_batch_masked", "viterbi_banded_fwd",
+        "viterbi_backtrack_batch"}
+    for src in build.SOURCES:
+        entries = re.findall(r'extern "C" int (\w+)\(', src.read_text())
+        assert sorted(entries) == sorted(build.SIGNATURES[src.stem]), src.name

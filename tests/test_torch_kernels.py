@@ -188,10 +188,17 @@ def test_wrappers_on_cpu_use_plain_versions_and_count_nothing():
     vdp.reset_launches()
     psi, dT = vdp.viterbi_forward_batch(_t(A), _t(em), _t(d0))
     vdp.viterbi_backtrack_batch(psi, dT)
+    psi_m, dT_m = vdp.viterbi_forward_batch_masked(_t(A), _t(em), _t(d0))
+    centers = torch.tensor([3, 4, 5, 6, 7], dtype=torch.int32)
+    vdp.viterbi_banded_forward(_t(A), _t(d0[0]), _t(em[0]), centers,
+                               centers - 2, 2)
     assert vdp.launches == {"viterbi_fwd_batch": 0,
+                            "viterbi_fwd_batch_masked": 0,
+                            "viterbi_banded_fwd": 0,
                             "viterbi_backtrack_batch": 0}
     psi_r, dT_r = ref.viterbi_forward_ref(_t(A), _t(em), _t(d0))
     assert torch.equal(psi, psi_r) and torch.equal(dT, dT_r)
+    assert torch.equal(psi_m, psi_r) and torch.equal(dT_m, dT_r)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -209,3 +216,119 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         vdp.viterbi_forward_batch(A, em.to("meta"), d0)
     with pytest.raises(ValueError, match="int32"):
         vdp.viterbi_backtrack_batch(torch.zeros(2, 5, K, dtype=torch.int64), d0)
+    K5 = torch.zeros(5, K)
+    with pytest.raises(ValueError, match="tmask"):
+        vdp.viterbi_forward_batch_masked(A, em, d0, tmask=K5)
+    with pytest.raises(ValueError, match="smask"):
+        vdp.viterbi_forward_batch_masked(A, em, d0, smask=K5[:4])
+    with pytest.raises(ValueError, match="float32"):
+        vdp.viterbi_forward_batch_masked(A, em, d0, smask=K5.double())
+    c = torch.zeros(5, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        vdp.viterbi_banded_forward(A, d0[0], em[0], c.long(), c, 1)
+    with pytest.raises(ValueError, match="centers"):
+        vdp.viterbi_banded_forward(A, d0[0], em[0], c[:4], c[:4], 1)
+    with pytest.raises(ValueError, match="T >= 1"):
+        vdp.viterbi_banded_forward(A, d0[0], em[0, :0], c[:0], c[:0], 1)
+
+
+# ---------------------------------------------------------------------------
+# constraint-masked forward kernel and banded decode
+# ---------------------------------------------------------------------------
+
+def _penalty(g, shape, p_masked):
+    """A {0, NEG_INF} float32 penalty with about p_masked of it masked."""
+    return np.where(g.random(shape) < p_masked, np.float32(-1.0e9),
+                    np.float32(0.0)).astype(np.float32)
+
+
+@pytest.mark.parametrize("masks", ["t", "s", "ts"])
+@pytest.mark.parametrize("K", [128, 100])
+def test_viterbi_forward_batch_masked_matches_jax(K, masks):
+    """K = 128 runs JAX's Pallas masked kernel (interpret), K = 100 its ref
+    fallback.  Ragged lengths include 1 and 0 (pad steps ignore smask)."""
+    B, T = 4, 20
+    g = np.random.default_rng(K + len(masks))
+    A, em, d0 = _normal(K + 7, (K, K), (B, T, K), (B, K))
+    tmask = _penalty(g, (K, K), 0.6) if "t" in masks else None
+    smask = _penalty(g, (T, K), 0.5) if "s" in masks else None
+    lengths = [T, 7, 1, 0]
+    psi, dT = ops.viterbi_forward_batch_masked(
+        _t(A), _t(em), _t(d0), lengths, tmask=tmask, smask=smask)
+    psi_j, dT_j = jops.viterbi_forward_batch_masked(
+        A, em, d0, jnp.asarray(lengths), tmask=tmask, smask=smask)
+    assert _eq(psi, psi_j) and _eq(dT, dT_j)
+    pad = torch.arange(T)[None, :] >= torch.tensor(lengths)[:, None]
+    psi_r, dT_r = ref.viterbi_forward_masked_pen_ref(
+        _t(A), _t(em), _t(d0), pad, None if tmask is None else _t(tmask),
+        None if smask is None else _t(smask))
+    assert torch.equal(psi, psi_r) and torch.equal(dT, dT_r)
+    # the same bits as the unmasked pass over pre-masked operands
+    A2 = A if tmask is None else A + tmask
+    em2 = em if smask is None else em + smask[None]
+    psi_p, dT_p = ops.viterbi_forward_batch(_t(A2), _t(em2), _t(d0), lengths)
+    assert torch.equal(psi, psi_p) and torch.equal(dT, dT_p)
+
+
+def test_viterbi_forward_batch_masked_empty_T():
+    K = 16
+    A, em, d0 = _normal(4, (K, K), (2, 0, K), (2, K))
+    psi, dT = ops.viterbi_forward_batch_masked(_t(A), _t(em), _t(d0),
+                                               tmask=np.zeros((K, K),
+                                                              np.float32))
+    assert psi.shape == (2, 0, K) and torch.equal(dT, _t(d0))
+
+
+@pytest.mark.parametrize("case", ["clipped_low", "clipped_high", "middle",
+                                  "T1", "width0", "wide"])
+def test_viterbi_decode_banded_matches_jax(case):
+    """Bands clipped at state 0 and at K-1, a single step, a zero width and
+    a band wider than K, against JAX's windowed scan and the dense oracle."""
+    from repro_torch.core import BandConstraint, constrain_inputs
+    K = 40
+    T = 1 if case == "T1" else 30
+    hmm, (lp, la) = _hmm(21, K, edge_prob=1.0)
+    em = random_emissions(np.random.default_rng(21), T, K, device=CPU)
+    g = np.random.default_rng(22)
+    width = {"width0": 0, "wide": 30}.get(case, 5)
+    centers = {
+        "clipped_low": g.integers(-4, 4, size=T),
+        "clipped_high": g.integers(K - 4, K + 4, size=T),
+    }.get(case, g.integers(0, K, size=T))
+    centers = tuple(int(c) for c in centers)
+    p, s = ops.viterbi_decode_banded(hmm.log_pi, hmm.log_A, em, centers,
+                                     width=width)
+    assert p.dtype == torch.int32 and p.shape == (T,)
+    p_j, s_j = jops.viterbi_decode_banded(lp, la, em.numpy(), centers,
+                                          width=width)
+    assert _eq(p, p_j) and float(s) == float(s_j)
+    band = BandConstraint(centers=tuple(max(c, 0) for c in centers),
+                          width=width)
+    p_o, s_o = viterbi_vanilla(*constrain_inputs(band, hmm.log_pi, hmm.log_A,
+                                                 em))
+    assert torch.equal(p, p_o) and float(s) == float(s_o)
+    with pytest.raises(ValueError, match="horizon"):
+        ops.viterbi_decode_banded(hmm.log_pi, hmm.log_A, em, centers[:T - 1],
+                                  width=width)
+
+
+def test_viterbi_decode_fused_masked_matches_jax():
+    K, T = 128, 17
+    hmm, (lp, la) = _hmm(8, K, edge_prob=1.0)
+    em = random_emissions(np.random.default_rng(8), T, K, device=CPU)
+    g = np.random.default_rng(9)
+    t_pen = _penalty(g, (K, K), 0.7)
+    pi_pen = _penalty(g, (K,), 0.5)
+    s_pen = _penalty(g, (T, K), 0.3)
+    p, s = ops.viterbi_decode_fused_masked(hmm.log_pi, hmm.log_A, em,
+                                           t_pen=t_pen, pi_pen=pi_pen,
+                                           s_pen=s_pen)
+    p_j, s_j = jops.viterbi_decode_fused_masked(lp, la, em.numpy(),
+                                                t_pen=t_pen, pi_pen=pi_pen,
+                                                s_pen=s_pen)
+    assert _eq(p, p_j) and float(s) == float(s_j)
+    p1, s1 = ops.viterbi_decode_fused_masked(hmm.log_pi, hmm.log_A, em[:1],
+                                             s_pen=s_pen[:1])
+    p1_j, s1_j = jops.viterbi_decode_fused_masked(lp, la, em.numpy()[:1],
+                                                  s_pen=s_pen[:1])
+    assert _eq(p1, p1_j) and float(s1) == float(s1_j)

@@ -13,11 +13,13 @@ import torch
 
 from repro.core import FusedSpec as JFused, left_to_right_hmm as j_l2r
 from repro.serving.alignment import make_alignment_head as j_head
+from repro.serving.alignment import make_lexicon_align_head as j_lex_head
 from repro.serving.scheduler import BatchScheduler as JScheduler
-from repro_torch.core import HMM, FusedSpec, VanillaSpec, ViterbiDecoder
+from repro_torch.core import (HMM, FusedSpec, LexiconConstraint, VanillaSpec,
+                              ViterbiDecoder, as_decode_spec, with_constraint)
 from repro_torch.launch import serve
 from repro_torch.serving import (AlignmentConfig, BatchScheduler,
-                                 make_alignment_head)
+                                 make_alignment_head, make_lexicon_align_head)
 
 K = 16
 
@@ -75,6 +77,38 @@ def test_alignment_head_default_is_fused_and_unported_raise():
         AlignmentConfig("fused", beam_width=8)
     with pytest.raises(NotImplementedError, match="item 4"):
         AlignmentConfig("flash_bs").to_spec()
+
+
+#: the serve lexicon's shape at K = 16: word w is the chain (4w .. 4w+3)
+WORDS = tuple(((4 * w, 4 * w + 1, 4 * w + 2, 4 * w + 3),)
+              for w in range(K // 4))
+
+
+@pytest.mark.parametrize("cfg", [None, FusedSpec(), VanillaSpec(),
+                                 AlignmentConfig("vanilla")])
+def test_lexicon_align_head_matches_jax(served, cfg):
+    """The scheduler-driven lexicon head against JAX's fused lexicon head on
+    the same requests (the JAX default profile is FLASH-BS, not ported, so
+    the JAX side is given FusedSpec; both exact methods decode alike)."""
+    _, reqs, hmm = served
+    jlp, jla = (np.asarray(hmm.log_pi), np.asarray(hmm.log_A))
+    jhead = j_lex_head(jlp, jla, WORDS, cfg=JFused())
+    jsched = JScheduler(jhead, max_batch=3, buckets=(16, 32))
+    for em in reqs:
+        jsched.submit(em)
+    done_j = {r.rid: r.result for r in jsched.drain()}
+
+    head = make_lexicon_align_head(hmm.log_pi, hmm.log_A, WORDS, cfg=cfg,
+                                   device="cpu")
+    base = as_decode_spec(AlignmentConfig() if cfg is None else cfg)
+    assert head.decoder.spec == with_constraint(base, head.constraint)
+    assert isinstance(head.constraint, LexiconConstraint)
+    done, _ = _serve(head, reqs)
+    assert done.keys() == done_j.keys()
+    for rid, (path, score) in done.items():
+        assert np.array_equal(path, done_j[rid][0]), rid
+        assert score == done_j[rid][1], rid
+        assert np.isin(path, np.arange(K)).all()
 
 
 @pytest.mark.parametrize("method", ["fused", "vanilla"])
