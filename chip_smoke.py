@@ -6,7 +6,8 @@ Needs one CUDA card, nvcc and the checkout's `src/repro_torch`; imports
 nothing of JAX or of the JAX package.  Phases, each fatal on failure:
 
   0. build every kernel from `src/repro_torch/kernels/csrc` with nvcc for
-     sm_90a and print ptxas's register / spill report;
+     sm_90a (one nvcc per source, all started together) and print ptxas's
+     register / spill report;
   1. hold the forward and backtrack kernels against their plain PyTorch
      versions on the card, bitwise (`torch.equal`) at the serve shapes
      (B, T, K) = (8, 511, 512) on a left-to-right HMM with ragged lengths
@@ -18,7 +19,15 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      the band's smask, K in {100, 384, 1500} with each mask alone and both,
      and the banded kernel at the map-matching shape and on a band clipped
      at both ends of the state range;
-  2. serve the default 32 requests at K = 512 through
+  1c. hold the beam kernel and the tropical kernel against their plain
+     versions, bitwise: `ops.beam_step` at the four shapes of
+     tests/test_kernels.py, `beam_step_batch` at the serve's (N, K, B,
+     chunk) = (8, 512, 128, 128) and (2048, 512, 128, 128), at chunk = K =
+     B = 512, and over 16 chained left-to-right steps from a one-hot beam;
+     `ops.tropical_matmul` at the five shapes of tests/test_kernels.py in
+     float32 and bfloat16 (values and argmax), the batched kernel at (256,
+     64, 64, 64);
+  2. serve the 32 requests at K = 512 with ``--method fused`` through
      `repro_torch.launch.serve.main`, with the launch counters set to 0 just
      before and read just after: the forward and backtrack kernels must have
      launched once per batch and the other kernels never, and every served
@@ -34,11 +43,32 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      (one masked-kernel launch) and one trajectory through
      `FusedSpec(constraint=band).run` (one banded-kernel launch), each
      bitwise equal to the dense oracle;
+  6. serve the default 32 requests (FLASH-BS, beam 128, P = 8) through
+     `serve.main`: the beam kernel launched once per beam transition, as
+     many times as `plan_padding` predicts, every other kernel never; 8
+     sampled requests (one per bucket at least) bitwise equal to
+     `flash_bs_viterbi` on the CPU; the relative error against
+     `viterbi_vanilla` printed;
+  7. the same 32 requests through the default (FLASH-BS) lexicon head: the
+     beam launches counted, 3 sampled requests bitwise equal to the same
+     spec run on the CPU;
+  8. the paper's default workload (Erdos-Renyi, K = 512, p = 0.253) at
+     (B, T) = (8, 511): `flash` (P = 8), `flash_bs` (beam K), `checkpoint`,
+     `beam_static` (B = K) and `beam_static_mp` (beam K), each path bitwise
+     equal to `viterbi_vanilla` with relative error 0; `assoc` at (T, K) =
+     (4096, 64) on the tropical kernel, its path equal and its score within
+     1e-5 relative (the scan groups the adds as a tree; the rtol of
+     tests/test_core_viterbi.py), and bitwise equal to the same decode on
+     the CPU; `serve.main` with
+     ``--budget-kb`` 1024 (an exact FLASH rung) and 32 (a beam rung);
   3. time each kernel and its plain version with CUDA events: the forward
      and backtrack kernels at the serve shapes (B = 8, T in {128, 256, 512},
      K = 512), the masked kernel at (8, 511, 512) with both masks and at
      (8, 511, 1024) with smask alone, the banded kernel at the map-matching
-     shape.
+     shape, the beam kernel at (N, K, B, chunk) = (8, 512, 128, 128) and
+     (2048, 512, 128, 128), the tropical kernel at (N, I, K, J) = (1, 512,
+     512, 512) and (256, 64, 64, 64); and the FLASH-BS serve's drain of the
+     32 requests on the host clock, twice, with its beam launches.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no
@@ -401,13 +431,13 @@ def phase_serve(dev) -> dict[str, int]:
     from repro_torch.core import (left_to_right_hmm, relative_error,
                                   viterbi_vanilla)
     from repro_torch.core.reference import viterbi_numpy
-    from repro_torch.kernels import viterbi_dp as vdp
+    from repro_torch import kernels
     from repro_torch.launch import serve
 
-    vdp.reset_launches()
+    kernels.reset_launches()
     done = serve.main(["--method", "fused", "--device", "cuda"])
     torch.cuda.synchronize()
-    launches = dict(vdp.launches)
+    launches = kernels.launch_counts()
 
     formed = expected_batches(done)
     batches = len(formed)
@@ -454,24 +484,25 @@ def serve_requests(n: int = 32, seed: int = 0) -> list[np.ndarray]:
 
 
 def phase_lexicon(dev) -> dict[str, int]:
-    from repro_torch.core import (constrain_inputs, left_to_right_hmm,
-                                  viterbi_vanilla)
+    from repro_torch import kernels
+    from repro_torch.core import (FusedSpec, constrain_inputs,
+                                  left_to_right_hmm, viterbi_vanilla)
     from repro_torch.core.reference import viterbi_numpy
-    from repro_torch.kernels import viterbi_dp as vdp
     from repro_torch.launch.serve import BUCKETS
     from repro_torch.serving import BatchScheduler, make_lexicon_align_head
 
     hmm = left_to_right_hmm(np.random.default_rng(0), SERVE_K, 64, device=dev)
-    head = make_lexicon_align_head(hmm.log_pi, hmm.log_A, LEXICON)
+    head = make_lexicon_align_head(hmm.log_pi, hmm.log_A, LEXICON,
+                                   cfg=FusedSpec())
     sched = BatchScheduler(head, max_batch=SERVE_B, buckets=BUCKETS)
     for em in serve_requests():
         sched.submit(em)
-    vdp.reset_launches()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     done = sched.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(vdp.launches)
+    launches = kernels.launch_counts()
 
     formed = expected_batches(done)
     print(f"lexicon serve: {len(done)} requests in {wall:.4f} s on the host "
@@ -505,10 +536,10 @@ def phase_lexicon(dev) -> dict[str, int]:
 
 
 def phase_map_matching(dev) -> dict[str, int]:
+    from repro_torch import kernels
     from repro_torch.core import (FusedSpec, ViterbiDecoder,
                                   banded_state_bytes, constrain_inputs,
                                   viterbi_vanilla)
-    from repro_torch.kernels import viterbi_dp as vdp
 
     log_pi, log_A, em, truth, band = grid_problem(dev)
     B, T, K = em.shape
@@ -520,10 +551,10 @@ def phase_map_matching(dev) -> dict[str, int]:
 
     # (a) ragged batch of sensors: one masked-kernel launch
     dec = ViterbiDecoder(spec, log_pi, log_A)
-    vdp.reset_launches()
+    kernels.reset_launches()
     paths, scores = dec.decode_batch(em, lengths)
     torch.cuda.synchronize()
-    batch_launches = dict(vdp.launches)
+    batch_launches = kernels.launch_counts()
     print(f"map matching batch: (B,T,K)=({B},{T},{K}), lengths "
           f"{lengths.tolist()}, launches {batch_launches}")
     check_launches("map matching batch", batch_launches, 1,
@@ -536,10 +567,10 @@ def phase_map_matching(dev) -> dict[str, int]:
                              f"dense oracle")
 
     # (b) one trajectory: the band covers the horizon, one banded launch
-    vdp.reset_launches()
+    kernels.reset_launches()
     path, score = spec.run(log_pi, log_A, em[0])
     torch.cuda.synchronize()
-    run_launches = dict(vdp.launches)
+    run_launches = kernels.launch_counts()
     print(f"map matching trajectory: (T,K,width)=({T},{K},{band.width}), "
           f"launches {run_launches}")
     check_launches("map matching trajectory", run_launches, 1,
@@ -557,6 +588,337 @@ def phase_map_matching(dev) -> dict[str, int]:
           f"banded {banded_state_bytes(K, T, band.width):,} vs dense + mask "
           f"{dense:,}")
     return {n: batch_launches[n] + run_launches[n] for n in batch_launches}
+
+
+def beam_bound(log_A, scores, states, chunk: int):
+    """The log_A rows the beams gather (each distinct row once), em, scores,
+    states and the three outputs once; two adds and a compare per candidate
+    and one compare per entry of each chunk merge."""
+    N, B = scores.shape
+    K = log_A.shape[0]
+    rows = int(torch.unique(states).numel())
+    nbytes = 4 * (rows * K + N * K + 2 * N * B + 3 * N * B)
+    return bound_ms(nbytes, 3.0 * N * B * K + N * (K // chunk) * (B + chunk))
+
+
+def tropical_bound(a, b):
+    """A and B once, vals and args written once; an add and a compare per
+    (n, i, j, k)."""
+    N, I, K = a.shape
+    J = b.shape[2]
+    nbytes = a.element_size() * (N * I * K + N * K * J + N * I * J) \
+        + 4 * N * I * J
+    return bound_ms(nbytes, 2.0 * N * I * J * K)
+
+
+def beam_launches(bucket: int, P: int = 8) -> int:
+    """Beam-kernel launches of one FLASH-BS batch of padded length `bucket`
+    with whole layers at once: the initial pass's Tp - 1 steps, then s - 1
+    steps for each layer of tiles of length s = Tp/P, ..., 2."""
+    from repro_torch.core import plan_padding
+    Tp, _ = plan_padding(bucket, P)
+    n, s = Tp - 1, Tp // P
+    while s >= 2:
+        n += s - 1
+        s //= 2
+    return n
+
+
+def beam_case(dev, g, N: int, K: int, B: int):
+    """A (K, K) log_A, strided (N, K) emissions and N beams of B distinct
+    states with normal scores."""
+    log_A = torch.from_numpy(g.standard_normal((K, K)).astype(np.float32))
+    em = torch.from_numpy(g.standard_normal((N, 2, K)).astype(np.float32))
+    scores = torch.from_numpy(g.standard_normal((N, B)).astype(np.float32))
+    states = torch.from_numpy(np.stack(
+        [g.permutation(K)[:B] for _ in range(N)]).astype(np.int32))
+    return (log_A.to(dev), em.to(dev)[:, 1], scores.to(dev), states.to(dev))
+
+
+def check_same(what: str, out, ref_out) -> float:
+    """Kernel outputs vs the plain version's, bitwise; returns the max
+    |difference| of the first (value) output."""
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(out, ref_out)):
+        raise SystemExit(f"FAIL {what}: kernel != plain version")
+    print(f"{what}: kernel == plain (bitwise)")
+    return float((out[0].float() - ref_out[0].float()).abs().max())
+
+
+def phase_beam_tropical_kernels(dev) -> dict[str, float]:
+    """1c: the beam and tropical kernels against their plain versions on the
+    card, bitwise."""
+    from repro_torch.core import left_to_right_hmm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.beam_stream import beam_step_batch
+    from repro_torch.kernels.ops import _pad_to
+    from repro_torch.kernels.tropical import tropical_matmul_batch
+
+    err = {"beam_step_batch": 0.0, "tropical_matmul_batch": 0.0}
+    g = np.random.default_rng(5)
+
+    def beam(what, out, ref_out):
+        err["beam_step_batch"] = max(err["beam_step_batch"],
+                                     check_same(what, out, ref_out))
+
+    # ops.beam_step at the shapes of tests/test_kernels.py::test_beam_step_kernel
+    for K, B, chunk in ((512, 64, 128), (300, 32, 128), (128, 128, 128),
+                        (256, 16, 64)):
+        A, em, sc, st = beam_case(dev, g, 1, K, B)
+        out = ops.beam_step(A, em[0], sc[0], st[0], chunk=chunk)
+        c = min(chunk, -(-K // 128) * 128)
+        Ap = _pad_to(_pad_to(A, 0, c, -4e9), 1, c, -4e9)
+        ref_out = ref.beam_transition_ref(Ap, _pad_to(em, 1, c, -4e9), sc, st,
+                                          c)
+        beam(f"beam_step (K,B,chunk)=({K},{B},{chunk})", out,
+             [x[0] for x in ref_out])
+    # the serve shapes: the initial pass (8 beams), the last layer (2048),
+    # and chunk = K = B, the beam_static_mp and full-beam case
+    for N, K, B, C in ((8, 512, 128, 128), (2048, 512, 128, 128),
+                       (8, 512, 512, 512)):
+        A, em, sc, st = beam_case(dev, g, N, K, B)
+        beam(f"beam_step_batch (N,K,B,chunk)=({N},{K},{B},{C})",
+             beam_step_batch(A, em, sc, st, C),
+             ref.beam_transition_ref(A, em, sc, st, C))
+    # 16 chained steps of a left-to-right beam from a one-hot beam: the
+    # sentinel slots and NEG_INF ties decide the merge order
+    N, K, B = 8, 512, 128
+    A = left_to_right_hmm(g, K, 64, device=dev).log_A
+    sc = torch.full((N, B), -4e9, device=dev)
+    sc[:, 0] = 0.0
+    st = torch.zeros((N, B), dtype=torch.int32, device=dev)
+    sc_r, st_r = sc, st
+    for t in range(16):
+        em = torch.from_numpy(
+            (2.0 * g.standard_normal((N, K))).astype(np.float32)).to(dev)
+        sc, st, f = beam_step_batch(A, em, sc, st, 128)
+        sc_r, st_r, f_r = ref.beam_transition_ref(A, em, sc_r, st_r, 128)
+        torch.cuda.synchronize()
+        if not (torch.equal(sc, sc_r) and torch.equal(st, st_r)
+                and torch.equal(f, f_r)):
+            raise SystemExit(f"FAIL beam_step_batch left-to-right chain: "
+                             f"step {t} != plain version")
+    print(f"beam_step_batch: 16 chained left-to-right steps (N,K,B)=({N},{K},"
+          f"{B}) == plain (bitwise); {int((sc <= -1e9).sum())} of {N * B} "
+          f"slots at NEG_INF sums")
+
+    # tropical: the shapes of tests/test_kernels.py::test_tropical_matmul
+    for I, K, J in ((8, 16, 128), (64, 128, 256), (37, 100, 200),
+                    (1, 512, 512), (128, 64, 384)):
+        for dt in (torch.float32, torch.bfloat16):
+            a = torch.from_numpy(g.standard_normal((I, K)).astype(
+                np.float32)).to(dev, dt)
+            b = torch.from_numpy(g.standard_normal((K, J)).astype(
+                np.float32)).to(dev, dt)
+            e = check_same(f"tropical_matmul {str(dt)[6:]} (I,K,J)=({I},{K},"
+                           f"{J})", ops.tropical_matmul(a, b),
+                           ref.tropical_matmul_ref(a, b))
+            err["tropical_matmul_batch"] = max(err["tropical_matmul_batch"], e)
+    a, b = (torch.from_numpy(g.standard_normal((256, 64, 64)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    e = check_same("tropical_matmul_batch (N,I,K,J)=(256,64,64,64)",
+                   tropical_matmul_batch(a, b), ref.tropical_matmul_ref(a, b))
+    err["tropical_matmul_batch"] = max(err["tropical_matmul_batch"], e)
+    return err
+
+
+def flash_bs_sample(done, n: int = 8):
+    """n served requests, the first of each bucket among them."""
+    from repro_torch.launch.serve import BUCKETS
+    first = {}
+    for r in done:
+        first.setdefault(next(b for b in BUCKETS if len(r.payload) <= b), r)
+    picked = list(first.values())
+    ids = {r.rid for r in picked}
+    return picked + [r for r in done if r.rid not in ids][:n - len(picked)]
+
+
+def phase_flash_bs_serve(dev) -> dict[str, int]:
+    """6: the default serve (FLASH-BS, beam 128, P = 8) on the beam kernel."""
+    from repro_torch import kernels
+    from repro_torch.core import (flash_bs_viterbi, left_to_right_hmm,
+                                  relative_error, viterbi_vanilla)
+    from repro_torch.launch import serve
+
+    kernels.reset_launches()
+    done = serve.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    formed = expected_batches(done)
+    predicted = sum(beam_launches(b) for b, _ in formed)
+    print(f"flash_bs serve: {len(done)} requests, {len(formed)} batches "
+          f"(bucket x requests: {', '.join(f'{b} x {n}' for b, n in formed)}),"
+          f" {predicted} beam launches predicted, launches {launches}")
+    if len(done) != 32 or len(formed) != 5:
+        raise SystemExit(f"FAIL flash_bs serve: {len(done)} of 32 requests "
+                         f"in {len(formed)} batches")
+    check_launches("flash_bs serve", launches, predicted, ("beam_step_batch",))
+
+    hmm = left_to_right_hmm(np.random.default_rng(0), SERVE_K, 64, device=dev)
+    lp, la = hmm.log_pi.cpu(), hmm.log_A.cpu()
+    sample = flash_bs_sample(done)
+    for r in sample:
+        p, s = flash_bs_viterbi(lp, la, torch.from_numpy(r.payload),
+                                beam_width=128, parallelism=8, lanes=None,
+                                chunk=128)
+        if not (np.array_equal(r.result[0], p.numpy())
+                and np.float32(r.result[1]) == np.float32(float(s))):
+            raise SystemExit(f"FAIL flash_bs serve: request {r.rid} (T = "
+                             f"{len(r.payload)}) != flash_bs_viterbi on the "
+                             f"CPU")
+    errs = []
+    for r in done:
+        _, opt = viterbi_vanilla(hmm.log_pi, hmm.log_A,
+                                 torch.from_numpy(r.payload).to(dev))
+        errs.append(float(relative_error(float(opt), r.result[1])))
+    print(f"flash_bs serve: {len(sample)} sampled requests (T = "
+          f"{sorted(len(r.payload) for r in sample)}) == flash_bs_viterbi on "
+          f"the CPU (bitwise)")
+    print(f"relative error vs exact (all 32): mean={np.mean(errs):.2e} "
+          f"max={np.max(errs):.2e}")
+    return launches
+
+
+def phase_flash_bs_lexicon(dev) -> dict[str, int]:
+    """7: the lexicon serve under the default (FLASH-BS) head."""
+    from repro_torch import kernels
+    from repro_torch.core import (constrain_inputs, left_to_right_hmm,
+                                  relative_error, viterbi_vanilla)
+    from repro_torch.launch.serve import BUCKETS
+    from repro_torch.serving import BatchScheduler, make_lexicon_align_head
+
+    hmm = left_to_right_hmm(np.random.default_rng(0), SERVE_K, 64, device=dev)
+    head = make_lexicon_align_head(hmm.log_pi, hmm.log_A, LEXICON)
+    sched = BatchScheduler(head, max_batch=SERVE_B, buckets=BUCKETS)
+    for em in serve_requests():
+        sched.submit(em)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    done = sched.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    formed = expected_batches(done)
+    predicted = sum(beam_launches(b) for b, _ in formed)
+    spec = head.decoder.spec
+    print(f"flash_bs lexicon serve ({type(spec).__name__}, beam "
+          f"{spec.beam_width}, P = {spec.parallelism}, {len(LEXICON)} words): "
+          f"{len(done)} requests in {wall:.4f} s on the host clock, "
+          f"{len(formed)} batches, {predicted} beam launches predicted, "
+          f"launches {launches}")
+    if len(done) != 32:
+        raise SystemExit(f"FAIL flash_bs lexicon serve: {len(done)} of 32")
+    check_launches("flash_bs lexicon serve", launches, predicted,
+                   ("beam_step_batch",))
+    lp, la = hmm.log_pi.cpu(), hmm.log_A.cpu()
+    for r in flash_bs_sample(done, 3):
+        p, s = spec.run(lp, la, torch.from_numpy(r.payload))
+        if not (np.array_equal(r.result[0], p.numpy())
+                and np.float32(r.result[1]) == np.float32(float(s))):
+            raise SystemExit(f"FAIL flash_bs lexicon serve: request {r.rid} "
+                             f"!= the same spec on the CPU")
+    errs = []
+    for r in done:
+        _, opt = viterbi_vanilla(*constrain_inputs(
+            head.constraint, hmm.log_pi, hmm.log_A,
+            torch.from_numpy(r.payload).to(dev)))
+        errs.append(float(relative_error(float(opt), r.result[1])))
+    print(f"flash_bs lexicon serve: 3 sampled == the CPU run (bitwise); "
+          f"relative error vs exact (all 32): mean={np.mean(errs):.2e} "
+          f"max={np.max(errs):.2e}")
+    return launches
+
+
+def phase_paper_workload(dev) -> dict[str, int]:
+    """8: the paper's algorithms at full width on its default workload."""
+    from repro_torch import kernels
+    from repro_torch.core import (AssocSpec, BeamStaticMPSpec, BeamStaticSpec,
+                                  CheckpointSpec, FlashBSSpec, FlashSpec,
+                                  ViterbiDecoder, erdos_renyi_hmm,
+                                  random_emissions, relative_error,
+                                  viterbi_vanilla)
+    from repro_torch.launch import serve
+
+    g = np.random.default_rng(11)
+    B, T, K = SERVE_B, 511, SERVE_K
+    hmm = erdos_renyi_hmm(g, K, 50, 0.253, device=dev)
+    em = random_emissions(g, B * T, K, device=dev).reshape(B, T, K)
+    exact = [viterbi_vanilla(hmm.log_pi, hmm.log_A, e) for e in em]
+    total = {name: 0 for name in kernels.launch_counts()}
+
+    def held(what, spec, paths, scores, launches):
+        for i in range(len(paths)):
+            p_v, s_v = exact[i]
+            err = float(relative_error(float(s_v), float(scores[i])))
+            if not torch.equal(paths[i], p_v) or err != 0.0:
+                raise SystemExit(f"FAIL paper workload {what}: sequence {i} "
+                                 f"!= viterbi_vanilla (relative error {err})")
+        for name, n in launches.items():
+            total[name] += n
+        print(f"paper workload {what} {spec!r}: {len(paths)} paths == "
+              f"viterbi_vanilla, relative error 0; launches "
+              f"{ {n: v for n, v in launches.items() if v} }")
+
+    batched = (("flash", FlashSpec(parallelism=8)),
+               ("flash_bs", FlashBSSpec(beam_width=K)))
+    single = (("checkpoint", CheckpointSpec()),
+              ("beam_static", BeamStaticSpec(beam_width=K)),
+              ("beam_static_mp", BeamStaticMPSpec(beam_width=K)))
+    for what, spec in batched + single:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if spec.batch_method is not None:
+            paths, scores = ViterbiDecoder(spec, hmm.log_pi, hmm.log_A
+                                           ).decode_batch(em)
+        else:
+            out = [spec.run(hmm.log_pi, hmm.log_A, e) for e in em]
+            paths, scores = [p for p, _ in out], [s for _, s in out]
+        torch.cuda.synchronize()
+        print(f"paper workload {what}: (B,T,K)=({B},{T},{K}) in "
+              f"{time.perf_counter() - t0:.4f} s on the host clock")
+        held(what, spec, paths, scores, kernels.launch_counts())
+    if total["beam_step_batch"] == 0:
+        raise SystemExit("FAIL paper workload: the beam kernel never ran")
+
+    # assoc at (T, K) = (4096, 64): T * K^2 * 4 = 67 MB of prefix products
+    Ta, Ka = 4096, 64
+    hmm_a = erdos_renyi_hmm(g, Ka, 50, 0.253, device=dev)
+    em_a = random_emissions(g, Ta, Ka, device=dev)
+    kernels.reset_launches()
+    p, s = AssocSpec().run(hmm_a.log_pi, hmm_a.log_A, em_a)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    p_v, s_v = viterbi_vanilla(hmm_a.log_pi, hmm_a.log_A, em_a)
+    err = float(relative_error(float(s_v), float(s)))
+    # the scan groups the adds as a tree, so the score may round apart from
+    # the sequential DP's: held to tests/test_core_viterbi.py's rtol 1e-5
+    if not torch.equal(p, p_v) or err > 1e-5:
+        raise SystemExit(f"FAIL paper workload assoc: path or score != "
+                         f"viterbi_vanilla (relative error {err})")
+    p_c, s_c = AssocSpec().run(hmm_a.log_pi.cpu(), hmm_a.log_A.cpu(),
+                               em_a.cpu())
+    if not (torch.equal(p.cpu(), p_c) and float(s) == float(s_c)):
+        raise SystemExit("FAIL paper workload assoc: card != the CPU run")
+    for name, n in launches.items():
+        total[name] += n
+    print(f"paper workload assoc (T,K)=({Ta},{Ka}): path == viterbi_vanilla, "
+          f"relative error {err:.3e} (rtol 1e-5: the scan groups the adds as "
+          f"a tree); path and score == the CPU run (bitwise); launches "
+          f"{ {n: v for n, v in launches.items() if v} }")
+    if launches["tropical_matmul_batch"] == 0:
+        raise SystemExit("FAIL paper workload: the tropical kernel never ran")
+
+    # the planner in the serve: an exact FLASH rung and a beam rung
+    for kb in ("1024", "32"):
+        kernels.reset_launches()
+        serve.main(["--device", "cuda", "--budget-kb", kb])
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        for name, n in launches.items():
+            total[name] += n
+        print(f"budget serve {kb} KiB: launches "
+              f"{ {n: v for n, v in launches.items() if v} }")
+    return total
 
 
 def phase_timing(dev, card: str) -> dict[str, dict]:
@@ -638,6 +1000,59 @@ def phase_timing(dev, card: str) -> dict[str, dict]:
           f"{card}")
     rows["viterbi_banded_fwd"] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
                                       bound_by=by)
+
+    # the beam kernel at the FLASH-BS serve's widths: the initial pass of a
+    # batch (8 beams) and the last layer of a 512 bucket (2048 beams); the
+    # kernels line keeps the last layer
+    from repro_torch.kernels.beam_stream import beam_step_batch
+    from repro_torch.kernels.tropical import tropical_matmul_batch
+    for N in (8, 2048):
+        A, e, sc, st = beam_case(dev, g, N, SERVE_K, 128)
+        ms = cuda_ms(lambda: beam_step_batch(A, e, sc, st, 128), reps=20)
+        plain = cuda_ms(lambda: ref.beam_transition_ref(A, e, sc, st, 128),
+                        reps=3)
+        bms, by = beam_bound(A, sc, st, 128)
+        print(f"timing beam_step_batch (N,K,B,chunk)=({N},{SERVE_K},128,128):"
+              f" kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.6f} ms "
+              f"({by}); {card}")
+        rows["beam_step_batch"] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
+                                       bound_by=by)
+    # the tropical kernel: one level of the assoc scan at K = 64 and one
+    # K = 512 product; the kernels line keeps the scan level
+    for N, K in ((1, 512), (256, 64)):
+        a, b = (torch.from_numpy(g.standard_normal((N, K, K)).astype(
+            np.float32)).to(dev) for _ in range(2))
+        ms = cuda_ms(lambda: tropical_matmul_batch(a, b), reps=10)
+        plain = cuda_ms(lambda: ref.tropical_matmul_ref(a, b), reps=3)
+        bms, by = tropical_bound(a, b)
+        print(f"timing tropical_matmul_batch (N,I,K,J)=({N},{K},{K},{K}): "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.6f} ms "
+              f"({by}); {card}")
+        rows["tropical_matmul_batch"] = dict(ms=ms, plain_ms=plain,
+                                             bound_ms=bms, bound_by=by)
+
+    # the FLASH-BS serve's drain of the 32 default requests, host clock
+    from repro_torch import kernels
+    from repro_torch.serving import (AlignmentConfig, BatchScheduler,
+                                     make_alignment_head)
+    from repro_torch.launch.serve import BUCKETS
+    hmm0 = left_to_right_hmm(np.random.default_rng(0), SERVE_K, 64,
+                             device=dev)
+    head = make_alignment_head(hmm0.log_pi, hmm0.log_A, AlignmentConfig())
+    for rep in range(2):
+        sched = BatchScheduler(head, max_batch=SERVE_B, buckets=BUCKETS)
+        for em_r in serve_requests():
+            sched.submit(em_r)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"timing flash_bs serve drain {rep + 1}: 32 requests in "
+              f"{wall:.4f} s on the host clock ({32 / wall:.1f} req/s), "
+              f"{kernels.launch_counts()['beam_step_batch']} beam launches; "
+              f"{card}")
     return rows   # fwd and backtrack at T = 511; masked with both masks
 
 
@@ -663,22 +1078,31 @@ def main() -> int:
 
     errs = phase_kernels(dev)
     errs |= phase_masked_kernels(dev)
+    errs |= phase_beam_tropical_kernels(dev)
     launches = phase_serve(dev)
-    for phase in (phase_lexicon, phase_map_matching):
+    for phase in (phase_lexicon, phase_map_matching, phase_flash_bs_serve,
+                  phase_flash_bs_lexicon, phase_paper_workload):
         for name, n in phase(dev).items():
             launches[name] += n
     timing = phase_timing(dev, card)
 
-    source = "src/repro_torch/kernels/csrc/viterbi_dp.cu"
-    replaces = {"viterbi_fwd_batch": "src/repro/kernels/viterbi_dp.py:45",
-                "viterbi_fwd_batch_masked":
-                    "src/repro/kernels/viterbi_dp.py:120",
-                "viterbi_banded_fwd": "src/repro/kernels/ops.py:360",
-                "viterbi_backtrack_batch": "src/repro/kernels/ops.py:213"}
-    kernels = [dict(name=name, route="cuda", source=source,
-                    replaces=replaces[name], launches=launches[name],
+    csrc = "src/repro_torch/kernels/csrc/"
+    replaces = {
+        "viterbi_fwd_batch": ("viterbi_dp.cu",
+                              "src/repro/kernels/viterbi_dp.py:45"),
+        "viterbi_fwd_batch_masked": ("viterbi_dp.cu",
+                                     "src/repro/kernels/viterbi_dp.py:120"),
+        "viterbi_banded_fwd": ("viterbi_dp.cu", "src/repro/kernels/ops.py:360"),
+        "viterbi_backtrack_batch": ("viterbi_dp.cu",
+                                    "src/repro/kernels/ops.py:213"),
+        "beam_step_batch": ("beam_stream.cu",
+                            "src/repro/kernels/beam_stream.py:60"),
+        "tropical_matmul_batch": ("tropical.cu",
+                                  "src/repro/kernels/tropical.py:30")}
+    kernels = [dict(name=name, route="cuda", source=csrc + src,
+                    replaces=where, launches=launches[name],
                     max_abs_err=errs[name], **timing[name], library_ms=None)
-               for name in replaces]
+               for name, (src, where) in replaces.items()]
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

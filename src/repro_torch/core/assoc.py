@@ -1,0 +1,67 @@
+"""Associative-scan Viterbi over the tropical (max, +) semiring, as in
+`repro.core.assoc` (beyond the paper).
+
+Viterbi's DP recurrence is a chain of matrix products in the (max, +)
+semiring:  delta_t = delta_{t-1} (x) M_t,  M_t[i, j] = log A[i, j] + em[t, j].
+The product is associative, so all prefixes take O(log T) depth at O(K^3 T)
+work and O(T K^2) memory: the small-K, large-T regime.
+
+The combine is the hand-written tropical kernel
+(`kernels.tropical.tropical_matmul_batch`), one launch for all pairs of a
+level.  The scan is a port of `jax.lax.associative_scan`'s recursion (reduce
+adjacent pairs, recurse on the half, combine the evens, interleave): the
+max is exact in any order, but the adds are grouped by that tree, and any
+other tree rounds differently.  The backtrack is plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.tropical import tropical_matmul_batch
+
+
+def _combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(max, +) products of the pairs (a[n], b[n]), one kernel launch."""
+    return tropical_matmul_batch(a.contiguous(), b.contiguous())[0]
+
+
+def associative_scan(fn, elems: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of `elems` along axis 0 with the associative `fn`,
+    grouped exactly as `jax.lax.associative_scan` groups it."""
+    n = elems.shape[0]
+    if n < 2:
+        return elems
+    reduced = fn(elems[0:-1:2], elems[1::2])      # adjacent pairs
+    odd = associative_scan(fn, reduced)
+    if n % 2 == 0:
+        even = fn(odd[:-1], elems[2::2])
+    else:
+        even = fn(odd, elems[2::2])
+    even = torch.cat([elems[:1], even])
+    out = torch.empty_like(elems)
+    out[0::2] = even
+    out[1::2] = odd
+    return out
+
+
+def viterbi_assoc(log_pi, log_A, em):
+    """Exact Viterbi via a tropical associative scan.  O(K^3 T) work,
+    O(log T) depth, O(T K^2) memory.  Returns ((T,) int32 path, score)."""
+    T, K = em.shape
+    Ms = log_A[None, :, :] + em[1:, None, :]                  # (T-1, K, K)
+    F = associative_scan(_combine, Ms)                        # prefix products
+    d0 = log_pi + em[0]
+    deltas_tail = (d0[None, :, None] + F).amax(dim=1)         # (T-1, K)
+    deltas = torch.cat([d0[None], deltas_tail])               # (T, K)
+
+    score, q = deltas[-1].max(dim=0)
+    path = torch.empty((T,), dtype=torch.int32, device=em.device)
+    path[T - 1] = q
+    for t in range(T - 2, -1, -1):
+        q = (deltas[t] + log_A[:, q]).argmax()
+        path[t] = q
+    return path, score
+
+
+__all__ = ["viterbi_assoc"]

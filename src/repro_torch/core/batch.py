@@ -6,15 +6,21 @@ bit-identical to decoding each unpadded sequence alone.  Path entries at
 padded steps repeat the sequence's final decoded state; slice row i to
 [:lengths[i]] for the true path.
 
-Methods ported so far:
-  * ``fused``   -- one forward-kernel launch and one backtrack-kernel launch
-                   for the whole bucket (`kernels.ops.viterbi_decode_fused_batch`);
-                   with ``constraint=``, one masked-forward-kernel launch
-                   (`kernels.ops.viterbi_decode_fused_batch_masked`).
-  * ``vanilla`` -- the masked plain loop per sequence (exact oracle).
+Methods:
+  * ``fused``    -- one forward-kernel launch and one backtrack-kernel launch
+                    for the whole bucket (`kernels.ops.viterbi_decode_fused_batch`);
+                    with ``constraint=``, one masked-forward-kernel launch
+                    (`kernels.ops.viterbi_decode_fused_batch_masked`).
+  * ``vanilla``  -- the masked plain loop per sequence (exact oracle).
+  * ``flash``    -- the FLASH wavefront over the whole bucket at once
+                    (plain PyTorch); ragged masks ride the pad machinery the
+                    algorithm already uses for its P * 2^L padding.
+  * ``flash_bs`` -- the FLASH-BS dynamic beam over the whole bucket: every
+                    beam transition is one beam-kernel launch for all beams
+                    in flight (exact when beam_width >= K).
 
-``flash``, ``flash_bs`` and ``mesh=`` raise `NotImplementedError` naming the
-ROADMAP item that ports them; nothing silently takes another path.
+``mesh=`` raises `NotImplementedError` naming the ROADMAP item that ports
+it; nothing silently takes another path.
 """
 
 from __future__ import annotations
@@ -24,16 +30,14 @@ import torch
 from ..kernels.ops import (viterbi_decode_fused_batch,
                            viterbi_decode_fused_batch_masked)
 from .constraints import compiled_penalties, constrain_inputs
+from .flash import _flash_padded, pad_time, plan_padding
+from .flash_bs import flash_bs_batch
 from .vanilla import viterbi_vanilla_masked
 
 BATCH_METHODS = ("vanilla", "flash", "flash_bs", "fused")
 
 #: what of the JAX package is not ported yet, and the ROADMAP item that ports it
 NOT_PORTED = {
-    m: "ROADMAP Queue 1 item 4 (paper algorithms)"
-    for m in ("checkpoint", "flash", "flash_bs", "beam_static",
-              "beam_static_mp", "assoc")
-} | {
     "online": "ROADMAP Queue 1 item 6 (streaming)",
     "online_beam": "ROADMAP Queue 1 item 6 (streaming)",
     "mesh": "ROADMAP Queue 1 item 8 (distributed)",
@@ -53,13 +57,24 @@ def _validate_lengths(lengths: torch.Tensor, T: int) -> None:
             f"[{int(lengths.min())}, {int(lengths.max())}]")
 
 
-def _vanilla_batch(log_pi, log_A, em, lengths):
-    T = em.shape[1]
-    pad = (torch.arange(T, device=em.device)[None, :]
-           >= lengths.to(em.device)[:, None])
+def _pad_mask(T: int, lengths: torch.Tensor, device) -> torch.Tensor:
+    """(B, T) bool, True where step t >= lengths[b] (a tropical identity)."""
+    return (torch.arange(T, device=device)[None, :]
+            >= lengths.to(device)[:, None])
+
+
+def _vanilla_batch(log_pi, log_A, em, pad):
     out = [viterbi_vanilla_masked(log_pi, log_A, e, p)
            for e, p in zip(em, pad)]
     return (torch.stack([p for p, _ in out]), torch.stack([s for _, s in out]))
+
+
+def _flash_batch(log_pi, log_A, em, pad, P: int, lanes):
+    T = em.shape[1]
+    Tp, _ = plan_padding(T, P)
+    em_p, pad_p = pad_time(em, pad, Tp)
+    q, s = _flash_padded(log_pi, log_A, em_p, pad_p, P, lanes)
+    return q[:, :T].to(torch.int32), s
 
 
 def viterbi_decode_batch(
@@ -69,6 +84,10 @@ def viterbi_decode_batch(
     lengths=None,
     method: str = "fused",
     *,
+    parallelism: int = 8,
+    lanes: int | None = -1,
+    beam_width: int = 128,
+    chunk: int = 128,
     bt: int = 8,
     mesh=None,
     constraint=None,
@@ -83,26 +102,29 @@ def viterbi_decode_batch(
       lengths: optional (B,) int true lengths; None means every sequence is
         full-length.  Every value must lie in [1, T] or a ValueError is
         raised eagerly.  There is no clipping.
-      method: one of ``BATCH_METHODS``; ``vanilla`` and ``fused`` are ported.
+      method: one of ``BATCH_METHODS``.  ``vanilla``, ``fused`` and
+        ``flash`` are exact; ``flash_bs`` is exact when beam_width >= K.
+      parallelism, lanes, beam_width, chunk: as in `flash_viterbi` and
+        `flash_bs_viterbi` (lanes -1 means = parallelism, None the whole
+        layer).
       bt: fused-kernel time-block size (no effect on the card).
       mesh: not ported; a value other than None raises.
       constraint: optional `core.constraints.ConstraintSpec`, shared by the
         whole bucket (per-step schedules index *absolute* step t, so ragged
         tails never reach the later rows).  ``fused`` keeps the inputs dense
-        and fuses the penalty adds into the masked kernel; ``vanilla`` (and
-        T == 1) pre-masks the inputs with `constrain_inputs`.  Both are
-        bit-identical to decoding the pre-masked model.
+        and fuses the penalty adds into the masked kernel; every other
+        method (and T == 1) pre-masks the inputs with `constrain_inputs`.
+        Both are bit-identical to decoding the pre-masked model.
 
     Returns:
       (paths (B, T) int32, scores (B,)): paths[i, :lengths[i]] is the decode
-      of emissions[i, :lengths[i]], bit-identical to the unbatched call;
-      entries past the length repeat the final decoded state.
+      of emissions[i, :lengths[i]], bit-identical to the unbatched call for
+      the exact methods; entries past the length repeat the final decoded
+      state.
     """
     if method not in BATCH_METHODS:
         raise ValueError(
             f"unknown batch method {method!r}; choose from {BATCH_METHODS}")
-    if method in NOT_PORTED:
-        raise not_ported(method)
     if mesh is not None:
         raise not_ported("mesh")
     B, T, K = emissions.shape
@@ -127,7 +149,16 @@ def viterbi_decode_batch(
     if method == "fused":
         return viterbi_decode_fused_batch(log_pi, log_A, emissions, lengths,
                                           bt=bt)
-    return _vanilla_batch(log_pi, log_A, emissions, lengths)
+    pad = _pad_mask(T, lengths, emissions.device)
+    if method == "vanilla":
+        return _vanilla_batch(log_pi, log_A, emissions, pad)
+    P = int(parallelism)
+    if lanes == -1:
+        lanes = P
+    if method == "flash":
+        return _flash_batch(log_pi, log_A, emissions, pad, P, lanes)
+    return flash_bs_batch(log_pi, log_A, emissions, pad, beam_width, P, lanes,
+                          chunk)
 
 
 __all__ = ["viterbi_decode_batch", "BATCH_METHODS"]

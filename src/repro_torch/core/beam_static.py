@@ -1,0 +1,65 @@
+"""Static beam search baselines (SIEVE-BS / SIEVE-BS-Mp analogues, paper
+Sec. II-B), as in `repro.core.beam_static`.
+
+Static beam search scores *all* K successor states at each step and only
+then truncates to the top-B, so its transient memory stays O(K) although
+only B paths survive (the paper's criticism, Sec. V-C-1).
+
+  * `beam_static_viterbi`    -- (T, B) survivor and backpointer tables,
+                                backtracked at the end (SIEVE-BS analogue);
+                                plain PyTorch with a stable top-B.
+  * `beam_static_mp_viterbi` -- FLASH-BS with chunk == K (one chunk = full
+                                materialisation), so it runs on the beam
+                                kernel (SIEVE-BS-Mp analogue).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.ref import top_b
+from . import flash_bs as _fbs
+
+
+def beam_static_viterbi(log_pi, log_A, em, B: int):
+    """Static beam search with full survivor tables. Returns (path, score)."""
+    T, K = em.shape
+    s0 = log_pi + em[0]
+    states = top_b(s0, B)
+    scores = s0[states]
+    states0 = states
+    surv_states, surv_from = [], []
+    for t in range(1, T):
+        # static: materialise the full (B, K) candidate block, then truncate
+        cand = scores[:, None] + log_A[states] + em[t][None, :]   # (B, K)
+        best, from_b = cand.max(dim=0)                          # first slot
+        states = top_b(best, B)
+        scores = best[states]
+        surv_states.append(states)
+        surv_from.append(from_b[states])
+
+    score, slot = scores.max(dim=0)
+    # backtrack through the survivor tables: surv_from[t][b] is the beam slot
+    # at t feeding survivor b at t + 1
+    path = torch.empty((T,), dtype=torch.int32, device=em.device)
+    for t in range(T - 2, -1, -1):
+        path[t + 1] = surv_states[t][slot]
+        slot = surv_from[t][slot]
+    path[0] = states0[slot]
+    return path, score
+
+
+def beam_static_mp_viterbi(log_pi, log_A, em, beam_width: int = 128,
+                           parallelism: int = 8, lanes: int | None = -1):
+    """D&C static beam search: the FLASH wavefront, each step materialising K.
+
+    FLASH-BS with chunk == K, the precise formal difference between static
+    and dynamic beam search in this codebase.
+    """
+    K = em.shape[1]
+    return _fbs.flash_bs_viterbi(
+        log_pi, log_A, em, beam_width=beam_width, parallelism=parallelism,
+        lanes=lanes, chunk=K)
+
+
+__all__ = ["beam_static_viterbi", "beam_static_mp_viterbi"]

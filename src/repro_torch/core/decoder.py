@@ -1,6 +1,6 @@
 """`ViterbiDecoder`: a `DecodeSpec` bound to one HMM, as in `repro.core.decoder`.
 
-    dec = ViterbiDecoder(FusedSpec(), log_pi, log_A)     # on cuda
+    dec = ViterbiDecoder(FlashBSSpec(), log_pi, log_A)   # on cuda
     path,  score  = dec.decode(em)                       # one (T, K) sequence
     paths, scores = dec.decode_batch(ems, lengths=ln)    # ragged (B, T, K)
 
@@ -52,6 +52,11 @@ class ViterbiDecoder:
         tropical-identity steps, so `paths[i, :lengths[i]]` is bit-identical
         to `decode(emissions[i, :lengths[i]])`.
         """
+        if self.spec.batch_method is None:
+            raise ValueError(
+                f"{type(self.spec).__name__} has no batched path; "
+                f"decode_batch needs a spec whose method is in "
+                f"core.batch.BATCH_METHODS")
         return viterbi_decode_batch(
             self._tensor(emissions), self.log_pi, self.log_A, lengths,
             method=self.spec.batch_method, constraint=self.spec.constraint,

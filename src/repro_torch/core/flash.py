@@ -1,0 +1,220 @@
+"""FLASH Viterbi: non-recursive divide-and-conquer decoding (paper Sec. V-A/V-B),
+as in `repro.core.flash`.
+
+  * **Initial pass** over the full (padded) sequence tracks, for every DP
+    state, the state its best path visited at each of the P-1 interior
+    division points.  Backtracking pins the optimal states at all boundaries
+    plus the final step.  O(K^2 T) time, O(PK) space.
+  * **Layer wavefront**: layer ell has Tp/s contiguous tiles of length
+    s = seg0 / 2^(ell-1); every tile's entry and exit states were pinned by
+    earlier layers, and each tile resolves one state, its midpoint.
+  * **Pruning** (Sec. V-B): a tile starting at m != 0 seeds its DP from the
+    pinned entry state only, ``log_A[q*_{m-1}] + em[m]``, so a whole layer
+    is data-parallel.
+
+The JAX package vmaps the tile decode over a layer, `lanes` tiles at a time
+(`chunked_vmap`).  Here the tile decode is written for a leading axis of
+tasks: a layer's tiles of every sequence of a batch run together, `lanes`
+tiles at a time (``None`` = the whole layer, which makes a (tasks, K, K)
+score block a step).  Everything is plain PyTorch: the JAX module holds no
+Pallas kernel.
+
+Sequences are padded to Tp = P * 2^L with tropical-identity steps (stay in
+place, add 0), which leave every delta, backpointer, division state and the
+decoded prefix unchanged.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+# ---------------------------------------------------------------------------
+# Padding
+# ---------------------------------------------------------------------------
+
+
+def plan_padding(T: int, P: int) -> tuple[int, int]:
+    """Return (Tp, L): padded length P * 2^L with seg0 = 2^L >= ceil(T / P)."""
+    seg0 = max(1, math.ceil(T / P))
+    L = max(0, math.ceil(math.log2(seg0)))
+    return P * (1 << L), L
+
+
+def pad_emissions(em: torch.Tensor, Tp: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(em padded with zero rows to Tp steps, (Tp,) bool pad mask)."""
+    T = em.shape[0]
+    em_p = torch.cat([em, em.new_zeros((Tp - T, em.shape[1]))])
+    return em_p, torch.arange(Tp, device=em.device) >= T
+
+
+def pad_time(em: torch.Tensor, pad: torch.Tensor, Tp: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pad a batch (Bt, T, K) with zero rows and its (Bt, T) mask with True
+    up to Tp steps."""
+    Bt, T, K = em.shape
+    em_p = torch.cat([em, em.new_zeros((Bt, Tp - T, K))], dim=1)
+    pad_p = torch.cat([pad, pad.new_ones((Bt, Tp - T))], dim=1)
+    return em_p, pad_p
+
+
+# ---------------------------------------------------------------------------
+# DP steps (leading axis: independent tasks)
+# ---------------------------------------------------------------------------
+
+def _dp_step(log_A, delta, em_t, is_pad):
+    """One Viterbi DP step for each task; pad steps are tropical identities
+    (delta frozen, identity backpointers).  delta, em_t (M, K), is_pad (M,)."""
+    K = log_A.shape[0]
+    best, psi = (delta[:, :, None] + log_A).max(dim=1)   # first src on ties
+    new = best + em_t
+    eye = torch.arange(K, device=delta.device)
+    keep = is_pad[:, None]
+    return torch.where(keep, delta, new), torch.where(keep, eye, psi)
+
+
+def _initial_pass(log_pi, log_A, em, pad, boundaries: np.ndarray):
+    """Full-sequence DP tracking division states at `boundaries` (static).
+
+    em (Bt, Tp, K), pad (Bt, Tp).  Returns (q_bounds (Bt, nb), q_last (Bt,),
+    score (Bt,)).
+    """
+    Bt, Tp, K = em.shape
+    nb = len(boundaries)
+    delta = log_pi + em[:, 0]
+    div = torch.zeros((Bt, K, nb), dtype=torch.long, device=em.device)
+    for t in range(1, Tp):
+        delta, psi = _dp_step(log_A, delta, em[:, t], pad[:, t])
+        if nb:   # propagate along the best edges; a crossed boundary takes psi
+            div = div.gather(1, psi[:, :, None].expand(-1, -1, nb))
+            for i in np.flatnonzero(boundaries + 1 == t):
+                div[:, :, int(i)] = psi
+    score, q_last = delta.max(dim=1)
+    q_bounds = div[torch.arange(Bt, device=em.device), q_last]
+    return q_bounds, q_last, score
+
+
+def _segment_decode(log_pi, log_A, em_seg, pad_seg, entry, exit_state,
+                    is_first):
+    """Pruned subtask DP over M tiles of static length s -> q*_{midpoint}.
+
+    em_seg (M, s, K), pad_seg (M, s), entry / exit_state (M,) pinned states,
+    is_first (M,) bool (the tile starts at step 0: seed from log_pi).
+    """
+    s = em_seg.shape[1]
+    tm = s // 2 - 1
+    pruned0 = log_A[entry] + em_seg[:, 0]
+    first0 = log_pi + em_seg[:, 0]
+    delta = torch.where(is_first[:, None], first0, pruned0)
+    mid = None        # all zeros until the midpoint step: nothing to carry
+    for tl in range(1, s):
+        delta, psi = _dp_step(log_A, delta, em_seg[:, tl], pad_seg[:, tl])
+        if tl == tm + 1:
+            mid = psi
+        elif tl > tm + 1:
+            mid = mid.gather(1, psi)
+    return mid.gather(1, exit_state[:, None])[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# The layer wavefront, shared with FLASH-BS
+# ---------------------------------------------------------------------------
+
+def wavefront(decode_tiles, em, pad, q_star, P: int, lanes):
+    """Resolve every layer's tile midpoints into q_star (Bt, Tp) in place.
+
+    `decode_tiles(em_seg (M, s, K'), pad_seg (M, s), entry (M,), exit (M,),
+    is_first (M,))` decodes M tiles and returns their midpoint states.  A
+    layer's tiles run `lanes` at a time for all Bt sequences together
+    (``None``: the whole layer at once); the tiles of one call are ordered
+    sequence-major.
+    """
+    Bt, Tp, Kp = em.shape
+    s = Tp // P
+    while s >= 2:   # layer wavefront: L = log2(seg0) layers
+        n = Tp // s
+        starts = np.arange(n, dtype=np.int64) * s
+        em_tiles = em.reshape(Bt, n, s, Kp)
+        pad_tiles = pad.reshape(Bt, n, s)
+        step = n if lanes is None else lanes
+        for i0 in range(0, n, step):
+            st = starts[i0:i0 + step]
+            ln = len(st)
+            ends = torch.from_numpy(st + s - 1).to(em.device)
+            prev = torch.from_numpy(np.maximum(st - 1, 0)).to(em.device)
+            mids = torch.from_numpy(st + s // 2 - 1).to(em.device)
+            is_first = torch.from_numpy(st == 0).to(em.device).repeat(Bt)
+            mid_states = decode_tiles(
+                em_tiles[:, i0:i0 + ln].reshape(Bt * ln, s, Kp),
+                pad_tiles[:, i0:i0 + ln].reshape(Bt * ln, s),
+                q_star[:, prev].reshape(-1), q_star[:, ends].reshape(-1),
+                is_first)
+            q_star[:, mids] = mid_states.reshape(Bt, ln).to(q_star.dtype)
+        s //= 2
+    return q_star
+
+
+def pin_bounds(q_bounds, q_last, Tp: int, boundaries: np.ndarray):
+    """(Bt, Tp) int64 pinned states: the last step and the P-1 boundaries."""
+    Bt = q_last.shape[0]
+    q_star = torch.zeros((Bt, Tp), dtype=torch.long, device=q_last.device)
+    q_star[:, Tp - 1] = q_last
+    if len(boundaries):
+        q_star[:, torch.from_numpy(boundaries).to(q_last.device)] = q_bounds
+    return q_star
+
+
+# ---------------------------------------------------------------------------
+# Full decoder
+# ---------------------------------------------------------------------------
+
+def _flash_padded(log_pi, log_A, em, pad, P: int, lanes):
+    """FLASH over a batch: em (Bt, Tp, K), pad (Bt, Tp) with Tp = P * 2^L.
+
+    Returns (q_star (Bt, Tp) int64, score (Bt,))."""
+    Tp = em.shape[1]
+    boundaries = (np.arange(1, P) * (Tp // P) - 1).astype(np.int64)
+    q_bounds, q_last, score = _initial_pass(log_pi, log_A, em, pad,
+                                            boundaries)
+    q_star = pin_bounds(q_bounds, q_last, Tp, boundaries)
+
+    def decode_tiles(em_seg, pad_seg, entry, exit_state, is_first):
+        return _segment_decode(log_pi, log_A, em_seg, pad_seg, entry,
+                               exit_state, is_first)
+
+    return wavefront(decode_tiles, em, pad, q_star, P, lanes), score
+
+
+def flash_viterbi(log_pi, log_A, em, parallelism: int = 8,
+                  lanes: int | None = -1):
+    """FLASH Viterbi decode.
+
+    Args:
+      log_pi, log_A, em: HMM in log domain + (T, K) emissions.
+      parallelism: the paper's P, width of the initial partition and the
+        default number of tiles in flight.
+      lanes: tiles processed together per layer; -1 means "= parallelism"
+        (paper semantics), None means the whole layer at once.
+
+    Returns:
+      (path, score): (T,) int32 optimal path and its log-likelihood.
+    """
+    T, K = em.shape
+    P = int(parallelism)
+    if lanes == -1:
+        lanes = P
+    if T == 1:
+        d0 = log_pi + em[0]
+        q = d0.argmax()
+        return q.to(torch.int32)[None], d0[q]
+    Tp, _ = plan_padding(T, P)
+    em_p, pad = pad_emissions(em, Tp)
+    q_star, score = _flash_padded(log_pi, log_A, em_p[None], pad[None], P,
+                                  lanes)
+    return q_star[0, :T].to(torch.int32), score[0]
+
+
+__all__ = ["flash_viterbi", "plan_padding", "pad_emissions"]

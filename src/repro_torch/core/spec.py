@@ -6,11 +6,11 @@ exactly the tunables it consumes.  Nonsense is rejected eagerly: ``bt=0``
 raises `ValueError` at construction, an unknown tunable raises `TypeError`
 from the dataclass constructor.
 
-Ported so far: `VanillaSpec` and `FusedSpec`, each with an optional
-``constraint`` (`core.constraints.ConstraintSpec`).  The other methods of the
-JAX package raise `NotImplementedError` naming the ROADMAP item that ports
-them.  The JAX spec's ``jittable`` flag has no counterpart: PyTorch runs
-eagerly.
+The eight offline methods of the JAX package are ported, each with an
+optional ``constraint`` (`core.constraints.ConstraintSpec`).  The streaming
+methods (``online``, ``online_beam``) raise `NotImplementedError` naming the
+ROADMAP item that ports them.  The JAX spec's ``jittable`` flag has no
+counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -20,12 +20,19 @@ from typing import Any, ClassVar, Mapping, Optional
 
 from ..kernels.ops import (viterbi_decode_banded, viterbi_decode_fused,
                            viterbi_decode_fused_masked)
+from .assoc import viterbi_assoc
 from .batch import NOT_PORTED, not_ported
+from .beam_static import beam_static_mp_viterbi, beam_static_viterbi
+from .checkpoint_viterbi import viterbi_checkpoint
 from .constraints import ConstraintSpec, compiled_penalties, constrain_inputs
+from .flash import flash_viterbi
+from .flash_bs import flash_bs_viterbi
 from .vanilla import viterbi_vanilla
 
 __all__ = [
-    "ResourceBudget", "DecodeSpec", "VanillaSpec", "FusedSpec",
+    "ResourceBudget", "DecodeSpec",
+    "VanillaSpec", "CheckpointSpec", "FlashSpec", "FlashBSSpec",
+    "BeamStaticSpec", "BeamStaticMPSpec", "AssocSpec", "FusedSpec",
     "SPEC_BY_METHOD", "spec_from_tunables", "as_decode_spec",
 ]
 
@@ -37,6 +44,18 @@ def _check(cond: bool, msg: str) -> None:
 def _check_pos(value: Any, name: str) -> None:
     _check(isinstance(value, int) and not isinstance(value, bool)
            and value >= 1, f"{name} must be an int >= 1, got {value!r}")
+
+
+def _check_lanes(lanes: Any) -> None:
+    """lanes: None = whole layers at once, -1 = match parallelism, n >= 1."""
+    if lanes is None or lanes == -1:
+        return
+    _check_pos(lanes, "lanes")
+
+
+def _check_opt_pos(value: Any, name: str) -> None:
+    if value is not None:
+        _check_pos(value, name)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +140,125 @@ class VanillaSpec(DecodeSpec):
 
 
 @dataclasses.dataclass(frozen=True)
+class CheckpointSpec(DecodeSpec):
+    """Tarnas-Hughey checkpointing; seg_len=None means ceil(sqrt(T))."""
+    method: ClassVar[str] = "checkpoint"
+    legacy_tunables: ClassVar[Mapping[str, str]] = {"seg_len": "seg_len"}
+    seg_len: int | None = None
+
+    def validate(self):
+        _check_opt_pos(self.seg_len, "seg_len")
+
+    def _run(self, log_pi, log_A, emissions):
+        return viterbi_checkpoint(log_pi, log_A, emissions,
+                                  seg_len=self.seg_len)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashSpec(DecodeSpec):
+    """The paper's non-recursive divide-and-conquer wavefront (exact)."""
+    method: ClassVar[str] = "flash"
+    batch_method: ClassVar[str | None] = "flash"
+    legacy_tunables: ClassVar[Mapping[str, str]] = {
+        "parallelism": "parallelism", "lanes": "lanes"}
+    parallelism: int = 8
+    lanes: int | None = -1
+
+    def validate(self):
+        _check_pos(self.parallelism, "parallelism")
+        _check_lanes(self.lanes)
+
+    def _run(self, log_pi, log_A, emissions):
+        return flash_viterbi(log_pi, log_A, emissions,
+                             parallelism=self.parallelism, lanes=self.lanes)
+
+    def batch_tunables(self):
+        return {"parallelism": self.parallelism, "lanes": self.lanes}
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashBSSpec(DecodeSpec):
+    """FLASH with the dynamic top-B beam (exact when beam_width >= K); every
+    beam transition is one launch of the beam kernel."""
+    method: ClassVar[str] = "flash_bs"
+    batch_method: ClassVar[str | None] = "flash_bs"
+    legacy_tunables: ClassVar[Mapping[str, str]] = {
+        "beam_width": "beam_width", "parallelism": "parallelism",
+        "lanes": "lanes", "chunk": "chunk"}
+    beam_width: int = 128
+    parallelism: int = 8
+    lanes: int | None = -1
+    chunk: int = 128
+
+    def validate(self):
+        _check_pos(self.beam_width, "beam_width")
+        _check_pos(self.parallelism, "parallelism")
+        _check_lanes(self.lanes)
+        _check_pos(self.chunk, "chunk")
+
+    def _run(self, log_pi, log_A, emissions):
+        return flash_bs_viterbi(log_pi, log_A, emissions,
+                                beam_width=self.beam_width,
+                                parallelism=self.parallelism,
+                                lanes=self.lanes, chunk=self.chunk)
+
+    def batch_tunables(self):
+        return {"beam_width": self.beam_width,
+                "parallelism": self.parallelism,
+                "lanes": self.lanes, "chunk": self.chunk}
+
+
+@dataclasses.dataclass(frozen=True)
+class BeamStaticSpec(DecodeSpec):
+    """Static beam baseline (scores all K, then truncates to the beam)."""
+    method: ClassVar[str] = "beam_static"
+    legacy_tunables: ClassVar[Mapping[str, str]] = {"beam_width": "beam_width"}
+    beam_width: int = 128
+
+    def validate(self):
+        _check_pos(self.beam_width, "beam_width")
+
+    def _run(self, log_pi, log_A, emissions):
+        return beam_static_viterbi(log_pi, log_A, emissions,
+                                   B=min(self.beam_width,
+                                         emissions.shape[1]))
+
+
+@dataclasses.dataclass(frozen=True)
+class BeamStaticMPSpec(DecodeSpec):
+    """Static beam on the multi-partition FLASH wavefront (FLASH-BS with
+    chunk = K, so it runs on the beam kernel)."""
+    method: ClassVar[str] = "beam_static_mp"
+    legacy_tunables: ClassVar[Mapping[str, str]] = {
+        "beam_width": "beam_width", "parallelism": "parallelism",
+        "lanes": "lanes"}
+    beam_width: int = 128
+    parallelism: int = 8
+    lanes: int | None = -1
+
+    def validate(self):
+        _check_pos(self.beam_width, "beam_width")
+        _check_pos(self.parallelism, "parallelism")
+        _check_lanes(self.lanes)
+
+    def _run(self, log_pi, log_A, emissions):
+        return beam_static_mp_viterbi(log_pi, log_A, emissions,
+                                      beam_width=self.beam_width,
+                                      parallelism=self.parallelism,
+                                      lanes=self.lanes)
+
+
+@dataclasses.dataclass(frozen=True)
+class AssocSpec(DecodeSpec):
+    """Tropical associative scan on the tropical kernel: O(log T) depth,
+    O(K^3 T) work."""
+    method: ClassVar[str] = "assoc"
+
+    def _run(self, log_pi, log_A, emissions):
+        return viterbi_assoc(log_pi, log_A, emissions)
+
+
+@dataclasses.dataclass(frozen=True)
 class FusedSpec(DecodeSpec):
     """The fused forward kernel, then the backtrack kernel.
 
@@ -162,7 +300,9 @@ class FusedSpec(DecodeSpec):
 
 
 SPEC_BY_METHOD: dict[str, type[DecodeSpec]] = {
-    cls.method: cls for cls in (VanillaSpec, FusedSpec)
+    cls.method: cls for cls in (
+        VanillaSpec, CheckpointSpec, FlashSpec, FlashBSSpec,
+        BeamStaticSpec, BeamStaticMPSpec, AssocSpec, FusedSpec)
 }
 
 

@@ -6,7 +6,7 @@ Libraries go to ``build/repro_torch_kernels/<hash>/`` at the root of the
 checkout, where ``<hash>`` covers the flags and every source, so an edit to a
 source builds afresh.  Nothing is built when the package is imported: the
 first launch builds (`load`), or a caller builds everything up front
-(`build_all`, one nvcc run per source).
+(`build_all`, one nvcc run per source, all started together).
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "viterbi_dp.cu",)
+SOURCES = (CSRC / "viterbi_dp.cu", CSRC / "beam_stream.cu",
+           CSRC / "tropical.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 # No fast-math: the kernels must reproduce the reference's f32 rounding.
@@ -43,6 +44,14 @@ SIGNATURES = {
                                _I32, _I32, _I32, _VOID, _VOID, _VOID),
         "viterbi_backtrack_batch": (_VOID, _VOID, _I32, _I32, _I32, _VOID,
                                     _VOID, _VOID),
+    },
+    "beam_stream": {
+        "beam_step_batch": (_VOID, _VOID, _I64, _VOID, _VOID, _I32, _I32,
+                            _I32, _I32, _VOID, _VOID, _VOID, _VOID),
+    },
+    "tropical": {
+        "tropical_matmul_batch": (_VOID, _VOID, _I32, _I32, _I32, _I32, _I32,
+                                  _VOID, _VOID, _VOID),
     },
 }
 
@@ -75,25 +84,30 @@ def build_all() -> dict[str, str]:
     """Build every source not yet built; returns {name: nvcc's output} for
     the sources this call built.
 
-    The output holds ptxas's report (registers, shared memory, spills).
-    Raises if a build fails.  With one source the builds run one after
-    another; a second source is the time to start them all together.
+    One nvcc process per missing source, all started together, then waited
+    for.  The output holds ptxas's report (registers, shared memory,
+    spills).  Raises if a build fails.
     """
     build_dir().mkdir(parents=True, exist_ok=True)
-    logs = {}
+    running = {}
     for src in SOURCES:
         lib = library_path(src)
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        done = subprocess.run(nvcc_command(src, tmp), capture_output=True,
-                              text=True)
-        log = done.stdout + done.stderr
-        if done.returncode != 0:
-            raise RuntimeError(f"kernel build failed: {src.name}: nvcc "
-                               f"exited {done.returncode}\n{log}")
+        proc = subprocess.Popen(nvcc_command(src, tmp), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[src] = (proc, tmp, lib)
+    logs, failed = {}, []
+    for src, (proc, tmp, lib) in running.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{src.name}: nvcc exited {proc.returncode}\n{log}")
+            continue
         os.replace(tmp, lib)
         logs[src.stem] = log
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return logs
 
 

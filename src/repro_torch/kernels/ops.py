@@ -6,7 +6,8 @@ K % 128): the Hopper kernels take any K >= 1, and no shape falls back to
 another path.  ``bt`` stays in the signatures for parity; it has no effect
 on the card, whose kernels run the whole time loop in one block per
 sequence.  The TPU's ``interpret`` and ``vmem_limit_bytes`` have no
-counterpart.
+counterpart.  `tropical_matmul` and `beam_step` keep the JAX wrappers'
+padding (and the argmax clamp) so that their results match bit for bit.
 """
 
 from __future__ import annotations
@@ -14,6 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .beam_stream import beam_step_batch
+from .ref import BEAM_SENTINEL, NEG_INF
+from .tropical import tropical_matmul_batch
 from .viterbi_dp import viterbi_backtrack_batch
 from .viterbi_dp import viterbi_banded_forward as _banded_fwd
 from .viterbi_dp import viterbi_forward as _fwd
@@ -254,8 +258,61 @@ def viterbi_decode_banded(log_pi: torch.Tensor, log_A: torch.Tensor,
     return (starts_dev + loc[0]).to(torch.int32), scores[0]
 
 
+def _pad_to(x: torch.Tensor, axis: int, mult: int, value) -> torch.Tensor:
+    """Pad `axis` of `x` up to a multiple of `mult` with `value`."""
+    n = x.shape[axis]
+    target = -(-n // mult) * mult
+    if target == n:
+        return x
+    shape = list(x.shape)
+    shape[axis] = target - n
+    fill = torch.full(shape, value, dtype=x.dtype, device=x.device)
+    return torch.cat([x, fill], dim=axis)
+
+
+def tropical_matmul(a: torch.Tensor, b: torch.Tensor):
+    """(max, +) product with argmax, arbitrary shapes: (I, K) x (K, J) ->
+    (vals (I, J), args (I, J) int32).
+
+    Pads with NEG_INF to the JAX wrapper's tiles (a pad column can only win
+    on a pad row) and clamps the argmax to K - 1, as the JAX wrapper does;
+    one launch of the batched kernel with N = 1.
+    """
+    I, K = a.shape
+    J = b.shape[1]
+    bi = 8 if I < 64 else 64
+    bk = 8 if K < 16 else 16
+    bj = 128 if J < 256 else 256
+    ap = _pad_to(_pad_to(a, 0, bi, NEG_INF), 1, bk, NEG_INF)
+    bp = _pad_to(_pad_to(b, 0, bk, NEG_INF), 1, bj, NEG_INF)
+    vals, args = tropical_matmul_batch(ap[None].contiguous(),
+                                       bp[None].contiguous())
+    args = args[0].clamp(max=K - 1)
+    return vals[0, :I, :J], args[:I, :J]
+
+
+def beam_step(log_A: torch.Tensor, em_t: torch.Tensor, scores: torch.Tensor,
+              states: torch.Tensor, *, chunk: int = 256):
+    """One dynamic-beam transition, arbitrary K (padded to the chunk).
+
+    As the JAX wrapper: ``chunk = min(chunk, ceil(K / 128) * 128)``, and
+    log_A and em_t are padded to a multiple of it with -4e9.  One launch of
+    the batched beam kernel with N = 1.  Returns (new_scores, new_states,
+    from_slots), each (B,).
+    """
+    K = log_A.shape[0]
+    chunk = min(chunk, -(-K // 128) * 128)
+    Ap = _pad_to(_pad_to(log_A, 0, chunk, BEAM_SENTINEL), 1, chunk,
+                 BEAM_SENTINEL).contiguous()
+    em_p = _pad_to(em_t, 0, chunk, BEAM_SENTINEL)
+    s, st, f = beam_step_batch(Ap, em_p[None], scores[None].contiguous(),
+                               states[None].contiguous(), chunk)
+    return s[0], st[0], f[0]
+
+
 __all__ = ["viterbi_forward", "viterbi_forward_batch", "viterbi_chunk_step",
            "viterbi_slot_step", "viterbi_decode_fused",
            "viterbi_decode_fused_batch", "viterbi_forward_batch_masked",
            "viterbi_decode_fused_masked", "viterbi_decode_fused_batch_masked",
-           "viterbi_decode_banded", "band_windows"]
+           "viterbi_decode_banded", "band_windows", "tropical_matmul",
+           "beam_step"]

@@ -12,9 +12,13 @@ Leading batch dimensions broadcast: ``em`` may be (T, K) or (B, T, K) with
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 NEG_INF = -1.0e9
+#: the running top-B's seed value in the beam transition
+BEAM_SENTINEL = -4.0e9
 
 
 def _step(delta: torch.Tensor, log_A: torch.Tensor
@@ -119,6 +123,98 @@ def viterbi_backtrack_ref(psi: torch.Tensor, delta_T: torch.Tensor):
     return paths, delta_T.gather(1, q_last[:, None])[:, 0]
 
 
+def top_b(values: torch.Tensor, B: int) -> torch.Tensor:
+    """Indices of the B largest entries along the last axis, highest first,
+    the lower index first among equal values (the stable order of
+    `jax.lax.top_k`; `torch.topk` promises no order among ties)."""
+    return torch.sort(values, dim=-1, descending=True, stable=True).indices[
+        ..., :B]
+
+
+def merge_top_b(run: tuple, new: tuple, B: int) -> tuple:
+    """Merge a chunk into a running top-B, as one step of the chunked
+    `lax.top_k` loops of `core/flash_bs.py`.
+
+    `run` and `new` are tuples of (..., n) tensors whose first entry holds
+    the values; the result keeps the B best of ``run ++ new`` in the order
+    (value descending, position ascending), so a running entry beats a
+    chunk entry of equal value.
+    """
+    cat = [torch.cat([r, n], dim=-1) for r, n in zip(run, new)]
+    idx = top_b(cat[0], B)
+    return tuple(x.gather(-1, idx) for x in cat)
+
+
+def beam_transition_ref(log_A: torch.Tensor, em: torch.Tensor,
+                        scores: torch.Tensor, states: torch.Tensor,
+                        chunk: int):
+    """Reference for the beam kernel: N independent FLASH-BS transitions.
+
+    log_A (K, K) with chunk | K, em (N, K), scores (N, B), states (N, B)
+    int32 -> (new_scores, new_states, from_slots), each (N, B).  For target
+    c, ``cand[b, c] = (scores[b] + log_A[states[b], c]) + em[c]``, reduced
+    over the slots (lowest slot on ties); each chunk of targets is merged
+    into a running top-B seeded with B entries (BEAM_SENTINEL, 0, 0).  This
+    is `core/flash_bs.py::_beam_transition` of the JAX package, batched.
+    """
+    N, B = scores.shape
+    K = log_A.shape[1]
+    run = (torch.full((N, B), BEAM_SENTINEL, dtype=scores.dtype,
+                      device=scores.device),
+           torch.zeros((N, B), dtype=torch.int32, device=scores.device),
+           torch.zeros((N, B), dtype=torch.int32, device=scores.device))
+    rows_of = states.long()
+    for c0 in range(0, K, chunk):
+        rows = log_A[:, c0:c0 + chunk][rows_of]                 # (N, B, C)
+        cand = scores[..., None] + rows + em[:, None, c0:c0 + chunk]
+        best, from_b = cand.max(dim=1)                          # first slot
+        tgt = torch.arange(c0, c0 + chunk, dtype=torch.int32,
+                           device=scores.device).expand(N, chunk)
+        run = merge_top_b(run, (best, tgt, from_b.to(torch.int32)), B)
+    return run
+
+
+def beam_step_ref(log_A: torch.Tensor, em_t: torch.Tensor,
+                  scores: torch.Tensor, states: torch.Tensor):
+    """The JAX package's oracle for `beam_step` (`repro.kernels.ref`): one
+    stable top-B over all K targets, with no sentinel seed.
+
+    It differs from `beam_transition_ref` only where a candidate ties the
+    -4e9 sentinel; the kernel is held to `beam_transition_ref`.
+    """
+    B = scores.shape[0]
+    cand = scores[:, None] + log_A[states.long()] + em_t[None, :]   # (B, K)
+    best, from_b = cand.max(dim=0)
+    top = top_b(best, B)
+    return best[top], top.to(torch.int32), from_b[top].to(torch.int32)
+
+
+def tropical_matmul_ref(a: torch.Tensor, b: torch.Tensor):
+    """Reference for the tropical kernel: (..., I, K) x (..., K, J) ->
+    ((..., I, J) max values, (..., I, J) int32 lowest argmax over K).
+
+    Each sum is formed in f32 and rounded to the operands' dtype (bf16 or
+    f32) before the max, as XLA's elementwise add does on the CPU.  Rows of
+    A are taken in blocks so that the (rows, K, J) intermediate stays below
+    about 2**25 entries.
+    """
+    I, K = a.shape[-2:]
+    J = b.shape[-1]
+    lead = a.shape[:-2]
+    rows = max(1, (1 << 25) // max(1, K * J * math.prod(lead)))
+    vals = torch.empty((*lead, I, J), dtype=a.dtype, device=a.device)
+    args = torch.empty((*lead, I, J), dtype=torch.int32, device=a.device)
+    bf = b.float()[..., None, :, :]
+    for i0 in range(0, I, rows):
+        s = (a[..., i0:i0 + rows, :].float()[..., :, :, None] + bf).to(a.dtype)
+        v, g = s.max(dim=-2)                                    # first index
+        vals[..., i0:i0 + rows, :] = v
+        args[..., i0:i0 + rows, :] = g.to(torch.int32)
+    return vals, args
+
+
 __all__ = ["viterbi_forward_ref", "viterbi_forward_masked_ref",
            "viterbi_forward_masked_pen_ref", "viterbi_banded_forward_ref",
-           "viterbi_backtrack_ref"]
+           "viterbi_backtrack_ref", "top_b", "merge_top_b",
+           "beam_transition_ref", "beam_step_ref", "tropical_matmul_ref",
+           "BEAM_SENTINEL"]

@@ -1,14 +1,19 @@
 """Serving driver: batched forced alignment on a left-to-right HMM, as in
 `repro.launch.serve`.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --requests 32 --states 512
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 32 \
+        --states 512 --method flash_bs --beam 128
+
+    # or let the planner pick (method, P, B) from a memory budget:
+    PYTHONPATH=src python -m repro_torch.launch.serve --budget-kb 64
 
 Builds a left-to-right HMM from ``--seed``, the alignment head on
 ``--device`` (default ``cuda``) and the batching scheduler; reports latency
-and the relative error against the exact decode on a sample.  ``--method``
-takes ``fused`` (the default until FLASH-BS is ported) or ``vanilla``.
-``--beam``, ``--parallelism`` and ``--budget-kb`` raise until FLASH, FLASH-BS
-and the planner are ported.
+and the relative error against the exact decode on a sample.  The default
+is the JAX serve's: FLASH-BS with a beam of 128 and P = 8.  With
+``--budget-kb`` the spec comes from `core.planner.plan`: the budget covers
+the live DP state of a full ``--max-batch`` bucket at the largest length
+bucket.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ import time
 import numpy as np
 import torch
 
-from ..core import left_to_right_hmm, relative_error, viterbi_vanilla
+from ..core import (ResourceBudget, left_to_right_hmm, plan, relative_error,
+                    viterbi_vanilla)
 from ..serving.alignment import AlignmentConfig, make_alignment_head
 from ..serving.scheduler import BatchScheduler
 
@@ -31,30 +37,31 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--states", type=int, default=512)
     ap.add_argument("--classes", type=int, default=64)
-    ap.add_argument("--method", default="fused", choices=("fused", "vanilla"))
-    ap.add_argument("--beam", type=int, default=None,
-                    help="FLASH-BS beam width; not ported yet")
-    ap.add_argument("--parallelism", type=int, default=None,
-                    help="FLASH parallelism; not ported yet")
+    ap.add_argument("--method", default="flash_bs")
+    ap.add_argument("--beam", type=int, default=128)
+    ap.add_argument("--parallelism", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--budget-kb", type=float, default=None,
                     help="live decoder-state budget (KiB) for a full batch; "
-                         "needs the planner, not ported yet")
+                         "overrides --method/--beam/--parallelism via the "
+                         "planner")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    for flag, value in (("--budget-kb", args.budget_kb),
-                        ("--beam", args.beam),
-                        ("--parallelism", args.parallelism)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{flag} needs FLASH, FLASH-BS or the planner, which are not "
-                "ported to repro_torch yet: ROADMAP Queue 1 item 4 "
-                "(paper algorithms)")
     hmm = left_to_right_hmm(np.random.default_rng(args.seed), args.states,
                             args.classes, device=args.device)
-    spec = AlignmentConfig(method=args.method).to_spec()
+    if args.budget_kb is not None:
+        decode_plan = plan(args.states, max(BUCKETS),
+                           ResourceBudget(memory_bytes=int(args.budget_kb
+                                                           * 1024)),
+                           batch=args.max_batch)
+        spec = decode_plan.spec
+        print(f"planner: budget={args.budget_kb:.0f}KiB "
+              f"x batch {args.max_batch} -> {spec}  [{decode_plan.why}]")
+    else:
+        spec = AlignmentConfig(method=args.method, beam_width=args.beam,
+                               parallelism=args.parallelism).to_spec()
     head = make_alignment_head(hmm.log_pi, hmm.log_A, spec,
                                device=args.device)
     sched = BatchScheduler(head, max_batch=args.max_batch, buckets=BUCKETS)

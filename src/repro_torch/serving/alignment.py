@@ -4,8 +4,9 @@
 The head is a thin wrapper around `core.ViterbiDecoder`: the alignment config
 resolves to a typed `DecodeSpec`, and the decoder object owns the device and
 the ragged `lengths` contract.  `make_lexicon_align_head` adds a
-`LexiconConstraint` to the spec.  ``mesh=`` and the end-to-end encoder step
-wait for later slices (ROADMAP Queue 1 items 8 and 11).
+`LexiconConstraint` to the spec.  The default profile is FLASH-BS, as in the
+JAX package.  ``mesh=`` and the end-to-end encoder step wait for later
+slices (ROADMAP Queue 1 items 8 and 11).
 """
 
 from __future__ import annotations
@@ -21,15 +22,22 @@ from ..core.spec import as_decode_spec, spec_from_tunables
 class AlignmentConfig:
     """Legacy string-form alignment profile; `to_spec()` is the typed view.
 
-    The default method is ``fused`` until FLASH-BS is ported (the JAX
-    package's default is ``flash_bs``).  The JAX config's ``beam_width``,
-    ``parallelism`` and ``chunk`` fields configure FLASH and FLASH-BS; they
-    come back with those methods (ROADMAP Queue 1 item 4).
+    The default is the JAX package's serving profile: FLASH-BS with a beam of
+    128, P = 8 and chunks of 128 targets.  The batched serving path runs
+    whole layers at once (``lanes=None``), so that is what the conversion
+    pins.
     """
-    method: str = "fused"          # fused | vanilla
+    method: str = "flash_bs"       # flash | flash_bs | vanilla | fused
+    beam_width: int = 128
+    parallelism: int = 8
+    chunk: int = 128
 
     def to_spec(self):
-        spec, _ = spec_from_tunables(self.method, {})
+        # spec_from_tunables drops the fields `method` does not consume: the
+        # container always carries all four, so no warning here.
+        spec, _ = spec_from_tunables(self.method, dict(
+            beam_width=self.beam_width, parallelism=self.parallelism,
+            chunk=self.chunk, lanes=None))
         return spec
 
 
@@ -65,11 +73,10 @@ def make_lexicon_align_head(hmm_log_pi, hmm_log_A, words, *, cfg=None,
     `constrain_inputs`-masked HMM densely.
 
     `cfg` is a `DecodeSpec` or legacy `AlignmentConfig`; None means
-    `AlignmentConfig()`, which is ``fused`` until FLASH-BS is ported (the
-    JAX package's default profile is FLASH-BS).  Its `constraint` field is
-    replaced.  Returns the same ``align(emissions, lengths=None)`` callable
-    as `make_alignment_head`, with ``align.decoder`` and ``align.constraint``
-    attached.  ``device=None`` means ``cuda``.
+    `AlignmentConfig()`, the FLASH-BS serving profile.  Its `constraint`
+    field is replaced.  Returns the same ``align(emissions, lengths=None)``
+    callable as `make_alignment_head`, with ``align.decoder`` and
+    ``align.constraint`` attached.  ``device=None`` means ``cuda``.
     """
     constraint = LexiconConstraint(words, self_loops=self_loops,
                                    loop_words=loop_words)

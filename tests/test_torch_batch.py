@@ -23,7 +23,7 @@ from repro.core import (ViterbiDecoder as JDecoder, FusedSpec as JFused,
                         viterbi_vanilla_masked as j_vanilla_masked)
 from repro.core import reference as j_reference
 from repro_torch.core import (HMM, NEG_INF, BATCH_METHODS, BandConstraint,
-                              FusedSpec,
+                              FlashBSSpec, FusedSpec,
                               ResourceBudget, VanillaSpec, ViterbiDecoder,
                               as_decode_spec, erdos_renyi_hmm,
                               left_to_right_hmm, path_score, random_emissions,
@@ -122,12 +122,51 @@ def test_batch_unknown_method_raises(batch_problem):
                                 dict(method="flash",
                                      constraint=BandConstraint((0,), 1))])
 def test_batch_unported_paths_raise(batch_problem, kw):
-    """Nothing silently takes another path: each names its ROADMAP item.
-    A constraint does not route an unported method around its raise."""
+    """`mesh=` is not ported: it raises naming its ROADMAP item, and nothing
+    silently takes another path.  The other three cases raised until FLASH
+    and FLASH-BS were ported; each is now held to the JAX batch, bitwise (a
+    one-step band from the same arguments on both sides)."""
     hmm, em = batch_problem
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        viterbi_decode_batch(em, hmm.log_pi, hmm.log_A, **kw)
-    assert set(BATCH_METHODS) == {"vanilla", "flash", "flash_bs", "fused"}
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+            viterbi_decode_batch(em, hmm.log_pi, hmm.log_A, **kw)
+        assert set(BATCH_METHODS) == {"vanilla", "flash", "flash_bs", "fused"}
+        return
+    from repro.core import BandConstraint as JBand
+    j_kw = dict(kw)
+    if "constraint" in kw:
+        j_kw["constraint"] = JBand(kw["constraint"].centers,
+                                   kw["constraint"].width)
+    paths, scores = viterbi_decode_batch(em, hmm.log_pi, hmm.log_A, LENGTHS,
+                                         **kw)
+    lp, la = _np(hmm)
+    paths_j, scores_j = j_decode_batch(em.numpy(), lp, la,
+                                       jnp.asarray(LENGTHS), **j_kw)
+    assert np.array_equal(paths.numpy(), np.asarray(paths_j)), kw
+    assert np.array_equal(scores.numpy(), np.asarray(scores_j)), kw
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("flash", dict(parallelism=3, lanes=None)),
+    ("flash_bs", dict(beam_width=8, parallelism=4, chunk=12)),
+])
+def test_batch_flash_methods_match_jax_ragged(batch_problem, method, kw):
+    """Ragged FLASH and FLASH-BS batches (lengths include 1 and T) against
+    JAX's, bitwise; exact FLASH also against the looped single decode."""
+    hmm, em = batch_problem
+    paths, scores = viterbi_decode_batch(em, hmm.log_pi, hmm.log_A, LENGTHS,
+                                         method=method, **kw)
+    lp, la = _np(hmm)
+    paths_j, scores_j = j_decode_batch(em.numpy(), lp, la,
+                                       jnp.asarray(LENGTHS), method=method,
+                                       **kw)
+    assert np.array_equal(paths.numpy(), np.asarray(paths_j))
+    assert np.array_equal(scores.numpy(), np.asarray(scores_j))
+    if method == "flash":
+        for i, L in enumerate(LENGTHS):
+            p, s = viterbi_vanilla(hmm.log_pi, hmm.log_A, em[i, :int(L)])
+            assert torch.equal(paths[i, :int(L)], p) and float(scores[i]) == \
+                float(s)
 
 
 def test_batch_rejects_a_constraint_that_is_not_one(batch_problem):
@@ -139,11 +178,18 @@ def test_batch_rejects_a_constraint_that_is_not_one(batch_problem):
 @pytest.mark.parametrize("name", ["parallelism", "lanes", "beam_width",
                                   "chunk", "data_axis"])
 def test_batch_rejects_unported_tunables(batch_problem, name):
-    """The JAX tunables of FLASH, FLASH-BS and the mesh path are not taken
-    until those methods are ported: passing one is an error, not a no-op."""
+    """`data_axis` belongs to the mesh path, which is not ported: passing it
+    is an error, not a no-op.  The FLASH and FLASH-BS tunables are taken now
+    and, as in the JAX package, change nothing for `fused`."""
     hmm, em = batch_problem
-    with pytest.raises(TypeError, match=name):
-        viterbi_decode_batch(em, hmm.log_pi, hmm.log_A, **{name: 4})
+    if name == "data_axis":
+        with pytest.raises(TypeError, match=name):
+            viterbi_decode_batch(em, hmm.log_pi, hmm.log_A, **{name: 4})
+        return
+    base = viterbi_decode_batch(em, hmm.log_pi, hmm.log_A, LENGTHS)
+    out = viterbi_decode_batch(em, hmm.log_pi, hmm.log_A, LENGTHS,
+                               **{name: 4})
+    assert torch.equal(base[0], out[0]) and torch.equal(base[1], out[1])
 
 
 @pytest.mark.parametrize("bad", [[0, 17, 33, 1, 5], [1, TMAX + 1, 3, 4, 5],
@@ -293,8 +339,12 @@ def test_spec_from_tunables_matches_jax():
     assert spec_from_tunables("vanilla", {})[0] == VanillaSpec()
     with pytest.raises(ValueError):
         spec_from_tunables("nope", {})
-    with pytest.raises(NotImplementedError, match="item 4"):
-        spec_from_tunables("flash_bs", {})
+    fbs, ignored = spec_from_tunables("flash_bs", {"beam_width": 16})
+    fbs_j, _ = j_spec_from_tunables("flash_bs", {"beam_width": 16})
+    assert fbs == FlashBSSpec(beam_width=16) and not ignored
+    assert dataclasses.asdict(fbs) == dataclasses.asdict(fbs_j)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        spec_from_tunables("online", {})
     with pytest.raises(TypeError):
         spec_from_tunables("fused", {"constraint": None})
     assert as_decode_spec(spec) is spec

@@ -1,0 +1,165 @@
+"""Parity of the port's paper algorithms (`repro_torch.core`: FLASH,
+FLASH-BS, checkpoint, static beams, associative scan) with the JAX
+package's on the CPU.
+
+The problems are those of tests/test_core_viterbi.py (Erdos-Renyi, K = 48,
+T = 96), a left-to-right HMM of the same size (tie-heavy: off-band
+transitions are NEG_INF) and the hypothesis strategies of
+tests/test_property.py (K in {8, 24}, T in {9, 32, 57}).  The JAX package
+makes each problem; its numpy arrays go to both packages.  The port's beam
+transitions run the beam kernel's plain version and its associative scan the
+tropical kernel's, because the tensors lie on the CPU.  Tolerance: paths and
+scores are bitwise equal.
+"""
+
+import numpy as np
+import jax
+import pytest
+import torch
+from hypothesis import HealthCheck, given, settings, strategies as st
+
+from repro.core import (beam_static_mp_viterbi as j_bs_mp,
+                        beam_static_viterbi as j_bs,
+                        erdos_renyi_hmm as j_er, flash_bs_viterbi as j_fbs,
+                        flash_viterbi as j_flash, left_to_right_hmm as j_l2r,
+                        random_emissions as j_rand,
+                        viterbi_assoc as j_assoc,
+                        viterbi_checkpoint as j_ckpt)
+from repro_torch.core import (beam_static_mp_viterbi, beam_static_viterbi,
+                              flash_bs_viterbi, flash_viterbi, pad_state_space,
+                              plan_padding, viterbi_assoc, viterbi_checkpoint)
+from repro_torch.core.assoc import associative_scan
+
+# The plain versions run many small ops: one intra-op thread keeps the
+# test workers from spinning against each other's JAX compiles.
+torch.set_num_threads(1)
+
+#: (port function, JAX function, keyword arguments) of every case
+CASES = {
+    "flash_P1": (flash_viterbi, j_flash, dict(parallelism=1)),
+    "flash_P4": (flash_viterbi, j_flash, dict(parallelism=4)),
+    "flash_P7": (flash_viterbi, j_flash, dict(parallelism=7)),
+    "flash_lanes2": (flash_viterbi, j_flash, dict(parallelism=8, lanes=2)),
+    "flash_whole_layer": (flash_viterbi, j_flash,
+                          dict(parallelism=8, lanes=None)),
+    "flash_bs_B4": (flash_bs_viterbi, j_fbs,
+                    dict(beam_width=4, parallelism=4, chunk=16)),
+    "flash_bs_B16": (flash_bs_viterbi, j_fbs,
+                     dict(beam_width=16, parallelism=4, chunk=16)),
+    "flash_bs_full_padded": (flash_bs_viterbi, j_fbs,
+                             dict(beam_width=64, parallelism=4, chunk=20,
+                                  lanes=None)),
+    "checkpoint": (viterbi_checkpoint, j_ckpt, {}),
+    "beam_static_B16": (beam_static_viterbi, j_bs, dict(B=16)),
+    "beam_static_B48": (beam_static_viterbi, j_bs, dict(B=48)),
+    "beam_static_mp_B16": (beam_static_mp_viterbi, j_bs_mp,
+                           dict(beam_width=16, parallelism=4)),
+    "assoc": (viterbi_assoc, j_assoc, {}),
+}
+
+
+def _arrays(hmm, em):
+    return np.array(hmm.log_pi), np.array(hmm.log_A), np.array(em)
+
+
+@pytest.fixture(scope="module", params=["erdos_renyi", "left_to_right"])
+def problem(request):
+    """(numpy log_pi, log_A, em) of a K = 48, T = 96 problem."""
+    k1, k2 = jax.random.split(jax.random.key(42))
+    if request.param == "erdos_renyi":
+        hmm = j_er(k1, 48, edge_prob=0.3)
+    else:
+        hmm = j_l2r(k1, 48, 16)
+    return _arrays(hmm, j_rand(k2, 96, 48))
+
+
+def _assert_same(case, arrays):
+    _assert_pair(*CASES[case], arrays, case)
+
+
+def _assert_pair(fn, j_fn, kw, arrays, case):
+    path, score = fn(*(torch.from_numpy(x) for x in arrays), **kw)
+    path_j, score_j = j_fn(*arrays, **kw)
+    assert path.dtype == torch.int32 and path.shape == (arrays[2].shape[0],)
+    assert np.array_equal(path.numpy(), np.asarray(path_j)), case
+    assert np.float32(score) == np.float32(score_j), case
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_decoder_matches_jax(problem, case):
+    _assert_same(case, problem)
+
+
+@pytest.mark.parametrize("T", [1, 2])
+def test_short_sequences_match_jax(T):
+    """T = 1 and 2 are edge cases of every padding rule."""
+    k1, k2 = jax.random.split(jax.random.key(T))
+    arrays = _arrays(j_er(k1, 24, edge_prob=0.3), j_rand(k2, T, 24))
+    for case in ("flash_P4", "flash_bs_B16", "checkpoint",
+                 "beam_static_mp_B16") + (("assoc",) if T > 1 else ()):
+        _assert_same(case, arrays)
+
+
+def test_padding_helpers_match_jax():
+    from repro.core.flash import plan_padding as j_plan
+    from repro.core.flash_bs import pad_state_space as j_pad
+    for T in (1, 2, 9, 57, 96, 511):
+        for P in (1, 3, 8):
+            assert plan_padding(T, P) == j_plan(T, P)
+    g = np.random.default_rng(0)
+    lp, la, em = (g.standard_normal(s).astype(np.float32)
+                  for s in ((10,), (10, 10), (2, 5, 10)))
+    out = pad_state_space(*(torch.from_numpy(x) for x in (lp, la, em)), 4)
+    out_j = j_pad(lp, la, em, 4)
+    assert out[3] == out_j[3] == 12
+    for x, y in zip(out[:3], out_j[:3]):
+        assert np.array_equal(x.numpy(), np.asarray(y))
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 8, 13])
+def test_associative_scan_groups_as_jax(n):
+    """The scan's tree, seen through the non-associative combine a + 2b:
+    any other grouping gives other values."""
+    from jax import lax
+    out = associative_scan(lambda a, b: a + 2 * b,
+                           torch.arange(n, dtype=torch.float64))
+    out_j = lax.associative_scan(lambda a, b: a + 2 * b,
+                                 np.arange(n, dtype=np.float64))
+    assert np.array_equal(out.numpy(), np.asarray(out_j))
+
+
+# ---------------------------------------------------------------------------
+# hypothesis strategies of tests/test_property.py
+# ---------------------------------------------------------------------------
+
+_SETTINGS = dict(max_examples=4, deadline=None,
+                 suppress_health_check=[HealthCheck.too_slow])
+
+
+@st.composite
+def problems(draw):
+    K = draw(st.sampled_from([8, 24]))
+    T = draw(st.sampled_from([9, 32, 57]))
+    p = draw(st.sampled_from([0.3, 0.8]))
+    seed = draw(st.integers(0, 2**16))
+    return K, T, p, seed
+
+
+def _mk(K, T, p, seed):
+    k1, k2 = jax.random.split(jax.random.key(seed))
+    return _arrays(j_er(k1, K, edge_prob=p), j_rand(k2, T, K))
+
+
+@given(problems(), st.sampled_from([1, 2, 4]))
+@settings(**_SETTINGS)
+def test_flash_matches_jax_property(prob, P):
+    _assert_pair(flash_viterbi, j_flash, dict(parallelism=P), _mk(*prob),
+                 f"flash P={P} {prob}")
+
+
+@given(problems(), st.sampled_from([4, None]))
+@settings(**_SETTINGS)
+def test_flash_bs_matches_jax_property(prob, beam):
+    kw = dict(beam_width=beam or prob[0], parallelism=2, chunk=8)
+    _assert_pair(flash_bs_viterbi, j_fbs, kw, _mk(*prob),
+                 f"flash_bs {kw} {prob}")

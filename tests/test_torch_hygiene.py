@@ -96,6 +96,46 @@ def test_every_c_entry_has_its_ctypes_signature():
     assert set(build.SIGNATURES["viterbi_dp"]) == {
         "viterbi_fwd_batch", "viterbi_fwd_batch_masked", "viterbi_banded_fwd",
         "viterbi_backtrack_batch"}
+    assert set(build.SIGNATURES["beam_stream"]) == {"beam_step_batch"}
+    assert set(build.SIGNATURES["tropical"]) == {"tropical_matmul_batch"}
+    assert {src.stem for src in build.SOURCES} == set(build.SIGNATURES)
     for src in build.SOURCES:
         entries = re.findall(r'extern "C" int (\w+)\(', src.read_text())
         assert sorted(entries) == sorted(build.SIGNATURES[src.stem]), src.name
+
+
+def _fake_nvcc(tmp_path, monkeypatch, body: str):
+    """Points the build at a stand-in nvcc (a shell script) and a build
+    directory under tmp_path."""
+    from repro_torch.kernels import build
+    bin_dir = tmp_path / "cuda" / "bin"
+    bin_dir.mkdir(parents=True)
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text("#!/bin/sh\n" + body)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path / "build")
+    return build
+
+
+def test_build_all_starts_one_nvcc_per_source_together(tmp_path, monkeypatch):
+    """Each nvcc sleeps 1 s: one after another they would take 3 s."""
+    import time
+    build = _fake_nvcc(tmp_path, monkeypatch, (
+        'out=""; prev=""\n'
+        'for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done\n'
+        'sleep 1; echo "ptxas info: built $out"; touch "$out"\n'))
+    t0 = time.monotonic()
+    logs = build.build_all()
+    took = time.monotonic() - t0
+    assert set(logs) == {src.stem for src in build.SOURCES}
+    assert all("ptxas info" in log for log in logs.values())
+    assert all(build.library_path(src).exists() for src in build.SOURCES)
+    assert took < 0.9 * len(build.SOURCES)
+    assert build.build_all() == {}          # built: nothing to do
+
+
+def test_build_all_raises_when_nvcc_fails(tmp_path, monkeypatch):
+    build = _fake_nvcc(tmp_path, monkeypatch, 'echo "error: nope"; exit 2\n')
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        build.build_all()

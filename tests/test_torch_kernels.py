@@ -332,3 +332,126 @@ def test_viterbi_decode_fused_masked_matches_jax():
     p1_j, s1_j = jops.viterbi_decode_fused_masked(lp, la, em.numpy()[:1],
                                                   s_pen=s_pen[:1])
     assert _eq(p1, p1_j) and float(s1) == float(s1_j)
+
+
+# ---------------------------------------------------------------------------
+# beam transition and tropical product (cases of tests/test_kernels.py)
+# ---------------------------------------------------------------------------
+
+def _beam_inputs(K, B):
+    g = np.random.default_rng(K + B)
+    A, em, scores = (g.standard_normal(s).astype(np.float32)
+                     for s in ((K, K), (K,), (B,)))
+    return A, em, scores, g.permutation(K)[:B].astype(np.int32)
+
+
+@pytest.mark.parametrize("K,B,chunk", [(512, 64, 128), (300, 32, 128),
+                                       (128, 128, 128), (256, 16, 64)])
+def test_beam_step_matches_jax(K, B, chunk):
+    """The plain version against JAX's Pallas kernel (interpret mode), its
+    oracle and FLASH-BS's `_beam_transition`, all bitwise."""
+    from repro.core.flash_bs import _beam_transition
+    from repro.kernels import ref as jref
+    A, em, scores, states = _beam_inputs(K, B)
+    out = ops.beam_step(*(_t(x) for x in (A, em, scores, states)),
+                        chunk=chunk)
+    out_j = jops.beam_step(A, em, scores, states, chunk=chunk)
+    assert out[1].dtype == out[2].dtype == torch.int32
+    for x, y in zip(out, out_j):
+        assert _eq(x, y)
+    for x, y in zip(ref.beam_step_ref(*(_t(x) for x in (A, em, scores,
+                                                        states))),
+                    jref.beam_step_ref(A, em, scores, states)):
+        assert _eq(x, y)
+    if K % chunk == 0:
+        for x, y in zip(out, _beam_transition(A, em, scores, states, chunk,
+                                              B)):
+            assert _eq(x, y)
+
+
+def test_beam_step_batch_left_to_right_chain_matches_jax():
+    """12 chained steps of a tie-heavy left-to-right beam (K = 256, B = 128)
+    from a one-hot beam: the first step's candidates come from -4e9
+    sentinel slots, and most later ones are NEG_INF sums that tie, so the
+    merge order decides the bits."""
+    from repro.core.flash_bs import _beam_transition
+    from repro.kernels import beam_stream as jbs
+    from repro_torch.kernels import beam_stream as bs
+    K, B, N = 256, 128, 3
+    A = left_to_right_hmm(np.random.default_rng(5), K, 16,
+                          device=CPU).log_A.numpy()
+    g = np.random.default_rng(6)
+    scores = np.full((N, B), -4e9, np.float32)
+    scores[:, 0] = 0.0
+    states = np.zeros((N, B), np.int32)
+    s, st = _t(scores), _t(states)
+    for _ in range(12):
+        em = g.standard_normal((N, K)).astype(np.float32)
+        s, st, f = bs.beam_step_batch(_t(A), _t(em), s, st, 128)
+        for n in range(N):
+            out_j = _beam_transition(A, em[n], scores[n], states[n], 128, B)
+            kern_j = jbs.beam_step(A, em[n], scores[n], states[n], chunk=128,
+                                   interpret=True)
+            for x, y in zip((s[n], st[n], f[n]), out_j):
+                assert _eq(x, y)
+            assert _eq(st[n], kern_j[1]) and _eq(f[n], kern_j[2])
+            scores[n], states[n] = np.asarray(out_j[0]), np.asarray(out_j[1])
+    assert int((s <= -1e9).sum()) > N * B // 2    # most of the beam ties
+
+
+@pytest.mark.parametrize("I,K,J", [(8, 16, 128), (64, 128, 256),
+                                   (37, 100, 200), (1, 512, 512),
+                                   (128, 64, 384)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tropical_matmul_matches_jax(I, K, J, dtype):
+    """Bitwise in both dtypes: a bf16 sum is rounded to bf16 (nearest even)
+    before the max, which is what XLA's bf16 add does on the CPU."""
+    g = np.random.default_rng(I * 1000 + J)
+    a, b = (g.standard_normal(s).astype(np.float32) for s in ((I, K), (K, J)))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    v, arg = ops.tropical_matmul(_t(a).to(tdt), _t(b).to(tdt))
+    v_j, arg_j = jops.tropical_matmul(jnp.asarray(a).astype(jdt),
+                                      jnp.asarray(b).astype(jdt))
+    assert v.dtype == tdt and arg.dtype == torch.int32
+    assert np.array_equal(v.float().numpy(), np.asarray(v_j, np.float32))
+    assert _eq(arg, arg_j)
+
+
+def test_tropical_matmul_batch_is_each_product():
+    from repro.core.assoc import _tropical_matmul as j_combine
+    from repro_torch.kernels import tropical as tr
+    a, b = _normal(11, (5, 7, 9), (5, 9, 6))
+    vals, args = tr.tropical_matmul_batch(_t(a), _t(b))
+    assert vals.shape == args.shape == (5, 7, 6)
+    assert _eq(vals, j_combine(a, b))
+    for n in range(5):
+        v, g = ref.tropical_matmul_ref(_t(a[n]), _t(b[n]))
+        assert torch.equal(vals[n], v) and torch.equal(args[n], g)
+
+
+def test_new_wrappers_on_cpu_count_nothing_and_reject_bad_args():
+    from repro_torch import kernels
+    from repro_torch.kernels import beam_stream as bs
+    from repro_torch.kernels import tropical as tr
+    kernels.reset_launches()
+    A, em, scores, states = (_t(x) for x in _beam_inputs(64, 8))
+    bs.beam_step_batch(A, em[None], scores[None], states[None], 32)
+    tr.tropical_matmul_batch(A[None], A[None])
+    assert set(kernels.launch_counts()) == {
+        "viterbi_fwd_batch", "viterbi_fwd_batch_masked", "viterbi_banded_fwd",
+        "viterbi_backtrack_batch", "beam_step_batch", "tropical_matmul_batch"}
+    assert not any(kernels.launch_counts().values())
+    with pytest.raises(ValueError, match="divide"):
+        bs.beam_step_batch(A, em[None], scores[None], states[None], 48)
+    with pytest.raises(ValueError, match="beam width"):
+        bs.beam_step_batch(A[:4, :4], em[None, :4], scores[None],
+                           states[None], 4)
+    with pytest.raises(ValueError, match="int32"):
+        bs.beam_step_batch(A, em[None], scores[None], states[None].long(), 32)
+    with pytest.raises(ValueError, match="devices"):
+        bs.beam_step_batch(A, em[None].to("meta"), scores[None],
+                           states[None], 32)
+    with pytest.raises(ValueError, match="float32 or both bfloat16"):
+        tr.tropical_matmul_batch(A[None], A[None].bfloat16())
+    with pytest.raises(ValueError, match="must be"):
+        tr.tropical_matmul_batch(A[None], A[None, :8])

@@ -12,11 +12,15 @@ import pytest
 import torch
 
 from repro.core import FusedSpec as JFused, left_to_right_hmm as j_l2r
+from repro.core import VanillaSpec as JVanilla
+from repro.core import ResourceBudget as JBudget, plan as j_plan
+from repro.serving.alignment import AlignmentConfig as JAlignmentConfig
 from repro.serving.alignment import make_alignment_head as j_head
 from repro.serving.alignment import make_lexicon_align_head as j_lex_head
 from repro.serving.scheduler import BatchScheduler as JScheduler
-from repro_torch.core import (HMM, FusedSpec, LexiconConstraint, VanillaSpec,
-                              ViterbiDecoder, as_decode_spec, with_constraint)
+from repro_torch.core import (HMM, FlashBSSpec, FusedSpec, LexiconConstraint,
+                              VanillaSpec, ViterbiDecoder, as_decode_spec,
+                              with_constraint)
 from repro_torch.launch import serve
 from repro_torch.serving import (AlignmentConfig, BatchScheduler,
                                  make_alignment_head, make_lexicon_align_head)
@@ -48,10 +52,27 @@ def _serve(head_or_decoder, reqs):
     return {r.rid: r.result for r in sched.drain()}, sched
 
 
-@pytest.mark.parametrize("cfg", [FusedSpec(), VanillaSpec(),
-                                 AlignmentConfig(), AlignmentConfig("vanilla")])
+def _serve_jax(head, reqs):
+    sched = JScheduler(head, max_batch=3, buckets=(16, 32))
+    for em in reqs:
+        sched.submit(em)
+    return {r.rid: r.result for r in sched.drain()}
+
+
+#: each port config beside the JAX config it is held to
+HEAD_CFGS = [(FusedSpec(), JFused()), (VanillaSpec(), JVanilla()),
+             (AlignmentConfig(), JAlignmentConfig()),
+             (AlignmentConfig("vanilla"), JAlignmentConfig("vanilla"))]
+
+
+@pytest.mark.parametrize("cfg", [c for c, _ in HEAD_CFGS])
 def test_scheduler_and_alignment_head_match_jax(served, cfg):
-    done_j, reqs, hmm = served
+    """Every head against JAX's head of the same config on the same
+    requests; `AlignmentConfig()` is FLASH-BS in both packages."""
+    _, reqs, hmm = served
+    j_cfg = dict((repr(c), j) for c, j in HEAD_CFGS)[repr(cfg)]
+    done_j = _serve_jax(j_head(hmm.log_pi.numpy(), hmm.log_A.numpy(), j_cfg),
+                        reqs)
     head = make_alignment_head(hmm.log_pi, hmm.log_A, cfg, device="cpu")
     done, sched = _serve(head, reqs)
     assert sched.stats["requests"] == len(reqs)
@@ -72,11 +93,16 @@ def test_scheduler_accepts_port_decoder(served):
 
 
 def test_alignment_head_default_is_fused_and_unported_raise():
-    assert AlignmentConfig().to_spec() == FusedSpec()
-    with pytest.raises(TypeError):      # FLASH-BS tunables: not ported yet
-        AlignmentConfig("fused", beam_width=8)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        AlignmentConfig("flash_bs").to_spec()
+    """The default profile is now the JAX package's FLASH-BS (beam 128,
+    P = 8, chunk 128, whole layers); the streaming methods still raise."""
+    import dataclasses
+    spec = AlignmentConfig().to_spec()
+    assert spec == FlashBSSpec(lanes=None)
+    assert dataclasses.asdict(spec) == dataclasses.asdict(
+        JAlignmentConfig().to_spec())
+    assert AlignmentConfig("fused", beam_width=8).to_spec() == FusedSpec()
+    with pytest.raises(NotImplementedError, match="item 6"):
+        AlignmentConfig("online").to_spec()
 
 
 #: the serve lexicon's shape at K = 16: word w is the chain (4w .. 4w+3)
@@ -87,16 +113,13 @@ WORDS = tuple(((4 * w, 4 * w + 1, 4 * w + 2, 4 * w + 3),)
 @pytest.mark.parametrize("cfg", [None, FusedSpec(), VanillaSpec(),
                                  AlignmentConfig("vanilla")])
 def test_lexicon_align_head_matches_jax(served, cfg):
-    """The scheduler-driven lexicon head against JAX's fused lexicon head on
-    the same requests (the JAX default profile is FLASH-BS, not ported, so
-    the JAX side is given FusedSpec; both exact methods decode alike)."""
+    """The scheduler-driven lexicon head against JAX's on the same requests:
+    the default (FLASH-BS) head against JAX's default head, the exact heads
+    against JAX's fused head (exact methods decode alike)."""
     _, reqs, hmm = served
     jlp, jla = (np.asarray(hmm.log_pi), np.asarray(hmm.log_A))
-    jhead = j_lex_head(jlp, jla, WORDS, cfg=JFused())
-    jsched = JScheduler(jhead, max_batch=3, buckets=(16, 32))
-    for em in reqs:
-        jsched.submit(em)
-    done_j = {r.rid: r.result for r in jsched.drain()}
+    jhead = j_lex_head(jlp, jla, WORDS, cfg=None if cfg is None else JFused())
+    done_j = _serve_jax(jhead, reqs)
 
     head = make_lexicon_align_head(hmm.log_pi, hmm.log_A, WORDS, cfg=cfg,
                                    device="cpu")
@@ -121,12 +144,28 @@ def test_serve_main_smoke(capsys, method):
     assert "mean=0.00e+00 max=0.00e+00" in out
 
 
-def test_serve_main_rejects_unported_and_missing_device():
-    for flag in ("--budget-kb", "--beam", "--parallelism"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            serve.main(["--device", "cpu", flag, "64"])
-    with pytest.raises(SystemExit):
-        serve.main(["--device", "cpu", "--method", "flash_bs"])
+def test_serve_main_rejects_unported_and_missing_device(capsys):
+    """`--beam`, `--parallelism` and `--budget-kb` work as in the JAX serve
+    (the planner line is the JAX planner's); an unknown method raises, and
+    without `--device cpu` the serve raises on a host without a GPU."""
+    done = serve.main(["--device", "cpu", "--states", "16", "--requests", "3",
+                       "--beam", "4", "--parallelism", "2"])
+    assert len(done) == 3 and all(r.done for r in done)
+    done = serve.main(["--device", "cpu", "--states", "16", "--requests", "2",
+                       "--budget-kb", "2"])
+    assert len(done) == 2
+    out = capsys.readouterr().out
+    p = j_plan(16, 512, JBudget(memory_bytes=2048), batch=8)
+    assert f"planner: budget=2KiB x batch 8 -> {p.spec}  [{p.why}]" in out
+    with pytest.raises(ValueError, match="unknown method"):
+        serve.main(["--device", "cpu", "--method", "nope"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve.main(["--states", "16", "--requests", "1"])
+
+
+def test_serve_main_default_is_flash_bs(capsys):
+    """The default serve is FLASH-BS (beam 128 >= K = 16: exact)."""
+    done = serve.main(["--device", "cpu", "--states", "16", "--requests", "4"])
+    assert len(done) == 4
+    assert "mean=0.00e+00 max=0.00e+00" in capsys.readouterr().out
