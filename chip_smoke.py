@@ -21,12 +21,19 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      at both ends of the state range;
   1c. hold the beam kernel and the tropical kernel against their plain
      versions, bitwise: `ops.beam_step` at the four shapes of
-     tests/test_kernels.py, `beam_step_batch` at the serve's (N, K, B,
-     chunk) = (8, 512, 128, 128) and (2048, 512, 128, 128), at chunk = K =
-     B = 512, and over 16 chained left-to-right steps from a one-hot beam;
+     tests/test_kernels.py (the op's path to the single-step entry, its
+     launches counted), `beam_step_batch` at the serve's (N, K, B, chunk) =
+     (8, 512, 128, 128) and (2048, 512, 128, 128), at chunk = K = B = 512,
+     and over 16 chained left-to-right steps from a one-hot beam;
      `ops.tropical_matmul` at the five shapes of tests/test_kernels.py in
      float32 and bfloat16 (values and argmax), the batched kernel at (256,
-     64, 64, 64);
+     64, 64, 64); then the two FLASH-BS pass entries: the serve's initial
+     pass (8 sequences, Tp = 512, K = 512, B = 128, P = 8, tie-heavy
+     left-to-right model, ragged pad tails, one boundary crossed on a pad
+     step), its first layer, a lanes group of its second and its last
+     layer (2048 tiles of 2 steps), the budget rung (B = 256, P = 1), a
+     full beam on the Erdos-Renyi model, K = 1024 (the global instance),
+     and K = 100 and K = 3 (a cluster's CTAs own 13 / 1 columns);
   2. serve the 32 requests at K = 512 with ``--method fused`` through
      `repro_torch.launch.serve.main`, with the launch counters set to 0 just
      before and read just after: the forward and backtrack kernels must have
@@ -44,8 +51,9 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      `FusedSpec(constraint=band).run` (one banded-kernel launch), each
      bitwise equal to the dense oracle;
   6. serve the default 32 requests (FLASH-BS, beam 128, P = 8) through
-     `serve.main`: the beam kernel launched once per beam transition, as
-     many times as `plan_padding` predicts, every other kernel never; 8
+     `serve.main`: per batch one initial-pass launch and one tile launch
+     per layer, as `plan_padding` predicts (5 + 25), every other kernel
+     never; 8
      sampled requests (one per bucket at least) bitwise equal to
      `flash_bs_viterbi` on the CPU; the relative error against
      `viterbi_vanilla` printed;
@@ -65,10 +73,14 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      and backtrack kernels at the serve shapes (B = 8, T in {128, 256, 512},
      K = 512), the masked kernel at (8, 511, 512) with both masks and at
      (8, 511, 1024) with smask alone, the banded kernel at the map-matching
-     shape, the beam kernel at (N, K, B, chunk) = (8, 512, 128, 128) and
-     (2048, 512, 128, 128), the tropical kernel at (N, I, K, J) = (1, 512,
-     512, 512) and (256, 64, 64, 64); and the FLASH-BS serve's drain of the
-     32 requests on the host clock, twice, with its beam launches.
+     shape, the beam kernel's single step at (N, K, B, chunk) = (8, 512,
+     128, 128) and (2048, 512, 128, 128), its initial pass at the serve's
+     (8, 512, 512, 128, P = 8) and its tile launches of the first and last
+     layers (ms per launch and per DP step), the tropical kernel at (N, I,
+     K, J) = (1, 512, 512, 512) and (256, 64, 64, 64); the FLASH-BS serve's
+     drain of the 32 requests on the host clock, twice, with its beam
+     launches; and one more drain under `torch.profiler`: the device time
+     and the device's idle share of the drain.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no
@@ -417,11 +429,12 @@ def expected_batches(requests) -> list[tuple[int, int]]:
     return formed
 
 
-def check_launches(what: str, launches: dict[str, int], expected: int,
-                   ran: tuple[str, ...]) -> None:
-    """Each kernel in `ran` launched `expected` times, every other never."""
+def check_launches(what: str, launches: dict[str, int],
+                   expected: dict[str, int]) -> None:
+    """Each kernel in `expected` launched that many times, every other
+    never."""
     for name, n in launches.items():
-        want = expected if name in ran else 0
+        want = expected.get(name, 0)
         if n != want:
             raise SystemExit(f"FAIL {what}: {name} launched {n} times, "
                              f"expected {want}")
@@ -447,8 +460,8 @@ def phase_serve(dev) -> dict[str, int]:
           f"launches {launches}")
     if len(done) != 32:
         raise SystemExit(f"FAIL serve: {len(done)} of 32 requests served")
-    check_launches("serve", launches, batches,
-                   ("viterbi_fwd_batch", "viterbi_backtrack_batch"))
+    check_launches("serve", launches, dict(viterbi_fwd_batch=batches,
+                                           viterbi_backtrack_batch=batches))
 
     # the same model serve.main built from its default seed and sizes
     hmm = left_to_right_hmm(np.random.default_rng(0), 512, 64, device=dev)
@@ -511,8 +524,9 @@ def phase_lexicon(dev) -> dict[str, int]:
           f"words, launches {launches}")
     if len(done) != 32:
         raise SystemExit(f"FAIL lexicon serve: {len(done)} of 32 served")
-    check_launches("lexicon serve", launches, len(formed),
-                   ("viterbi_fwd_batch_masked", "viterbi_backtrack_batch"))
+    check_launches("lexicon serve", launches, dict(
+        viterbi_fwd_batch_masked=len(formed),
+        viterbi_backtrack_batch=len(formed)))
     for r in done:
         em = torch.from_numpy(r.payload).to(dev)
         p_ref, s_ref = viterbi_vanilla(*constrain_inputs(
@@ -557,8 +571,8 @@ def phase_map_matching(dev) -> dict[str, int]:
     batch_launches = kernels.launch_counts()
     print(f"map matching batch: (B,T,K)=({B},{T},{K}), lengths "
           f"{lengths.tolist()}, launches {batch_launches}")
-    check_launches("map matching batch", batch_launches, 1,
-                   ("viterbi_fwd_batch_masked", "viterbi_backtrack_batch"))
+    check_launches("map matching batch", batch_launches, dict(
+        viterbi_fwd_batch_masked=1, viterbi_backtrack_batch=1))
     for i, L in enumerate(lengths):
         p_o, s_o = oracle(em[i, :L])
         if not (torch.equal(paths[i, :L], p_o) and
@@ -573,8 +587,8 @@ def phase_map_matching(dev) -> dict[str, int]:
     run_launches = kernels.launch_counts()
     print(f"map matching trajectory: (T,K,width)=({T},{K},{band.width}), "
           f"launches {run_launches}")
-    check_launches("map matching trajectory", run_launches, 1,
-                   ("viterbi_banded_fwd", "viterbi_backtrack_batch"))
+    check_launches("map matching trajectory", run_launches, dict(
+        viterbi_banded_fwd=1, viterbi_backtrack_batch=1))
     p_o, s_o = oracle(em[0])
     if not (torch.equal(path, p_o) and float(score) == float(s_o)):
         raise SystemExit("FAIL map matching trajectory != dense oracle")
@@ -601,6 +615,16 @@ def beam_bound(log_A, scores, states, chunk: int):
     return bound_ms(nbytes, 3.0 * N * B * K + N * (K // chunk) * (B + chunk))
 
 
+def pass_bound(N: int, T: int, K: int, B: int, out_words: int,
+               extra_bytes: int = 0):
+    """A beam pass of N beams over T steps, every step real: log_A, log_pi,
+    em and the pad mask read once, the outputs written once (plus
+    `extra_bytes`: the tiles' entry, exit and first flags); two adds and a
+    compare per candidate of each transition, 3 N B K a step."""
+    nbytes = 4 * (K * K + K + N * T * K + out_words) + N * T + extra_bytes
+    return bound_ms(nbytes, 3.0 * N * (T - 1) * B * K)
+
+
 def tropical_bound(a, b):
     """A and B once, vals and args written once; an add and a compare per
     (n, i, j, k)."""
@@ -611,17 +635,18 @@ def tropical_bound(a, b):
     return bound_ms(nbytes, 2.0 * N * I * J * K)
 
 
-def beam_launches(bucket: int, P: int = 8) -> int:
-    """Beam-kernel launches of one FLASH-BS batch of padded length `bucket`
-    with whole layers at once: the initial pass's Tp - 1 steps, then s - 1
-    steps for each layer of tiles of length s = Tp/P, ..., 2."""
+def beam_launches(batches, P: int = 8) -> dict[str, int]:
+    """Beam-kernel launches of FLASH-BS batches of padded lengths `batches`
+    with whole layers at once (``lanes=None``): per batch, one initial pass
+    and one tile launch for each layer of tiles of length s = Tp/P, ...,
+    2 (one per `decode_tiles` call of the wavefront)."""
     from repro_torch.core import plan_padding
-    Tp, _ = plan_padding(bucket, P)
-    n, s = Tp - 1, Tp // P
-    while s >= 2:
-        n += s - 1
-        s //= 2
-    return n
+    layers = 0
+    for bucket in batches:
+        Tp, _ = plan_padding(bucket, P)
+        layers += int(np.log2(Tp // P))
+    return dict(bs_initial_pass_batch=len(batches),
+                bs_segment_decode_batch=layers)
 
 
 def beam_case(dev, g, N: int, K: int, B: int):
@@ -645,9 +670,12 @@ def check_same(what: str, out, ref_out) -> float:
     return float((out[0].float() - ref_out[0].float()).abs().max())
 
 
-def phase_beam_tropical_kernels(dev) -> dict[str, float]:
+def phase_beam_tropical_kernels(dev):
     """1c: the beam and tropical kernels against their plain versions on the
-    card, bitwise."""
+    card, bitwise.  Returns (max |value differences| per kernel, the launches
+    of the `ops.beam_step` calls: the op is the public path to the
+    single-step entry, which no decode path calls)."""
+    from repro_torch import kernels
     from repro_torch.core import left_to_right_hmm
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.beam_stream import beam_step_batch
@@ -662,10 +690,15 @@ def phase_beam_tropical_kernels(dev) -> dict[str, float]:
                                      check_same(what, out, ref_out))
 
     # ops.beam_step at the shapes of tests/test_kernels.py::test_beam_step_kernel
+    op_launches = {name: 0 for name in kernels.launch_counts()}
     for K, B, chunk in ((512, 64, 128), (300, 32, 128), (128, 128, 128),
                         (256, 16, 64)):
         A, em, sc, st = beam_case(dev, g, 1, K, B)
+        kernels.reset_launches()
         out = ops.beam_step(A, em[0], sc[0], st[0], chunk=chunk)
+        torch.cuda.synchronize()
+        for name, n in kernels.launch_counts().items():
+            op_launches[name] += n
         c = min(chunk, -(-K // 128) * 128)
         Ap = _pad_to(_pad_to(A, 0, c, -4e9), 1, c, -4e9)
         ref_out = ref.beam_transition_ref(Ap, _pad_to(em, 1, c, -4e9), sc, st,
@@ -719,6 +752,114 @@ def phase_beam_tropical_kernels(dev) -> dict[str, float]:
     e = check_same("tropical_matmul_batch (N,I,K,J)=(256,64,64,64)",
                    tropical_matmul_batch(a, b), ref.tropical_matmul_ref(a, b))
     err["tropical_matmul_batch"] = max(err["tropical_matmul_batch"], e)
+    check_launches("ops.beam_step path", op_launches, dict(beam_step_batch=4))
+    return err, op_launches
+
+
+def pass_problem(dev, g, K: int, N: int, T: int, lengths=None,
+                 model: str = "left-to-right"):
+    """A model and N sequences of T steps for the beam passes: (log_pi,
+    log_A, em (N, T, K) strided along N, as a decode's views are, pad (N,
+    T) bool with True from each length on)."""
+    from repro_torch.core import erdos_renyi_hmm, left_to_right_hmm
+    hmm = (left_to_right_hmm(g, K, 64, device=dev) if model == "left-to-right"
+           else erdos_renyi_hmm(g, K, 50, 0.253, device=dev))
+    em = torch.from_numpy((2.0 * g.standard_normal((N, T + 1, K))).astype(
+        np.float32)).to(dev)[:, 1:]
+    lengths = [T] * N if lengths is None else lengths
+    pad = (torch.arange(T, device=dev)[None, :]
+           >= torch.tensor(lengths, device=dev)[:, None])
+    return hmm.log_pi, hmm.log_A, em, pad
+
+
+def tiles_of(dev, g, em, pad, s: int, K: int, i0: int = 0, ln=None):
+    """The tiles of length s of a layer of the wavefront, as `wavefront`
+    cuts them (lanes i0 .. i0 + ln of every sequence), with random pinned
+    entry and exit states and every tile at step 0 marked first."""
+    Bt, Tp = pad.shape
+    n = Tp // s
+    ln = n - i0 if ln is None else ln
+    em_seg = em.reshape(Bt, n, s, K)[:, i0:i0 + ln].reshape(Bt * ln, s, K)
+    pad_seg = pad.reshape(Bt, n, s)[:, i0:i0 + ln].reshape(Bt * ln, s)
+    M = Bt * ln
+    entry, exit_state = (torch.from_numpy(g.integers(0, K, M)).to(dev)
+                         for _ in range(2))
+    is_first = torch.from_numpy(np.arange(i0, i0 + ln) == 0).to(dev).repeat(
+        Bt)
+    return em_seg, pad_seg, entry, exit_state, is_first
+
+
+def phase_beam_passes(dev) -> dict[str, float]:
+    """1c, continued: the two pass entries against their plain versions on
+    the card, bitwise, at the serve's shapes and at the edges of the
+    template (the global instance, a K the cluster does not divide)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.beam_stream import (bs_initial_pass_batch,
+                                                 bs_segment_decode_batch,
+                                                 pass_instance)
+    err = {"bs_initial_pass_batch": 0.0, "bs_segment_decode_batch": 0.0}
+    g = np.random.default_rng(6)
+
+    def initial(what, lp, A, em, pad, P: int, B: int):
+        T, K = em.shape[1:]
+        bnd = (np.arange(1, P) * (T // P) - 1).astype(np.int64)
+        chunk = 128 if K % 128 == 0 else None
+        q_b, q_l, sc = bs_initial_pass_batch(lp, A, em, pad, bnd, B)
+        q_b_r, q_l_r, sc_r = ref.bs_initial_pass_ref(lp, A, em, pad, bnd, B,
+                                                     chunk)
+        e = check_same(f"bs_initial_pass_batch {what} (N,Tp,K,B,P)=("
+                       f"{em.shape[0]},{T},{K},{B},{P}), "
+                       f"{pass_instance(K, B, len(bnd))} log_A",
+                       (sc, q_b, q_l), (sc_r, q_b_r, q_l_r))
+        err["bs_initial_pass_batch"] = max(err["bs_initial_pass_batch"], e)
+
+    def segment(what, lp, A, em_seg, pad_seg, entry, exit_state, is_first,
+                B: int):
+        M, s, K = em_seg.shape
+        chunk = 128 if K % 128 == 0 else None
+        out = bs_segment_decode_batch(lp, A, em_seg, pad_seg, entry,
+                                      exit_state, is_first, B)
+        want = ref.bs_segment_decode_ref(lp, A, em_seg, pad_seg, entry,
+                                         exit_state, is_first, B, chunk)
+        e = check_same(f"bs_segment_decode_batch {what} (M,s,K,B)=({M},{s},"
+                       f"{K},{B}), {pass_instance(K, B, 1)} log_A",
+                       (out,), (want,))
+        err["bs_segment_decode_batch"] = max(err["bs_segment_decode_batch"],
+                                             e)
+
+    # the serve's initial pass of a 512 bucket on the tie-heavy serve model,
+    # ragged pad tails (one crossing a boundary on a pad step: 64 = 63 + 1)
+    lengths = [512, 300, 64, 1, 128, 512, 77, 255]
+    lp, A, em, pad = pass_problem(dev, g, SERVE_K, 8, 512, lengths)
+    initial(f"serve, lengths {lengths}", lp, A, em, pad, 8, 128)
+    # its first layer (64 tiles of 64 steps), a lanes group of its second
+    # (8 x 8 tiles of 32 steps) and its last (2048 tiles of 2 steps)
+    segment("serve first layer", lp, A, *tiles_of(dev, g, em, pad, 64,
+                                                  SERVE_K), 128)
+    segment("serve lanes group 8..15", lp, A,
+            *tiles_of(dev, g, em, pad, 32, SERVE_K, 8, 8), 128)
+    segment("serve last layer", lp, A, *tiles_of(dev, g, em, pad, 2,
+                                                 SERVE_K), 128)
+    # the planner's beam rung: P = 1, beam 256
+    initial("budget rung", lp, A, em, pad, 1, 256)
+    segment("budget rung", lp, A, *tiles_of(dev, g, em, pad, 16, SERVE_K),
+            256)
+    # Erdos-Renyi K = 512 at a full beam (flash_bs and beam_static_mp, beam K)
+    lp, A, em, pad = pass_problem(dev, g, SERVE_K, 4, 64, model="er")
+    initial("erdos-renyi full beam", lp, A, em, pad, 8, 512)
+    segment("erdos-renyi full beam", lp, A, *tiles_of(dev, g, em, pad, 8,
+                                                      SERVE_K), 512)
+    # K = 1024: log_A's column slices do not fit, the global instance
+    lp, A, em, pad = pass_problem(dev, g, 1024, 4, 64, [64, 40, 9, 1])
+    initial("K = 1024", lp, A, em, pad, 4, 128)
+    segment("K = 1024", lp, A, *tiles_of(dev, g, em, pad, 8, 1024), 128)
+    # K = 100 and K = 3: the cluster's 8 CTAs own 13 / 1 columns, the last
+    # CTAs a tail or none
+    for K, B in ((100, 32), (3, 2)):
+        lp, A, em, pad = pass_problem(dev, g, K, 5, 40, [40, 33, 20, 2, 1],
+                                      model="er")
+        initial(f"K = {K}", lp, A, em, pad, 4, B)
+        segment(f"K = {K}", lp, A, *tiles_of(dev, g, em, pad, 10, K), B)
     return err
 
 
@@ -745,14 +886,15 @@ def phase_flash_bs_serve(dev) -> dict[str, int]:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     formed = expected_batches(done)
-    predicted = sum(beam_launches(b) for b, _ in formed)
+    predicted = beam_launches([b for b, _ in formed])
     print(f"flash_bs serve: {len(done)} requests, {len(formed)} batches "
           f"(bucket x requests: {', '.join(f'{b} x {n}' for b, n in formed)}),"
-          f" {predicted} beam launches predicted, launches {launches}")
+          f" {sum(predicted.values())} beam launches predicted {predicted}, "
+          f"launches {launches}")
     if len(done) != 32 or len(formed) != 5:
         raise SystemExit(f"FAIL flash_bs serve: {len(done)} of 32 requests "
                          f"in {len(formed)} batches")
-    check_launches("flash_bs serve", launches, predicted, ("beam_step_batch",))
+    check_launches("flash_bs serve", launches, predicted)
 
     hmm = left_to_right_hmm(np.random.default_rng(0), SERVE_K, 64, device=dev)
     lp, la = hmm.log_pi.cpu(), hmm.log_A.cpu()
@@ -799,17 +941,16 @@ def phase_flash_bs_lexicon(dev) -> dict[str, int]:
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     formed = expected_batches(done)
-    predicted = sum(beam_launches(b) for b, _ in formed)
+    predicted = beam_launches([b for b, _ in formed])
     spec = head.decoder.spec
     print(f"flash_bs lexicon serve ({type(spec).__name__}, beam "
           f"{spec.beam_width}, P = {spec.parallelism}, {len(LEXICON)} words): "
           f"{len(done)} requests in {wall:.4f} s on the host clock, "
-          f"{len(formed)} batches, {predicted} beam launches predicted, "
-          f"launches {launches}")
+          f"{len(formed)} batches, {sum(predicted.values())} beam launches "
+          f"predicted {predicted}, launches {launches}")
     if len(done) != 32:
         raise SystemExit(f"FAIL flash_bs lexicon serve: {len(done)} of 32")
-    check_launches("flash_bs lexicon serve", launches, predicted,
-                   ("beam_step_batch",))
+    check_launches("flash_bs lexicon serve", launches, predicted)
     lp, la = hmm.log_pi.cpu(), hmm.log_A.cpu()
     for r in flash_bs_sample(done, 3):
         p, s = spec.run(lp, la, torch.from_numpy(r.payload))
@@ -877,8 +1018,9 @@ def phase_paper_workload(dev) -> dict[str, int]:
         print(f"paper workload {what}: (B,T,K)=({B},{T},{K}) in "
               f"{time.perf_counter() - t0:.4f} s on the host clock")
         held(what, spec, paths, scores, kernels.launch_counts())
-    if total["beam_step_batch"] == 0:
-        raise SystemExit("FAIL paper workload: the beam kernel never ran")
+    if not (total["bs_initial_pass_batch"] and
+            total["bs_segment_decode_batch"]):
+        raise SystemExit("FAIL paper workload: a beam pass never ran")
 
     # assoc at (T, K) = (4096, 64): T * K^2 * 4 = 67 MB of prefix products
     Ta, Ka = 4096, 64
@@ -1017,6 +1159,44 @@ def phase_timing(dev, card: str) -> dict[str, dict]:
               f"({by}); {card}")
         rows["beam_step_batch"] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
                                        bound_by=by)
+    # the two passes at the serve's shapes (a 512 bucket of 8 sequences, no
+    # pad steps): the initial pass and the first and last layers' tile
+    # launches; the kernels line keeps the initial pass and the first layer
+    from repro_torch.kernels.beam_stream import (bs_initial_pass_batch,
+                                                 bs_segment_decode_batch)
+    lp, A, em, pad = pass_problem(dev, g, SERVE_K, SERVE_B, 512)
+    bnd = (np.arange(1, 8) * 64 - 1).astype(np.int64)
+    N, T, K, B = SERVE_B, 512, SERVE_K, 128
+    ms = cuda_ms(lambda: bs_initial_pass_batch(lp, A, em, pad, bnd, B),
+                 reps=5)
+    plain = cuda_ms(lambda: ref.bs_initial_pass_ref(lp, A, em, pad, bnd, B,
+                                                    128), reps=1, warmup=1)
+    bms, by = pass_bound(N, T, K, B, out_words=N * (len(bnd) + 2))
+    print(f"timing bs_initial_pass_batch (N,Tp,K,B,P)=({N},{T},{K},{B},8): "
+          f"kernel {ms:.4f} ms per launch, {ms / (T - 1):.6f} ms per DP "
+          f"step, plain {plain:.4f} ms, bound {bms:.6f} ms ({by}); {card}")
+    rows["bs_initial_pass_batch"] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
+                                         bound_by=by)
+    for s_len in (64, 2):
+        tiles = tiles_of(dev, g, em, pad, s_len, K)
+        M = tiles[0].shape[0]
+        ms = cuda_ms(lambda: bs_segment_decode_batch(lp, A, *tiles, B),
+                     reps=10)
+        plain = cuda_ms(lambda: ref.bs_segment_decode_ref(lp, A, *tiles, B,
+                                                          128),
+                        reps=1, warmup=1)
+        bms, by = pass_bound(M, s_len, K, B, out_words=M, extra_bytes=17 * M)
+        print(f"timing bs_segment_decode_batch (M,s,K,B)=({M},{s_len},{K},"
+              f"{B}): kernel {ms:.4f} ms per launch, "
+              f"{ms / (s_len - 1):.6f} ms per DP step, plain {plain:.4f} ms, "
+              f"bound {bms:.6f} ms ({by}); {card}")
+        if s_len == 64:
+            rows["bs_segment_decode_batch"] = dict(ms=ms, plain_ms=plain,
+                                                   bound_ms=bms, bound_by=by)
+    print("timing beam passes: each DP step depends on the one before (two "
+          "cluster barriers and a selection over K), so the serial step "
+          "latency, not the bytes or operations bound, sets their floor")
+
     # the tropical kernel: one level of the assoc scan at K = 64 and one
     # K = 512 product; the kernels line keeps the scan level
     for N, K in ((1, 512), (256, 64)):
@@ -1049,11 +1229,50 @@ def phase_timing(dev, card: str) -> dict[str, dict]:
         sched.drain()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
         print(f"timing flash_bs serve drain {rep + 1}: 32 requests in "
               f"{wall:.4f} s on the host clock ({32 / wall:.1f} req/s), "
-              f"{kernels.launch_counts()['beam_step_batch']} beam launches; "
-              f"{card}")
+              f"{counts['bs_initial_pass_batch']} initial-pass and "
+              f"{counts['bs_segment_decode_batch']} tile launches; {card}")
+    drain_device_share(head, card)
     return rows   # fwd and backtrack at T = 511; masked with both masks
+
+
+def drain_device_share(head, card: str) -> None:
+    """One FLASH-BS serve drain under `torch.profiler`: the device time of
+    its kernels and copies and the share of the drain's wall time (host
+    clock, under the profiler) in which the device ran nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import BUCKETS
+    from repro_torch.serving import BatchScheduler
+    sched = BatchScheduler(head, max_batch=SERVE_B, buckets=BUCKETS)
+    for em_r in serve_requests():
+        sched.submit(em_r)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.drain()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        print(f"drain device share: not measured (the profiler recorded no "
+              f"device events); {card}")
+        return
+    busy, end = 0.0, float("-inf")
+    for a, b, _ in spans:          # the union of the device intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    kernel_us = sum(b - a for a, b, name in spans
+                    if not name.startswith(("Memcpy", "Memset")))
+    print(f"drain device share: wall {wall_us / 1e3:.3f} ms under the "
+          f"profiler, device busy {busy / 1e3:.3f} ms ({len(spans)} device "
+          f"events; kernels {kernel_us / 1e3:.3f} ms), device idle "
+          f"{1 - busy / wall_us:.4f} of the wall time; {card}")
 
 
 def main() -> int:
@@ -1078,12 +1297,15 @@ def main() -> int:
 
     errs = phase_kernels(dev)
     errs |= phase_masked_kernels(dev)
-    errs |= phase_beam_tropical_kernels(dev)
+    e, op_launches = phase_beam_tropical_kernels(dev)
+    errs |= e | phase_beam_passes(dev)
     launches = phase_serve(dev)
     for phase in (phase_lexicon, phase_map_matching, phase_flash_bs_serve,
                   phase_flash_bs_lexicon, phase_paper_workload):
         for name, n in phase(dev).items():
             launches[name] += n
+    for name, n in op_launches.items():
+        launches[name] += n
     timing = phase_timing(dev, card)
 
     csrc = "src/repro_torch/kernels/csrc/"
@@ -1097,6 +1319,10 @@ def main() -> int:
                                     "src/repro/kernels/ops.py:213"),
         "beam_step_batch": ("beam_stream.cu",
                             "src/repro/kernels/beam_stream.py:60"),
+        "bs_initial_pass_batch": ("beam_stream.cu",
+                                  "src/repro/kernels/beam_stream.py:60"),
+        "bs_segment_decode_batch": ("beam_stream.cu",
+                                    "src/repro/kernels/beam_stream.py:60"),
         "tropical_matmul_batch": ("tropical.cu",
                                   "src/repro/kernels/tropical.py:30")}
     kernels = [dict(name=name, route="cuda", source=csrc + src,

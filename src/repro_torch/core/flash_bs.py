@@ -6,11 +6,16 @@ min-heaps so that the K-vector of scores is never materialised.  The JAX
 package streams target states in chunks of C instead: each (B x C) candidate
 block is reduced per target over the beam and merged into the running top-B
 (stable `lax.top_k` over B + C entries, seeded with B sentinel entries).
-Here every beam transition is one launch of the hand-written beam kernel
-(`kernels.beam_stream.beam_step_batch`) over all beams in flight: every
-sequence of a batch in the initial pass, every tile of every sequence in a
-layer of the wavefront.  The seeding top-B of a beam (no transition yet) and
-the bookkeeping between steps are plain PyTorch.
+The merge is stable and the chunks come in target order, so the result does
+not depend on C: it is the stable top-B of the B sentinels followed by every
+target's best candidate.  C only sets the padded state count K_pad.
+
+Here each pass is one launch of the hand-written beam kernel over all beams
+in flight, with the time loop, the pad identity and the division / midpoint
+bookkeeping inside it: the initial pass over every sequence of a batch
+(`kernels.beam_stream.bs_initial_pass_batch`), then one launch per layer of
+the wavefront (or per `lanes` group) over every tile of every sequence
+(`bs_segment_decode_batch`).
 
 The divide-and-conquer wavefront is shared with `flash.py`; only the
 per-tile DP differs.  A tile's pinned exit state may be absent from the
@@ -25,8 +30,9 @@ import math
 import numpy as np
 import torch
 
-from ..kernels.beam_stream import beam_step_batch
-from ..kernels.ref import BEAM_SENTINEL, merge_top_b
+from ..kernels.beam_stream import (bs_initial_pass_batch,
+                                   bs_segment_decode_batch)
+from ..kernels.ref import BEAM_SENTINEL
 from .flash import pad_time, pin_bounds, plan_padding, wavefront
 
 _SENTINEL = BEAM_SENTINEL   # below any reachable (even unreachable-edge) score
@@ -53,115 +59,42 @@ def pad_state_space(log_pi, log_A, em, chunk: int):
 
 
 # ---------------------------------------------------------------------------
-# Streaming top-B and the per-step bookkeeping
+# The two beam passes: one kernel launch each
 # ---------------------------------------------------------------------------
 
-def _stream_top_b(values: torch.Tensor, chunk: int, B: int):
-    """Top-B of (M, K_pad) scores, merged C at a time into a running top-B
-    seeded with B sentinels.  Returns (scores (M, B), states (M, B) int32)
-    sorted descending, the lower state first among ties."""
-    M, K_pad = values.shape
-    dev = values.device
-    run = (torch.full((M, B), _SENTINEL, dtype=values.dtype, device=dev),
-           torch.zeros((M, B), dtype=torch.int32, device=dev))
-    for c0 in range(0, K_pad, chunk):
-        st = torch.arange(c0, c0 + chunk, dtype=torch.int32,
-                          device=dev).expand(M, chunk)
-        run = merge_top_b(run, (values[:, c0:c0 + chunk], st), B)
-    return run
+def _bs_initial_pass(log_pi, log_A, em, pad, boundaries: np.ndarray, B: int):
+    """The beam over every full sequence of the batch, tracking the P-1
+    division states: em (Bt, Tp, K_pad), pad (Bt, Tp) -> (q_bounds (Bt, nb),
+    q_last (Bt,), score (Bt,)), the states as int64."""
+    q_bounds, q_last, score = bs_initial_pass_batch(log_pi, log_A, em, pad,
+                                                    boundaries, B)
+    return q_bounds.long(), q_last.long(), score
 
-
-def _pad_identity(is_pad, scores, states, ns, nst, nfrom):
-    """Pad steps are tropical identities: beam unchanged, self backpointers.
-
-    (A full carry-freeze would be wrong: mid/div assignments that fire on a
-    pad step must still see identity backpointers, as in `flash._dp_step`.)
-    """
-    B = scores.shape[1]
-    eye = torch.arange(B, dtype=torch.int32, device=scores.device)
-    keep = is_pad[:, None]
-    return (torch.where(keep, scores, ns), torch.where(keep, states, nst),
-            torch.where(keep, eye, nfrom))
-
-
-def _beam_step(log_A, em_t, is_pad, scores, states, chunk: int):
-    """One beam transition of every beam (one kernel launch), then the pad
-    identity.  Returns (scores, states, from_slots int64)."""
-    ns, nst, nfrom = beam_step_batch(log_A, em_t, scores, states, chunk)
-    ns, nst, nfrom = _pad_identity(is_pad, scores, states, ns, nst, nfrom)
-    return ns, nst, nfrom.long()
-
-
-# ---------------------------------------------------------------------------
-# Initial pass (beam over the full sequence, tracking P-1 division states)
-# ---------------------------------------------------------------------------
-
-def _bs_initial_pass(log_pi, log_A, em, pad, boundaries: np.ndarray,
-                     B: int, chunk: int):
-    """em (Bt, Tp, K_pad), pad (Bt, Tp) -> (q_bounds (Bt, nb),
-    q_last (Bt,), score (Bt,))."""
-    Bt, Tp, _ = em.shape
-    nb = len(boundaries)
-    scores, states = _stream_top_b(log_pi + em[:, 0], chunk, B)
-    div = torch.zeros((Bt, B, nb), dtype=torch.int32, device=em.device)
-    for t in range(1, Tp):
-        ns, nst, nfrom = _beam_step(log_A, em[:, t], pad[:, t], scores,
-                                    states, chunk)
-        if nb:   # follow the slots; a crossed boundary takes the old state
-            div = div.gather(1, nfrom[:, :, None].expand(-1, -1, nb))
-            for i in np.flatnonzero(boundaries + 1 == t):
-                div[:, :, int(i)] = states.gather(1, nfrom)
-        scores, states = ns, nst
-    score, b_best = scores.max(dim=1)
-    rows = torch.arange(Bt, device=em.device)
-    return div[rows, b_best].long(), states[rows, b_best].long(), score
-
-
-# ---------------------------------------------------------------------------
-# Per-tile beam DP
-# ---------------------------------------------------------------------------
 
 def _bs_segment_decode(log_pi, log_A, em_seg, pad_seg, entry, exit_state,
-                       is_first, B: int, chunk: int):
+                       is_first, B: int):
     """The pruned beam DP over M tiles -> their midpoint states (M,)."""
-    s = em_seg.shape[1]
-    tm = s // 2 - 1
-    init = torch.where(is_first[:, None], log_pi, log_A[entry]) + em_seg[:, 0]
-    scores, states = _stream_top_b(init, chunk, B)
-    mid = None        # all zeros until the midpoint step: nothing to carry
-    for tl in range(1, s):
-        ns, nst, nfrom = _beam_step(log_A, em_seg[:, tl], pad_seg[:, tl],
-                                    scores, states, chunk)
-        if tl == tm + 1:
-            mid = states.gather(1, nfrom)
-        elif tl > tm + 1:
-            mid = mid.gather(1, nfrom)
-        scores, states = ns, nst
-    # the exit state may have fallen off the beam: fall back to the best slot
-    hit = states == exit_state[:, None]
-    idx = torch.where(hit.any(dim=1), hit.int().argmax(dim=1),
-                      scores.argmax(dim=1))
-    return mid.gather(1, idx[:, None])[:, 0]
+    return bs_segment_decode_batch(log_pi, log_A, em_seg, pad_seg, entry,
+                                   exit_state, is_first, B)
 
 
 # ---------------------------------------------------------------------------
 # Full decoder
 # ---------------------------------------------------------------------------
 
-def _flash_bs_padded(log_pi, log_A, em, pad, P: int, lanes, B: int,
-                     chunk: int):
+def _flash_bs_padded(log_pi, log_A, em, pad, P: int, lanes, B: int):
     """FLASH-BS over a batch: em (Bt, Tp, K_pad), pad (Bt, Tp).
 
     Returns (q_star (Bt, Tp) int64, score (Bt,))."""
     Tp = em.shape[1]
     boundaries = (np.arange(1, P) * (Tp // P) - 1).astype(np.int64)
     q_bounds, q_last, score = _bs_initial_pass(log_pi, log_A, em, pad,
-                                               boundaries, B, chunk)
+                                               boundaries, B)
     q_star = pin_bounds(q_bounds, q_last, Tp, boundaries)
 
     def decode_tiles(em_seg, pad_seg, entry, exit_state, is_first):
         return _bs_segment_decode(log_pi, log_A, em_seg, pad_seg, entry,
-                                  exit_state, is_first, B, chunk)
+                                  exit_state, is_first, B)
 
     return wavefront(decode_tiles, em, pad, q_star, P, lanes), score
 
@@ -177,7 +110,7 @@ def flash_bs_batch(log_pi, log_A, em, pad, beam_width: int, P: int, lanes,
     Tp, _ = plan_padding(T, P)
     em_p, pad_p = pad_time(em, pad, Tp)
     q, s = _flash_bs_padded(log_pi, log_A.contiguous(), em_p, pad_p, P,
-                            lanes, B, chunk)
+                            lanes, B)
     return q[:, :T].to(torch.int32), s
 
 

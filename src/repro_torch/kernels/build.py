@@ -46,8 +46,15 @@ SIGNATURES = {
                                     _VOID, _VOID),
     },
     "beam_stream": {
+        "beam_pass_smem_bytes": (_I32, _I32, _I32, _I32),
+        "bs_initial_pass_batch": (_VOID, _VOID, _VOID, _I64, _I64, _VOID,
+                                  _I64, _VOID, _I32, _I32, _I32, _I32, _I32,
+                                  _I32, _VOID, _VOID, _VOID, _VOID),
+        "bs_segment_decode_batch": (_VOID, _VOID, _VOID, _I64, _I64, _VOID,
+                                    _I64, _VOID, _VOID, _VOID, _I32, _I32,
+                                    _I32, _I32, _I32, _VOID, _VOID),
         "beam_step_batch": (_VOID, _VOID, _I64, _VOID, _VOID, _I32, _I32,
-                            _I32, _I32, _VOID, _VOID, _VOID, _VOID),
+                            _I32, _VOID, _VOID, _VOID, _VOID),
     },
     "tropical": {
         "tropical_matmul_batch": (_VOID, _VOID, _I32, _I32, _I32, _I32, _I32,

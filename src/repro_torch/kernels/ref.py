@@ -174,6 +174,104 @@ def beam_transition_ref(log_A: torch.Tensor, em: torch.Tensor,
     return run
 
 
+def _stream_top_b(values: torch.Tensor, B: int, chunk: int | None = None):
+    """Top-B of (M, K_pad) scores, merged `chunk` at a time (None: all at
+    once) into a running top-B seeded with B (BEAM_SENTINEL, 0) entries.
+    Returns (scores (M, B), states (M, B) int32) sorted descending, the lower
+    state first among ties: `core/flash_bs.py::_stream_top_b` of the JAX
+    package, batched."""
+    M, K_pad = values.shape
+    chunk = K_pad if chunk is None else chunk
+    dev = values.device
+    run = (torch.full((M, B), BEAM_SENTINEL, dtype=values.dtype, device=dev),
+           torch.zeros((M, B), dtype=torch.int32, device=dev))
+    for c0 in range(0, K_pad, chunk):
+        st = torch.arange(c0, c0 + chunk, dtype=torch.int32,
+                          device=dev).expand(M, chunk)
+        run = merge_top_b(run, (values[:, c0:c0 + chunk], st), B)
+    return run
+
+
+def _beam_pass_step(log_A, em_t, is_pad, scores, states, chunk: int):
+    """One beam transition of every beam, then the pad identity: a pad step
+    keeps the beam and points every slot at itself.  (A full carry-freeze
+    would be wrong: mid/div assignments that fire on a pad step must still
+    see identity backpointers.)  Returns (scores, states, from_slots
+    int64)."""
+    ns, nst, nfrom = beam_transition_ref(log_A, em_t, scores, states, chunk)
+    eye = torch.arange(scores.shape[1], dtype=torch.int32,
+                       device=scores.device)
+    keep = is_pad[:, None]
+    return (torch.where(keep, scores, ns), torch.where(keep, states, nst),
+            torch.where(keep, eye, nfrom).long())
+
+
+def bs_initial_pass_ref(log_pi, log_A, em, pad, boundaries, B: int,
+                        chunk: int | None = None):
+    """Reference for the FLASH-BS initial pass: the beam over each whole
+    (padded) sequence, tracking the P-1 division states.
+
+    em (N, Tp, K_pad), pad (N, Tp) bool, `boundaries` a static sequence of
+    step indices; `chunk` (a divisor of K_pad, None: K_pad) groups the
+    targets of each merge and does not change the result.  Returns
+    (q_bounds (N, nb) int32, q_last (N,) int32, score (N,)): the division
+    states, last state and score of the first best slot.  This is
+    `core/flash_bs.py::_bs_initial_pass` of the JAX package, batched.
+    """
+    N, Tp, K_pad = em.shape
+    chunk = K_pad if chunk is None else chunk
+    bnd = [int(b) for b in boundaries]
+    scores, states = _stream_top_b(log_pi + em[:, 0], B, chunk)
+    div = torch.zeros((N, B, len(bnd)), dtype=torch.int32, device=em.device)
+    for t in range(1, Tp):
+        ns, nst, nfrom = _beam_pass_step(log_A, em[:, t], pad[:, t], scores,
+                                         states, chunk)
+        if bnd:   # follow the slots; a crossed boundary takes the old state
+            div = div.gather(1, nfrom[:, :, None].expand(-1, -1, len(bnd)))
+            for i, b in enumerate(bnd):
+                if b + 1 == t:
+                    div[:, :, i] = states.gather(1, nfrom)
+        scores, states = ns, nst
+    score, b_best = scores.max(dim=1)                  # first best slot
+    rows = torch.arange(N, device=em.device)
+    return div[rows, b_best], states[rows, b_best], score
+
+
+def bs_segment_decode_ref(log_pi, log_A, em_seg, pad_seg, entry, exit_state,
+                          is_first, B: int, chunk: int | None = None):
+    """Reference for the FLASH-BS tile decode: the pruned beam DP over M
+    tiles of s >= 2 steps.
+
+    em_seg (M, s, K_pad), pad_seg (M, s) bool, entry / exit_state (M,) the
+    pinned states before and at the end of each tile, is_first (M,) bool
+    (the tile starts at step 0: seed from log_pi, else from
+    ``log_A[entry]``).  The midpoint state is followed from step s // 2 on;
+    at the end the first slot holding `exit_state` gives it, or the first
+    best slot if the exit state fell off the beam.  Returns the midpoint
+    states (M,) int32.  This is `core/flash_bs.py::_bs_segment_decode` of
+    the JAX package, batched; `chunk` as in `bs_initial_pass_ref`.
+    """
+    s, K_pad = em_seg.shape[1:]
+    chunk = K_pad if chunk is None else chunk
+    tm = s // 2 - 1
+    init = torch.where(is_first[:, None], log_pi,
+                       log_A[entry.long()]) + em_seg[:, 0]
+    scores, states = _stream_top_b(init, B, chunk)
+    mid = None        # all zeros until the midpoint step: nothing to carry
+    for tl in range(1, s):
+        ns, nst, nfrom = _beam_pass_step(log_A, em_seg[:, tl], pad_seg[:, tl],
+                                         scores, states, chunk)
+        if tl == tm + 1:
+            mid = states.gather(1, nfrom)
+        elif tl > tm + 1:
+            mid = mid.gather(1, nfrom)
+        scores, states = ns, nst
+    hit = states == exit_state[:, None]
+    idx = torch.where(hit.any(dim=1), hit.int().argmax(dim=1),
+                      scores.argmax(dim=1))
+    return mid.gather(1, idx[:, None])[:, 0]
+
+
 def beam_step_ref(log_A: torch.Tensor, em_t: torch.Tensor,
                   scores: torch.Tensor, states: torch.Tensor):
     """The JAX package's oracle for `beam_step` (`repro.kernels.ref`): one
@@ -216,5 +314,6 @@ def tropical_matmul_ref(a: torch.Tensor, b: torch.Tensor):
 __all__ = ["viterbi_forward_ref", "viterbi_forward_masked_ref",
            "viterbi_forward_masked_pen_ref", "viterbi_banded_forward_ref",
            "viterbi_backtrack_ref", "top_b", "merge_top_b",
-           "beam_transition_ref", "beam_step_ref", "tropical_matmul_ref",
+           "beam_transition_ref", "bs_initial_pass_ref",
+           "bs_segment_decode_ref", "beam_step_ref", "tropical_matmul_ref",
            "BEAM_SENTINEL"]

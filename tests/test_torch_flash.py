@@ -163,3 +163,80 @@ def test_flash_bs_matches_jax_property(prob, beam):
     kw = dict(beam_width=beam or prob[0], parallelism=2, chunk=8)
     _assert_pair(flash_bs_viterbi, j_fbs, kw, _mk(*prob),
                  f"flash_bs {kw} {prob}")
+
+
+# ---------------------------------------------------------------------------
+# the FLASH-BS passes' plain versions against JAX's, per sequence under vmap
+# ---------------------------------------------------------------------------
+
+def _pass_problem(name):
+    """numpy (log_pi, log_A, em (6, 32, K_pad)) padded with sentinel states
+    by JAX's `pad_state_space` at chunk 16: Erdos-Renyi K = 48, the
+    tie-heavy left-to-right K = 48, and a ragged K = 40 (K_pad = 48)."""
+    from repro.core.flash_bs import pad_state_space as j_pad
+    K = 40 if name == "ragged" else 48
+    k1, k2 = jax.random.split(jax.random.key(7))
+    hmm = j_l2r(k1, K, 16) if name == "left_to_right" else j_er(
+        k1, K, edge_prob=0.3)
+    em = np.asarray(j_rand(k2, 6 * 32, K)).reshape(6, 32, K)
+    return tuple(np.array(x) for x in j_pad(hmm.log_pi, hmm.log_A, em,
+                                              16)[:3])
+
+
+@pytest.mark.parametrize("B", [4, 16])
+@pytest.mark.parametrize("name", ["erdos_renyi", "left_to_right", "ragged"])
+def test_bs_initial_pass_ref_matches_jax(name, B):
+    """Six sequences of Tp = 32 steps, P = 4 (boundaries 7, 15, 23): whole,
+    pad from step 8 and from step 24 (the boundary crossings fall on pad
+    steps), one real step, and two scattered pad patterns; bitwise against
+    `_bs_initial_pass` under `jax.vmap`, at the JAX chunk and as one
+    selection."""
+    from repro.core.flash_bs import _bs_initial_pass as j_init
+    from repro_torch.kernels import ref
+    lp, la, em = _pass_problem(name)
+    bnd = np.array([7, 15, 23])
+    pad = np.zeros((6, 32), bool)
+    pad[1, 8:] = pad[2, 24:] = pad[3, 1:] = True
+    g = np.random.default_rng(B)
+    pad[4:, 1:] = g.random((2, 31)) < 0.4
+    out_j = jax.jit(jax.vmap(lambda e, p: j_init(lp, la, e, p, bnd, B, 16)))(
+        em, pad)
+    for chunk in (16, None):
+        out = ref.bs_initial_pass_ref(*(torch.from_numpy(x) for x in (
+            lp, la, em, pad)), bnd, B, chunk)
+        assert out[0].dtype == out[1].dtype == torch.int32
+        for x, y in zip(out, out_j):
+            assert np.array_equal(x.numpy(), np.asarray(y)), chunk
+
+
+@pytest.mark.parametrize("B", [4, 16])
+@pytest.mark.parametrize("name", ["erdos_renyi", "left_to_right", "ragged"])
+def test_bs_segment_decode_ref_matches_jax(name, B):
+    """24 tiles of s = 8 steps (the midpoint carry starts at step 4): whole,
+    pad from the midpoint step, pad from step 1 and scattered pads; entry
+    and exit states drawn at random (an exit off the beam takes the
+    fallback), a third of them first tiles; bitwise against
+    `_bs_segment_decode` under `jax.vmap`."""
+    from repro.core.flash_bs import _bs_segment_decode as j_seg
+    from repro_torch.kernels import ref
+    lp, la, em = _pass_problem(name)
+    em = em.reshape(24, 8, -1)
+    K = la.shape[0]
+    g = np.random.default_rng(B + 1)
+    pad = np.zeros((24, 8), bool)
+    pad[6:12, 4:] = pad[12:18, 1:] = True
+    pad[18:, 1:] = g.random((6, 7)) < 0.4
+    entry, exit_state = (g.integers(0, K, 24).astype(np.int32)
+                         for _ in range(2))
+    is_first = np.arange(24) % 3 == 0
+    lp_j, la_j = jax.numpy.asarray(lp), jax.numpy.asarray(la)
+    mid_j = jax.jit(jax.vmap(
+        lambda e, p, en, ex, f: j_seg(lp_j, la_j, e, p, en, ex, f, B, 16)))(
+        em, pad, entry, exit_state, is_first)
+    t = torch.from_numpy
+    for chunk in (16, None):
+        mid = ref.bs_segment_decode_ref(
+            t(lp), t(la), t(em), t(pad), t(entry).long(),
+            t(exit_state).long(), t(is_first), B, chunk)
+        assert mid.dtype == torch.int32
+        assert np.array_equal(mid.numpy(), np.asarray(mid_j)), chunk

@@ -96,7 +96,9 @@ def test_every_c_entry_has_its_ctypes_signature():
     assert set(build.SIGNATURES["viterbi_dp"]) == {
         "viterbi_fwd_batch", "viterbi_fwd_batch_masked", "viterbi_banded_fwd",
         "viterbi_backtrack_batch"}
-    assert set(build.SIGNATURES["beam_stream"]) == {"beam_step_batch"}
+    assert set(build.SIGNATURES["beam_stream"]) == {
+        "beam_pass_smem_bytes", "bs_initial_pass_batch",
+        "bs_segment_decode_batch", "beam_step_batch"}
     assert set(build.SIGNATURES["tropical"]) == {"tropical_matmul_batch"}
     assert {src.stem for src in build.SOURCES} == set(build.SIGNATURES)
     for src in build.SOURCES:

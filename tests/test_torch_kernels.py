@@ -439,7 +439,8 @@ def test_new_wrappers_on_cpu_count_nothing_and_reject_bad_args():
     tr.tropical_matmul_batch(A[None], A[None])
     assert set(kernels.launch_counts()) == {
         "viterbi_fwd_batch", "viterbi_fwd_batch_masked", "viterbi_banded_fwd",
-        "viterbi_backtrack_batch", "beam_step_batch", "tropical_matmul_batch"}
+        "viterbi_backtrack_batch", "beam_step_batch", "bs_initial_pass_batch",
+        "bs_segment_decode_batch", "tropical_matmul_batch"}
     assert not any(kernels.launch_counts().values())
     with pytest.raises(ValueError, match="divide"):
         bs.beam_step_batch(A, em[None], scores[None], states[None], 48)
@@ -455,3 +456,131 @@ def test_new_wrappers_on_cpu_count_nothing_and_reject_bad_args():
         tr.tropical_matmul_batch(A[None], A[None].bfloat16())
     with pytest.raises(ValueError, match="must be"):
         tr.tropical_matmul_batch(A[None], A[None, :8])
+
+
+# ---------------------------------------------------------------------------
+# the beam kernel's single selection and its pass entries
+# ---------------------------------------------------------------------------
+
+def _single_selection(A, em, scores, states):
+    """numpy oracle of one beam transition as one stable selection: the B
+    best of [B sentinels (-4e9, 0, 0)] ++ [every target's best candidate],
+    by value descending, then position ascending."""
+    N, B = scores.shape
+    K = A.shape[1]
+    cand = (scores[:, :, None] + A[states]) + em[:, None, :]     # f32 adds
+    best, frm = cand.max(axis=1), cand.argmax(axis=1)            # first slot
+    vals = np.concatenate([np.full((N, B), -4e9, np.float32), best], axis=1)
+    st = np.concatenate([np.zeros((N, B), np.int64),
+                         np.broadcast_to(np.arange(K), (N, K))], axis=1)
+    fr = np.concatenate([np.zeros((N, B), np.int64), frm], axis=1)
+    pos = np.arange(B + K)
+    out = [[], [], []]
+    for n in range(N):
+        top = np.lexsort((pos, -vals[n]))[:B]
+        for o, x in zip(out, (vals[n], st[n], fr[n])):
+            o.append(x[top])
+    return (np.stack(out[0]).astype(np.float32),
+            np.stack(out[1]).astype(np.int32),
+            np.stack(out[2]).astype(np.int32))
+
+
+def _chunk_case(case):
+    """(A (K, K), emissions for 6 steps (6, N, K), scores, states) at K =
+    256: a tie-heavy left-to-right beam from a one-hot beam (NEG_INF sums
+    tie), a beam half filled with sentinel slots, and a ragged K = 40
+    padded with sentinel/2 states as `pad_state_space` pads it, under a
+    beam of 64: fewer targets than slots rise above -4e9, so the padded
+    targets tie the sentinels at exactly -4e9 and the sentinels win."""
+    g = np.random.default_rng(["left_to_right", "sentinel_beam",
+                               "ragged"].index(case))
+    K, N = 256, 3
+    if case == "left_to_right":
+        A = left_to_right_hmm(np.random.default_rng(5), K, 16,
+                              device=CPU).log_A.numpy()
+        B = 64
+        scores = np.full((N, B), -4e9, np.float32)
+        scores[:, 0] = 0.0
+        states = np.zeros((N, B), np.int32)
+    else:
+        A = g.standard_normal((K, K)).astype(np.float32)
+        B = 128 if case == "sentinel_beam" else 64
+        scores = g.standard_normal((N, B)).astype(np.float32)
+        states = np.stack([g.permutation(K)[:B] for _ in range(N)]
+                          ).astype(np.int32)
+        if case == "sentinel_beam":
+            scores[:, B // 2:] = -4e9
+            states[:, B // 2:] = 0
+    em = (2.0 * g.standard_normal((6, N, K))).astype(np.float32)
+    if case == "ragged":
+        A[:, 40:] = A[40:] = np.float32(-2e9)
+        em[..., 40:] = np.float32(-2e9)
+    return A, em, scores, states
+
+
+@pytest.mark.parametrize("case", ["left_to_right", "sentinel_beam", "ragged"])
+@pytest.mark.parametrize("chunk", [8, 32, 128, "K"])
+def test_beam_transition_does_not_depend_on_chunk(chunk, case):
+    """The chunked, sentinel-seeded merge is the single stable selection over
+    [B sentinels] ++ [all targets] for every chunk size, bitwise: the
+    property the beam kernel's one selection per step rests on.  Six
+    chained steps each."""
+    A, em, scores, states = _chunk_case(case)
+    C = A.shape[0] if chunk == "K" else chunk
+    s, st = _t(scores), _t(states)
+    for e in em:
+        out = ref.beam_transition_ref(_t(A), _t(e), s, st, C)
+        want = _single_selection(A, e, s.numpy(), st.numpy())
+        for x, y in zip(out, want):
+            assert _eq(x, y)
+        s, st = out[0], out[1]
+    if case == "left_to_right":
+        assert int((s <= -1e9).sum()) > 0     # NEG_INF sums in the beam
+    if case == "ragged":
+        assert int((s == -4e9).sum()) == 3 * 24   # sentinels beat the ties
+
+
+def test_pass_wrappers_on_cpu_count_nothing_and_reject_bad_args():
+    """The two pass entries run their plain versions on the CPU and count no
+    launch; bad arguments raise before anything runs."""
+    from repro_torch import kernels
+    from repro_torch.kernels import beam_stream as bs
+    K, N, T, B = 32, 3, 6, 4
+    A, em, lp = (_t(x) for x in _normal(9, (K, K), (N, T, K), (K,)))
+    pad = torch.zeros((N, T), dtype=torch.bool)
+    kernels.reset_launches()
+    out = bs.bs_initial_pass_batch(lp, A, em, pad, [1, 3], B)
+    for x, y in zip(out, ref.bs_initial_pass_ref(lp, A, em, pad, [1, 3], B)):
+        assert torch.equal(x, y)
+    entry = torch.tensor([0, 5, 7])
+    first = torch.tensor([True, False, False])
+    mid = bs.bs_segment_decode_batch(lp, A, em, pad, entry, entry, first, B)
+    assert torch.equal(mid, ref.bs_segment_decode_ref(lp, A, em, pad, entry,
+                                                      entry, first, B))
+    assert mid.shape == (N,) and out[0].shape == (N, 2)
+    assert not any(kernels.launch_counts().values())
+    with pytest.raises(ValueError, match="beam width"):
+        bs.bs_initial_pass_batch(lp, A, em, pad, [1], K + 1)
+    with pytest.raises(ValueError, match="log_pi"):
+        bs.bs_initial_pass_batch(lp[:4], A, em, pad, [1], B)
+    with pytest.raises(ValueError, match="em must be"):
+        bs.bs_initial_pass_batch(lp, A, em[..., :4], pad, [1], B)
+    with pytest.raises(ValueError, match="pad must be"):
+        bs.bs_initial_pass_batch(lp, A, em, pad[:, :2], [1], B)
+    with pytest.raises(ValueError, match="bool"):
+        bs.bs_initial_pass_batch(lp, A, em, pad.float(), [1], B)
+    with pytest.raises(ValueError, match="float32"):
+        bs.bs_initial_pass_batch(lp, A.double(), em, pad, [1], B)
+    with pytest.raises(ValueError, match="devices"):
+        bs.bs_initial_pass_batch(lp, A, em.to("meta"), pad, [1], B)
+    with pytest.raises(ValueError, match="s >= 2"):
+        bs.bs_segment_decode_batch(lp, A, em[:, :1], pad[:, :1], entry,
+                                   entry, first, B)
+    with pytest.raises(ValueError, match="entry, exit_state and is_first"):
+        bs.bs_segment_decode_batch(lp, A, em, pad, entry[:2], entry, first, B)
+    with pytest.raises(ValueError, match="int64"):
+        bs.bs_segment_decode_batch(lp, A, em, pad, entry.int(), entry, first,
+                                   B)
+    with pytest.raises(ValueError, match="is_first must be bool"):
+        bs.bs_segment_decode_batch(lp, A, em, pad, entry, entry, first.int(),
+                                   B)
