@@ -11,14 +11,19 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
   1. hold the forward and backtrack kernels against their plain PyTorch
      versions on the card, bitwise (`torch.equal`) at the serve shapes
      (B, T, K) = (8, 511, 512) on a left-to-right HMM with ragged lengths
-     including 1 and 0 and on an Erdos-Renyi HMM (p = 0.253), and at K in
-     {100, 200, 384, 1024, 1500};
+     including 1 and 0 and on an Erdos-Renyi HMM (p = 0.253), at K in
+     {1, 3 (CTAs that own no column), 100, 200, 384, the largest K of the
+     resident instance and the next multiple of 8 above it, 1024, 1500},
+     and at B = 40 (more sequences than clusters on the card) with
+     lengths 0, 1 and 511 among them; each case prints the instance and
+     cluster size it took;
   1b. hold the constraint-masked forward kernel and the banded kernel
-     against their plain versions, bitwise: (8, 511, 512) with the serve
-     lexicon's tmask and smask, (8, 511, 1024) on the map-matching grid with
-     the band's smask, K in {100, 384, 1500} with each mask alone and both,
-     and the banded kernel at the map-matching shape and on a band clipped
-     at both ends of the state range;
+     against their plain versions, bitwise: (8, 511, 512) and (40, 511,
+     512) with the serve lexicon's tmask and smask, (8, 511, 1024) on the
+     map-matching grid with the band's smask, K in {1, 3, 100, 384, the
+     instance boundary, 1500} with each mask alone and both, and the banded
+     kernel at the map-matching shape and on a band clipped at both ends of
+     the state range;
   1c. hold the beam kernel and the tropical kernel against their plain
      versions, bitwise: `ops.beam_step` at the four shapes of
      tests/test_kernels.py (the op's path to the single-step entry, its
@@ -72,15 +77,17 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
   3. time each kernel and its plain version with CUDA events: the forward
      and backtrack kernels at the serve shapes (B = 8, T in {128, 256, 512},
      K = 512), the masked kernel at (8, 511, 512) with both masks and at
-     (8, 511, 1024) with smask alone, the banded kernel at the map-matching
+     (8, 511, 1024) with smask alone (the forward entries also per DP step,
+     with their instance), the banded kernel at the map-matching
      shape, the beam kernel's single step at (N, K, B, chunk) = (8, 512,
      128, 128) and (2048, 512, 128, 128), its initial pass at the serve's
      (8, 512, 512, 128, P = 8) and its tile launches of the first and last
      layers (ms per launch and per DP step), the tropical kernel at (N, I,
-     K, J) = (1, 512, 512, 512) and (256, 64, 64, 64); the FLASH-BS serve's
-     drain of the 32 requests on the host clock, twice, with its beam
-     launches; and one more drain under `torch.profiler`: the device time
-     and the device's idle share of the drain.
+     K, J) = (1, 512, 512, 512) and (256, 64, 64, 64); the FLASH-BS and
+     the `fused` serve's drains of the 32 requests on the host clock, twice
+     each, with their launches; and one more drain of each under
+     `torch.profiler`: the device time and the device's idle share of the
+     drain.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no
@@ -90,6 +97,7 @@ result, when no CUDA device is available.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -163,9 +171,36 @@ def pad_of(lengths, T: int, dev) -> torch.Tensor:
             >= lengths[:, None]).to(torch.float32)
 
 
+def forward_layout(vdp, K: int) -> str:
+    """The forward template's instance at K and its cluster size (the
+    `kCluster` its source includes from csrc/cluster.cuh)."""
+    from repro_torch.kernels import build
+    text = (build.CSRC / "cluster.cuh").read_text()
+    ctas = re.search(r"constexpr int kCluster = (\d+);", text).group(1)
+    return f"{vdp.forward_instance(K)} log_A, clusters of {ctas} CTAs"
+
+
+def resident_limit(vdp) -> int:
+    """The largest K whose forward launch holds its column slices of log_A
+    in shared memory (the C entry's own layout arithmetic)."""
+    K = 1
+    while vdp.forward_instance(K + 1) == "resident":
+        K += 1
+    return K
+
+
+def random_case(g, dev, K: int, B: int, T: int):
+    """Normal log_A (K, K), em (B, T, K) (x2) and delta0 (B, K) on `dev`."""
+    log_A, em, delta0 = (torch.from_numpy(
+        g.standard_normal(shape).astype(np.float32)).to(dev)
+        for shape in ((K, K), (B, T, K), (B, K)))
+    return log_A, 2.0 * em, delta0
+
+
 def check_forward(vdp, ref, log_A, em, delta0, pad, what: str):
     """Kernel vs plain version, bitwise; returns (max |delta_T difference|,
     the kernel's psi and delta_T)."""
+    what = f"{what}, {forward_layout(vdp, em.shape[2])}"
     psi, dT = vdp.viterbi_forward_batch(log_A, em, delta0, pad)
     if pad is None:
         psi_r, dT_r = ref.viterbi_forward_ref(log_A, em, delta0)
@@ -215,13 +250,25 @@ def phase_kernels(dev) -> dict[str, float]:
         pad = None if steps is None else pad_of(steps, T, dev)
         inputs.append((f"{name} (B,T,K)=({B},{T},{K}) lengths={steps}",
                        hmm.log_A, em, delta0, pad))
-    for K in (100, 200, 384, 1024, 1500):
+    # K = 1 and 3: CTAs that own no column; the largest resident K and the
+    # next multiple of 8 above it: the two instances' boundary
+    k_res = resident_limit(vdp)
+    for K in (1, 3, 100, 200, 384, k_res, k_res // 8 * 8 + 8, 1024, 1500):
         B, T = 3, 37
-        log_A, em, delta0 = (torch.from_numpy(
-            g.standard_normal(shape).astype(np.float32)).to(dev)
-            for shape in ((K, K), (B, T, K), (B, K)))
+        log_A, em, delta0 = random_case(g, dev, K, B, T)
         inputs.append((f"(B,T,K)=({B},{T},{K}) lengths=[{T}, 1, 0]",
-                       log_A, 2.0 * em, delta0, pad_of([T, 1, 0], T, dev)))
+                       log_A, em, delta0, pad_of([T, 1, 0], T, dev)))
+    # more sequences than clusters on the card: the persistent task loop
+    B, T, K = 40, 511, SERVE_K
+    hmm = left_to_right_hmm(g, K, 64, device=dev)
+    lengths = [0, 1, 511, 0] + g.integers(2, T + 1, B - 4).tolist()
+    em_full = torch.from_numpy(
+        (2.0 * g.standard_normal((B, T + 1, K))).astype(np.float32)).to(dev)
+    inputs.append((f"left-to-right (B,T,K)=({B},{T},{K}) lengths 0, 1, "
+                   f"511, 0 and 36 drawn from [2, 511]",
+                   hmm.log_A, em_full[:, 1:],
+                   hmm.log_pi[None, :] + em_full[:, 0, :],
+                   pad_of(lengths, T, dev)))
     for what, log_A, em, delta0, pad in inputs:
         e, psi, dT = check_forward(vdp, ref, log_A, em, delta0, pad, what)
         err["viterbi_fwd_batch"] = max(err["viterbi_fwd_batch"], e)
@@ -308,6 +355,7 @@ def check_masked(vdp, ref, log_A, em, delta0, pad, tmask, smask,
                  what: str) -> float:
     """Masked kernel and a backtrack of its psi vs the plain versions,
     bitwise; returns max |delta_T difference|."""
+    what = f"{what}, {forward_layout(vdp, em.shape[2])}"
     psi, dT = vdp.viterbi_forward_batch_masked(log_A, em, delta0, pad,
                                                tmask, smask)
     mask = (torch.zeros(em.shape[:2], dtype=torch.bool, device=em.device)
@@ -372,11 +420,18 @@ def phase_masked_kernels(dev) -> dict[str, float]:
                   f"lengths={grid_len}", log_A_g, em_g[:, 1:], delta0_g,
                   pad_of(grid_len, Tg, dev), None, s_pen[1:]))
 
-    for K in (100, 384, 1500):
+    # more sequences than clusters: the lexicon serve model at B = 40
+    b, lengths = 40, [0, 1, 511, 0] + g.integers(2, T + 1, 36).tolist()
+    A, tm, e, sm, d0 = lexicon_problem(dev, g, b, T)
+    cases.append((f"lexicon tmask+smask (B,T,K)=({b},{T},{SERVE_K}) "
+                  f"lengths 0, 1, 511, 0 and 36 drawn from [2, 511]", A, e,
+                  d0, pad_of(lengths, T, dev), tm, sm))
+
+    # K = 1, 3 (CTAs without columns) and the instances' boundary
+    k_res = resident_limit(vdp)
+    for K in (1, 3, 100, 384, k_res, k_res // 8 * 8 + 8, 1500):
         b, t = 3, 37
-        A, e, d0 = (torch.from_numpy(
-            g.standard_normal(shape).astype(np.float32)).to(dev)
-            for shape in ((K, K), (b, t, K), (b, K)))
+        A, e, d0 = random_case(g, dev, K, b, t)
         tm, sm = (torch.from_numpy(np.where(
             g.random(shape) < frac, np.float32(-1.0e9),
             np.float32(0.0)).astype(np.float32)).to(dev)
@@ -384,7 +439,7 @@ def phase_masked_kernels(dev) -> dict[str, float]:
         for name, tk, sk in (("tmask", tm, None), ("smask", None, sm),
                              ("tmask+smask", tm, sm)):
             cases.append((f"{name} (B,T,K)=({b},{t},{K}) lengths=[{t}, 1, 0]",
-                          A, 2.0 * e, d0, pad_of([t, 1, 0], t, dev), tk, sk))
+                          A, e, d0, pad_of([t, 1, 0], t, dev), tk, sk))
 
     for what, A, e, d0, pad, tk, sk in cases:
         err["viterbi_fwd_batch_masked"] = max(
@@ -1094,8 +1149,12 @@ def phase_timing(dev, card: str) -> dict[str, dict]:
                 backtrack_bound(B, T, K)),
         }
         for name, (ms, plain, (bms, by)) in times.items():
-            print(f"timing {name} (B,T,K)=({B},{T},{K}): kernel {ms:.4f} ms, "
-                  f"plain {plain:.4f} ms, bound {bms:.6f} ms ({by}); {card}")
+            per_step = (f", {1e3 * ms / T:.4f} us per DP step, "
+                        f"{forward_layout(vdp, K)}"
+                        if name == "viterbi_fwd_batch" else "")
+            print(f"timing {name} (B,T,K)=({B},{T},{K}): kernel {ms:.4f} ms"
+                  f"{per_step}, plain {plain:.4f} ms, bound {bms:.6f} ms "
+                  f"({by}); {card}")
             rows[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
 
     # the masked kernel: the lexicon serve shape with both masks (kept for
@@ -1121,7 +1180,8 @@ def phase_timing(dev, card: str) -> dict[str, dict]:
         bms, by = masked_bound(B, T, Km, tm is not None, sm is not None,
                                B * T)
         print(f"timing viterbi_fwd_batch_masked {what} (B,T,K)=({B},{T},"
-              f"{Km}): kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{Km}): kernel {ms:.4f} ms, {1e3 * ms / T:.4f} us per DP "
+              f"step, {forward_layout(vdp, Km)}, plain {plain:.4f} ms, bound "
               f"{bms:.6f} ms ({by}); {card}")
         if i == 0:
             rows["viterbi_fwd_batch_masked"] = dict(
@@ -1218,30 +1278,31 @@ def phase_timing(dev, card: str) -> dict[str, dict]:
     from repro_torch.launch.serve import BUCKETS
     hmm0 = left_to_right_hmm(np.random.default_rng(0), SERVE_K, 64,
                              device=dev)
-    head = make_alignment_head(hmm0.log_pi, hmm0.log_A, AlignmentConfig())
-    for rep in range(2):
-        sched = BatchScheduler(head, max_batch=SERVE_B, buckets=BUCKETS)
-        for em_r in serve_requests():
-            sched.submit(em_r)
-        kernels.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sched.drain()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-        print(f"timing flash_bs serve drain {rep + 1}: 32 requests in "
-              f"{wall:.4f} s on the host clock ({32 / wall:.1f} req/s), "
-              f"{counts['bs_initial_pass_batch']} initial-pass and "
-              f"{counts['bs_segment_decode_batch']} tile launches; {card}")
-    drain_device_share(head, card)
+    for method in ("flash_bs", "fused"):
+        head = make_alignment_head(hmm0.log_pi, hmm0.log_A,
+                                   AlignmentConfig(method=method))
+        for rep in range(2):
+            sched = BatchScheduler(head, max_batch=SERVE_B, buckets=BUCKETS)
+            for em_r in serve_requests():
+                sched.submit(em_r)
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sched.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {n: v for n, v in kernels.launch_counts().items() if v}
+            print(f"timing {method} serve drain {rep + 1}: 32 requests in "
+                  f"{wall:.4f} s on the host clock ({32 / wall:.1f} req/s), "
+                  f"launches {counts}; {card}")
+        drain_device_share(head, method, card)
     return rows   # fwd and backtrack at T = 511; masked with both masks
 
 
-def drain_device_share(head, card: str) -> None:
-    """One FLASH-BS serve drain under `torch.profiler`: the device time of
-    its kernels and copies and the share of the drain's wall time (host
-    clock, under the profiler) in which the device ran nothing."""
+def drain_device_share(head, what: str, card: str) -> None:
+    """One serve drain (the head `what`) under `torch.profiler`: the device
+    time of its kernels and copies and the share of the drain's wall time
+    (host clock, under the profiler) in which the device ran nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import BUCKETS
@@ -1259,8 +1320,8 @@ def drain_device_share(head, card: str) -> None:
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
-        print(f"drain device share: not measured (the profiler recorded no "
-              f"device events); {card}")
+        print(f"{what} drain device share: not measured (the profiler "
+              f"recorded no device events); {card}")
         return
     busy, end = 0.0, float("-inf")
     for a, b, _ in spans:          # the union of the device intervals
@@ -1269,7 +1330,7 @@ def drain_device_share(head, card: str) -> None:
             end = b
     kernel_us = sum(b - a for a, b, name in spans
                     if not name.startswith(("Memcpy", "Memset")))
-    print(f"drain device share: wall {wall_us / 1e3:.3f} ms under the "
+    print(f"{what} drain device share: wall {wall_us / 1e3:.3f} ms under the "
           f"profiler, device busy {busy / 1e3:.3f} ms ({len(spans)} device "
           f"events; kernels {kernel_us / 1e3:.3f} ms), device idle "
           f"{1 - busy / wall_us:.4f} of the wall time; {card}")

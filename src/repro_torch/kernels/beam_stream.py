@@ -27,14 +27,11 @@ import torch
 
 from . import build
 from . import ref as _ref
-from .viterbi_dp import _check_cuda, _on_cuda, _require, _stream
+from .viterbi_dp import SMEM_BYTES, _check_cuda, _on_cuda, _require, _stream
 
 #: kernel launches since the last `reset_launches()`
 launches = {"beam_step_batch": 0, "bs_initial_pass_batch": 0,
             "bs_segment_decode_batch": 0}
-
-#: a block's shared memory on the card (227 KB)
-SMEM_BYTES = 232448
 
 
 def reset_launches() -> None:

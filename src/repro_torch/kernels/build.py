@@ -3,8 +3,8 @@
 Each ``csrc/*.cu`` source is compiled by nvcc, for Hopper (``sm_90a``), into
 its own shared library with a plain C interface, which is loaded with ctypes.
 Libraries go to ``build/repro_torch_kernels/<hash>/`` at the root of the
-checkout, where ``<hash>`` covers the flags and every source, so an edit to a
-source builds afresh.  Nothing is built when the package is imported: the
+checkout, where ``<hash>`` covers the flags, every source and the headers
+they include (``HEADERS``), so an edit to either builds afresh.  Nothing is built when the package is imported: the
 first launch builds (`load`), or a caller builds everything up front
 (`build_all`, one nvcc run per source, all started together).
 """
@@ -21,6 +21,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "viterbi_dp.cu", CSRC / "beam_stream.cu",
            CSRC / "tropical.cu")
+#: headers the sources include: hashed with them, never compiled alone
+HEADERS = (CSRC / "cluster.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 # No fast-math: the kernels must reproduce the reference's f32 rounding.
@@ -35,11 +37,12 @@ _I64 = ctypes.c_int64
 # argtypes of each C entry point; pointers and the stream are c_void_p
 SIGNATURES = {
     "viterbi_dp": {
+        "viterbi_fwd_smem_bytes": (_I32, _I32),
         "viterbi_fwd_batch": (_VOID, _VOID, _I64, _I64, _VOID, _VOID,
-                              _I32, _I32, _I32, _VOID, _VOID, _VOID),
+                              _I32, _I32, _I32, _I32, _VOID, _VOID, _VOID),
         "viterbi_fwd_batch_masked": (_VOID, _VOID, _VOID, _I64, _I64, _VOID,
                                      _I64, _VOID, _VOID, _I32, _I32, _I32,
-                                     _VOID, _VOID, _VOID),
+                                     _I32, _VOID, _VOID, _VOID),
         "viterbi_banded_fwd": (_VOID, _VOID, _VOID, _I64, _VOID, _VOID, _I32,
                                _I32, _I32, _I32, _VOID, _VOID, _VOID),
         "viterbi_backtrack_batch": (_VOID, _VOID, _I32, _I32, _I32, _VOID,
@@ -73,7 +76,7 @@ def nvcc() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
@@ -133,5 +136,5 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "nvcc_command", "build_all", "load",
+__all__ = ["SOURCES", "HEADERS", "NVCC_FLAGS", "nvcc_command", "build_all", "load",
            "library_path"]

@@ -78,12 +78,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float kSentinel = -4.0e9f;
-constexpr int kCluster = 8;
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -112,24 +113,10 @@ struct Args {
   float* out_score;            // (N,), kInitial
 };
 
-__host__ __device__ inline int cols_per_cta(int K) {
-  return (K + kCluster - 1) / kCluster;
-}
-
-// threads per part: the CTA's targets rounded up to whole warps
-__host__ __device__ inline int lane_width(int W) {
-  const int w = ((W > 1 ? W : 1) + 31) / 32 * 32;
-  return w < kThreads ? w : kThreads;
-}
-
 // bookkeeping columns (division states, or the midpoint) of the busiest
 // CTA: CTA r keeps the columns k = r, r + 8, ...
 __host__ __device__ inline int book_cols(int book) {
   return (book + kCluster - 1) / kCluster;
-}
-
-__host__ __device__ inline int64_t align4(int64_t words) {
-  return (words + 3) / 4 * 4;
 }
 
 // Offsets into the dynamic shared memory, in 4-byte words, each 16-byte
@@ -141,7 +128,7 @@ struct Smem {
 __host__ __device__ inline Smem smem_layout(int K, int B, int book,
                                             bool resident) {
   const int W = cols_per_cta(K);
-  const int parts = kThreads / lane_width(W);
+  const int parts = kThreads / lane_width(W, kThreads);
   const int cols = book_cols(book);
   Smem s;
   int64_t o = 0;
@@ -201,7 +188,7 @@ beam_pass_kernel(const Args p) {
   const int bw = MODE == kInitial ? p.nb : (MODE == kSegment ? 1 : 0);
   const Smem L = smem_layout(K, B, bw, RESIDENT);
   const int W = cols_per_cta(K);
-  const int Wp = lane_width(W), parts = kThreads / Wp;
+  const int Wp = lane_width(W, kThreads), parts = kThreads / Wp;
   const int c0 = min(r * W, K), nw = min(c0 + W, K) - c0;
   const int jl = tid % Wp, part = tid / Wp;
   // this CTA's bookkeeping columns k = r + 8 i, i < mine
@@ -476,40 +463,10 @@ beam_pass_kernel(const Args p) {
 
 template <int MODE, bool RESIDENT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto kernel = beam_pass_kernel<MODE, RESIDENT>;
   const int bw = MODE == kInitial ? a.nb : (MODE == kSegment ? 1 : 0);
   const size_t smem = 4 * (size_t)smem_layout(a.K, a.B, bw, RESIDENT).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  // as many clusters as the card holds at once, each walking its tasks
-  static size_t cached_smem = 0;
-  static int cached_clusters = 0;
-  if (cached_smem != smem) {
-    cfg.gridDim = dim3(kCluster);
-    int n = 0;
-    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-    if (err != cudaSuccess) return err;
-    if (n < 1) return cudaErrorInvalidConfiguration;
-    cached_smem = smem;
-    cached_clusters = n;
-  }
-  const int clusters = a.N < cached_clusters ? a.N : cached_clusters;
-  cfg.gridDim = dim3(clusters * kCluster);
-  err = cudaLaunchKernelEx(&cfg, kernel, a);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_persistent_clusters(beam_pass_kernel<MODE, RESIDENT>, a, a.N,
+                                    kThreads, smem, stream);
 }
 
 template <int MODE>

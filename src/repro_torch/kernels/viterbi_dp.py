@@ -7,8 +7,17 @@ Pallas kernel `_viterbi_fwd_masked_kernel` (:120, :175).
 `viterbi_banded_forward` replaces the `lax.scan` step loop of
 `viterbi_decode_banded` (src/repro/kernels/ops.py:387-411), and
 `viterbi_backtrack_batch` the XLA reverse-scan backtracks (ops.py:177-182,
-213-220).  The source comment in the .cu file says what bounds each kernel
-on the card and what its design does about it.
+213-220).
+
+The two forward entries are one template: each sequence is owned by a
+thread-block cluster of 8 CTAs, CTA r scoring the target columns
+[r W, (r + 1) W), W = ceil(K / 8), against every source, with delta
+exchanged through distributed shared memory and one cluster barrier a real
+step.  Where the column slice fits in shared memory (`forward_instance`:
+"resident", K up to 665), each CTA holds its slice of log_A (the
+masked entry: of log_A + tmask) for the whole launch; above that it reads
+the slice from L2 ("global").  The source comment in the .cu file says what
+bounds each kernel on the card and what its design does about it.
 
 Each wrapper checks device, dtype, shape and strides and raises on what the
 kernel does not take.  For tensors on the CPU it runs the plain version in
@@ -27,8 +36,11 @@ from . import ref as _ref
 launches = {"viterbi_fwd_batch": 0, "viterbi_fwd_batch_masked": 0,
             "viterbi_banded_fwd": 0, "viterbi_backtrack_batch": 0}
 
-#: largest K whose two f32 delta rows fit in one block's 227 KB shared memory
-MAX_K = 232448 // 8
+#: a block's shared memory on the card (227 KB)
+SMEM_BYTES = 232448
+
+#: largest K whose two f32 delta rows fit in one block's shared memory
+MAX_K = SMEM_BYTES // 8
 
 
 def reset_launches() -> None:
@@ -88,9 +100,20 @@ def _forward_args(log_A, em, delta0, pad, tmask=None, smask=None) -> bool:
     return True
 
 
+def forward_instance(K: int) -> str:
+    """The forward template's instance at K states: "resident" (each CTA of
+    a cluster holds its column slice of log_A, or of log_A + tmask, in
+    shared memory) or "global" (the slice is read from L2).  Loads the
+    library."""
+    lib = build.load("viterbi_dp")
+    fits = lib.viterbi_fwd_smem_bytes(K, 1) <= SMEM_BYTES
+    return "resident" if fits else "global"
+
+
 def _launch_forward(name: str, em: torch.Tensor, *args):
     """Allocates psi and delta_T and launches the C entry `name` with
-    ``args + (B, T, K, psi, delta_T, stream)``; counts the launch."""
+    ``args + (B, T, K, resident, psi, delta_T, stream)``; counts the
+    launch."""
     B, T, K = em.shape
     dev = em.device
     psi = torch.empty((B, T, K), dtype=torch.int32, device=dev)
@@ -98,9 +121,11 @@ def _launch_forward(name: str, em: torch.Tensor, *args):
     if B == 0:
         return psi, delta_T
     lib = build.load("viterbi_dp")
+    resident = forward_instance(K) == "resident"
     with torch.cuda.device(dev):
-        err = getattr(lib, name)(*args, B, T, K, psi.data_ptr(),
-                                 delta_T.data_ptr(), _stream(dev))
+        err = getattr(lib, name)(*args, B, T, K, int(resident),
+                                 psi.data_ptr(), delta_T.data_ptr(),
+                                 _stream(dev))
     _check_cuda(err, name)
     launches[name] += 1
     return psi, delta_T
@@ -262,4 +287,5 @@ def viterbi_backtrack_batch(psi: torch.Tensor, delta_T: torch.Tensor):
 
 __all__ = ["viterbi_forward", "viterbi_forward_batch",
            "viterbi_forward_batch_masked", "viterbi_banded_forward",
-           "viterbi_backtrack_batch", "launches", "reset_launches", "MAX_K"]
+           "viterbi_backtrack_batch", "forward_instance", "launches",
+           "reset_launches", "MAX_K", "SMEM_BYTES"]

@@ -94,7 +94,8 @@ def test_every_c_entry_has_its_ctypes_signature():
     import re
     from repro_torch.kernels import build
     assert set(build.SIGNATURES["viterbi_dp"]) == {
-        "viterbi_fwd_batch", "viterbi_fwd_batch_masked", "viterbi_banded_fwd",
+        "viterbi_fwd_smem_bytes", "viterbi_fwd_batch",
+        "viterbi_fwd_batch_masked", "viterbi_banded_fwd",
         "viterbi_backtrack_batch"}
     assert set(build.SIGNATURES["beam_stream"]) == {
         "beam_pass_smem_bytes", "bs_initial_pass_batch",
@@ -104,6 +105,35 @@ def test_every_c_entry_has_its_ctypes_signature():
     for src in build.SOURCES:
         entries = re.findall(r'extern "C" int (\w+)\(', src.read_text())
         assert sorted(entries) == sorted(build.SIGNATURES[src.stem]), src.name
+
+
+def test_headers_are_hashed_with_the_sources_but_not_compiled(tmp_path,
+                                                             monkeypatch):
+    """An edit to a shared header builds every library afresh; nvcc is
+    given the sources alone (the header is included, never compiled)."""
+    from repro_torch.kernels import build
+    assert build.HEADERS
+    for hdr in build.HEADERS:
+        assert hdr.exists() and hdr.suffix == ".cuh"
+        assert hdr not in build.SOURCES
+        assert any(f'#include "{hdr.name}"' in src.read_text()
+                   for src in build.SOURCES)
+    before = build.build_dir()
+    edited = tmp_path / build.HEADERS[0].name
+    edited.write_text(build.HEADERS[0].read_text() + "\n// edited\n")
+    monkeypatch.setattr(build, "HEADERS", (edited,) + build.HEADERS[1:])
+    assert build.build_dir() != before
+
+
+def test_every_include_in_csrc_is_a_listed_header():
+    """A source that includes a header the hash does not cover would not
+    rebuild when that header changes."""
+    import re
+    from repro_torch.kernels import build
+    local = set()
+    for path in build.SOURCES + build.HEADERS:
+        local |= set(re.findall(r'#include "([^"]+)"', path.read_text()))
+    assert local == {h.name for h in build.HEADERS}
 
 
 def _fake_nvcc(tmp_path, monkeypatch, body: str):

@@ -8,6 +8,9 @@ the port runs its kernels' plain versions, because the tensors lie on the
 CPU.  Tolerance: psi, paths, delta_T and scores are bitwise equal.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -584,3 +587,194 @@ def test_pass_wrappers_on_cpu_count_nothing_and_reject_bad_args():
     with pytest.raises(ValueError, match="is_first must be bool"):
         bs.bs_segment_decode_batch(lp, A, em, pad, entry, entry, first.int(),
                                    B)
+
+
+# --- the cluster forward kernel's reduction, emulated in plain torch -------
+#
+# `csrc/viterbi_dp.cu` splits each sequence's target columns across the C
+# CTAs of a cluster (CTA r owns [r W, (r + 1) W), W = ceil(K / C)) and each
+# column's sources into contiguous k ranges (the parts of a CTA's threads,
+# each cut again into a thread's chains), scanned upward with a strict '>'
+# and combined in ascending k order, a later range winning only if strictly
+# greater.  No GPU here, so these tests hold the algorithm: the emulation
+# below must equal the plain version and JAX's kernel bit for bit on inputs
+# where ties decide psi.
+
+
+def _first_max(s):
+    """The lowest index of the max over dim 1 and the value found there: an
+    upward scan with a strict '>'.  s (B, n, w) -> (value, index) (B, w)."""
+    best = s.max(dim=1, keepdim=True).values
+    n = s.shape[1]
+    pos = torch.arange(n).view(1, n, 1).expand_as(s)
+    idx = torch.where(s == best, pos, n).min(dim=1, keepdim=True).values
+    return s.gather(1, idx)[:, 0], idx[:, 0]
+
+
+def _cluster_forward(A, em, d0, pad, C, ranges, smask=None):
+    """The kernel's forward pass with clusters of C CTAs, each column's
+    sources cut into the contiguous `ranges` [(k0, k1), ...] (ascending,
+    covering [0, K)); A is what a CTA's slice holds (log_A, or log_A + tmask
+    added once), smask (T, K) is added to em before the max is.  Pad steps
+    (pad (B, T) bool) keep delta and write the identity row."""
+    B, T, K = em.shape
+    W = -(-K // C)
+    eye = torch.arange(K, dtype=torch.int32)
+    psi = torch.empty((B, T, K), dtype=torch.int32)
+    delta = d0.clone()
+    for t in range(T):
+        new = torch.empty_like(delta)
+        arg_t = torch.empty((B, K), dtype=torch.int32)
+        e = em[:, t] if smask is None else em[:, t] + smask[t]
+        for r in range(C):
+            c0, c1 = min(r * W, K), min((r + 1) * W, K)
+            if c0 == c1:            # a CTA that owns no column
+                continue
+            best = arg = None
+            for k0, k1 in ranges:
+                v, i = _first_max(delta[:, k0:k1, None] + A[k0:k1, c0:c1])
+                if best is None:
+                    best, arg = v, i + k0
+                else:               # a later range wins only if greater
+                    take = v > best
+                    best = torch.where(take, v, best)
+                    arg = torch.where(take, i + k0, arg)
+            new[:, c0:c1] = best + e[:, c0:c1]
+            arg_t[:, c0:c1] = arg.to(torch.int32)
+        is_pad = pad[:, t, None]
+        psi[:, t] = torch.where(is_pad, eye, arg_t)
+        delta = torch.where(is_pad, delta, new)
+    return psi, delta
+
+
+def _even_ranges(K, P):
+    """[0, K) cut into P contiguous ranges of ceil(K / P) (the last ones
+    shorter or empty, and empty ones dropped)."""
+    Kp = -(-K // P)
+    return [(k, min(k + Kp, K)) for k in range(0, K, Kp)]
+
+
+def _csrc_constant(source, name):
+    """The value of `constexpr int <name> = <n>;` in csrc/<source>."""
+    text = (Path(vdp.__file__).parent / "csrc" / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+# the forward kernel's launch constants, read from its sources
+_CLUSTER = _csrc_constant("cluster.cuh", "kCluster")
+_FWD_THREADS = _csrc_constant("viterbi_dp.cu", "kFwdThreads")
+_CHAINS = _csrc_constant("viterbi_dp.cu", "kChains")
+
+
+def _kernel_ranges(K, C=_CLUSTER, threads=_FWD_THREADS, chains=_CHAINS):
+    """The k ranges of one column in `viterbi_fwd_cluster_kernel`, in
+    order: the parts of the CTA's threads (threads // Wp of them, Wp = W
+    rounded up to a warp, at most `threads`), each cut into `chains` chains
+    of (k1 - k0) // chains sources, the last chain taking the rest."""
+    W = -(-K // C)
+    Wp = min(-(-max(W, 1) // 32) * 32, threads)
+    out = []
+    for k0, k1 in _even_ranges(K, threads // Wp):
+        m = (k1 - k0) // chains
+        if m == 0:
+            out.append((k0, k1))
+        else:
+            out += [(k0 + u * m, k0 + (u + 1) * m) for u in range(chains - 1)]
+            out.append((k0 + (chains - 1) * m, k1))
+    return out
+
+
+_EMU_T, _EMU_LENGTHS = 12, [12, 1, 0, 9]
+
+
+def _tie_heavy(kind, K):
+    """A tie-heavy problem at K states, as numpy: the serve's left-to-right
+    model (off-band transitions and log_pi NEG_INF), alone or under a
+    lexicon of four-state words (tmask, smask and the initial penalty from
+    `compiled_penalties`).  Returns (A, em, d0, tmask, smask)."""
+    from repro_torch.core import LexiconConstraint, compiled_penalties
+    g = np.random.default_rng(1000 + K + len(kind))
+    B, T = len(_EMU_LENGTHS), _EMU_T
+    hmm = left_to_right_hmm(g, K, 16, device=CPU)
+    lp, A = hmm.log_pi.numpy(), hmm.log_A.numpy()
+    em = (2.0 * g.standard_normal((B, T + 1, K))).astype(np.float32)
+    if kind == "left_to_right":
+        return A, em[:, 1:], lp[None] + em[:, 0], None, None
+    words = tuple((tuple(range(s, min(s + 4, K))),) for s in range(0, K, 4))
+    t_pen, pi_pen, s_pen = compiled_penalties(LexiconConstraint(words), K,
+                                              T + 1)
+    d0 = (lp + pi_pen)[None] + (em[:, 0] + s_pen[0])
+    return A, em[:, 1:], d0, t_pen, s_pen[1:]
+
+
+_JAX_FORWARD = {}
+
+
+def _jax_forward(kind, K):
+    """JAX's `viterbi_forward_batch` (its Pallas kernel in interpret mode
+    where K % 128 == 0, else its ref fallback) over the pre-masked inputs,
+    and its masked kernel over the unfused ones; cached per problem."""
+    key = (kind, K)
+    if key not in _JAX_FORWARD:
+        A, em, d0, tm, sm = _tie_heavy(kind, K)
+        lengths = jnp.asarray(_EMU_LENGTHS)
+        A2 = A if tm is None else A + tm
+        em2 = em if sm is None else em + sm[None]
+        plain = jops.viterbi_forward_batch(A2, em2, d0, lengths)
+        masked = (None if tm is None else jops.viterbi_forward_batch_masked(
+            A, em, d0, lengths, tmask=tm, smask=sm))
+        _JAX_FORWARD[key] = (plain, masked)
+    return _JAX_FORWARD[key]
+
+
+def _emulate(kind, K, C, ranges):
+    """The emulated kernel on the problem, with log_A + tmask pre-added as
+    the masked instances' slices hold it; also returns the plain version's
+    result and the inputs."""
+    A, em, d0, tm, sm = _tie_heavy(kind, K)
+    pad = torch.arange(_EMU_T)[None, :] >= torch.tensor(_EMU_LENGTHS)[:, None]
+    tmask = None if tm is None else _t(tm)
+    smask = None if sm is None else _t(sm)
+    A_slice = _t(A) if tmask is None else _t(A) + tmask
+    got = _cluster_forward(A_slice, _t(em), _t(d0), pad, C, ranges, smask)
+    want = ref.viterbi_forward_masked_pen_ref(_t(A), _t(em), _t(d0), pad,
+                                              tmask, smask)
+    return got, want
+
+
+@pytest.mark.parametrize("kind", ["left_to_right", "lexicon"])
+@pytest.mark.parametrize("K", [1, 3, 100, 512])
+@pytest.mark.parametrize("P", [1, 2, 4, 7])
+@pytest.mark.parametrize("C", [1, 8, 16])
+def test_cluster_reduction_matches_plain_and_jax(C, P, K, kind):
+    """C column slices, each column's sources in P contiguous parts: psi
+    and delta_T equal the plain version and JAX's kernel bitwise, ragged
+    lengths 12, 1, 0 and 9 included."""
+    (psi, dT), (psi_r, dT_r) = _emulate(kind, K, C, _even_ranges(K, P))
+    assert torch.equal(psi, psi_r) and torch.equal(dT, dT_r)
+    (psi_j, dT_j), _ = _jax_forward(kind, K)
+    assert _eq(psi, psi_j) and _eq(dT, dT_j)
+
+
+@pytest.mark.parametrize("K", [1, 3, 100, 512, 665, 672, 1024, 1500])
+def test_kernel_split_matches_plain(K):
+    """The kernel's own split (its cluster size, thread parts cut into
+    chains; K = 665 is the largest resident K, 672 the global instance, 1024
+    and 1500 the smoke's global shapes) on the tie-heavy lexicon problem."""
+    ranges = _kernel_ranges(K)
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    (psi, dT), (psi_r, dT_r) = _emulate("lexicon", K, _CLUSTER, ranges)
+    assert torch.equal(psi, psi_r) and torch.equal(dT, dT_r)
+
+
+@pytest.mark.parametrize("K", [3, 100, 128, 512])
+def test_pre_added_tmask_slice_matches_unfused_masked_kernel(K):
+    """The masked instances score cur[k] + (log_A + tmask)[k, j] from a slice
+    to which tmask was added once: the same psi and delta_T as JAX's masked
+    kernel, which adds tmask inside the kernel, and as the plain version."""
+    (psi, dT), (psi_r, dT_r) = _emulate("lexicon", K, _CLUSTER,
+                                        _kernel_ranges(K))
+    _, (psi_j, dT_j) = _jax_forward("lexicon", K)
+    assert _eq(psi, psi_j) and _eq(dT, dT_j)
+    assert torch.equal(psi, psi_r) and torch.equal(dT, dT_r)
