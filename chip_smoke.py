@@ -22,8 +22,12 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      512) with the serve lexicon's tmask and smask, (8, 511, 1024) on the
      map-matching grid with the band's smask, K in {1, 3, 100, 384, the
      instance boundary, 1500} with each mask alone and both, and the banded
-     kernel at the map-matching shape and on a band clipped at both ends of
-     the state range;
+     kernel at the map-matching shape, on bands clipped at both ends of the
+     state range at widths 96, 0 (Kb = 1), 2, 4 and 8 (Kb = 5, 9 and 17:
+     CTAs without columns) and Kb = K, at K = 301, at Kb = 255 and 257, for
+     a single step, and at the widest window the kernel takes (Kb = K =
+     29055); Kb = 1, 5, 9, 17 and 29055 end each step with a cluster
+     barrier, the others exchange through mbarriers;
   1c. hold the beam kernel and the tropical kernel against their plain
      versions, bitwise: `ops.beam_step` at the four shapes of
      tests/test_kernels.py (the op's path to the single-step entry, its
@@ -31,8 +35,12 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      (8, 512, 128, 128) and (2048, 512, 128, 128), at chunk = K = B = 512,
      and over 16 chained left-to-right steps from a one-hot beam;
      `ops.tropical_matmul` at the five shapes of tests/test_kernels.py in
-     float32 and bfloat16 (values and argmax), the batched kernel at (256,
-     64, 64, 64); then the two FLASH-BS pass entries: the serve's initial
+     float32 and bfloat16 (values and argmax), the batched kernel with the
+     argmax and values-only, in both dtypes, on normal and tie-heavy integer
+     inputs, at (N, I, K, J) = (256, 64, 64, 64) and (2047, 64, 64, 64) (assoc
+     scan levels), at ragged tile edges (3, 65, 33, 70) and (1, 130, 100,
+     131), and on operands whose base is not 16-byte aligned; then the two
+     FLASH-BS pass entries: the serve's initial
      pass (8 sequences, Tp = 512, K = 512, B = 128, P = 8, tie-heavy
      left-to-right model, ragged pad tails, one boundary crossed on a pad
      step), its first layer, a lanes group of its second and its last
@@ -69,21 +77,28 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      (B, T) = (8, 511): `flash` (P = 8), `flash_bs` (beam K), `checkpoint`,
      `beam_static` (B = K) and `beam_static_mp` (beam K), each path bitwise
      equal to `viterbi_vanilla` with relative error 0; `assoc` at (T, K) =
-     (4096, 64) on the tropical kernel, its path equal and its score within
-     1e-5 relative (the scan groups the adds as a tree; the rtol of
-     tests/test_core_viterbi.py), and bitwise equal to the same decode on
-     the CPU; `serve.main` with
+     (4096, 64) on the tropical kernel (one launch per combine of the scan:
+     22), its path equal and its score within 1e-5 relative (the scan groups
+     the adds as a tree; the rtol of tests/test_core_viterbi.py), and
+     bitwise equal to the same decode on the CPU; `serve.main` with
      ``--budget-kb`` 1024 (an exact FLASH rung) and 32 (a beam rung);
   3. time each kernel and its plain version with CUDA events: the forward
      and backtrack kernels at the serve shapes (B = 8, T in {128, 256, 512},
      K = 512), the masked kernel at (8, 511, 512) with both masks and at
      (8, 511, 1024) with smask alone (the forward entries also per DP step,
-     with their instance), the banded kernel at the map-matching
-     shape, the beam kernel's single step at (N, K, B, chunk) = (8, 512,
+     with their instance), the banded kernel on the map-matching grid at
+     Kb = 193 (mbarrier exchange) and 17 (a cluster barrier a step), per
+     launch and per DP step, the beam kernel's single
+     step at (N, K, B, chunk) = (8, 512,
      128, 128) and (2048, 512, 128, 128), its initial pass at the serve's
      (8, 512, 512, 128, P = 8) and its tile launches of the first and last
-     layers (ms per launch and per DP step), the tropical kernel at (N, I,
-     K, J) = (1, 512, 512, 512) and (256, 64, 64, 64); the FLASH-BS and
+     layers (ms per launch and per DP step), the tropical kernel with the
+     argmax and values-only at (N, I, K, J) = (N, 64, 64, 64), N in {1, 255,
+     256, 2047}, and (1, 512, 512, 512), by CUDA events and by the device
+     time of a `torch.profiler` trace (the events time the host where it
+     launches slower than the card runs), the device time of the 22
+     launches of one `assoc` decode at (T, K) = (4096, 64) and that decode
+     on the host clock; the FLASH-BS and
      the `fused` serve's drains of the 32 requests on the host clock, twice
      each, with their launches; and one more drain of each under
      `torch.profiler`: the device time and the device's idle share of the
@@ -143,6 +158,35 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of one call of `fn`: `reps` calls captured in a CUDA
+    graph, whose replay runs them back to back on the card with no host
+    work between them (back-to-back CUDA events time the host where it
+    launches a call slower than the card runs it)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=5) / reps
+
+
+def profiled_ms(fn, name: str) -> float | None:
+    """Device time of the kernels named `name` in a `torch.profiler` trace
+    of one call of `fn`; None if the trace holds no such event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name)
+    return us / 1e3 if us else None
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -381,18 +425,19 @@ def check_banded(vdp, ref, log_A, log_pi, em, centers, width: int,
     bitwise; returns max |delta_w difference|."""
     from repro_torch.kernels.ops import band_windows
     K = em.shape[1]
+    Kb = min(2 * width + 1, K)
     c, starts = (x.to(em.device) for x in band_windows(centers, K, width))
-    psi, dw = vdp.viterbi_banded_forward(log_A, log_pi, em, c, starts, width)
     psi_r, dw_r = ref.viterbi_banded_forward_ref(log_A, log_pi, em, c, starts,
                                                  width)
-    paths, _ = vdp.viterbi_backtrack_batch(psi[None], dw[None])
     paths_r, _ = ref.viterbi_backtrack_ref(psi_r[None], dw_r[None])
+    psi, dw = vdp.viterbi_banded_forward(log_A, log_pi, em, c, starts, width)
+    paths, _ = vdp.viterbi_backtrack_batch(psi[None], dw[None])
     torch.cuda.synchronize()
     if not (torch.equal(psi, psi_r) and torch.equal(dw, dw_r)
             and torch.equal(paths, paths_r)):
-        raise SystemExit(f"FAIL banded {what}: "
+        raise SystemExit(f"FAIL banded {what} (Kb = {Kb}): "
                          f"{int((psi != psi_r).sum())} psi entries differ")
-    print(f"banded kernel == plain (bitwise) at {what}")
+    print(f"banded kernel == plain (bitwise) at {what}, Kb = {Kb}")
     return float((dw - dw_r).abs().max())
 
 
@@ -446,21 +491,36 @@ def phase_masked_kernels(dev) -> dict[str, float]:
             err["viterbi_fwd_batch_masked"],
             check_masked(vdp, ref, A, e, d0, pad, tk, sk, what))
 
-    # banded: the map-matching shape, then a band clipped at 0 and at K-1
+    # banded: the map-matching shape, a band clipped at 0 and at K-1, a
+    # single step, width 0, windows whose columns leave CTAs without any
+    # (Kb = 5, 9, 17), one as wide as K (every start 0), an odd K and wider
+    # windows (Kb = 255, 257)
     banded = [(f"map matching (T,K,width)=({GRID_T},{Kg},{GRID_WIDTH})",
                log_A_g, log_pi_g, em_g[0], band.centers, GRID_WIDTH)]
-    Kc, Tc = 300, 64
-    A, lp, e = (torch.from_numpy(g.standard_normal(shape).astype(
-        np.float32)).to(dev) for shape in ((Kc, Kc), (Kc,), (Tc, Kc)))
-    sweep = tuple(int(c) for c in np.linspace(-20, Kc + 20, Tc))
-    banded.append((f"clipped at both ends (T,K,width)=({Tc},{Kc},96)",
-                   A, lp, e, sweep, 96))
-    banded.append((f"single step (T,K,width)=(1,{Kc},96)", A, lp, e[:1],
-                   sweep[:1], 96))
+    for Kc, Tc, widths in ((300, 64, (96, 0, 2, 4, 8, 300)), (301, 24, (96,)),
+                           (316, 40, (127, 128))):
+        A, lp, e = (torch.from_numpy(g.standard_normal(shape).astype(
+            np.float32)).to(dev) for shape in ((Kc, Kc), (Kc,), (Tc, Kc)))
+        sweep = tuple(int(c) for c in np.linspace(-20, Kc + 20, Tc))
+        for w in widths:
+            banded.append((f"clipped at both ends (T,K,width)=({Tc},{Kc},{w})",
+                           A, lp, e, sweep, w))
+        banded.append((f"single step (T,K,width)=(1,{Kc},{widths[0]})", A, lp,
+                       e[:1], sweep[:1], widths[0]))
+    # the widest window the kernel takes, Kb = K = 29055 (every start 0),
+    # one step: its two delta buffers leave no room for the mbarriers, so
+    # each step ends with a cluster barrier (log_A: 3.4 GB, made on the card)
+    Kw = vdp.MAX_K - 1
+    gen = torch.Generator(device=dev).manual_seed(8)
+    A, lp, e = (torch.randn(shape, generator=gen, device=dev)
+                for shape in ((Kw, Kw), (Kw,), (2, Kw)))
+    banded.append((f"widest window, cluster barrier (T,K,width)=(2,{Kw},"
+                   f"{Kw // 2})", A, lp, e, (0, 0), Kw // 2))
     for what, A, lp, e, centers, width in banded:
         err["viterbi_banded_fwd"] = max(
             err["viterbi_banded_fwd"],
             check_banded(vdp, ref, A, lp, e, centers, width, what))
+    del A, lp, e, banded
     return err
 
 
@@ -680,14 +740,25 @@ def pass_bound(N: int, T: int, K: int, B: int, out_words: int,
     return bound_ms(nbytes, 3.0 * N * (T - 1) * B * K)
 
 
-def tropical_bound(a, b):
-    """A and B once, vals and args written once; an add and a compare per
-    (n, i, j, k)."""
+def tropical_bound(a, b, with_args: bool = True):
+    """A and B once, vals (and args, with the argmax) written once; an add
+    and a compare per (n, i, j, k)."""
     N, I, K = a.shape
     J = b.shape[2]
     nbytes = a.element_size() * (N * I * K + N * K * J + N * I * J) \
-        + 4 * N * I * J
+        + (4 * N * I * J if with_args else 0)
     return bound_ms(nbytes, 2.0 * N * I * J * K)
+
+
+def scan_levels(n: int) -> list[int]:
+    """The N of each tropical launch of `core.assoc.associative_scan` over n
+    elements, replayed without data: the adjacent pairs, the recursion on
+    them, then the evens (a combine of no pairs launches nothing)."""
+    if n < 2:
+        return []
+    half = n // 2
+    even = half - 1 if n % 2 == 0 else half
+    return [half] + scan_levels(half) + ([even] if even else [])
 
 
 def beam_launches(batches, P: int = 8) -> dict[str, int]:
@@ -802,11 +873,32 @@ def phase_beam_tropical_kernels(dev):
                            f"{J})", ops.tropical_matmul(a, b),
                            ref.tropical_matmul_ref(a, b))
             err["tropical_matmul_batch"] = max(err["tropical_matmul_batch"], e)
-    a, b = (torch.from_numpy(g.standard_normal((256, 64, 64)).astype(
-        np.float32)).to(dev) for _ in range(2))
-    e = check_same("tropical_matmul_batch (N,I,K,J)=(256,64,64,64)",
-                   tropical_matmul_batch(a, b), ref.tropical_matmul_ref(a, b))
-    err["tropical_matmul_batch"] = max(err["tropical_matmul_batch"], e)
+    # the batched kernel, with the argmax and values-only (the same vals, no
+    # args): levels of the assoc scan at K = 64, ragged tile edges, tie-heavy
+    # integer inputs, and operands whose base is not 16-byte aligned
+    def trop(what, a, b):
+        want = ref.tropical_matmul_ref(a, b)
+        what = f"{what} {str(a.dtype)[6:]} (N,I,K,J)={(*a.shape, b.shape[2])}"
+        e = check_same(f"tropical_matmul_batch {what}",
+                       tropical_matmul_batch(a, b), want)
+        vals, args = tropical_matmul_batch(a, b, with_args=False)
+        if args is not None:
+            raise SystemExit("FAIL tropical values-only: args returned")
+        check_same(f"tropical_matmul_batch values-only {what}", (vals,),
+                   want[:1])
+        err["tropical_matmul_batch"] = max(err["tropical_matmul_batch"], e)
+
+    for N, I, K, J in ((256, 64, 64, 64), (2047, 64, 64, 64), (3, 65, 33, 70),
+                       (1, 130, 100, 131)):
+        for dt in (torch.float32, torch.bfloat16):
+            for kind, draw in (("normal", g.standard_normal),
+                               ("integer", lambda s: g.integers(-3, 4, s))):
+                a, b = (torch.from_numpy(draw(shape).astype(np.float32)).to(
+                    dev, dt) for shape in ((N, I, K), (N, K, J)))
+                trop(kind, a, b)
+    a, b = (torch.from_numpy(g.standard_normal(3 * 64 * 64 + 1).astype(
+        np.float32)).to(dev)[1:].view(3, 64, 64) for _ in range(2))
+    trop("unaligned base", a, b)
     check_launches("ops.beam_step path", op_launches, dict(beam_step_batch=4))
     return err, op_launches
 
@@ -1102,8 +1194,10 @@ def phase_paper_workload(dev) -> dict[str, int]:
           f"relative error {err:.3e} (rtol 1e-5: the scan groups the adds as "
           f"a tree); path and score == the CPU run (bitwise); launches "
           f"{ {n: v for n, v in launches.items() if v} }")
-    if launches["tropical_matmul_batch"] == 0:
-        raise SystemExit("FAIL paper workload: the tropical kernel never ran")
+    if launches["tropical_matmul_batch"] != len(scan_levels(Ta - 1)):
+        raise SystemExit(f"FAIL paper workload: the tropical kernel launched "
+                         f"{launches['tropical_matmul_batch']} times, the "
+                         f"scan has {len(scan_levels(Ta - 1))} levels")
 
     # the planner in the serve: an exact FLASH rung and a beam rung
     for kb in ("1024", "32"):
@@ -1187,21 +1281,30 @@ def phase_timing(dev, card: str) -> dict[str, dict]:
             rows["viterbi_fwd_batch_masked"] = dict(
                 ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
 
-    # the banded kernel at the map-matching shape
-    c, starts = (x.to(dev) for x in band_windows(band.centers, Kg,
-                                                 band.width))
+    # the banded kernel on the map-matching grid at the band's width (Kb =
+    # 193, the mbarrier exchange: the map-matching decode's launch, kept for
+    # the kernels line) and at Kb = 17 (CTAs without columns: a cluster
+    # barrier a step)
     e0 = em_g[0]
-    Kb = min(2 * band.width + 1, Kg)
-    ms = cuda_ms(lambda: vdp.viterbi_banded_forward(
-        log_A_g, log_pi_g, e0, c, starts, band.width), reps=10)
-    plain = cuda_ms(lambda: ref.viterbi_banded_forward_ref(
-        log_A_g, log_pi_g, e0, c, starts, band.width), reps=2, warmup=1)
-    bms, by = banded_bound(Kg, starts, Kb)
-    print(f"timing viterbi_banded_fwd (T,K,Kb)=({GRID_T},{Kg},{Kb}): kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.6f} ms ({by}); "
-          f"{card}")
-    rows["viterbi_banded_fwd"] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
-                                      bound_by=by)
+    for width, exchange in ((band.width, "mbarrier exchange"),
+                            (8, "cluster barrier a step")):
+        c, starts = (x.to(dev) for x in band_windows(band.centers, Kg, width))
+        Kb = min(2 * width + 1, Kg)
+        plain = cuda_ms(lambda: ref.viterbi_banded_forward_ref(
+            log_A_g, log_pi_g, e0, c, starts, width), reps=2, warmup=1)
+        bms, by = banded_bound(Kg, starts, Kb)
+        ms = cuda_ms(lambda: vdp.viterbi_banded_forward(
+            log_A_g, log_pi_g, e0, c, starts, width), reps=10)
+        print(f"timing viterbi_banded_fwd (T,K,Kb)=({GRID_T},{Kg},{Kb}), "
+              f"{exchange}: kernel {ms:.4f} ms, "
+              f"{1e3 * ms / (GRID_T - 1):.4f} us per DP step, plain "
+              f"{plain:.4f} ms, bound {bms:.6f} ms ({by}); {card}")
+        if width == band.width:
+            rows["viterbi_banded_fwd"] = dict(ms=ms, plain_ms=plain,
+                                              bound_ms=bms, bound_by=by)
+    print("timing viterbi_banded_fwd: each DP step depends on the one before "
+          "(the exchange of delta among the cluster's CTAs), so the serial "
+          "step latency, not the bytes or operations bound, sets its floor")
 
     # the beam kernel at the FLASH-BS serve's widths: the initial pass of a
     # batch (8 beams) and the last layer of a 512 bucket (2048 beams); the
@@ -1257,19 +1360,54 @@ def phase_timing(dev, card: str) -> dict[str, dict]:
           "cluster barriers and a selection over K), so the serial step "
           "latency, not the bytes or operations bound, sets their floor")
 
-    # the tropical kernel: one level of the assoc scan at K = 64 and one
-    # K = 512 product; the kernels line keeps the scan level
-    for N, K in ((1, 512), (256, 64)):
+    # the tropical kernel, with the argmax and values-only: levels of the
+    # assoc scan at K = 64 and one K = 512 product, by back-to-back CUDA
+    # events (as earlier rows were timed) and by CUDA-graph replay (device
+    # time); the kernels line keeps the values-only (the assoc scan's) at N
+    # = 256, device time
+    for N, K in ((1, 64), (255, 64), (256, 64), (2047, 64), (1, 512)):
         a, b = (torch.from_numpy(g.standard_normal((N, K, K)).astype(
             np.float32)).to(dev) for _ in range(2))
-        ms = cuda_ms(lambda: tropical_matmul_batch(a, b), reps=10)
         plain = cuda_ms(lambda: ref.tropical_matmul_ref(a, b), reps=3)
-        bms, by = tropical_bound(a, b)
-        print(f"timing tropical_matmul_batch (N,I,K,J)=({N},{K},{K},{K}): "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.6f} ms "
-              f"({by}); {card}")
-        rows["tropical_matmul_batch"] = dict(ms=ms, plain_ms=plain,
-                                             bound_ms=bms, bound_by=by)
+        for with_args in (True, False):
+            ms = cuda_ms(lambda: tropical_matmul_batch(a, b, with_args),
+                         reps=20)
+            dms = graph_ms(lambda: tropical_matmul_batch(a, b, with_args), 20)
+            bms, by = tropical_bound(a, b, with_args)
+            print(f"timing tropical_matmul_batch (N,I,K,J)=({N},{K},{K},{K})"
+                  f"{'' if with_args else ' values-only'}: kernel {dms:.4f} "
+                  f"ms device time ({ms:.4f} ms by back-to-back events), "
+                  f"plain {plain:.4f} ms, bound {bms:.6f} ms ({by}); {card}")
+            if (N, with_args) == (256, False):
+                rows["tropical_matmul_batch"] = dict(
+                    ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by)
+    # one assoc decode at (T, K) = (4096, 64): its 22 tropical launches (the
+    # levels' shapes replayed in one graph, and the decode's own under the
+    # profiler), and the whole decode on the host clock
+    from repro_torch.core import AssocSpec, erdos_renyi_hmm, random_emissions
+    levels = scan_levels(4095)
+    pairs = [tuple(torch.from_numpy(g.standard_normal((n, 64, 64)).astype(
+        np.float32)).to(dev) for _ in range(2)) for n in levels]
+    total = graph_ms(lambda: [tropical_matmul_batch(a, b, False)
+                              for a, b in pairs], 1)
+    bound = sum(tropical_bound(a, b, False)[0] for a, b in pairs)
+    hmm_a = erdos_renyi_hmm(g, 64, 50, 0.253, device=dev)
+    em_a = random_emissions(g, 4096, 64, device=dev)
+    traced = profiled_ms(lambda: AssocSpec().run(hmm_a.log_pi, hmm_a.log_A,
+                                                 em_a), "tropical")
+    traced = "not measured" if traced is None else f"{traced:.4f} ms"
+    print(f"timing assoc (T,K)=(4096,64): its {len(levels)} tropical launches"
+          f" ({sum(levels)} products of 64 x 64 x 64) take {total:.4f} ms of "
+          f"device time replayed (values-only; bound {bound:.6f} ms), "
+          f"{traced} under the profiler in a decode; {card}")
+    del pairs
+    for rep in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        AssocSpec().run(hmm_a.log_pi, hmm_a.log_A, em_a)
+        torch.cuda.synchronize()
+        print(f"timing assoc decode (T,K)=(4096,64) {rep + 1}: "
+              f"{time.perf_counter() - t0:.4f} s on the host clock; {card}")
 
     # the FLASH-BS serve's drain of the 32 default requests, host clock
     from repro_torch import kernels

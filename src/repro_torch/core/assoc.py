@@ -6,12 +6,14 @@ semiring:  delta_t = delta_{t-1} (x) M_t,  M_t[i, j] = log A[i, j] + em[t, j].
 The product is associative, so all prefixes take O(log T) depth at O(K^3 T)
 work and O(T K^2) memory: the small-K, large-T regime.
 
-The combine is the hand-written tropical kernel
-(`kernels.tropical.tropical_matmul_batch`), one launch for all pairs of a
-level.  The scan is a port of `jax.lax.associative_scan`'s recursion (reduce
-adjacent pairs, recurse on the half, combine the evens, interleave): the
-max is exact in any order, but the adds are grouped by that tree, and any
-other tree rounds differently.  The backtrack is plain PyTorch.
+The combine is the hand-written tropical kernel's values-only instance
+(`kernels.tropical.tropical_matmul_batch` with ``with_args=False``, the
+counterpart of JAX's values-only `_tropical_matmul`), one launch for all
+pairs of a level.  The scan is a port of `jax.lax.associative_scan`'s
+recursion (reduce adjacent pairs, recurse on the half, combine the evens,
+interleave): the max is exact in any order, but the adds are grouped by
+that tree, and any other tree rounds differently.  The backtrack is plain
+PyTorch: a host loop of T - 1 `argmax` calls.
 """
 
 from __future__ import annotations
@@ -22,8 +24,10 @@ from ..kernels.tropical import tropical_matmul_batch
 
 
 def _combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(max, +) products of the pairs (a[n], b[n]), one kernel launch."""
-    return tropical_matmul_batch(a.contiguous(), b.contiguous())[0]
+    """(max, +) products of the pairs (a[n], b[n]), one kernel launch; no
+    argmax (the scan keeps only the values)."""
+    return tropical_matmul_batch(a.contiguous(), b.contiguous(),
+                                 with_args=False)[0]
 
 
 def associative_scan(fn, elems: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "viterbi_dp.cu", CSRC / "beam_stream.cu",
            CSRC / "tropical.cu")
 #: headers the sources include: hashed with them, never compiled alone
-HEADERS = (CSRC / "cluster.cuh",)
+HEADERS = (CSRC / "cluster.cuh", CSRC / "cp_async.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 # No fast-math: the kernels must reproduce the reference's f32 rounding.

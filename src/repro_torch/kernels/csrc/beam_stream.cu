@@ -219,7 +219,9 @@ beam_pass_kernel(const Args p) {
   }
   for (int i = tid; i < mine; i += kThreads)   // a column's crossing step
     cross[i] = MODE == kInitial ? p.bounds[r + kCluster * i] + 1 : p.T / 2;
-  __syncthreads();
+  // the slice is in place, and every CTA of the cluster has started before
+  // any stores into its shared memory
+  cluster.sync();
 
   // Every slot of `dst` starts as a sentinel (-4e9, state 0, slot 0): the
   // targets above the sentinel value take the first slots, the sentinels

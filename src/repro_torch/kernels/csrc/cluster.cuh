@@ -1,7 +1,10 @@
 // Thread-block cluster helpers shared by the port's cluster kernels
 // (beam_stream.cu, viterbi_dp.cu): the column split of a K-wide row across
-// the CTAs of a cluster, shared-memory layout arithmetic, and the launch of
-// a persistent grid of as many clusters as the card holds at once.
+// the CTAs of a cluster, shared-memory layout arithmetic, the launch of a
+// persistent grid of as many clusters as the card holds at once, and a
+// data-driven exchange through distributed shared memory: stores into
+// another CTA's shared memory that count their bytes on a transaction
+// barrier (mbarrier) there, which the receiving CTA waits on.
 //
 // Included, not compiled on its own: kernels/build.py hashes it with the
 // sources so that an edit to it builds every library afresh.
@@ -10,6 +13,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -31,6 +36,70 @@ __host__ __device__ inline int lane_width(int W, int threads) {
 // Rounds a count of 4-byte words up to a 16-byte boundary.
 __host__ __device__ inline int64_t align4(int64_t words) {
   return (words + 3) / 4 * 4;
+}
+
+// A transaction barrier (mbarrier) in this CTA's shared memory, completing a
+// phase when its one arrival (mbar_expect) and the bytes it expects have
+// come.  Initialise before the cluster barrier that precedes any remote
+// store into it (mbar_init_fence makes the initialisation visible to the
+// cluster).
+__device__ __forceinline__ void mbar_init(uint64_t* mbar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(mbar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrives on the current phase, which then completes once `bytes` more
+// bytes have been counted on it (some may have come already).
+__device__ __forceinline__ void mbar_expect(uint64_t* mbar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(mbar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of the given parity has completed; the stores it
+// counted are then visible to the calling thread.  A phase that never
+// completes traps after about 2^34 cycles instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* mbar, uint32_t parity) {
+  const uint32_t addr = smem_addr(mbar);
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// Stores v into `dst`, a word of this CTA's shared memory, at the same
+// offset in CTA `rank` of the cluster, and counts its 4 bytes on the
+// mbarrier at `mbar`'s offset there.  Asynchronous: the receiver sees it
+// after waiting on that mbarrier.
+__device__ __forceinline__ void st_async(float* dst, uint64_t* mbar, int rank,
+                                         float v) {
+  uint32_t d, m;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(d)
+               : "r"(smem_addr(dst)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(m)
+               : "r"(smem_addr(mbar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(d),
+      "r"(__float_as_uint(v)), "r"(m)
+      : "memory");
 }
 
 // Launches `kernel(a)` as a persistent grid of clusters of kCluster CTAs of

@@ -47,9 +47,11 @@
 //      the barrier that ends its last read of it.
 // A pad step (the flag is per sequence, so the whole cluster sees it)
 // writes the identity psi row and keeps delta: no exchange, no barrier.  A
-// cluster barrier ends each sequence, so that no CTA re-seeds from delta0,
-// or leaves, while another may still push into it.  The next step's
-// emission and pad flag are loaded into registers while a step computes.
+// cluster barrier after the seed makes sure every CTA of the cluster has
+// started before any pushes into it; one ends each sequence, so that no CTA
+// re-seeds from delta0, or leaves, while another may still push into it.
+// The next step's emission and pad flag are loaded into registers while a
+// step computes.
 //
 // What bounds it.  Steps are serially dependent, so a launch takes at least
 // T times the latency of one step: the scoring of K W (add, compare) pairs
@@ -74,17 +76,51 @@
 // --use_fast_math.
 //
 // viterbi_banded_fwd replaces the lax.scan of `viterbi_decode_banded`
-// (src/repro/kernels/ops.py:387-411), which is not Pallas.  One block walks
-// the whole time loop over a Kb = min(2*width + 1, K) wide window of states
-// that starts at starts[t]: thread j scores
-//     delta_w[k] + log_A[starts[t-1] + k, starts[t] + j]
-// and adds em[t, starts[t] + j] + pen, pen = 0 if
-// |starts[t] + j - centers[t]| <= width, else -1e9.  delta_w is
-// double-buffered in shared memory.  It is bound by the latency of T
-// dependent steps (2*T*Kb^2 operations, a few microseconds of the card's
-// f32 rate), so one block is enough; the Kb*Kb block of log_A each step
-// reads comes from L2.  Bit-identity with the dense masked decode needs a
-// dense log_A (see `viterbi_decode_banded`'s docstring in the JAX package).
+// (src/repro/kernels/ops.py:387-411), which is not Pallas.  Over a window of
+// Kb = min(2*width + 1, K) states that starts at starts[t] it computes, for
+// 1 <= t < T,
+//     delta_w'[j] = max_k (delta_w[k] + log_A[starts[t-1] + k, starts[t] + j])
+//                   + (em[t, starts[t] + j] + pen)
+// with pen = 0 if |starts[t] + j - centers[t]| <= width, else -1e9, and psi
+// the lowest-index argmax as local window ids.
+//
+// Design.  The step is the forward template's step over a window: one
+// cluster of kCluster CTAs owns the sequence, CTA r scores the window
+// columns [r W, (r + 1) W), W = ceil(Kb / C) (25 at Kb = 193), with the
+// same split of k over parts and chains and the same ascending strict-'>'
+// combine (score_columns), reading each step's Kb x W block of log_A from
+// L2.  The exchange is data-driven: each value of delta_w goes to every CTA
+// by a remote store (st.async) that counts its 4 bytes on that CTA's
+// mbarrier of the buffer, and a CTA starts the next step as soon as all Kb
+// values of this one have come, with a CTA barrier a step and no cluster
+// barrier: a cluster barrier a step, with the release of every store
+// before it, cost more (below).  That order holds only if every CTA owns
+// columns (the stores of one step into a CTA are ordered after those of
+// the step before by that CTA's own values, which the others wait for), so
+// the windows that leave a CTA without any (28 widths, all Kb <= 49: Kb <
+// 8, 9 .. 14, 17 .. 21, ...) end each step with a cluster barrier instead,
+// as the forward template does; so do the two widest (Kb = 29055 and
+// 29056, whose delta buffers fill the shared memory, leaving no room for
+// the mbarriers).  The next step's emission and the windows' starts and
+// centres are loaded into registers a step or two ahead.
+//
+// What bounds it.  T - 1 serially dependent steps: a launch takes at least
+// T times one step's latency (Kb W (add, compare) pairs per CTA, the
+// exchange and the block of log_A each step brings into each SM), far
+// above the bytes bound (the touched log_A entries, em and psi once) and
+// the f32 operations bound (2 (T-1) Kb^2).  chip_smoke.py measured, on an
+// NVIDIA H100 80GB HBM3 at 700.00 W, at (T, K, Kb) = (512, 1024, 193):
+// 0.914 ms a launch, 1.79 us a step, against a 0.000568 ms bound; the
+// one-block design it replaces took 2.18 ms, 4.26 us a step.  A first
+// cluster design with a cluster barrier a step took 1.13 ms.  Bringing the
+// next step's block into shared memory ahead of use (a Tensor Memory
+// Accelerator copy a step into a two-stage ring) tied with reading it from
+// L2 at Kb = 193 (within 1.5 %) and led by 6 % only at Kb = 255, a width
+// no path uses, so the kernel has no such stage.  A guard that skipped the
+// stores to CTAs without columns, in place of their cluster-barrier
+// instance, cost 6 % at Kb = 193 (PERF.md).
+// Bit-identity with the dense masked decode needs a dense log_A (see
+// `viterbi_decode_banded`'s docstring in the JAX package).
 //
 // viterbi_backtrack_batch replaces the XLA reverse scans of
 // `viterbi_decode_fused_batch` (src/repro/kernels/ops.py:213-220).  One
@@ -124,28 +160,68 @@ struct FwdArgs {
 };
 
 constexpr int kFwdThreads = 512;
+// a block's shared memory on the card (227 KB)
+constexpr size_t kSmemBytes = 232448;
 // independent partial maxima a thread keeps over its k range
 constexpr int kChains = 4;
 
-// Offsets into the dynamic shared memory, in 4-byte words, each 16-byte
-// aligned: the CTA's K x W column slice (resident instance), delta
-// double-buffered, and the per-part maxima (only when a column is scored
-// by more than one part).
+// Offsets into the dynamic shared memory of a cluster kernel over a K-wide
+// row, in 4-byte words, each 16-byte aligned: `slice` words of log_A (the
+// forward template's resident K x W column slice), delta double-buffered,
+// the per-part maxima (only when a column is scored by more than one part),
+// and `mbars` mbarriers.
 struct FwdSmem {
-  int64_t a, delta, pv, pf, total;
+  int64_t a, delta, pv, pf, mbar, total;
 };
 
-__host__ __device__ inline FwdSmem fwd_smem_layout(int K, bool resident) {
+__host__ __device__ inline FwdSmem cluster_smem_layout(int K, int64_t slice,
+                                                       int mbars) {
   const int W = cols_per_cta(K);
   const int parts = kFwdThreads / lane_width(W, kFwdThreads);
   const int64_t partial = parts > 1 ? (int64_t)parts * W : 0;
   FwdSmem s;
   int64_t o = 0;
-  s.a = o;     o = align4(o + (resident ? (int64_t)K * W : 0));
+  s.a = o;     o = align4(o + slice);
   s.delta = o; o = align4(o + 2 * (int64_t)K);
   s.pv = o;    o = align4(o + partial);
   s.pf = o;    o = align4(o + partial);
+  s.mbar = o;  o = align4(o + 2 * (int64_t)mbars);
   s.total = o;
+  return s;
+}
+
+__host__ __device__ inline FwdSmem fwd_smem_layout(int K, bool resident) {
+  return cluster_smem_layout(K, resident ? (int64_t)K * cols_per_cta(K) : 0,
+                             0);
+}
+
+// The banded kernel over a Kb-wide window: with `mbars`, one mbarrier per
+// delta buffer.
+__host__ __device__ inline FwdSmem band_smem_layout(int Kb, bool mbars) {
+  return cluster_smem_layout(Kb, 0, mbars ? 2 : 0);
+}
+
+// The split of one DP step's scoring over a CTA of kFwdThreads threads:
+// CTA r owns the target columns [c0, c0 + nw) of a K-wide row, and thread
+// (jl, part) scores the columns jl, jl + Wp, ... over the sources [k0, k1);
+// `live` parts have a non-empty range.
+struct ColSplit {
+  int W, Wp, parts, live, c0, nw, jl, part, k0, k1;
+};
+
+__device__ inline ColSplit col_split(int K, int r, int tid) {
+  ColSplit s;
+  s.W = cols_per_cta(K);
+  s.Wp = lane_width(s.W, kFwdThreads);
+  s.parts = kFwdThreads / s.Wp;
+  s.c0 = min(r * s.W, K);
+  s.nw = min(s.c0 + s.W, K) - s.c0;
+  s.jl = tid % s.Wp;
+  s.part = tid / s.Wp;
+  const int Kp = (K + s.parts - 1) / s.parts;
+  s.live = (K + Kp - 1) / Kp;
+  s.k0 = min(s.part * Kp, K);
+  s.k1 = min(s.k0 + Kp, K);
   return s;
 }
 
@@ -207,24 +283,64 @@ __device__ inline void first_max(const Score& score, int k0, int k1,
   }
 }
 
+// One DP step's scoring in a CTA, shared by the forward template and the
+// banded kernel: for each of the CTA's columns j, the lowest source k that
+// maximises score(k, j), found by first_max over each part's range and
+// combined over the parts in ascending k order, a later part winning only
+// if strictly greater; then finish(j, best, arg) once per column.  pv and
+// pf hold the parts' maxima (parts > 1).  Every thread of the CTA calls it.
+template <typename Score, typename Finish>
+__device__ inline void score_columns(const ColSplit& s, const Score& score,
+                                     const Finish& finish, float* pv,
+                                     int* pf) {
+  if (s.part < s.live) {
+    for (int j = s.jl; j < s.nw; j += s.Wp) {
+      float best;
+      int arg;
+      first_max([&](int k) { return score(k, j); }, s.k0, s.k1, best, arg);
+      if (s.parts == 1) {
+        finish(j, best, arg);
+      } else {
+        pv[s.part * s.W + j] = best;
+        pf[s.part * s.W + j] = arg;
+      }
+    }
+  }
+  if (s.parts > 1) {
+    __syncthreads();
+    for (int j = threadIdx.x; j < s.nw; j += kFwdThreads) {   // k order
+      float best = pv[j];
+      int arg = pf[j];
+      for (int q = 1; q < s.live; ++q) {
+        if (pv[q * s.W + j] > best) {
+          best = pv[q * s.W + j];
+          arg = pf[q * s.W + j];
+        }
+      }
+      finish(j, best, arg);
+    }
+  }
+}
+
+// Writes v into element i of `buf` in every CTA of the cluster (distributed
+// shared memory; visible to the other CTAs after the next cluster barrier).
+__device__ inline void push_all(cg::cluster_group& cluster, float* buf, int i,
+                                float v) {
+#pragma unroll
+  for (int q = 0; q < kCluster; ++q) cluster.map_shared_rank(buf, q)[i] = v;
+}
+
 template <bool HAS_T, bool HAS_S, bool RESIDENT>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 viterbi_fwd_cluster_kernel(const FwdArgs p) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  constexpr int C = kCluster;
-  const int r = (int)cluster.block_rank();
   const int tid = threadIdx.x;
   const int K = p.K, T = p.T;
   const FwdSmem L = fwd_smem_layout(K, RESIDENT);
-  const int W = cols_per_cta(K);
-  const int Wp = lane_width(W, kFwdThreads), parts = kFwdThreads / Wp;
-  const int c0 = min(r * W, K), nw = min(c0 + W, K) - c0;
-  // thread (jl, part) scores the columns jl, jl + Wp, ... over the sources
-  // [k0, k1); `live` parts have a non-empty range
-  const int jl = tid % Wp, part = tid / Wp;
-  const int Kp = (K + parts - 1) / parts, live = (K + Kp - 1) / Kp;
-  const int k0 = min(part * Kp, K), k1 = min(k0 + Kp, K);
+  const ColSplit s = col_split(K, (int)cluster.block_rank(), tid);
+  const int W = s.W, Wp = s.Wp, parts = s.parts, c0 = s.c0, nw = s.nw;
+  const int jl = s.jl, part = s.part;
   // the column whose emission this thread prefetches: the first it finishes
   const int fj = parts == 1 ? (part == 0 ? jl : nw) : tid;
 
@@ -249,8 +365,8 @@ viterbi_fwd_cluster_kernel(const FwdArgs p) {
                  : __ldg(p.log_A + i);
   };
 
-  const int ncl = gridDim.x / C;
-  for (int b = blockIdx.x / C; b < p.B; b += ncl) {
+  const int ncl = gridDim.x / kCluster;
+  for (int b = blockIdx.x / kCluster; b < p.B; b += ncl) {
     float* cur = smem + L.delta;
     float* nxt = cur + K;
     for (int k = tid; k < K; k += kFwdThreads)
@@ -269,7 +385,9 @@ viterbi_fwd_cluster_kernel(const FwdArgs p) {
       if (fj < nw) e_next = emission(0, fj);
       pad_next = pad_b != nullptr && pad_b[0] > 0.5f;
     }
-    __syncthreads();   // the seed and the slice are in place
+    // the seed and the slice are in place, and every CTA of the cluster has
+    // started before any pushes into its shared memory
+    cluster.sync();
 
     for (int t = 0; t < T; ++t) {
       const float e_cur = e_next;
@@ -283,42 +401,14 @@ viterbi_fwd_cluster_kernel(const FwdArgs p) {
         for (int j = tid; j < nw; j += kFwdThreads) psi_t[j] = c0 + j;
         continue;
       }
-      // best + (em [+ smask]) into every CTA's next delta
-      auto finish = [&](int j, float best, int arg) {
-        const float v = __fadd_rn(best, j == fj ? e_cur : emission(t, j));
-        psi_t[j] = arg;
-#pragma unroll
-        for (int q = 0; q < C; ++q)
-          cluster.map_shared_rank(nxt, q)[c0 + j] = v;
-      };
-      if (part < live) {
-        for (int j = jl; j < nw; j += Wp) {
-          float best;
-          int arg;
-          first_max([&](int k) { return __fadd_rn(cur[k], A(k, j)); }, k0,
-                    k1, best, arg);
-          if (parts == 1) {
-            finish(j, best, arg);
-          } else {
-            pv[part * W + j] = best;
-            pf[part * W + j] = arg;
-          }
-        }
-      }
-      if (parts > 1) {
-        __syncthreads();
-        for (int j = tid; j < nw; j += kFwdThreads) {   // parts in k order
-          float best = pv[j];
-          int arg = pf[j];
-          for (int q = 1; q < live; ++q) {
-            if (pv[q * W + j] > best) {
-              best = pv[q * W + j];
-              arg = pf[q * W + j];
-            }
-          }
-          finish(j, best, arg);
-        }
-      }
+      score_columns(
+          s, [&](int k, int j) { return __fadd_rn(cur[k], A(k, j)); },
+          [&](int j, float best, int arg) {   // best + (em [+ smask])
+            psi_t[j] = arg;
+            push_all(cluster, nxt, c0 + j,
+                     __fadd_rn(best, j == fj ? e_cur : emission(t, j)));
+          },
+          pv, pf);
       // every push of this step has landed, and every read of cur is done
       // before any CTA writes into it as the next step's nxt
       cluster.sync();
@@ -334,55 +424,136 @@ viterbi_fwd_cluster_kernel(const FwdArgs p) {
   }
 }
 
-__global__ void viterbi_banded_fwd_kernel(
-    const float* __restrict__ log_A,    // (K, K) contiguous
-    const float* __restrict__ log_pi,   // (K,)
-    const float* __restrict__ em,       // (T, K), strides (em_st, 1)
-    int64_t em_st,
-    const int* __restrict__ centers,    // (T,) clipped into [0, K-1]
-    const int* __restrict__ starts,     // (T,) in [0, K-Kb]
-    int width, int T, int K, int Kb,
-    int* __restrict__ psi,              // (T-1, Kb) contiguous, local ids
-    float* __restrict__ delta_w) {      // (Kb,)
-  extern __shared__ float smem[];
-  float* cur = smem;
-  float* nxt = smem + Kb;
-  {
-    const int s0 = starts[0], c0 = centers[0];
-    for (int j = threadIdx.x; j < Kb; j += blockDim.x) {
-      const int idx = s0 + j;
-      const float pen = abs(idx - c0) <= width ? 0.0f : kNegInf;
-      cur[j] = log_pi[idx] + (em[idx] + pen);
-    }
+// The banded kernel's arguments.
+struct BandArgs {
+  const float* log_A;    // (K, K) contiguous
+  const float* log_pi;   // (K,)
+  const float* em;       // (T, K), strides (em_st, 1)
+  int64_t em_st;
+  const int* centers;    // (T,) clipped into [0, K-1]
+  const int* starts;     // (T,) in [0, K - Kb]
+  int width, T, K, Kb;
+  int* psi;              // (T-1, Kb) contiguous, local window ids
+  float* delta_w;        // (Kb,)
+};
+
+// The banded forward pass of one sequence on one cluster.  Step t (1 <= t <
+// T) is the forward template's step over a Kb-wide window: rows from
+// starts[t-1], columns from starts[t], and the emission em[t, starts[t] +
+// j] + pen; each step reads its block of log_A from L2.  delta_w is
+// double-buffered, step t writing buf[t & 1].  MBAR (launched only when
+// every CTA owns columns): each value goes to every CTA by a remote store
+// that counts its bytes on that CTA's mbarrier of the buffer, and a CTA
+// starts step t + 1 once all Kb values of step t have come (no cluster
+// barrier a step).  Stores of step t + 1 into a CTA's buffer cannot
+// overtake those of step t - 1: a CTA stores step t + 1 only after every
+// CTA's values of step t have come to it, including the receiver's, which
+// the receiver computes only after all of step t - 1 has come to it.  A
+// CTA without columns would break that chain.  Else each step ends with a
+// cluster barrier, as in the forward template.
+template <bool MBAR>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+viterbi_banded_cluster_kernel(const BandArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int K = p.K, Kb = p.Kb, T = p.T, width = p.width;
+  const FwdSmem L = band_smem_layout(Kb, MBAR);
+  const ColSplit s = col_split(Kb, (int)cluster.block_rank(), tid);
+  const int c0 = s.c0, nw = s.nw;
+  // the column whose emission this thread prefetches: the first it finishes
+  const int fj = s.parts == 1 ? (s.part == 0 ? s.jl : nw) : tid;
+  float* buf = smem + L.delta;                    // delta_w of step t: t & 1
+  uint64_t* mbar = (uint64_t*)(smem + L.mbar);    // one per buffer
+  float* pv = smem + L.pv;
+  int* pf = (int*)(smem + L.pf);
+  const uint32_t fill = 4u * (uint32_t)Kb;        // bytes of one step's delta_w
+  // the penalty of state idx at a step centred on c
+  auto pen = [&](int idx, int c) {
+    return abs(idx - c) <= width ? 0.0f : kNegInf;
+  };
+  // the emission of column j at a step whose window starts at `start`
+  auto emission = [&](int t, int start, int j) {
+    return p.em[(int64_t)t * p.em_st + start + c0 + j];
+  };
+
+  // the windows in registers, loaded ahead: starts of steps t-1 .. t+2,
+  // centres of steps t and t+1
+  auto start_of = [&](int t) { return t < T ? p.starts[t] : 0; };
+  auto centre_of = [&](int t) { return t < T ? p.centers[t] : 0; };
+  int prev = p.starts[0], start = start_of(1), start_n = start_of(2);
+  int start_nn = start_of(3), c = centre_of(1), c_n = centre_of(2);
+  float e_next = 0.f;
+  if (T > 1 && fj < nw) e_next = emission(1, start, fj);
+  if (MBAR && tid == 0) {   // armed for the fills of steps 1 and 2
+    for (int i = 0; i < 2; ++i) mbar_init(&mbar[i]);
+    mbar_init_fence();
+    if (T > 1) mbar_expect(&mbar[1], fill);
+    if (T > 2) mbar_expect(&mbar[0], fill);
   }
-  __syncthreads();
+  for (int j = tid; j < Kb; j += kFwdThreads) {   // every CTA seeds it all
+    const int idx = prev + j;
+    buf[j] = __fadd_rn(p.log_pi[idx],
+                       __fadd_rn(p.em[idx], pen(idx, p.centers[0])));
+  }
+  // the seed and the mbarriers are in place, and every CTA of the cluster
+  // has started before any stores into its shared memory
+  cluster.sync();
+
   for (int t = 1; t < T; ++t) {
-    const int prev = starts[t - 1], start = starts[t], c = centers[t];
-    const float* em_t = em + (int64_t)t * em_st;
-    int* psi_t = psi + (int64_t)(t - 1) * Kb;
-    for (int j = threadIdx.x; j < Kb; j += blockDim.x) {
-      const int idx = start + j;
-      const float* a = log_A + (int64_t)prev * K + idx;
-      float best = cur[0] + a[0];
-      int arg = 0;
-#pragma unroll 8
-      for (int k = 1; k < Kb; ++k) {
-        const float v = cur[k] + a[(int64_t)k * K];
-        if (v > best) {
-          best = v;
-          arg = k;
-        }
-      }
-      const float pen = abs(idx - c) <= width ? 0.0f : kNegInf;
-      nxt[j] = best + (em_t[idx] + pen);
-      psi_t[j] = arg;
+    const float e_cur = e_next;
+    const int start_3 = start_of(t + 3), c_nn = centre_of(t + 2);
+    if (t + 1 < T && fj < nw) e_next = emission(t + 1, start_n, fj);
+    const float* cur = buf + ((t - 1) & 1) * Kb;
+    float* nxt = buf + (t & 1) * Kb;
+    if (MBAR && t >= 2) {
+      // every CTA's values of step t-1 are in cur.  Then every CTA has read
+      // its last of nxt (in step t-1, before it stored those values), so
+      // stores into nxt may start; and this buffer's next fill is step t+1
+      uint64_t* mb = &mbar[(t - 1) & 1];
+      mbar_wait(mb, ((t - 2) >> 1) & 1);
+      if (tid == 0 && t + 1 < T) mbar_expect(mb, fill);
     }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+    const float* a_g = p.log_A + (int64_t)prev * K + start + c0;
+    int* psi_t = p.psi + (int64_t)(t - 1) * Kb + c0;
+    uint64_t* mb_nxt = &mbar[t & 1];
+    score_columns(
+        s,
+        [&](int k, int j) {
+          return __fadd_rn(cur[k], __ldg(a_g + (int64_t)k * K + j));
+        },
+        [&](int j, float best, int arg) {   // best + (em + pen)
+          const float e = j == fj ? e_cur : emission(t, start, j);
+          const float v = __fadd_rn(best, __fadd_rn(e, pen(start + c0 + j, c)));
+          psi_t[j] = arg;
+          if (MBAR) {
+#pragma unroll
+            for (int q = 0; q < kCluster; ++q)
+              st_async(nxt + c0 + j, mb_nxt, q, v);
+          } else {
+            push_all(cluster, nxt, c0 + j, v);
+          }
+        },
+        pv, pf);
+    // every read of the partial maxima ends before the next step's scoring
+    // writes them (the cluster barrier also lands every push of this step
+    // and ends every read of cur before any CTA pushes into it)
+    if (MBAR)
+      __syncthreads();
+    else
+      cluster.sync();
+    prev = start;
+    start = start_n;
+    start_n = start_nn;
+    start_nn = start_3;
+    c = c_n;
+    c_n = c_nn;
   }
-  for (int j = threadIdx.x; j < Kb; j += blockDim.x) delta_w[j] = cur[j];
+  if (MBAR && T > 1) mbar_wait(&mbar[(T - 1) & 1], ((T - 2) >> 1) & 1);
+  const float* last = buf + ((T - 1) & 1) * Kb;
+  for (int j = tid; j < nw; j += kFwdThreads) p.delta_w[c0 + j] = last[c0 + j];
+  // no CTA leaves while another may still store into it
+  cluster.sync();
 }
 
 __global__ void viterbi_backtrack_batch_kernel(
@@ -410,21 +581,6 @@ __global__ void viterbi_backtrack_batch_kernel(
     q = psi_b[(int64_t)t * K + q];
     path[t] = q;
   }
-}
-
-// Threads for a row of n columns: one per column, whole warps, at most 1024.
-int row_threads(int n) {
-  const int threads = ((n + 31) / 32) * 32;
-  return threads > 1024 ? 1024 : threads;
-}
-
-// Opts a kernel into more than 48 KB of dynamic shared memory when it needs it.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
 }
 
 template <bool HAS_T, bool HAS_S, bool RESIDENT>
@@ -489,15 +645,22 @@ extern "C" int viterbi_banded_fwd(const void* log_A, const void* log_pi,
                                   const void* centers, const void* starts,
                                   int width, int T, int K, int Kb, void* psi,
                                   void* delta_w, void* stream) {
-  const size_t smem = 2 * (size_t)Kb * sizeof(float);
-  cudaError_t err = allow_smem(viterbi_banded_fwd_kernel, smem);
-  if (err != cudaSuccess) return err;
-  viterbi_banded_fwd_kernel<<<1, row_threads(Kb), smem,
-                              (cudaStream_t)stream>>>(
-      (const float*)log_A, (const float*)log_pi, (const float*)em, em_st,
-      (const int*)centers, (const int*)starts, width, T, K, Kb, (int*)psi,
-      (float*)delta_w);
-  return cudaGetLastError();
+  const BandArgs a = {(const float*)log_A, (const float*)log_pi,
+                      (const float*)em, em_st, (const int*)centers,
+                      (const int*)starts, width, T, K, Kb, (int*)psi,
+                      (float*)delta_w};
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int W = cols_per_cta(Kb);
+  const bool all_own = (Kb + W - 1) / W == kCluster;   // every CTA has columns
+  size_t smem = 4 * (size_t)band_smem_layout(Kb, true).total;
+  if (all_own && smem <= kSmemBytes)
+    return launch_persistent_clusters(viterbi_banded_cluster_kernel<true>, a,
+                                      1, kFwdThreads, smem, s);
+  // a CTA without columns, or no room for the mbarriers beside the two
+  // delta buffers: a cluster barrier a step
+  smem = 4 * (size_t)band_smem_layout(Kb, false).total;
+  return launch_persistent_clusters(viterbi_banded_cluster_kernel<false>, a,
+                                    1, kFwdThreads, smem, s);
 }
 
 extern "C" int viterbi_backtrack_batch(const void* psi, const void* delta_T,

@@ -3,8 +3,12 @@
 `tropical_matmul_batch` replaces the Pallas TPU kernel `_tropical_kernel`
 behind `tropical_matmul` (src/repro/kernels/tropical.py:30, :66), batched
 over N independent products so that one launch combines every pair of one
-level of the associative scan.  The source comment in the .cu file says
-what bounds it on the card and what its design does about that.
+level of the associative scan.  With ``with_args=False`` it is the
+values-only combine of that scan (`_tropical_matmul`,
+src/repro/core/assoc.py:18): the same vals, no argmax written.  The source
+comment in the .cu file says what bounds it on the card and what its design
+(64 x 64 output tiles, register micro-tiles, a cp.async ring) does about
+that.
 
 For tensors on the CPU the wrapper runs the plain version
 `ref.tropical_matmul_ref`; for CUDA tensors it launches the kernel
@@ -31,7 +35,8 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def tropical_matmul_batch(a: torch.Tensor, b: torch.Tensor):
+def tropical_matmul_batch(a: torch.Tensor, b: torch.Tensor,
+                          with_args: bool = True):
     """N (max, +) products: (N, I, K) x (N, K, J).
 
     Both operands float32 or both bfloat16, contiguous on the card.  In
@@ -39,7 +44,8 @@ def tropical_matmul_batch(a: torch.Tensor, b: torch.Tensor):
 
     Returns:
       (vals (N, I, J) of the operands' dtype, args (N, I, J) int32, the
-      lowest k attaining each max), bit-identical to `ref.tropical_matmul_ref`.
+      lowest k attaining each max), bit-identical to `ref.tropical_matmul_ref`;
+      args is None when `with_args` is False (the same vals, no argmax).
     """
     _require(a.dim() == 3 and b.dim() == 3,
              f"a and b must be (N, I, K) and (N, K, J), got "
@@ -51,20 +57,23 @@ def tropical_matmul_batch(a: torch.Tensor, b: torch.Tensor):
     _require(a.dtype == b.dtype and a.dtype in DTYPES,
              "a and b must both be float32 or both bfloat16")
     if not _on_cuda(a, b):
-        return _ref.tropical_matmul_ref(a, b)
+        vals, args = _ref.tropical_matmul_ref(a, b)
+        return vals, args if with_args else None
 
     _require(a.is_contiguous() and b.is_contiguous(),
              "a and b must be contiguous")
     dev = a.device
     vals = torch.empty((N, I, J), dtype=a.dtype, device=dev)
-    args = torch.empty((N, I, J), dtype=torch.int32, device=dev)
+    args = (torch.empty((N, I, J), dtype=torch.int32, device=dev)
+            if with_args else None)
     if vals.numel() == 0:
         return vals, args
     lib = build.load("tropical")
     with torch.cuda.device(dev):
         err = lib.tropical_matmul_batch(
             a.data_ptr(), b.data_ptr(), int(a.dtype == torch.bfloat16), N, I,
-            K, J, vals.data_ptr(), args.data_ptr(), _stream(dev))
+            K, J, vals.data_ptr(), None if args is None else args.data_ptr(),
+            _stream(dev))
     _check_cuda(err, "tropical_matmul_batch")
     launches["tropical_matmul_batch"] += 1
     return vals, args

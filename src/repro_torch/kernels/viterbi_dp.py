@@ -19,6 +19,13 @@ masked entry: of log_A + tmask) for the whole launch; above that it reads
 the slice from L2 ("global").  The source comment in the .cu file says what
 bounds each kernel on the card and what its design does about it.
 
+The banded kernel runs the same step over a window of Kb states on one
+cluster, reading each step's block of log_A from L2, its CTAs trading
+delta through remote stores counted on mbarriers instead of a cluster
+barrier a step.  Windows that leave a CTA without columns (Kb <= 49 at
+most) and the two widest (whose delta buffers fill the shared memory)
+keep a cluster barrier a step.
+
 Each wrapper checks device, dtype, shape and strides and raises on what the
 kernel does not take.  For tensors on the CPU it runs the plain version in
 `ref.py`; for CUDA tensors it launches its kernel (building it at first use)

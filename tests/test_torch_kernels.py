@@ -778,3 +778,198 @@ def test_pre_added_tmask_slice_matches_unfused_masked_kernel(K):
     _, (psi_j, dT_j) = _jax_forward("lexicon", K)
     assert _eq(psi, psi_j) and _eq(dT, dT_j)
     assert torch.equal(psi, psi_r) and torch.equal(dT, dT_r)
+
+
+# --- the banded kernel (one cluster per window) ---------------------------
+#
+# `viterbi_banded_fwd` runs the forward template's step over a Kb-wide
+# window: the window's columns split across the cluster's CTAs, each
+# column's sources cut into the template's parts and chains, scanned with a
+# strict '>' and combined in ascending order, each step's block of log_A
+# read from L2.  The CPU runs the plain version, so these tests hold the
+# arithmetic: the decode against JAX's windowed scan at the map-matching
+# width and the degenerate ones, and the kernel's split emulated.
+
+
+def _banded_case(case):
+    """(K, T, width, centers) of a banded decode case."""
+    widths = {"map_matching": 96, "idle_ctas": 4, "kb_is_k": 40, "width0": 0,
+              "narrow": 2, "T1": 5, "clipped": 5}
+    K = 233 if case == "map_matching" else 40
+    T = 1 if case == "T1" else 7
+    centers = tuple(int(c) for c in np.linspace(-20, K + 20, T))
+    return K, T, widths[case], centers
+
+
+@pytest.mark.parametrize("case", ["map_matching", "idle_ctas", "kb_is_k",
+                                  "width0", "narrow", "T1", "clipped"])
+def test_viterbi_decode_banded_edges_match_jax(case):
+    """The map-matching width (Kb = 193), Kb = 9 (W = 2: three CTAs own no
+    column), Kb = K (every start 0), width 0 (Kb = 1), Kb = 5 (CTAs that own
+    no column), a single step and a band clipped at both ends: path and
+    score bitwise equal to JAX's windowed scan, psi and delta_w to the plain
+    version's."""
+    K, T, width, centers = _banded_case(case)
+    hmm, (lp, la) = _hmm(31 + K, K, edge_prob=1.0)
+    em = random_emissions(np.random.default_rng(32 + T), T, K, device=CPU)
+    p, s = ops.viterbi_decode_banded(hmm.log_pi, hmm.log_A, em, centers,
+                                     width=width)
+    p_j, s_j = jops.viterbi_decode_banded(lp, la, em.numpy(), centers,
+                                          width=width)
+    assert _eq(p, p_j) and float(s) == float(s_j)
+    Kb = min(2 * width + 1, K)
+    c, starts = ops.band_windows(centers, K, width)
+    if case == "kb_is_k":
+        assert Kb == K and not starts.any()
+    psi, dw = vdp.viterbi_banded_forward(hmm.log_A, hmm.log_pi, em, c,
+                                         starts, width)
+    assert psi.shape == (T - 1, Kb) and dw.shape == (Kb,)
+    psi_r, dw_r = ref.viterbi_banded_forward_ref(hmm.log_A, hmm.log_pi, em,
+                                                 c, starts, width)
+    assert torch.equal(psi, psi_r) and torch.equal(dw, dw_r)
+
+
+def _cluster_banded(A, lp, em, c, starts, width, C, ranges):
+    """The banded kernel's forward pass emulated: at each step the window's
+    Kb columns in C slices of W = ceil(Kb / C), each column's sources cut
+    into the contiguous `ranges` (ascending, covering [0, Kb)), each range
+    scanned with a strict '>', the ranges combined in ascending order, a
+    later one winning only if strictly greater; then best + (em + pen)."""
+    T, K = em.shape
+    Kb = min(2 * width + 1, K)
+    W = -(-Kb // C)
+    idx = starts.long()[:, None] + torch.arange(Kb)
+    pen = torch.where((idx - c.long()[:, None]).abs() <= width,
+                      torch.tensor(0.0), torch.tensor(-1.0e9))
+    em_w = em.gather(1, idx) + pen
+    delta = lp[idx[0]] + em_w[0]
+    psi = torch.empty((T - 1, Kb), dtype=torch.int32)
+    for t in range(1, T):
+        a = A[idx[t - 1][:, None], idx[t][None, :]]
+        new = torch.empty(Kb)
+        for r in range(C):
+            c0, c1 = min(r * W, Kb), min((r + 1) * W, Kb)
+            if c0 == c1:            # a CTA that owns no column
+                continue
+            best = arg = None
+            for k0, k1 in ranges:
+                v, i = _first_max((delta[k0:k1, None] + a[k0:k1, c0:c1])[None])
+                v, i = v[0], i[0] + k0
+                if best is None:
+                    best, arg = v, i
+                else:               # a later range wins only if greater
+                    take = v > best
+                    best = torch.where(take, v, best)
+                    arg = torch.where(take, i, arg)
+            new[c0:c1] = best + em_w[t, c0:c1]
+            psi[t - 1, c0:c1] = arg.to(torch.int32)
+        delta = new
+    return psi, delta
+
+
+def _tie_heavy_band(kind, K, T, width):
+    """A tie-heavy banded problem: the serve's left-to-right model (off-band
+    transitions and log_pi NEG_INF), alone or with a lexicon of four-state
+    words folded into log_A (log_A + tmask, as a constrained decode's
+    inputs), under a band that sweeps the states clipped at both ends.
+    Returns numpy (log_pi, log_A, em) and the centers."""
+    from repro_torch.core import LexiconConstraint, compiled_penalties
+    g = np.random.default_rng(2000 + K + width + len(kind))
+    hmm = left_to_right_hmm(g, K, 8, device=CPU)
+    lp, A = hmm.log_pi.numpy(), hmm.log_A.numpy()
+    if kind == "lexicon":
+        words = tuple((tuple(range(s, min(s + 4, K))),)
+                      for s in range(0, K, 4))
+        t_pen, pi_pen, _ = compiled_penalties(LexiconConstraint(words), K, T)
+        A, lp = A + t_pen, lp + pi_pen
+    em = (2.0 * g.standard_normal((T, K))).astype(np.float32)
+    centers = tuple(int(x) for x in np.linspace(-8, K + 8, T))
+    return lp, A, em, centers
+
+
+def _check_banded_emulation(kind, K, T, width, C, ranges):
+    lp, A, em, centers = _tie_heavy_band(kind, K, T, width)
+    c, starts = ops.band_windows(centers, K, width)
+    psi, dw = _cluster_banded(_t(A), _t(lp), _t(em), c, starts, width, C,
+                              ranges)
+    psi_r, dw_r = ref.viterbi_banded_forward_ref(_t(A), _t(lp), _t(em), c,
+                                                 starts, width)
+    assert torch.equal(psi, psi_r) and torch.equal(dw, dw_r)
+    p_j, s_j = jops.viterbi_decode_banded(lp, A, em, centers, width=width)
+    loc, sc = ref.viterbi_backtrack_ref(psi[None], dw[None])
+    assert _eq(starts + loc[0], p_j) and float(sc[0]) == float(s_j)
+    return psi
+
+
+@pytest.mark.parametrize("kind", ["left_to_right", "lexicon"])
+@pytest.mark.parametrize("P", [1, 2, 4, 7])
+@pytest.mark.parametrize("C", [1, 8, 16])
+def test_banded_cluster_reduction_matches_plain_and_jax(C, P, kind):
+    """The window's columns in C slices, each column's sources in P
+    contiguous parts, on tie-heavy models: psi and delta_w bitwise equal to
+    the plain version, the decoded path and score to JAX's windowed scan."""
+    K, T, width = 64, 12, 12
+    Kb = 2 * width + 1
+    psi = _check_banded_emulation(kind, K, T, width, C, _even_ranges(Kb, P))
+    if kind == "left_to_right":     # ties decide psi: the lowest index wins
+        assert int((psi == 0).sum()) > psi.numel() // 4
+
+
+@pytest.mark.parametrize("width", [0, 2, 4, 8, 12, 96, 127, 227])
+def test_banded_kernel_split_matches_plain_and_jax(width):
+    """The kernel's own split over the window (its cluster size, thread
+    parts cut into chains) at Kb = 1, 5, 9 and 17 (7, 3, 3 and 2 CTAs that
+    own no column), 25, the map-matching 193, 255 and 455, on the lexicon
+    model."""
+    Kb = 2 * width + 1
+    K = max(64, Kb + 20)
+    ranges = _kernel_ranges(Kb)
+    assert ranges[0][0] == 0 and ranges[-1][1] == Kb
+    _check_banded_emulation("lexicon", K, 6, width, _CLUSTER, ranges)
+
+
+# --- the tropical product: argmax and values-only instances ---------------
+
+
+def _trop_inputs(seed, kind, *shapes):
+    g = np.random.default_rng(seed)
+    if kind == "integer":           # small integers: most maxima tie
+        return [g.integers(-3, 4, s).astype(np.float32) for s in shapes]
+    return [g.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+@pytest.mark.parametrize("kind", ["normal", "integer"])
+@pytest.mark.parametrize("N,I,K,J", [(5, 7, 9, 6), (3, 64, 64, 64),
+                                     (2, 65, 33, 70)])
+def test_tropical_values_only_matches_jax_assoc_combine(N, I, K, J, kind):
+    """`with_args=False` (the assoc scan's combine) returns no argmax and
+    the same vals as the argmax instance, bitwise equal to JAX's values-only
+    `_tropical_matmul`, in float32."""
+    from repro.core.assoc import _tropical_matmul as j_combine
+    from repro_torch.kernels import tropical as tr
+    a, b = _trop_inputs(N * 100 + I, kind, (N, I, K), (N, K, J))
+    vals, args = tr.tropical_matmul_batch(_t(a), _t(b), with_args=False)
+    assert args is None and vals.shape == (N, I, J)
+    assert _eq(vals, j_combine(a, b))
+    v_args, _ = tr.tropical_matmul_batch(_t(a), _t(b))
+    assert torch.equal(vals, v_args)
+
+
+@pytest.mark.parametrize("kind", ["normal", "integer"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("I,K,J", [(65, 33, 70), (3, 5, 7), (130, 100, 131)])
+def test_tropical_ragged_tiles_and_ties_match_jax(I, K, J, dtype, kind):
+    """Shapes that no tile of the kernel (64 x 64 outputs, chunks of 32
+    along K) or of the JAX wrapper divides, on normal and tie-heavy integer
+    inputs: vals and the clamped argmax bitwise equal to JAX's
+    `ops.tropical_matmul` (its Pallas kernel in interpret mode)."""
+    a, b = _trop_inputs(I * 7 + J, kind, (I, K), (K, J))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    v, arg = ops.tropical_matmul(_t(a).to(tdt), _t(b).to(tdt))
+    v_j, arg_j = jops.tropical_matmul(jnp.asarray(a).astype(jdt),
+                                      jnp.asarray(b).astype(jdt))
+    assert v.dtype == tdt and arg.dtype == torch.int32
+    assert np.array_equal(v.float().numpy(), np.asarray(v_j, np.float32))
+    assert _eq(arg, arg_j)
+    if kind == "integer":           # ties: the lowest k wins
+        assert int((arg == 0).sum()) > 0
