@@ -16,7 +16,14 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      resident instance and the next multiple of 8 above it, 1024, 1500},
      and at B = 40 (more sequences than clusters on the card) with
      lengths 0, 1 and 511 among them; each case prints the instance and
-     cluster size it took;
+     cluster size it took; the backtrack also on psi of uniformly random
+     states (a near-diagonal psi hides a wrong composition of its maps)
+     with tie-heavy integer delta_T at (B, T, K) = (8, 511, 512), (40,
+     511, 512), (1, 4095, 64), T in {0, 1, 2, 9}, K in {1, 3, 1500},
+     (2, 511, 1500) and (1, 4095, 512) (psi rows read from L2), (2, 5,
+     29056) (the widest K: one sub-block, rows from L2), (1, 511, 193) and
+     a psi 4 bytes past an allocation's start; each backtrack case prints
+     its instance (psi rows staged or read from L2, sub-blocks a CTA);
   1b. hold the constraint-masked forward kernel and the banded kernel
      against their plain versions, bitwise: (8, 511, 512) and (40, 511,
      512) with the serve lexicon's tmask and smask, (8, 511, 1024) on the
@@ -77,32 +84,37 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      (B, T) = (8, 511): `flash` (P = 8), `flash_bs` (beam K), `checkpoint`,
      `beam_static` (B = K) and `beam_static_mp` (beam K), each path bitwise
      equal to `viterbi_vanilla` with relative error 0; `assoc` at (T, K) =
-     (4096, 64) on the tropical kernel (one launch per combine of the scan:
-     22), its path equal and its score within 1e-5 relative (the scan groups
+     (4096, 64) on the tropical kernel (one values-only launch per combine
+     of the scan: 22; one argmax launch for its backtrack's table) and the
+     backtrack kernel (one launch), those launches exactly, its path equal
+     and its score within 1e-5 relative (the scan groups
      the adds as a tree; the rtol of tests/test_core_viterbi.py), and
      bitwise equal to the same decode on the CPU; `serve.main` with
      ``--budget-kb`` 1024 (an exact FLASH rung) and 32 (a beam rung);
   3. time each kernel and its plain version with CUDA events: the forward
-     and backtrack kernels at the serve shapes (B = 8, T in {128, 256, 512},
-     K = 512), the masked kernel at (8, 511, 512) with both masks and at
-     (8, 511, 1024) with smask alone (the forward entries also per DP step,
-     with their instance), the banded kernel on the map-matching grid at
-     Kb = 193 (mbarrier exchange) and 17 (a cluster barrier a step), per
-     launch and per DP step, the beam kernel's single
-     step at (N, K, B, chunk) = (8, 512,
-     128, 128) and (2048, 512, 128, 128), its initial pass at the serve's
-     (8, 512, 512, 128, P = 8) and its tile launches of the first and last
-     layers (ms per launch and per DP step), the tropical kernel with the
-     argmax and values-only at (N, I, K, J) = (N, 64, 64, 64), N in {1, 255,
-     256, 2047}, and (1, 512, 512, 512), by CUDA events and by the device
-     time of a `torch.profiler` trace (the events time the host where it
+     and backtrack kernels at the serve shapes (B = 8, T in {128, 256,
+     512}, K = 512; the backtrack by CUDA-graph replay, on the forward's
+     psi, warm in L2, and also at (40, 511, 512), (1, 511, 193) and (1,
+     4095, 64) on random-state psi), the masked kernel at (8, 511, 512)
+     with both masks and at (8, 511, 1024) with smask alone (the forward
+     entries also per DP step, with their instance), the banded kernel on
+     the map-matching grid at Kb = 193 (mbarrier exchange) and 17 (a
+     cluster barrier a step), per launch and per DP step, the beam
+     kernel's single step at (N, K, B, chunk) = (8, 512, 128, 128) and
+     (2048, 512, 128, 128), its initial pass at the serve's (8, 512, 512,
+     128, P = 8) and its tile launches of the first and last layers (ms
+     per launch and per DP step), the tropical kernel with the argmax and
+     values-only at (N, I, K, J) = (N, 64, 64, 64), N in {1, 255, 256,
+     2047}, and (1, 512, 512, 512), by CUDA events and by the device time
+     of a `torch.profiler` trace (the events time the host where it
      launches slower than the card runs), the device time of the 22
-     launches of one `assoc` decode at (T, K) = (4096, 64) and that decode
-     on the host clock; the FLASH-BS and
-     the `fused` serve's drains of the 32 requests on the host clock, twice
-     each, with their launches; and one more drain of each under
-     `torch.profiler`: the device time and the device's idle share of the
-     drain.
+     values-only launches of one `assoc` decode at (T, K) = (4096, 64) and
+     of its backtrack table's argmax launch (replayed), its tropical and
+     backtrack launches under the profiler, and that decode on the host
+     clock; the FLASH-BS and the `fused` serve's drains of the 32 requests
+     on the host clock, twice each, with their launches; and one more
+     drain of each under `torch.profiler`: the device time and the
+     device's idle share of the drain.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no
@@ -174,9 +186,10 @@ def graph_ms(fn, reps: int) -> float:
     return cuda_ms(graph.replay, reps=5) / reps
 
 
-def profiled_ms(fn, name: str) -> float | None:
-    """Device time of the kernels named `name` in a `torch.profiler` trace
-    of one call of `fn`; None if the trace holds no such event."""
+def profiled_ms(fn, *names: str) -> list[float | None]:
+    """Device time of the kernels whose names hold each of `names` in one
+    `torch.profiler` trace of one call of `fn`; None for a name the trace
+    holds no event of."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -184,9 +197,12 @@ def profiled_ms(fn, name: str) -> float | None:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and name in e.name)
-    return us / 1e3 if us else None
+    out = []
+    for name in names:
+        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name)
+        out.append(us / 1e3 if us else None)
+    return out
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -261,14 +277,47 @@ def check_forward(vdp, ref, log_A, em, delta0, pad, what: str):
     return float((dT - dT_r).abs().max()), psi, dT
 
 
+def backtrack_layout(vdp, T: int, K: int) -> str:
+    """The backtrack's instance at (T, K): psi rows staged in shared memory
+    or read from L2, and the sub-blocks a CTA cuts its rows into."""
+    inst, sub = vdp.backtrack_instance(T, K)
+    return f"{inst} psi rows, sub-blocks a CTA: {sub}"
+
+
 def check_backtrack(vdp, ref, psi, dT, what: str) -> float:
+    B, T, K = psi.shape
+    what = f"{what}, {backtrack_layout(vdp, T, K)}"
     paths, scores = vdp.viterbi_backtrack_batch(psi, dT)
     paths_r, scores_r = ref.viterbi_backtrack_ref(psi, dT)
     torch.cuda.synchronize()
     if not (torch.equal(paths, paths_r) and torch.equal(scores, scores_r)):
-        raise SystemExit(f"FAIL backtrack {what}: paths or scores differ")
+        raise SystemExit(f"FAIL backtrack {what}: "
+                         f"{int((paths != paths_r).sum())} path entries or "
+                         f"the scores differ")
     print(f"backtrack kernel == plain (bitwise) at {what}")
     return float((scores - scores_r).abs().max())
+
+
+def random_psi(g, dev, B: int, T: int, K: int, base: int = 0):
+    """psi (B, T, K) of uniformly random states in [0, K) (where a wrong
+    composition of the backtrack's maps shows; a near-diagonal psi hides
+    it), `base` words past an allocation's start, and tie-heavy integer
+    delta_T (B, K) in [-2, 2]."""
+    flat = torch.from_numpy(g.integers(0, K, base + B * T * K,
+                                       dtype=np.int32)).to(dev)
+    dT = torch.from_numpy(g.integers(-2, 3, (B, K)).astype(np.float32))
+    return flat[base:].view(B, T, K), dT.to(dev)
+
+
+#: (B, T, K) of the backtrack's random-state cases in phase 1: the serve
+#: shape, more sequences than clusters, assoc's table, T = 0, 1, 2 and 9
+#: (fewer rows than CTAs or sub-blocks), K = 1, 3 and 1500 (staged), psi
+#: rows read from L2 (1500 and 512 at long T, with 16 sub-blocks; the widest
+#: K, one sub-block) and map matching's window
+BACKTRACK_CASES = ((8, 511, 512), (40, 511, 512), (1, 4095, 64),
+                   (3, 0, 512), (3, 1, 512), (3, 2, 512), (3, 9, 512),
+                   (3, 37, 1), (3, 37, 3), (3, 37, 1500), (2, 511, 1500),
+                   (1, 4095, 512), (2, 5, 29056), (1, 511, 193))
 
 
 def phase_kernels(dev) -> dict[str, float]:
@@ -318,6 +367,17 @@ def phase_kernels(dev) -> dict[str, float]:
         err["viterbi_fwd_batch"] = max(err["viterbi_fwd_batch"], e)
         e = check_backtrack(vdp, ref, psi, dT, what)
         err["viterbi_backtrack_batch"] = max(err["viterbi_backtrack_batch"], e)
+    # the backtrack on random-state psi, and on a base 4 bytes past an
+    # allocation's start (its rows' cp.async copies start unaligned)
+    cases = [(f"random-state psi (B,T,K)={shape}", shape, 0)
+             for shape in BACKTRACK_CASES]
+    cases.append(("random-state psi, base + 4 bytes (B,T,K)=(2,64,100)",
+                  (2, 64, 100), 1))
+    for what, shape, base in cases:
+        psi, dT = random_psi(g, dev, *shape, base=base)
+        e = check_backtrack(vdp, ref, psi, dT, what)
+        err["viterbi_backtrack_batch"] = max(err["viterbi_backtrack_batch"], e)
+    del psi, dT
     return err
 
 
@@ -1194,10 +1254,11 @@ def phase_paper_workload(dev) -> dict[str, int]:
           f"relative error {err:.3e} (rtol 1e-5: the scan groups the adds as "
           f"a tree); path and score == the CPU run (bitwise); launches "
           f"{ {n: v for n, v in launches.items() if v} }")
-    if launches["tropical_matmul_batch"] != len(scan_levels(Ta - 1)):
-        raise SystemExit(f"FAIL paper workload: the tropical kernel launched "
-                         f"{launches['tropical_matmul_batch']} times, the "
-                         f"scan has {len(scan_levels(Ta - 1))} levels")
+    # one values-only launch per level of the scan, one argmax launch for
+    # the backtrack's table, one backtrack launch, nothing else
+    check_launches("paper workload assoc", launches, dict(
+        tropical_matmul_batch=len(scan_levels(Ta - 1)) + 1,
+        viterbi_backtrack_batch=1))
 
     # the planner in the serve: an exact FLASH rung and a beam rung
     for kb in ("1024", "32"):
@@ -1230,26 +1291,26 @@ def phase_timing(dev, card: str) -> dict[str, dict]:
         pad = pad_of([T] * B, T, dev)
         mask = pad > 0.5
         psi, dT = vdp.viterbi_forward_batch(hmm.log_A, em, delta0, pad)
-        times = {
-            "viterbi_fwd_batch": (
-                cuda_ms(lambda: vdp.viterbi_forward_batch(
-                    hmm.log_A, em, delta0, pad), reps=10),
-                cuda_ms(lambda: ref.viterbi_forward_masked_ref(
-                    hmm.log_A, em, delta0, mask), reps=3),
-                fwd_bound(B, T, K, B * T)),
-            "viterbi_backtrack_batch": (
-                cuda_ms(lambda: vdp.viterbi_backtrack_batch(psi, dT), reps=20),
-                cuda_ms(lambda: ref.viterbi_backtrack_ref(psi, dT), reps=3),
-                backtrack_bound(B, T, K)),
-        }
-        for name, (ms, plain, (bms, by)) in times.items():
-            per_step = (f", {1e3 * ms / T:.4f} us per DP step, "
-                        f"{forward_layout(vdp, K)}"
-                        if name == "viterbi_fwd_batch" else "")
-            print(f"timing {name} (B,T,K)=({B},{T},{K}): kernel {ms:.4f} ms"
-                  f"{per_step}, plain {plain:.4f} ms, bound {bms:.6f} ms "
-                  f"({by}); {card}")
-            rows[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+        ms = cuda_ms(lambda: vdp.viterbi_forward_batch(
+            hmm.log_A, em, delta0, pad), reps=10)
+        plain = cuda_ms(lambda: ref.viterbi_forward_masked_ref(
+            hmm.log_A, em, delta0, mask), reps=3)
+        bms, by = fwd_bound(B, T, K, B * T)
+        print(f"timing viterbi_fwd_batch (B,T,K)=({B},{T},{K}): kernel "
+              f"{ms:.4f} ms, {1e3 * ms / T:.4f} us per DP step, "
+              f"{forward_layout(vdp, K)}, plain {plain:.4f} ms, bound "
+              f"{bms:.6f} ms ({by}); {card}")
+        rows["viterbi_fwd_batch"] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
+                                         bound_by=by)
+        rows["viterbi_backtrack_batch"] = time_backtrack(
+            vdp, ref, psi, dT, "forward psi, serve model", card)
+    # the backtrack at the other shapes its callers give it, on random-state
+    # psi: more sequences than clusters (psi 42 MB: mostly out of L2), map
+    # matching's window, assoc's table
+    for shape in ((40, 511, 512), (1, 511, 193), (1, 4095, 64)):
+        psi, dT = random_psi(g, dev, *shape)
+        time_backtrack(vdp, ref, psi, dT, "random-state psi", card)
+    del psi, dT
 
     # the masked kernel: the lexicon serve shape with both masks (kept for
     # the kernels line), then the map-matching batch with the band's smask
@@ -1381,9 +1442,11 @@ def phase_timing(dev, card: str) -> dict[str, dict]:
             if (N, with_args) == (256, False):
                 rows["tropical_matmul_batch"] = dict(
                     ms=dms, plain_ms=plain, bound_ms=bms, bound_by=by)
-    # one assoc decode at (T, K) = (4096, 64): its 22 tropical launches (the
-    # levels' shapes replayed in one graph, and the decode's own under the
-    # profiler), and the whole decode on the host clock
+    # one assoc decode at (T, K) = (4096, 64): its 22 values-only tropical
+    # launches (the levels' shapes replayed in one graph), the argmax launch
+    # of its backtrack's table (replayed), the decode's own tropical and
+    # backtrack launches under the profiler, and the whole decode on the
+    # host clock
     from repro_torch.core import AssocSpec, erdos_renyi_hmm, random_emissions
     levels = scan_levels(4095)
     pairs = [tuple(torch.from_numpy(g.standard_normal((n, 64, 64)).astype(
@@ -1391,16 +1454,23 @@ def phase_timing(dev, card: str) -> dict[str, dict]:
     total = graph_ms(lambda: [tropical_matmul_batch(a, b, False)
                               for a, b in pairs], 1)
     bound = sum(tropical_bound(a, b, False)[0] for a, b in pairs)
+    a, b = (torch.from_numpy(g.standard_normal(shape).astype(np.float32)).to(
+        dev) for shape in ((1, 4095, 64), (1, 64, 64)))
+    table = graph_ms(lambda: tropical_matmul_batch(a, b), 20)
+    table_bound = tropical_bound(a, b)[0]
     hmm_a = erdos_renyi_hmm(g, 64, 50, 0.253, device=dev)
     em_a = random_emissions(g, 4096, 64, device=dev)
-    traced = profiled_ms(lambda: AssocSpec().run(hmm_a.log_pi, hmm_a.log_A,
-                                                 em_a), "tropical")
-    traced = "not measured" if traced is None else f"{traced:.4f} ms"
-    print(f"timing assoc (T,K)=(4096,64): its {len(levels)} tropical launches"
-          f" ({sum(levels)} products of 64 x 64 x 64) take {total:.4f} ms of "
-          f"device time replayed (values-only; bound {bound:.6f} ms), "
-          f"{traced} under the profiler in a decode; {card}")
-    del pairs
+    traced = ["not measured" if x is None else f"{x:.4f} ms"
+              for x in profiled_ms(lambda: AssocSpec().run(
+                  hmm_a.log_pi, hmm_a.log_A, em_a), "tropical", "backtrack")]
+    print(f"timing assoc (T,K)=(4096,64): its {len(levels)} values-only "
+          f"tropical launches ({sum(levels)} products of 64 x 64 x 64) take "
+          f"{total:.4f} ms of device time replayed (bound {bound:.6f} ms), "
+          f"its backtrack table (the argmax instance at (1,4095,64,64)) "
+          f"{table:.4f} ms replayed (bound {table_bound:.6f} ms); under the "
+          f"profiler in a decode its {len(levels) + 1} tropical launches "
+          f"{traced[0]}, its backtrack launch {traced[1]}; {card}")
+    del pairs, a, b
     for rep in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1435,6 +1505,24 @@ def phase_timing(dev, card: str) -> dict[str, dict]:
                   f"launches {counts}; {card}")
         drain_device_share(head, method, card)
     return rows   # fwd and backtrack at T = 511; masked with both masks
+
+
+def time_backtrack(vdp, ref, psi, dT, what: str, card: str) -> dict:
+    """Device time of the backtrack by CUDA-graph replay (20 launches back
+    to back on one psi, which stays in L2 where it fits, as on the decode
+    path, where the forward launch has just written it), and by back-to-back
+    CUDA events; the plain version by events.  Prints and returns the
+    kernels-line entry."""
+    B, T, K = psi.shape
+    ms = graph_ms(lambda: vdp.viterbi_backtrack_batch(psi, dT), 20)
+    ems = cuda_ms(lambda: vdp.viterbi_backtrack_batch(psi, dT), reps=20)
+    plain = cuda_ms(lambda: ref.viterbi_backtrack_ref(psi, dT), reps=3)
+    bms, by = backtrack_bound(B, T, K)
+    print(f"timing viterbi_backtrack_batch (B,T,K)=({B},{T},{K}) {what}, "
+          f"{backtrack_layout(vdp, T, K)}: kernel {ms:.4f} ms device time "
+          f"({ems:.4f} ms by back-to-back events), plain {plain:.4f} ms, "
+          f"bound {bms:.7f} ms ({by}); {card}")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
 
 
 def drain_device_share(head, what: str, card: str) -> None:

@@ -12,8 +12,16 @@ counterpart of JAX's values-only `_tropical_matmul`), one launch for all
 pairs of a level.  The scan is a port of `jax.lax.associative_scan`'s
 recursion (reduce adjacent pairs, recurse on the half, combine the evens,
 interleave): the max is exact in any order, but the adds are grouped by
-that tree, and any other tree rounds differently.  The backtrack is plain
-PyTorch: a host loop of T - 1 `argmax` calls.
+that tree, and any other tree rounds differently.
+
+The backtrack runs on the kernels too.  JAX's reverse `lax.scan` takes, at
+each step, the lowest-index argmax of ``deltas[t] + log_A[:, q]`` for the
+state q after it.  That is entry (t, q) of the tropical product
+``deltas[:-1] (x) log_A`` with its argmax (`tropical_matmul_batch` with
+``with_args=True``: the same f32 adds, k scanned upward, the lowest index
+on ties), so one launch writes the table for every q at once, and the
+backtrack kernel (`viterbi_backtrack_batch`) walks it from the argmax of
+``deltas[-1]``: the same bits as the scan, with no host loop.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.tropical import tropical_matmul_batch
+from ..kernels.viterbi_dp import viterbi_backtrack_batch
 
 
 def _combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -59,13 +68,16 @@ def viterbi_assoc(log_pi, log_A, em):
     deltas_tail = (d0[None, :, None] + F).amax(dim=1)         # (T-1, K)
     deltas = torch.cat([d0[None], deltas_tail])               # (T, K)
 
-    score, q = deltas[-1].max(dim=0)
-    path = torch.empty((T,), dtype=torch.int32, device=em.device)
-    path[T - 1] = q
-    for t in range(T - 2, -1, -1):
-        q = (deltas[t] + log_A[:, q]).argmax()
-        path[t] = q
-    return path, score
+    # args[0, t, q] = argmax_k (deltas[t][k] + log_A[k, q]): the state
+    # before q at step t + 1, for every q; T = 1 has no step to walk
+    if T > 1:
+        _, args = tropical_matmul_batch(deltas[None, :-1].contiguous(),
+                                        log_A[None].contiguous())
+    else:
+        args = torch.empty((1, 0, K), dtype=torch.int32, device=em.device)
+    paths, scores = viterbi_backtrack_batch(args,
+                                            deltas[None, -1].contiguous())
+    return paths[0], scores[0]
 
 
 __all__ = ["viterbi_assoc"]

@@ -45,6 +45,7 @@ SIGNATURES = {
                                      _I32, _VOID, _VOID, _VOID),
         "viterbi_banded_fwd": (_VOID, _VOID, _VOID, _I64, _VOID, _VOID, _I32,
                                _I32, _I32, _I32, _VOID, _VOID, _VOID),
+        "viterbi_backtrack_plan": (_I32, _I32),
         "viterbi_backtrack_batch": (_VOID, _VOID, _I32, _I32, _I32, _VOID,
                                     _VOID, _VOID),
     },

@@ -123,9 +123,62 @@
 // `viterbi_decode_banded`'s docstring in the JAX package).
 //
 // viterbi_backtrack_batch replaces the XLA reverse scans of
-// `viterbi_decode_fused_batch` (src/repro/kernels/ops.py:213-220).  One
-// thread per sequence takes the lowest-index argmax of delta_T[b] and walks
-// psi back.  It is bound by the latency of T dependent loads, not by bytes.
+// `viterbi_decode_fused_batch` (src/repro/kernels/ops.py:177-182, 213-220).
+// For each sequence b: paths[b, T] = q, the lowest-index argmax of
+// delta_T[b]; paths[b, t] = psi[b, t, paths[b, t + 1]]; scores[b] =
+// delta_T[b, q] (a load, not a computed value).
+//
+// Design.  The walk is a chain of T dependent loads, but the backpointer
+// rows compose: the rows [s, e) map each state k after row e - 1 to the
+// state f(k) at row s, for all K end states at once, in parallel.  One
+// thread-block cluster of kCluster CTAs owns a sequence, on the persistent
+// cluster grid of the forward template.  CTA r owns the rows [r R, (r + 1)
+// R), R = ceil(T / C), and cuts them into S sub-blocks (S a power of two,
+// at most kBtMaxSub and R), each owned by kBtThreads / S threads:
+//   1. the CTA stages its rows in shared memory with cp.async, where they
+//      fit beside the maps (the "staged" instance; else, "global", it reads
+//      them from L2 as it goes), and meanwhile takes the argmax of delta_T
+//      by a block reduction: each thread scans its strided share upward with
+//      a strict '>', and the partial results combine by warp shuffles and
+//      then across warps, a larger value winning and, between equal ones,
+//      the lower index: the lowest-index argmax for every input without NaN;
+//   2. compose: the threads of sub-block j build its map f_j over all K end
+//      states, a thread following kBtIlp states back through the rows at
+//      once (one gather from one row a step);
+//   3. the CTA's whole map F_r = f_0 o f_1 o ... o f_{S-1}, each thread
+//      composing it for its own states;
+//   4. a cluster barrier, then stitch: the first thread of each sub-block
+//      starts from the argmax and follows the whole maps of the CTAs after
+//      its own through distributed shared memory (at most C - 1 remote
+//      reads), then the maps of the later sub-blocks of its CTA, which gives
+//      the state after its last row;
+//   5. fill: it walks its rows from that state and writes the path;
+//   6. a cluster barrier: no CTA overwrites its maps for the next sequence,
+//      or exits, while another may still read them.
+// Where the maps of S sub-blocks do not fit beside the staged rows, S is
+// halved; where the rows do not fit even beside one map (large R K), they
+// are read from L2, with the most sub-blocks whose maps fit.  The instance
+// is chosen by shape (viterbi_backtrack_plan), never by a failure.
+//
+// What bounds it.  Not bytes: the dependent chain of the walk.  A single
+// walker follows T dependent L2 loads, about one L2 round trip a step.
+// With Ls = ceil(T / (C S)) rows a sub-block and G = kBtThreads / S
+// threads, this design follows ceil(K / (kBtIlp G)) Ls + Ls row gathers
+// (compose, whose passes over a thread's states run one after another, and
+// fill), about 2 S map reads (the whole map and the maps of the later
+// sub-blocks), C - 1 remote reads and two cluster barriers: at (B, T, K) =
+// (8, 511, 512), S = 16 and G = 32, 16 + 4 shared-memory row gathers, 16 +
+// 15 map reads and 7 remote reads in place of 511 L2 loads.  To get there
+// it reads the whole of psi once (B T K 4 bytes: 8.4 MB at (8, 511, 512),
+// still in L2 from the forward launch just before) instead of the T
+// entries on the path, plus delta_T once per CTA.  tools/backtrack_timing.py
+// measured, on an NVIDIA H100 80GB HBM3 at 700.00 W, by CUDA-graph replay:
+// 0.0079 ms at (8, 511, 512), where the one-thread-per-sequence kernel it
+// replaces took 0.0965 ms in the same call; 0.0087 ms at (1, 4095, 64)
+// (was 0.6057) and 0.027 ms at (40, 511, 512), psi 42 MB (was 0.118)
+// (PERF.md).  Staging pays: the same kernel with its rows read from L2
+// took, in one call, 0.0095 ms at (8, 511, 512) against 0.0078, and 0.0158
+// against 0.0087 at (1, 4095, 64), whose chain is 32 + 32 gathers.
 //
 // Plain C interface, loaded with ctypes.  Each entry returns
 // cudaGetLastError() (0 on success); launches go on the caller's stream and
@@ -134,6 +187,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "cluster.cuh"
@@ -556,30 +610,218 @@ viterbi_banded_cluster_kernel(const BandArgs p) {
   cluster.sync();
 }
 
-__global__ void viterbi_backtrack_batch_kernel(
-    const int* __restrict__ psi,         // (B, T, K) contiguous
-    const float* __restrict__ delta_T,   // (B, K) contiguous
-    int B, int T, int K,
-    int* __restrict__ paths,             // (B, T + 1) contiguous
-    float* __restrict__ scores) {        // (B,)
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const float* d = delta_T + b * K;
-  float best = d[0];
-  int q = 0;
-  for (int k = 1; k < K; ++k) {
-    if (d[k] > best) {
-      best = d[k];
-      q = k;
+// The backtrack's threads a CTA, the most sub-blocks a CTA cuts its rows
+// into, and the states a thread follows at once when it composes a map.
+constexpr int kBtThreads = 512;
+constexpr int kBtWarps = kBtThreads / 32;
+constexpr int kBtMaxSub = 16;
+constexpr int kBtIlp = 4;
+
+struct BtArgs {
+  const int* psi;        // (B, T, K) contiguous
+  const float* delta_T;  // (B, K) contiguous
+  int B, T, K;
+  int sub;               // sub-blocks a CTA: a power of two
+  int* paths;            // (B, T + 1) contiguous
+  float* scores;         // (B,)
+};
+
+// Rows each CTA of a cluster owns: CTA r owns [r R, (r + 1) R) clipped to T.
+__host__ __device__ inline int bt_rows_per_cta(int T) {
+  return (T + kCluster - 1) / kCluster;
+}
+
+// Offsets into a backtrack CTA's dynamic shared memory, in 4-byte words,
+// each 16-byte aligned: the staged rows (R K words and 3 for the alignment
+// of the first), the S sub-block maps, the whole map (the only map when S
+// is 1) and the argmax's per-warp partials and result.
+struct BtSmem {
+  int64_t rows, maps, whole, red, total;
+};
+
+__host__ __device__ inline BtSmem bt_smem_layout(int T, int K, bool staged,
+                                                 int sub) {
+  BtSmem s;
+  int64_t o = 0;
+  s.rows = o;  o = align4(o + (staged ? (int64_t)bt_rows_per_cta(T) * K + 3
+                                      : 0));
+  s.maps = o;  o = align4(o + (int64_t)sub * K);
+  s.whole = sub > 1 ? o : s.maps;
+  o = align4(o + (sub > 1 ? K : 0));
+  s.red = o;   o = align4(o + 2 * kBtWarps + 1);
+  s.total = o;
+  return s;
+}
+
+// The instance at (T, K): the most sub-blocks (a power of two, at most
+// kBtMaxSub and R) whose maps fit beside the staged rows; else the rows
+// read from L2 and the most sub-blocks whose maps fit alone.
+struct BtPlan {
+  bool staged;
+  int sub;
+};
+
+inline BtPlan bt_plan(int T, int K) {
+  const int R = bt_rows_per_cta(T);
+  int most = 1;
+  while (2 * most <= kBtMaxSub && 2 * most <= R) most *= 2;
+  for (int s = most; s >= 1; s /= 2)
+    if (4 * bt_smem_layout(T, K, true, s).total <= (int64_t)kSmemBytes)
+      return {true, s};
+  for (int s = most; s > 1; s /= 2)
+    if (4 * bt_smem_layout(T, K, false, s).total <= (int64_t)kSmemBytes)
+      return {false, s};
+  return {false, 1};   // one map and the partials fit for any K <= 29056
+}
+
+// (v, i) beats (bv, bi): a larger value, or an equal one at a lower index.
+__device__ __forceinline__ bool bt_better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+template <bool STAGED>
+__global__ void __launch_bounds__(kBtThreads, 1)
+viterbi_backtrack_cluster_kernel(const BtArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = p.T, K = p.K, S = p.sub;
+  const int r = (int)cluster.block_rank();
+  const BtSmem L = bt_smem_layout(T, K, STAGED, S);
+  int* rows_s = (int*)smem + L.rows;
+  int* maps = (int*)smem + L.maps;
+  int* whole = (int*)smem + L.whole;
+  float* red_v = smem + L.red;
+  int* red_i = (int*)smem + L.red + kBtWarps;
+  int* q_s = (int*)smem + L.red + 2 * kBtWarps;
+
+  const int R = bt_rows_per_cta(T);
+  auto row0 = [&](int c) { return min(c * R, T); };   // CTA c's first row
+  const int r0 = row0(r), n = row0(r + 1) - r0;
+  const int Ls = (n + S - 1) / S;                     // rows a sub-block
+  const int nsub = Ls == 0 ? 0 : (n + Ls - 1) / Ls;   // sub-blocks with rows
+  const int G = kBtThreads / S;                       // threads a sub-block
+  const int j = tid / G, gt = tid % G;                // this thread's
+  const int s0 = r0 + min(j * Ls, n), s1 = r0 + min((j + 1) * Ls, n);
+
+  const int ncl = gridDim.x / kCluster;
+  for (int b = blockIdx.x / kCluster; b < p.B; b += ncl) {
+    const int* psi_b = p.psi + (int64_t)b * T * K;
+    // 1. stage the CTA's rows: element i of the block goes to rows_s[off +
+    // i], where off matches the block's 16-byte alignment in global memory,
+    // so that the copies between the first and last aligned words take 16
+    // bytes each
+    int off = 0;
+    if (STAGED && n > 0) {
+      const int* src = psi_b + (int64_t)r0 * K;
+      const int cnt = n * K;
+      off = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+      const int head = min((4 - off) & 3, cnt);
+      const int quads = (cnt - head) / 4;
+      for (int i = tid; i < head; i += kBtThreads)
+        cp_async4(rows_s + off + i, src + i);
+      for (int q = tid; q < quads; q += kBtThreads)
+        cp_async16(rows_s + off + head + 4 * q, src + head + 4 * q);
+      for (int i = head + 4 * quads + tid; i < cnt; i += kBtThreads)
+        cp_async4(rows_s + off + i, src + i);
+      cp_async_commit();
     }
-  }
-  scores[b] = best;
-  int* path = paths + b * (int64_t)(T + 1);
-  path[T] = q;
-  const int* psi_b = psi + b * (int64_t)T * K;
-  for (int t = T - 1; t >= 0; --t) {
-    q = psi_b[(int64_t)t * K + q];
-    path[t] = q;
+    auto at = [&](int t, int c) -> int {   // psi[b, t, c]
+      if (STAGED) return rows_s[off + (t - r0) * K + c];
+      return __ldg(psi_b + (int64_t)t * K + c);
+    };
+
+    // argmax of delta_T[b] while the copies fly
+    const float* d = p.delta_T + (int64_t)b * K;
+    float bv = -INFINITY;
+    int bi = INT_MAX;   // no entry yet
+    for (int k = tid; k < K; k += kBtThreads) {
+      const float v = d[k];
+      if (bi == INT_MAX || v > bv) {
+        bv = v;
+        bi = k;
+      }
+    }
+#pragma unroll
+    for (int m = 16; m >= 1; m /= 2) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, m);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, m);
+      if (bt_better(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (lane == 0) {
+      red_v[warp] = bv;
+      red_i[warp] = bi;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      bv = lane < kBtWarps ? red_v[lane] : -INFINITY;
+      bi = lane < kBtWarps ? red_i[lane] : INT_MAX;
+#pragma unroll
+      for (int m = 16; m >= 1; m /= 2) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, m);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, m);
+        if (bt_better(ov, oi, bv, bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      if (lane == 0) *q_s = bi;
+    }
+    if (STAGED) cp_async_wait<0>();
+    __syncthreads();
+    const int q_last = *q_s;
+
+    // 2. compose: f_j(k) for the states k = gt, gt + G, ..., kBtIlp at once
+    if (s1 > s0) {
+      int* f = maps + (int64_t)j * K;
+      for (int k0 = gt; k0 < K; k0 += kBtIlp * G) {
+        int c[kBtIlp];
+#pragma unroll
+        for (int u = 0; u < kBtIlp; ++u) c[u] = min(k0 + u * G, K - 1);
+        for (int t = s1 - 1; t >= s0; --t) {
+#pragma unroll
+          for (int u = 0; u < kBtIlp; ++u) c[u] = at(t, c[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < kBtIlp; ++u)
+          if (k0 + u * G < K) f[k0 + u * G] = c[u];
+      }
+    }
+    __syncthreads();
+    // 3. the whole map F_r = f_0 o ... o f_{nsub-1} (f_0 itself when S = 1)
+    if (S > 1) {
+      for (int k = tid; k < K && n > 0; k += kBtThreads) {
+        int c = k;
+        for (int i = nsub - 1; i >= 0; --i) c = maps[(int64_t)i * K + c];
+        whole[k] = c;
+      }
+    }
+    // every CTA's whole map is in place before the first remote read
+    cluster.sync();
+
+    // 4. stitch: the state after row s1 - 1, through the later CTAs' whole
+    // maps and this CTA's later sub-blocks; 5. fill rows [s0, s1)
+    if (gt == 0 && s1 > s0) {
+      int q = q_last;
+      for (int c = kCluster - 1; c > r; --c)
+        if (row0(c + 1) > row0(c)) q = cluster.map_shared_rank(whole, c)[q];
+      for (int i = nsub - 1; i > j; --i) q = maps[(int64_t)i * K + q];
+      int* path = p.paths + (int64_t)b * (T + 1);
+      for (int t = s1 - 1; t >= s0; --t) {
+        q = at(t, q);
+        path[t] = q;
+      }
+    }
+    if (r == 0 && tid == 0) {
+      p.paths[(int64_t)b * (T + 1) + T] = q_last;
+      p.scores[b] = d[q_last];
+    }
+    // 6. no CTA overwrites its maps (the next sequence) or leaves while
+    // another may still read them
+    cluster.sync();
   }
 }
 
@@ -663,13 +905,26 @@ extern "C" int viterbi_banded_fwd(const void* log_A, const void* log_pi,
                                     1, kFwdThreads, smem, s);
 }
 
+// The backtrack's instance at (T, K): 2 * sub-blocks a CTA + 1 if the rows
+// are staged in shared memory.
+extern "C" int viterbi_backtrack_plan(int T, int K) {
+  const BtPlan pl = bt_plan(T, K);
+  return 2 * pl.sub + (pl.staged ? 1 : 0);
+}
+
 extern "C" int viterbi_backtrack_batch(const void* psi, const void* delta_T,
                                        int B, int T, int K, void* paths,
                                        void* scores, void* stream) {
-  const int threads = 128;
-  viterbi_backtrack_batch_kernel<<<(B + threads - 1) / threads, threads, 0,
-                                   (cudaStream_t)stream>>>(
-      (const int*)psi, (const float*)delta_T, B, T, K, (int*)paths,
-      (float*)scores);
-  return cudaGetLastError();
+  if (B == 0) return cudaSuccess;
+  const BtPlan pl = bt_plan(T, K);
+  const BtArgs a = {(const int*)psi, (const float*)delta_T, B, T, K, pl.sub,
+                    (int*)paths, (float*)scores};
+  const size_t smem =
+      4 * (size_t)bt_smem_layout(T, K, pl.staged, pl.sub).total;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (pl.staged)
+    return launch_persistent_clusters(viterbi_backtrack_cluster_kernel<true>,
+                                      a, B, kBtThreads, smem, s);
+  return launch_persistent_clusters(viterbi_backtrack_cluster_kernel<false>,
+                                    a, B, kBtThreads, smem, s);
 }

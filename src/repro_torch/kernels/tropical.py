@@ -5,7 +5,9 @@ behind `tropical_matmul` (src/repro/kernels/tropical.py:30, :66), batched
 over N independent products so that one launch combines every pair of one
 level of the associative scan.  With ``with_args=False`` it is the
 values-only combine of that scan (`_tropical_matmul`,
-src/repro/core/assoc.py:18): the same vals, no argmax written.  The source
+src/repro/core/assoc.py:18): the same vals, no argmax written; with the
+argmax, one launch writes `assoc`'s backtrack table (the lowest-index argmax
+of ``deltas[t] + log_A[:, q]`` for every t and q).  The source
 comment in the .cu file says what bounds it on the card and what its design
 (64 x 64 output tiles, register micro-tiles, a cp.async ring) does about
 that.

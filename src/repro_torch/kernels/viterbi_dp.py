@@ -26,6 +26,15 @@ barrier a step.  Windows that leave a CTA without columns (Kb <= 49 at
 most) and the two widest (whose delta buffers fill the shared memory)
 keep a cluster barrier a step.
 
+The backtrack runs one cluster per sequence too: CTA r owns a contiguous
+block of psi rows, cut into sub-blocks whose backpointer maps (the state
+at a sub-block's first row for every state after its last) are composed
+for all K states at once; the maps are then stitched across the cluster
+through distributed shared memory, and each sub-block walks its own rows
+from its end state.  Where a CTA's rows fit beside the maps
+(`backtrack_instance`: "staged") they are copied into shared memory
+first; else ("global") they are read from L2.
+
 Each wrapper checks device, dtype, shape and strides and raises on what the
 kernel does not take.  For tensors on the CPU it runs the plain version in
 `ref.py`; for CUDA tensors it launches its kernel (building it at first use)
@@ -115,6 +124,15 @@ def forward_instance(K: int) -> str:
     lib = build.load("viterbi_dp")
     fits = lib.viterbi_fwd_smem_bytes(K, 1) <= SMEM_BYTES
     return "resident" if fits else "global"
+
+
+def backtrack_instance(T: int, K: int) -> tuple[str, int]:
+    """The backtrack's instance at T steps and K states: ("staged" (each
+    CTA's psi rows copied into shared memory) or "global" (read from L2),
+    the sub-blocks a CTA cuts its rows into), by the C entry's own layout
+    arithmetic.  Loads the library."""
+    plan = build.load("viterbi_dp").viterbi_backtrack_plan(T, K)
+    return ("staged" if plan & 1 else "global"), plan >> 1
 
 
 def _launch_forward(name: str, em: torch.Tensor, *args):
@@ -264,7 +282,9 @@ def viterbi_backtrack_batch(psi: torch.Tensor, delta_T: torch.Tensor):
 
     psi (B, T, K) int32 and delta_T (B, K) float32, both contiguous ->
     (paths (B, T + 1) int32, scores (B,) float32).  The last state is the
-    lowest-index argmax of delta_T[b]; identity rows repeat a state.
+    lowest-index argmax of delta_T[b] (for inputs without NaN), the score
+    delta_T[b] at it; identity rows repeat a state.  T = 0 gives the last
+    state alone.
     """
     _require(psi.dim() == 3, f"psi must be (B, T, K), got {tuple(psi.shape)}")
     B, T, K = psi.shape
@@ -275,6 +295,7 @@ def viterbi_backtrack_batch(psi: torch.Tensor, delta_T: torch.Tensor):
     if not _on_cuda(psi, delta_T):
         return _ref.viterbi_backtrack_ref(psi, delta_T)
 
+    _require(K <= MAX_K, f"K={K} exceeds the kernel's limit of {MAX_K}")
     _require(psi.is_contiguous() and delta_T.is_contiguous(),
              "psi and delta_T must be contiguous")
     dev = psi.device
@@ -294,5 +315,6 @@ def viterbi_backtrack_batch(psi: torch.Tensor, delta_T: torch.Tensor):
 
 __all__ = ["viterbi_forward", "viterbi_forward_batch",
            "viterbi_forward_batch_masked", "viterbi_banded_forward",
-           "viterbi_backtrack_batch", "forward_instance", "launches",
+           "viterbi_backtrack_batch", "forward_instance",
+           "backtrack_instance", "launches",
            "reset_launches", "MAX_K", "SMEM_BYTES"]

@@ -240,3 +240,50 @@ def test_bs_segment_decode_ref_matches_jax(name, B):
             t(exit_state).long(), t(is_first), B, chunk)
         assert mid.dtype == torch.int32
         assert np.array_equal(mid.numpy(), np.asarray(mid_j)), chunk
+
+
+def _integer_problem(T, K, seed):
+    """Integer-valued log_pi, log_A and em in [-3, 0] (numpy float32): the
+    sums are exact, so most maxima, and the backtrack's argmaxes, tie."""
+    g = np.random.default_rng(seed)
+    return tuple(g.integers(-3, 1, s).astype(np.float32)
+                 for s in ((K,), (K, K), (T, K)))
+
+
+@pytest.mark.parametrize("K", [5, 24])
+@pytest.mark.parametrize("T", [1, 2, 3, 64, 257])
+def test_assoc_matches_jax_on_ties(T, K):
+    """`viterbi_assoc` (its backtrack: the tropical argmax table walked by
+    the backtrack kernel's plain versions) bitwise equal to JAX's reverse
+    `lax.scan` of argmax calls, on tie-heavy integer inputs; T = 1 has no
+    step to walk."""
+    _assert_pair(viterbi_assoc, j_assoc, {}, _integer_problem(T, K, T + K),
+                 f"assoc T={T} K={K}")
+
+
+def test_assoc_backtrack_is_one_table_and_one_walk(monkeypatch):
+    """The backtrack makes one argmax call of the tropical kernel and one of
+    the backtrack kernel, whatever T: no per-step loop."""
+    from repro_torch.core import assoc
+    calls = {"args": 0, "values": 0, "walk": 0}
+
+    def trop(a, b, with_args=True):
+        calls["args" if with_args else "values"] += 1
+        return assoc_trop(a, b, with_args)
+
+    def walk(psi, dT):
+        calls["walk"] += 1
+        return assoc_walk(psi, dT)
+
+    assoc_trop, assoc_walk = (assoc.tropical_matmul_batch,
+                              assoc.viterbi_backtrack_batch)
+    monkeypatch.setattr(assoc, "tropical_matmul_batch", trop)
+    monkeypatch.setattr(assoc, "viterbi_backtrack_batch", walk)
+    for T in (1, 64, 257):
+        calls.update(args=0, values=0, walk=0)
+        lp, A, em = (torch.from_numpy(x) for x in _integer_problem(T, 8, T))
+        path, _ = viterbi_assoc(lp, A, em)
+        assert path.shape == (T,)
+        assert calls["args"] == (T > 1) and calls["walk"] == 1, (T, calls)
+        # the scan's levels: about 2 log2(T) values-only launches
+        assert calls["values"] <= 2 * max(1, T - 1).bit_length(), (T, calls)

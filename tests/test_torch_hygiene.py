@@ -96,7 +96,7 @@ def test_every_c_entry_has_its_ctypes_signature():
     assert set(build.SIGNATURES["viterbi_dp"]) == {
         "viterbi_fwd_smem_bytes", "viterbi_fwd_batch",
         "viterbi_fwd_batch_masked", "viterbi_banded_fwd",
-        "viterbi_backtrack_batch"}
+        "viterbi_backtrack_plan", "viterbi_backtrack_batch"}
     assert set(build.SIGNATURES["beam_stream"]) == {
         "beam_pass_smem_bytes", "bs_initial_pass_batch",
         "bs_segment_decode_batch", "beam_step_batch"}

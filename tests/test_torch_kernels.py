@@ -973,3 +973,181 @@ def test_tropical_ragged_tiles_and_ties_match_jax(I, K, J, dtype, kind):
     assert _eq(arg, arg_j)
     if kind == "integer":           # ties: the lowest k wins
         assert int((arg == 0).sum()) > 0
+
+
+# --- the backtrack kernel (one cluster per sequence) ----------------------
+#
+# `viterbi_backtrack_batch` cuts the walk into pieces: CTA r of a cluster
+# owns psi rows [r R, (r + 1) R), R = ceil(T / C), cut into S sub-blocks;
+# each sub-block's map (the state at its first row for every state after
+# its last) is composed for all K states, the CTA's whole map from those,
+# and the first thread of each sub-block stitches its end state from the
+# argmax through the later CTAs' whole maps and its CTA's later sub-blocks,
+# then walks its rows.  The CPU runs the plain version, so these tests hold
+# that schedule, emulated here, and the kernel's block argmax, bitwise.
+
+_BT_THREADS = _csrc_constant("viterbi_dp.cu", "kBtThreads")
+_BT_MAX_SUB = _csrc_constant("viterbi_dp.cu", "kBtMaxSub")
+_NO_INDEX = np.iinfo(np.int32).max
+
+
+def _bt_better(v, i, bv, bi):
+    return v > bv or (v == bv and i < bi)
+
+
+def _warp_reduce(v, i):
+    """The kernel's shuffle tree over one warp's (value, index) pairs: at
+    each distance m lane l takes lane l ^ m's pair if it is better."""
+    for m in (16, 8, 4, 2, 1):
+        v, i = zip(*[(v[l ^ m], i[l ^ m])
+                     if _bt_better(v[l ^ m], i[l ^ m], v[l], i[l])
+                     else (v[l], i[l]) for l in range(32)])
+    return v[0], i[0]
+
+
+def _block_argmax(d, threads=_BT_THREADS):
+    """The kernel's argmax of one delta_T row: thread x scans x, x +
+    threads, ... upward with a strict '>' (its first entry taken whatever
+    its value), each warp reduces by shuffles, then warp 0 over the warps'
+    results (lanes past the last warp hold no entry)."""
+    d = np.asarray(d, np.float32)
+    vals, idx = [-np.inf] * threads, [_NO_INDEX] * threads
+    for x in range(threads):
+        for k in range(x, len(d), threads):
+            if idx[x] == _NO_INDEX or d[k] > vals[x]:
+                vals[x], idx[x] = d[k], k
+    part = [_warp_reduce(vals[w:w + 32], idx[w:w + 32])
+            for w in range(0, threads, 32)]
+    pad = 32 - len(part)
+    return _warp_reduce([p[0] for p in part] + [-np.inf] * pad,
+                        [p[1] for p in part] + [_NO_INDEX] * pad)[1]
+
+
+def _bt_subblocks(T):
+    """Every sub-block count the kernel can take at T steps: powers of two
+    up to kBtMaxSub and R (it takes the largest whose maps fit)."""
+    R = -(-T // _CLUSTER)
+    most = 1
+    while 2 * most <= min(_BT_MAX_SUB, R):
+        most *= 2
+    return [1 << e for e in range(most.bit_length())]
+
+
+def _cluster_backtrack(psi, dT, S, C=_CLUSTER):
+    """The kernel's schedule on numpy psi (B, T, K) and dT (B, K) with S
+    sub-blocks a CTA: (paths (B, T + 1), scores (B,))."""
+    B, T, K = psi.shape
+    R = -(-T // C)
+    row0 = [min(c * R, T) for c in range(C + 1)]
+    paths = np.full((B, T + 1), -1, np.int32)
+    scores = np.empty(B, np.float32)
+    for b in range(B):
+        q_last = _block_argmax(dT[b])
+        maps, whole, blocks = {}, {}, {}
+        for r in range(C):                       # compose, then whole maps
+            r0, n = row0[r], row0[r + 1] - row0[r]
+            Ls = -(-n // S)
+            nsub = 0 if Ls == 0 else -(-n // Ls)
+            blocks[r] = [(r0 + j * Ls, r0 + min((j + 1) * Ls, n))
+                         for j in range(nsub)]
+            for j, (s0, s1) in enumerate(blocks[r]):
+                f = np.arange(K)
+                for t in range(s1 - 1, s0 - 1, -1):
+                    f = psi[b, t][f]
+                maps[r, j] = f
+            if n:
+                F = np.arange(K)
+                for j in range(nsub - 1, -1, -1):
+                    F = maps[r, j][F]
+                whole[r] = F
+        for r in range(C):                       # stitch, then fill
+            for j, (s0, s1) in enumerate(blocks[r]):
+                q = q_last
+                for c in range(C - 1, r, -1):
+                    if c in whole:
+                        q = whole[c][q]
+                for i in range(len(blocks[r]) - 1, j, -1):
+                    q = maps[r, i][q]
+                for t in range(s1 - 1, s0 - 1, -1):
+                    q = psi[b, t, q]
+                    paths[b, t] = q
+        paths[b, T] = q_last
+        scores[b] = dT[b, q_last]
+    return paths, scores
+
+
+def _backtrack_case(kind, T, K):
+    """(psi, dT) as numpy: uniformly random states in [0, K) ("random"), or
+    those with identity rows: the pad tails of lengths T, 1 and 0 and every
+    fifth row ("identity_rows")."""
+    g = np.random.default_rng(T * 1000 + K + len(kind))
+    B = 2 if kind == "random" else 3
+    psi = g.integers(0, K, (B, T, K)).astype(np.int32)
+    if kind == "identity_rows":
+        eye = np.arange(K, dtype=np.int32)
+        for b, length in enumerate((T, 1, 0)):
+            psi[b, length:] = eye
+        psi[:, ::5] = eye
+    dT = g.integers(-2, 3, (B, K)).astype(np.float32)   # ties in the argmax
+    return psi, dT
+
+
+@pytest.mark.parametrize("kind", ["random", "identity_rows"])
+@pytest.mark.parametrize("K", [1, 3, 64, 193, 512])
+@pytest.mark.parametrize("T", [0, 1, 2, 7, 8, 9, 63, 64, 511, 4095])
+def test_cluster_backtrack_matches_plain(T, K, kind):
+    """The kernel's schedule (its cluster size and every sub-block count it
+    can take, from its sources): compose, whole maps, stitch and fill give
+    paths and scores bitwise equal to the plain version, on random-state
+    psi (where a wrong composition shows) and psi with identity rows, T
+    smaller than the cluster and than the sub-blocks included."""
+    psi, dT = _backtrack_case(kind, T, K)
+    paths_r, scores_r = ref.viterbi_backtrack_ref(_t(psi), _t(dT))
+    for S in _bt_subblocks(T):
+        paths, scores = _cluster_backtrack(psi, dT, S)
+        assert np.array_equal(paths, paths_r.numpy()), S
+        assert np.array_equal(scores.view(np.int32),
+                              scores_r.numpy().view(np.int32)), S
+
+
+def _tie_rows(kind, K):
+    """delta_T rows on which the argmax is all ties."""
+    g = np.random.default_rng(K)
+    if kind == "all_equal":
+        return [np.full(K, 0.5, np.float32)]
+    if kind == "boundary_ties":    # the max at x and x + 1, x + 32, ...
+        rows = []
+        for x in (0, 31, 32, 511, 512):
+            d = np.full(K, -1.0, np.float32)
+            d[[k for k in (x, x + 1, x + 32, x + 512) if k < K]] = 2.0
+            rows.append(d)
+        return rows
+    if kind == "inf":
+        d = g.integers(-2, 3, K).astype(np.float32)
+        d[g.integers(0, K, 3)] = np.inf
+        d2 = np.full(K, -np.inf, np.float32)
+        d3 = d2.copy()
+        d3[-1] = 0.0
+        return [d, d2, d3]
+    if kind == "neg_inf":          # constraints' NEG_INF = -1e9 ties
+        d = np.full(K, -1e9, np.float32)
+        d2 = d.copy()
+        d2[g.integers(0, K, 4)] = -1e9 + 64.0
+        return [d, d2]
+    return [g.integers(-1, 1, K).astype(np.float32)]   # "integer"
+
+
+@pytest.mark.parametrize("threads", [_BT_THREADS, 64, 32])
+@pytest.mark.parametrize("kind", ["all_equal", "boundary_ties", "inf",
+                                  "neg_inf", "integer"])
+def test_block_argmax_matches_plain(kind, threads):
+    """The kernel's argmax combine (strided upward scans with a strict '>',
+    then shuffle trees preferring the larger value and, between equal ones,
+    the lower index) equals the plain version's lowest-index argmax on
+    tie-heavy rows, at the kernel's block size and at smaller ones (more
+    entries a thread, ties across thread boundaries)."""
+    for K in (1, 3, 33, 64, 512, 513, 1500):
+        for d in _tie_rows(kind, K):
+            psi = torch.zeros((1, 0, K), dtype=torch.int32)
+            want = int(ref.viterbi_backtrack_ref(psi, _t(d)[None])[0][0, 0])
+            assert _block_argmax(d, threads) == want == int(np.argmax(d)), K
