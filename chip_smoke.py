@@ -54,6 +54,16 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      layer (2048 tiles of 2 steps), the budget rung (B = 256, P = 1), a
      full beam on the Erdos-Renyi model, K = 1024 (the global instance),
      and K = 100 and K = 3 (a cluster's CTAs own 13 / 1 columns);
+  1d. hold the beam kernel's chunk mode (`bs_chunk_batch`, the streaming
+     beam decoder's one launch a feed) against `ref.beam_chunk_ref`,
+     bitwise: (N, C, K, B) = (1 | 8, 64, 512, 128) seeding and carried on
+     the serve model and on random carried beams, a seeding feed of one row,
+     B = K = 512, 16 beams with mixed flags, K = 200 padded to 256 with
+     kchunk 128 as the decoder pads it (B = 16, 128, 200), K = 3, K = 1024
+     (the global instance), the lexicon-constrained serve model and three
+     chained feeds; and the forward kernel at the streaming chunk shapes
+     (1, 63 | 64, 512) and the inflight slot shape (64, 16, 512) with nfeed
+     drawn from 0..16, all 0 and all 16, and after a `fresh` re-seed;
   2. serve the 32 requests at K = 512 with ``--method fused`` through
      `repro_torch.launch.serve.main`, with the launch counters set to 0 just
      before and read just after: the forward and backtrack kernels must have
@@ -91,6 +101,18 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      the adds as a tree; the rtol of tests/test_core_viterbi.py), and
      bitwise equal to the same decode on the CPU; `serve.main` with
      ``--budget-kb`` 1024 (an exact FLASH rung) and 32 (a beam rung);
+  9. streaming at the serve deployment: the 32 serve requests, each fed in
+     ragged pieces, through a `StreamMux` (blocks 32, 128, 512) with
+     `StreamConfig("online")` (every path and score == `viterbi_vanilla`),
+     `"online_beam"` (beam 128) and `max_lag=64` (8 sampled sessions ==
+     the same decode on the CPU); launches exactly one forward (or chunk)
+     launch per block feed, no `beam_step_batch`;
+  10. inflight serving: the 32 requests into `InflightScheduler(max_slots=
+     64, block=16)`, three joining a step, exact and `max_lag=16` sessions
+     mixed: every step one forward launch at (64, 16, 512), every path ==
+     the `OnlineSpec(stream_chunk=16, max_lag=L).run` oracle (exact ones
+     also == `viterbi_vanilla`); then 8 online sessions routed by
+     `StreamMux(..., inflight=)` into a pool;
   3. time each kernel and its plain version with CUDA events: the forward
      and backtrack kernels at the serve shapes (B = 8, T in {128, 256,
      512}, K = 512; the backtrack by CUDA-graph replay, on the forward's
@@ -114,7 +136,11 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      clock; the FLASH-BS and the `fused` serve's drains of the 32 requests
      on the host clock, twice each, with their launches; and one more
      drain of each under `torch.profiler`: the device time and the
-     device's idle share of the drain.
+     device's idle share of the drain; the chunk mode at (1 | 8, 64, 512,
+     128) seeding and carried, and the slot step at (64, 16, 512), per
+     launch and per step (events and graph replay); the three streaming
+     drains and the inflight drain (with its commit-lag percentiles) on the
+     host clock, twice each, and once each under the profiler.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no
@@ -1273,6 +1299,383 @@ def phase_paper_workload(dev) -> dict[str, int]:
     return total
 
 
+def chunk_bound(N: int, C: int, K: int, B: int, n_first: int):
+    """A chunk launch of N streaming beams over C rows: log_A, log_pi, em,
+    the carried beams and the flags read once, the final beams and every
+    row's slot states and from-slots (8 B bytes a row and beam) written
+    once; two adds and a compare per candidate of each transition (C - 1
+    for a seeding beam, C for a carried one) and an add per seed score."""
+    nbytes = 4 * (K * K + K + N * C * K + 2 * N * B + 2 * N * B
+                  + 2 * N * C * B) + N
+    steps = N * C - n_first
+    return bound_ms(nbytes, 3.0 * steps * B * K + n_first * K)
+
+
+def padded_beam_model(dev, log_pi, log_A, B: int, kchunk: int):
+    """(log_pi, log_A, K_pad) padded as `OnlineBeamDecoder` pads them (the
+    decoder's own tensors)."""
+    from repro_torch.core import OnlineBeamDecoder
+    dec = OnlineBeamDecoder(log_pi, log_A, beam_width=B, kchunk=kchunk)
+    return dec.log_pi, dec.log_A, dec.K_pad
+
+
+def phase_stream_kernels(dev) -> dict[str, float]:
+    """1d: the beam kernel's chunk mode and the forward kernel at the
+    streaming and slot shapes against their plain versions, bitwise."""
+    from repro_torch.core import (LexiconConstraint, erdos_renyi_hmm,
+                                  left_to_right_hmm)
+    from repro_torch.core.constraints import init_penalty, transition_penalty
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import viterbi_dp as vdp
+    from repro_torch.kernels.beam_stream import bs_chunk_batch, pass_instance
+    from repro_torch.serving.inflight import _inflight_step
+
+    err = {"bs_chunk_batch": 0.0, "viterbi_fwd_batch": 0.0}
+    g = np.random.default_rng(12)
+
+    def emissions(N, C, K, K_real=None):
+        em = torch.from_numpy((2.0 * g.standard_normal((N, C + 1, K))).astype(
+            np.float32)).to(dev)[:, 1:]     # strided along N, as views are
+        if K_real is not None and K_real < K:
+            em[..., K_real:] = -2e9
+        return em
+
+    def chunk(what, lp, A, em, sc, st, first, B, kchunk):
+        N, C, K = em.shape
+        out = bs_chunk_batch(lp, A, em, sc, st, first, B, kchunk)
+        want = ref.beam_chunk_ref(lp, A, em, sc, st, first, B, kchunk)
+        e = check_same(f"bs_chunk_batch {what} (N,C,K,B)=({N},{C},{K},{B}),"
+                       f" {int(first.sum())} of {N} seeding, "
+                       f"{pass_instance(K, B, 0)} log_A", out, want)
+        err["bs_chunk_batch"] = max(err["bs_chunk_batch"], e)
+        return out
+
+    def carry(N, B, K):
+        sc = torch.from_numpy(g.standard_normal((N, B)).astype(
+            np.float32)).to(dev)
+        st = torch.from_numpy(np.stack([g.permutation(K)[:B]
+                                        for _ in range(N)]).astype(
+            np.int32)).to(dev)
+        return sc, st
+
+    def flags(N, first):
+        return torch.full((N,), first, dtype=torch.bool, device=dev)
+
+    K, B = SERVE_K, 128
+    serve = left_to_right_hmm(np.random.default_rng(0), K, 64, device=dev)
+    lp, A = serve.log_pi, serve.log_A
+    for N in (1, 8):          # the serve model, seeding and carried
+        sc, st = carry(N, B, K)
+        em = emissions(N, 64, K)
+        out = chunk("serve model, seeding", lp, A, em, sc, st, flags(N, True),
+                    B, 128)
+        chunk("serve model, carried", lp, A, emissions(N, 64, K), out[0],
+              out[1], flags(N, False), B, 128)
+        chunk("random carried beams", lp, A, em, sc, st, flags(N, False), B,
+              128)
+    # a seeding feed of one row (the seed alone), a full beam, mixed flags
+    sc, st = carry(1, B, K)
+    chunk("seed alone", lp, A, emissions(1, 1, K), sc, st, flags(1, True), B,
+          128)
+    sc, st = carry(2, K, K)
+    chunk("full beam", lp, A, emissions(2, 16, K), sc, st, flags(2, True), K,
+          K)
+    sc, st = carry(16, B, K)
+    mixed = torch.from_numpy(g.random(16) < 0.5).to(dev)
+    chunk("more beams than clusters", lp, A, emissions(16, 9, K), sc, st,
+          mixed, B, 128)
+    # K = 200 padded to 256 with kchunk 128, as the decoder pads it: a padded
+    # state's seed is -4e9, the sentinel's score
+    er = erdos_renyi_hmm(g, 200, 50, 0.253, device=dev)
+    for Bp in (16, 128, 200):
+        lp2, A2, K_pad = padded_beam_model(dev, er.log_pi, er.log_A, Bp, 128)
+        sc, st = carry(2, Bp, 200)
+        out = chunk("K = 200 padded to 256", lp2, A2, emissions(2, 33, K_pad,
+                                                                200),
+                    sc, st, flags(2, True), Bp, 128)
+        chunk("K = 200 padded to 256, carried", lp2, A2,
+              emissions(2, 33, K_pad, 200), out[0], out[1], flags(2, False),
+              Bp, 128)
+    # K = 3 (CTAs without columns) and K = 1024 (the global instance)
+    for Kx, Bx in ((3, 2), (1024, 128)):
+        hx = erdos_renyi_hmm(g, Kx, 50, 0.253, device=dev)
+        sc, st = carry(3, Bx, Kx)
+        chunk(f"K = {Kx}", hx.log_pi, hx.log_A, emissions(3, 17, Kx), sc, st,
+              torch.tensor([True, False, True], device=dev), Bx,
+              Kx if Kx < 128 else 128)
+    # the lexicon-constrained serve model: penalties push scores to
+    # multiples of NEG_INF, so real entries tie each other and the sentinels
+    c = LexiconConstraint(LEXICON)
+    lpc = lp + torch.from_numpy(init_penalty(c, K)).to(dev)
+    Ac = (A + torch.from_numpy(transition_penalty(c, K)).to(dev)).contiguous()
+    sc, st = carry(4, B, K)
+    out = chunk("lexicon-constrained serve model", lpc, Ac,
+                emissions(4, 64, K), sc, st, flags(4, True), B, 128)
+    # three chained feeds, each carrying the last one's output
+    first = flags(1, True)
+    out = (None, None)
+    for i, C in enumerate((1, 17, 64)):
+        s0, t0 = out[:2] if i else carry(1, B, K)
+        out = chunk(f"chained feed {i + 1}", lp, A, emissions(1, C, K), s0,
+                    t0, first if i == 0 else flags(1, False), B, 128)
+
+    # the forward kernel at the streaming chunk shapes (B = 1) and the
+    # inflight slot shape (64, 16, 512)
+    for T in (63, 64):
+        em = emissions(1, T, K)
+        d0 = lp[None] + emissions(1, 1, K)[:, 0]
+        e, _, _ = check_forward(vdp, ref, A, em, d0.contiguous(), None,
+                                f"streaming chunk (B,T,K)=(1,{T},{K})")
+        err["viterbi_fwd_batch"] = max(err["viterbi_fwd_batch"], e)
+    S, blk = 64, 16
+    delta = (lp[None] + emissions(S, 1, K)[:, 0]).contiguous()
+    for name, nfeed in (("nfeed drawn from 0..16", g.integers(0, 17, S)),
+                        ("every nfeed 0", np.zeros(S, np.int64)),
+                        ("every nfeed 16", np.full(S, 16))):
+        e, _, _ = check_forward(vdp, ref, A, emissions(S, blk, K), delta,
+                                pad_of(nfeed, blk, dev),
+                                f"slot step (S,block,K)=({S},{blk},{K}), "
+                                f"{name}")
+        err["viterbi_fwd_batch"] = max(err["viterbi_fwd_batch"], e)
+    # a fresh re-seed of some rows, through the scheduler's own step
+    fresh = torch.from_numpy(g.random(S) < 0.3).to(dev)
+    em0 = emissions(S, 1, K)[:, 0].contiguous()
+    em = emissions(S, blk, K).contiguous()
+    nfeed = torch.from_numpy(g.integers(0, 17, S).astype(np.int32)).to(dev)
+    psi, dT = _inflight_step(lp, A, em0, fresh, em, delta, nfeed)
+    seeded = torch.where(fresh[:, None], lp[None, :] + em0, delta)
+    pad = torch.arange(blk, device=dev)[None, :] >= nfeed[:, None]
+    psi_r, dT_r = ref.viterbi_forward_masked_ref(A, em, seeded, pad)
+    torch.cuda.synchronize()
+    if not (torch.equal(psi, psi_r) and torch.equal(dT, dT_r)):
+        raise SystemExit("FAIL slot step with a fresh re-seed != plain")
+    print(f"forward kernel == plain (bitwise) at the slot step with "
+          f"{int(fresh.sum())} of {S} rows re-seeded")
+    return err
+
+
+def piece_sizes(rng, T: int) -> list[int]:
+    """Ragged pieces of a T-frame request: sizes drawn from 1..100."""
+    sizes = []
+    while sum(sizes) < T:
+        sizes.append(min(int(rng.integers(1, 101)), T - sum(sizes)))
+    return sizes
+
+
+STREAM_BLOCKS = (32, 128, 512)
+STREAM_CONFIGS = (("online", dict(method="online")),
+                  ("online_beam", dict(method="online_beam", beam_width=128)),
+                  ("max_lag=64", dict(method="online", max_lag=64)))
+
+
+def stream_drain(dev, log_pi, log_A, cfg, requests, seed: int = 0):
+    """The 32 requests through one `StreamMux` on `dev`: session i opens
+    with block STREAM_BLOCKS[i % 3], and the requests' ragged pieces arrive
+    interleaved, round robin.  Returns ({sid: (path, score)}, {sid:
+    block})."""
+    from repro_torch.serving import StreamMux
+    rng = np.random.default_rng(seed)
+    mux = StreamMux(log_pi, log_A, cfg, blocks=STREAM_BLOCKS, device=dev)
+    sids = [mux.open(block=STREAM_BLOCKS[i % 3]) for i in range(len(requests))]
+    blocks = {sid: s.block for sid, s in mux._sessions.items()}
+    pieces = [piece_sizes(rng, len(em)) for em in requests]
+    cursor = [0] * len(requests)
+    while any(pieces):
+        for i, sid in enumerate(sids):
+            if pieces[i]:
+                n = pieces[i].pop(0)
+                mux.feed(sid, requests[i][cursor[i]:cursor[i] + n])
+                cursor[i] += n
+    return {sid: mux.finish(sid) for sid in sids}, blocks
+
+
+def phase_streaming(dev) -> dict[str, int]:
+    """9: the 32 serve requests through the streaming tier at K = 512."""
+    from repro_torch import kernels
+    from repro_torch.core import (left_to_right_hmm, relative_error,
+                                  viterbi_vanilla)
+    from repro_torch.serving import StreamConfig
+
+    hmm = left_to_right_hmm(np.random.default_rng(0), SERVE_K, 64, device=dev)
+    reqs = serve_requests()
+    exact = [viterbi_vanilla(hmm.log_pi, hmm.log_A,
+                             torch.from_numpy(em).to(dev)) for em in reqs]
+    lp_c, la_c = hmm.log_pi.cpu(), hmm.log_A.cpu()
+    total = {name: 0 for name in kernels.launch_counts()}
+    for what, kw in STREAM_CONFIGS:
+        cfg = StreamConfig(**kw)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        done, blocks = stream_drain(dev, hmm.log_pi, hmm.log_A, cfg, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        # every decoder feed is a whole block or the remainder at finish;
+        # each runs one launch (no request is 1 frame long)
+        feeds = sum(-(-len(em) // blocks[sid]) for sid, em in
+                    zip(sorted(done), reqs))
+        kernel = ("bs_chunk_batch" if kw["method"] == "online_beam"
+                  else "viterbi_fwd_batch")
+        print(f"streaming {what}: 32 requests in {wall:.4f} s on the host "
+              f"clock, {feeds} block feeds, launches "
+              f"{ {n: v for n, v in launches.items() if v} }")
+        check_launches(f"streaming {what}", launches, {kernel: feeds})
+        for name, n in launches.items():
+            total[name] += n
+        if what == "online":
+            for sid, (path, score) in done.items():
+                p_v, s_v = exact[sid]
+                if not (np.array_equal(path, p_v.cpu().numpy())
+                        and np.float32(score) == np.float32(float(s_v))):
+                    raise SystemExit(f"FAIL streaming online: session {sid}"
+                                     f" != viterbi_vanilla")
+            print("streaming online: all 32 paths and scores == "
+                  "viterbi_vanilla (bitwise)")
+            continue
+        # the same sessions decoded on the CPU by the plain versions, fed
+        # the same pieces: 8 sampled, one of each block size among them
+        cpu_done, _ = stream_drain(torch.device("cpu"), lp_c, la_c, cfg,
+                                   reqs[:8])
+        for sid in range(8):
+            (p, s), (p_c, s_c) = done[sid], cpu_done[sid]
+            if not (np.array_equal(p, p_c) and np.float32(s) ==
+                    np.float32(s_c)):
+                raise SystemExit(f"FAIL streaming {what}: session {sid} != "
+                                 f"the CPU run")
+        errs = [float(relative_error(float(exact[sid][1]), done[sid][1]))
+                for sid in done]
+        print(f"streaming {what}: 8 sampled sessions == the same decode on "
+              f"the CPU (bitwise); relative error vs exact (all 32): "
+              f"mean={np.mean(errs):.2e} max={np.max(errs):.2e}")
+    return total
+
+
+def inflight_drain(dev, log_pi, log_A, reqs, seed: int = 0,
+                   record=None):
+    """The requests into one `InflightScheduler(max_slots=64, block=16)`:
+    three sessions join every tick (even ones exact, odd ones max_lag=16),
+    every live session is fed a piece of 1..24 frames a tick, and the pool
+    takes one `step()` a tick; then each session finishes.  Returns
+    (scheduler, [sid], {sid: (path, score)})."""
+    from repro_torch.serving import InflightScheduler
+    rng = np.random.default_rng(seed)
+    sched = InflightScheduler(log_pi, log_A, max_slots=64, block=16,
+                              device=dev)
+    sids, cursor, todo = [], {}, list(range(len(reqs)))
+    while todo or any(cursor[s] < len(reqs[i]) for i, s in enumerate(sids)):
+        for _ in range(3):
+            if todo:
+                i = todo.pop(0)
+                sid = sched.submit(max_lag=None if i % 2 == 0 else 16)
+                sids.append(sid)
+                cursor[sid] = 0
+        for i, sid in enumerate(sids):
+            c = cursor[sid]
+            if c < len(reqs[i]):
+                n = int(rng.integers(1, 25))
+                sched.feed(sid, reqs[i][c:c + n])
+                cursor[sid] = c + n
+        sched.step()
+        if record is not None:
+            record()
+    return sched, sids, {sid: sched.finish(sid) for sid in sids}
+
+
+def phase_inflight(dev) -> dict[str, int]:
+    """10: the 32 serve requests through the inflight pool at K = 512."""
+    from repro_torch import kernels
+    from repro_torch.core import left_to_right_hmm, viterbi_vanilla
+    from repro_torch.serving import InflightScheduler, StreamConfig, StreamMux
+    from repro_torch.serving import inflight as inflight_mod
+
+    hmm = left_to_right_hmm(np.random.default_rng(0), SERVE_K, 64, device=dev)
+    reqs = serve_requests()
+    shapes = []
+    step_fn = inflight_mod.viterbi_slot_step
+
+    def recorded(log_A, em, delta, nfeed, **kw):
+        shapes.append((tuple(em.shape), tuple(delta.shape)))
+        return step_fn(log_A, em, delta, nfeed, **kw)
+
+    inflight_mod.viterbi_slot_step = recorded
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        sched, sids, done = inflight_drain(dev, hmm.log_pi, hmm.log_A, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        inflight_mod.viterbi_slot_step = step_fn
+    steps = sched.stats["steps"]
+    print(f"inflight: 32 requests in {wall:.4f} s on the host clock, "
+          f"{steps} steps, launches "
+          f"{ {n: v for n, v in launches.items() if v} }")
+    check_launches("inflight", launches, {"viterbi_fwd_batch": steps})
+    if len(shapes) != steps or set(shapes) != {((64, 16, SERVE_K),
+                                                 (64, SERVE_K))}:
+        raise SystemExit(f"FAIL inflight: {len(shapes)} slot steps for "
+                         f"{steps} steps, shapes {set(shapes)}")
+    forced = 0
+    for i, sid in enumerate(sids):
+        em = torch.from_numpy(reqs[i]).to(dev)
+        spec = sched.session_spec(sid)
+        p_o, s_o = spec.run(hmm.log_pi, hmm.log_A, em)
+        path, score = done[sid]
+        if not (np.array_equal(path, p_o.cpu().numpy())
+                and np.float32(score) == np.float32(float(s_o))):
+            raise SystemExit(f"FAIL inflight: session {sid} (max_lag "
+                             f"{spec.max_lag}) != OnlineSpec(stream_chunk=16,"
+                             f" max_lag={spec.max_lag}).run")
+        if spec.max_lag is None:
+            p_v, s_v = viterbi_vanilla(hmm.log_pi, hmm.log_A, em)
+            if not (np.array_equal(path, p_v.cpu().numpy())
+                    and np.float32(score) == np.float32(float(s_v))):
+                raise SystemExit(f"FAIL inflight: exact session {sid} != "
+                                 f"viterbi_vanilla")
+        forced += sched._sessions[sid].dec.stats["forced"]
+    lag = sched.slo_report()["commit_lag"]
+    print(f"inflight: every step one forward launch at (S,block,K)=(64,16,"
+          f"{SERVE_K}); all 32 paths and scores == the OnlineSpec oracle, the"
+          f" 16 exact ones == viterbi_vanilla (bitwise); {forced} forced "
+          f"flushes; commit lag peak p50 {lag['peak_p50']} p99 "
+          f"{lag['peak_p99']}")
+
+    # the mux routes online sessions into a pool
+    kernels.reset_launches()
+    pool = InflightScheduler(hmm.log_pi, hmm.log_A, max_slots=64, block=16,
+                             device=dev)
+    mux = StreamMux(hmm.log_pi, hmm.log_A, StreamConfig(), inflight=pool,
+                    device=dev)
+    mids = [mux.open() for _ in range(8)]
+    rng = np.random.default_rng(1)
+    cursor = [0] * 8
+    pieces = [piece_sizes(rng, len(em)) for em in reqs[:8]]
+    while any(pieces):
+        for i, sid in enumerate(mids):
+            if pieces[i]:
+                n = pieces[i].pop(0)
+                mux.feed(sid, reqs[i][cursor[i]:cursor[i] + n])
+                cursor[i] += n
+    routed = {sid: mux.finish(sid) for sid in mids}
+    torch.cuda.synchronize()
+    mux_launches = kernels.launch_counts()
+    check_launches("mux into inflight", mux_launches,
+                   {"viterbi_fwd_batch": pool.stats["steps"]})
+    for i, sid in enumerate(mids):
+        p_v, s_v = viterbi_vanilla(hmm.log_pi, hmm.log_A,
+                                   torch.from_numpy(reqs[i]).to(dev))
+        if not (np.array_equal(routed[sid][0], p_v.cpu().numpy())
+                and np.float32(routed[sid][1]) == np.float32(float(s_v))):
+            raise SystemExit(f"FAIL mux into inflight: session {sid} != "
+                             f"viterbi_vanilla")
+    print(f"mux into inflight: {mux.stats['routed_inflight']} sessions "
+          f"routed into the pool, {pool.stats['steps']} steps, launches "
+          f"{ {n: v for n, v in mux_launches.items() if v} }; all == "
+          f"viterbi_vanilla (bitwise)")
+    return {n: launches[n] + mux_launches[n] for n in launches}
+
+
 def phase_timing(dev, card: str) -> dict[str, dict]:
     from repro_torch.core import left_to_right_hmm
     from repro_torch.kernels import ref
@@ -1503,8 +1906,126 @@ def phase_timing(dev, card: str) -> dict[str, dict]:
             print(f"timing {method} serve drain {rep + 1}: 32 requests in "
                   f"{wall:.4f} s on the host clock ({32 / wall:.1f} req/s), "
                   f"launches {counts}; {card}")
-        drain_device_share(head, method, card)
+        drain_device_share(lambda: batch_drain(head), method, card)
     return rows   # fwd and backtrack at T = 511; masked with both masks
+
+
+def batch_drain(head):
+    """A `BatchScheduler` over `head` with the 32 serve requests submitted;
+    returns its drain."""
+    from repro_torch.launch.serve import BUCKETS
+    from repro_torch.serving import BatchScheduler
+    sched = BatchScheduler(head, max_batch=SERVE_B, buckets=BUCKETS)
+    for em_r in serve_requests():
+        sched.submit(em_r)
+    return sched.drain
+
+
+def phase_stream_timing(dev, card: str) -> dict[str, dict]:
+    """3, continued: the beam kernel's chunk mode and the inflight slot step
+    by CUDA events (and graph replay), the three streaming drains and the
+    inflight drain on the host clock, twice each, and once each under
+    `torch.profiler`."""
+    from repro_torch import kernels
+    from repro_torch.core import left_to_right_hmm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.beam_stream import bs_chunk_batch
+    from repro_torch.kernels import viterbi_dp as vdp
+    from repro_torch.serving import StreamConfig
+
+    g = np.random.default_rng(13)
+    K, B, C = SERVE_K, 128, 64
+    hmm = left_to_right_hmm(np.random.default_rng(0), K, 64, device=dev)
+    lp, A = hmm.log_pi, hmm.log_A
+    rows = {}
+    for N in (1, 8):
+        em = torch.from_numpy((2.0 * g.standard_normal((N, C, K))).astype(
+            np.float32)).to(dev)
+        first = torch.ones((N,), dtype=torch.bool, device=dev)
+        sc, st, _, _ = bs_chunk_batch(lp, A, em, torch.zeros((N, B),
+                                                             device=dev),
+                                      torch.zeros((N, B), dtype=torch.int32,
+                                                  device=dev), first, B, 128)
+        for what, fl in (("seeding", first), ("carried", ~first)):
+            args = (lp, A, em, sc, st, fl, B, 128)
+            ms = cuda_ms(lambda: bs_chunk_batch(*args), reps=20)
+            dms = graph_ms(lambda: bs_chunk_batch(*args), 10)
+            plain = cuda_ms(lambda: ref.beam_chunk_ref(*args), reps=1,
+                            warmup=1)
+            n_first = int(fl.sum())
+            bms, by = chunk_bound(N, C, K, B, n_first)
+            steps = C - (1 if what == "seeding" else 0)
+            print(f"timing bs_chunk_batch (N,C,K,B)=({N},{C},{K},{B}) {what}:"
+                  f" kernel {ms:.4f} ms per launch ({dms:.4f} ms device time"
+                  f" replayed), {ms / steps:.6f} ms per DP step, plain "
+                  f"{plain:.4f} ms, bound {bms:.6f} ms ({by}); {card}")
+            if (N, what) == (1, "carried"):
+                rows["bs_chunk_batch"] = dict(ms=ms, plain_ms=plain,
+                                              bound_ms=bms, bound_by=by)
+    print("timing bs_chunk_batch: each row's transition depends on the one "
+          "before (two cluster barriers and a selection over K), so the "
+          "serial step latency, not the bytes or operations bound, sets its "
+          "floor")
+
+    # the inflight slot step at (64, 16, 512): a full pool and a mixed one
+    S, blk = 64, 16
+    em = torch.from_numpy((2.0 * g.standard_normal((S, blk, K))).astype(
+        np.float32)).to(dev)
+    delta = (lp[None] + em[:, 0]).contiguous()
+    for what, nfeed in (("every nfeed 16", np.full(S, 16)),
+                        ("nfeed drawn from 0..16", g.integers(0, 17, S))):
+        pad = pad_of(nfeed, blk, dev)
+        ms = cuda_ms(lambda: vdp.viterbi_forward_batch(A, em, delta, pad),
+                     reps=20)
+        dms = graph_ms(lambda: vdp.viterbi_forward_batch(A, em, delta, pad),
+                       20)
+        plain = cuda_ms(lambda: ref.viterbi_forward_masked_ref(
+            A, em, delta, pad > 0.5), reps=3)
+        bms, by = fwd_bound(S, blk, K, int(nfeed.sum()))
+        print(f"timing slot step viterbi_fwd_batch (S,block,K)=({S},{blk},"
+              f"{K}) {what}: kernel {dms:.4f} ms device time replayed "
+              f"({ms:.4f} ms by back-to-back events), {1e3 * dms / blk:.4f} "
+              f"us per DP step, plain {plain:.4f} ms, bound {bms:.6f} ms "
+              f"({by}); {card}")
+
+    # the drains on the host clock, twice each, then once under the profiler
+    reqs = serve_requests()
+    for what, kw in STREAM_CONFIGS:
+        cfg = StreamConfig(**kw)
+        for rep in range(2):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stream_drain(dev, lp, A, cfg, reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {n: v for n, v in kernels.launch_counts().items() if v}
+            print(f"timing streaming {what} drain {rep + 1}: 32 requests in "
+                  f"{wall:.4f} s on the host clock ({32 / wall:.1f} req/s), "
+                  f"launches {counts}; {card}")
+        drain_device_share(
+            lambda: (lambda: stream_drain(dev, lp, A, cfg, reqs)),
+            f"streaming {what}", card)
+    for rep in range(2):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched, _, _ = inflight_drain(dev, lp, A, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep_ = sched.slo_report()
+        print(f"timing inflight drain {rep + 1}: 32 requests in {wall:.4f} s "
+              f"on the host clock ({32 / wall:.1f} req/s), "
+              f"{sched.stats['steps']} steps, launches "
+              f"{ {n: v for n, v in kernels.launch_counts().items() if v} }, "
+              f"block latency p50 {rep_['block_latency_s']['p50'] * 1e3:.4f}"
+              f" ms p99 {rep_['block_latency_s']['p99'] * 1e3:.4f} ms, "
+              f"commit lag peak p50 {rep_['commit_lag']['peak_p50']} p99 "
+              f"{rep_['commit_lag']['peak_p99']}, forced flushes "
+              f"{rep_['commit_lag']['forced_flushes']}; {card}")
+    drain_device_share(lambda: (lambda: inflight_drain(dev, lp, A, reqs)),
+                       "inflight", card)
+    return rows
 
 
 def time_backtrack(vdp, ref, psi, dT, what: str, card: str) -> dict:
@@ -1525,22 +2046,19 @@ def time_backtrack(vdp, ref, psi, dT, what: str, card: str) -> dict:
     return dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
 
 
-def drain_device_share(head, what: str, card: str) -> None:
-    """One serve drain (the head `what`) under `torch.profiler`: the device
-    time of its kernels and copies and the share of the drain's wall time
-    (host clock, under the profiler) in which the device ran nothing."""
+def drain_device_share(prepare, what: str, card: str) -> None:
+    """One drain under `torch.profiler`: `prepare()` sets it up and returns
+    it, untimed.  Prints the device time of its kernels and copies and the
+    share of the drain's wall time (host clock, under the profiler) in which
+    the device ran nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.serve import BUCKETS
-    from repro_torch.serving import BatchScheduler
-    sched = BatchScheduler(head, max_batch=SERVE_B, buckets=BUCKETS)
-    for em_r in serve_requests():
-        sched.submit(em_r)
+    drain = prepare()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sched.drain()
+        drain()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -1569,6 +2087,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1586,14 +2105,17 @@ def main() -> int:
     errs |= phase_masked_kernels(dev)
     e, op_launches = phase_beam_tropical_kernels(dev)
     errs |= e | phase_beam_passes(dev)
+    for name, e in phase_stream_kernels(dev).items():
+        errs[name] = max(errs.get(name, 0.0), e)
     launches = phase_serve(dev)
     for phase in (phase_lexicon, phase_map_matching, phase_flash_bs_serve,
-                  phase_flash_bs_lexicon, phase_paper_workload):
+                  phase_flash_bs_lexicon, phase_paper_workload,
+                  phase_streaming, phase_inflight):
         for name, n in phase(dev).items():
             launches[name] += n
     for name, n in op_launches.items():
         launches[name] += n
-    timing = phase_timing(dev, card)
+    timing = phase_timing(dev, card) | phase_stream_timing(dev, card)
 
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = {
@@ -1610,12 +2132,15 @@ def main() -> int:
                                   "src/repro/kernels/beam_stream.py:60"),
         "bs_segment_decode_batch": ("beam_stream.cu",
                                     "src/repro/kernels/beam_stream.py:60"),
+        "bs_chunk_batch": ("beam_stream.cu", "src/repro/core/online.py:443"),
         "tropical_matmul_batch": ("tropical.cu",
                                   "src/repro/kernels/tropical.py:30")}
     kernels = [dict(name=name, route="cuda", source=csrc + src,
                     replaces=where, launches=launches[name],
                     max_abs_err=errs[name], **timing[name], library_ms=None)
                for name, (src, where) in replaces.items()]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, the "
+          f"kernels' build included")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

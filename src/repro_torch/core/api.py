@@ -5,9 +5,10 @@ typed specs.
 
 builds the spec for `method` from the tunables and runs it, so the result is
 bit-identical to `ViterbiDecoder(spec, log_pi, log_A).decode`.  A tunable
-the method does not consume raises a `DeprecationWarning`.  The streaming
-methods ``online`` and ``online_beam`` raise `NotImplementedError` (ROADMAP
-Queue 1 item 6).  Batches go through `viterbi_decode_batch` (`core/batch.py`).
+the method does not consume raises a `DeprecationWarning`.  `METHODS` holds
+every method of the JAX package, the streaming ``online`` and
+``online_beam`` included.  Batches go through `viterbi_decode_batch`
+(`core/batch.py`), whose methods are the JAX package's `BATCH_METHODS`.
 """
 
 from __future__ import annotations

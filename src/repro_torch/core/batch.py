@@ -38,8 +38,6 @@ BATCH_METHODS = ("vanilla", "flash", "flash_bs", "fused")
 
 #: what of the JAX package is not ported yet, and the ROADMAP item that ports it
 NOT_PORTED = {
-    "online": "ROADMAP Queue 1 item 6 (streaming)",
-    "online_beam": "ROADMAP Queue 1 item 6 (streaming)",
     "mesh": "ROADMAP Queue 1 item 8 (distributed)",
 }
 

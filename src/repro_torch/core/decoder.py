@@ -7,8 +7,9 @@
 The decoder owns the device: the HMM tensors are placed on it once, and
 emissions handed in as numpy arrays or tensors elsewhere are moved to it.
 ``device=None`` means ``cuda``, and raises without a GPU.  PyTorch runs
-eagerly, so there is no compile cache; ``decode_sharded`` and
-``make_streaming`` wait for the distributed and streaming slices.
+eagerly, so there is no compile cache.  ``make_streaming`` builds the
+incremental decoder of a streaming spec on the same device;
+``decode_sharded`` waits for the distributed slice (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -61,3 +62,13 @@ class ViterbiDecoder:
             self._tensor(emissions), self.log_pi, self.log_A, lengths,
             method=self.spec.batch_method, constraint=self.spec.constraint,
             **self.spec.batch_tunables())
+
+    # -- streaming ----------------------------------------------------------
+    def make_streaming(self):
+        """Stateful incremental decoder for the streaming specs."""
+        mk = getattr(self.spec, "make_streaming", None)
+        if mk is None:
+            raise ValueError(
+                f"{type(self.spec).__name__} is not a streaming spec; use "
+                f"OnlineSpec / OnlineBeamSpec")
+        return mk(self.log_pi, self.log_A)

@@ -11,11 +11,13 @@ the paper's degradation ladder (Sec. V-C-3).
   then the dynamic beam (widest beam first), then the floor config.  A
   smaller budget never yields a larger-footprint plan.
 
-Pure arithmetic, copied from the JAX module.  Its streaming-admission
-helpers (`online_session_bytes`, `inflight_state_bytes`, `plan_admission`)
-wait for the streaming and inflight slices, and its IR cross-check
-(`IR_STATE_FACTOR`, `crosscheck_state_bytes`) for the port's static analysis
-(ROADMAP Queue 1 items 6, 7 and 9).
+* **Admission control.** `plan_admission` fits one streaming session into
+  what is left of a budget, degrading its commit lag down a ladder;
+  `online_session_bytes` and `inflight_state_bytes` are its unit costs.
+
+Pure arithmetic, copied from the JAX module.  Its IR cross-check
+(`IR_STATE_FACTOR`, `crosscheck_state_bytes`) waits for the port's static
+analysis (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ import math
 from .constraints import ConstraintSpec, banded_state_bytes
 from .spec import DecodeSpec, FlashSpec, FlashBSSpec, FusedSpec, ResourceBudget
 
-__all__ = ["decoder_state_bytes", "spec_state_bytes", "DecodePlan", "plan"]
+__all__ = ["decoder_state_bytes", "spec_state_bytes", "DecodePlan", "plan",
+           "online_session_bytes", "inflight_state_bytes",
+           "AdmissionPlan", "plan_admission"]
 
 
 def decoder_state_bytes(method: str, K: int, T: int, P: int = 8,
@@ -83,6 +87,104 @@ def spec_state_bytes(spec: DecodeSpec, K: int, T: int) -> int:
     if spec.method == "fused" and band is not None and len(band[0]) >= T:
         return banded_state_bytes(K, T, band[1])
     return base + c.mask_bytes(K, T)
+
+
+def online_session_bytes(K: int, block: int, max_lag: int | None = None,
+                         horizon: int | None = None) -> int:
+    """Worst-case host-side live bytes of one inflight session.
+
+    A slot session holds the exact-decoder commit window (up to `max_lag`
+    backpointer rows of K int32 when lag is bounded, else up to `horizon`
+    rows — the caller's worst-case sequence length), the K-float frontier,
+    and at most one block of buffered emissions awaiting the next `step()`.
+    This is the admission controller's unit cost: rows x K x 4 mirrors
+    `decoder_state_bytes("online", ...)`, the block buffer is the serving
+    tier's own addition.
+    """
+    if max_lag is not None:
+        rows = int(max_lag)
+    elif horizon is not None:
+        rows = int(horizon)
+    else:
+        raise ValueError("online_session_bytes needs max_lag or horizon "
+                         "to bound the commit window")
+    return rows * K * 4 + K * 8 + block * K * 4
+
+
+def inflight_state_bytes(K: int, block: int, slots: int) -> int:
+    """Device-side persistent bytes of the inflight scheduler's batched step.
+
+    Per slot: the carried delta row (K f32), the staged emission block and
+    its psi output (block x K f32/i32 each), the fresh-seed emission row
+    (K f32), and the nfeed/fresh scalars.  The scheduler's footprint is
+    fixed at construction and independent of how many sessions ever pass
+    through it.
+    """
+    per_slot = K * 4 * (2 * block + 3) + 16
+    return slots * per_slot
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmissionPlan:
+    """An admission decision: the commit-lag bound to run the session at.
+
+    `max_lag=None` means the exact (unbounded-window) decode was affordable;
+    a degraded plan bounds the window, trading forced-flush approximation on
+    pathological inputs for a hard memory ceiling, exactly the paper's
+    degradation story applied to the serving tier.
+    """
+    max_lag: int | None
+    state_bytes: int
+    why: str
+    degraded: bool
+
+
+# Commit-lag degradation ladder for admission control: when the requested
+# window does not fit the remaining budget, walk down until one does.  Widest
+# first, so the least approximation that fits wins (mirrors the `plan` ladder's
+# first-fit ordering).
+_LAG_LADDER = (1024, 512, 256, 128, 64, 32, 16, 8)
+
+
+def plan_admission(K: int, block: int, remaining_bytes: int | None, *,
+                   requested_lag: int | None = None,
+                   horizon: int = 4096) -> AdmissionPlan | None:
+    """Fit one streaming session into what's left of a `ResourceBudget`.
+
+    Args:
+      K, block: state count and the scheduler's block size.
+      remaining_bytes: budget headroom left after currently-admitted
+        sessions (None = unlimited).
+      requested_lag: the session's own `max_lag` (None = exact decode,
+        costed at the worst-case `horizon`-row window).
+      horizon: worst-case sequence length used to cost an exact session.
+
+    Returns the `AdmissionPlan` to admit under, or None when even the
+    tightest ladder rung exceeds the remaining budget (caller queues or
+    rejects).  A returned plan never loosens the caller's request: ladder
+    rungs at or above `requested_lag` are skipped.
+    """
+    def cost(lag: int | None) -> int:
+        return online_session_bytes(K, block, max_lag=lag, horizon=horizon)
+
+    asked = cost(requested_lag)
+    if remaining_bytes is None or asked <= remaining_bytes:
+        kind = "exact" if requested_lag is None else f"max_lag={requested_lag}"
+        return AdmissionPlan(max_lag=requested_lag, state_bytes=asked,
+                             why=f"as requested ({kind}, {asked:,}B)",
+                             degraded=False)
+    ceiling = requested_lag if requested_lag is not None else horizon
+    for lag in _LAG_LADDER:
+        if lag >= ceiling:
+            continue
+        bytes_ = cost(lag)
+        if bytes_ <= remaining_bytes:
+            return AdmissionPlan(
+                max_lag=lag, state_bytes=bytes_, degraded=True,
+                why=(f"degraded to max_lag={lag} ({bytes_:,}B <= remaining "
+                     f"{remaining_bytes:,}B; requested window cost "
+                     f"{asked:,}B)"))
+    return None
 
 
 @dataclasses.dataclass(frozen=True)

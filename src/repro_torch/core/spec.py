@@ -6,11 +6,11 @@ exactly the tunables it consumes.  Nonsense is rejected eagerly: ``bt=0``
 raises `ValueError` at construction, an unknown tunable raises `TypeError`
 from the dataclass constructor.
 
-The eight offline methods of the JAX package are ported, each with an
-optional ``constraint`` (`core.constraints.ConstraintSpec`).  The streaming
-methods (``online``, ``online_beam``) raise `NotImplementedError` naming the
-ROADMAP item that ports them.  The JAX spec's ``jittable`` flag has no
-counterpart: PyTorch runs eagerly.
+Every method of the JAX package is ported, each with an optional
+``constraint`` (`core.constraints.ConstraintSpec`): the eight offline ones
+and the two streaming ones (``online``, ``online_beam``), whose
+`make_streaming` builds the incremental decoder that `serving.stream` wraps.
+The JAX spec's ``jittable`` flag has no counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -21,18 +21,20 @@ from typing import Any, ClassVar, Mapping, Optional
 from ..kernels.ops import (viterbi_decode_banded, viterbi_decode_fused,
                            viterbi_decode_fused_masked)
 from .assoc import viterbi_assoc
-from .batch import NOT_PORTED, not_ported
 from .beam_static import beam_static_mp_viterbi, beam_static_viterbi
 from .checkpoint_viterbi import viterbi_checkpoint
 from .constraints import ConstraintSpec, compiled_penalties, constrain_inputs
 from .flash import flash_viterbi
 from .flash_bs import flash_bs_viterbi
+from .online import (OnlineBeamDecoder, OnlineViterbiDecoder, viterbi_online,
+                     viterbi_online_beam)
 from .vanilla import viterbi_vanilla
 
 __all__ = [
     "ResourceBudget", "DecodeSpec",
     "VanillaSpec", "CheckpointSpec", "FlashSpec", "FlashBSSpec",
     "BeamStaticSpec", "BeamStaticMPSpec", "AssocSpec", "FusedSpec",
+    "OnlineSpec", "OnlineBeamSpec",
     "SPEC_BY_METHOD", "spec_from_tunables", "as_decode_spec",
 ]
 
@@ -299,10 +301,72 @@ class FusedSpec(DecodeSpec):
         return {"bt": self.bt}
 
 
+@dataclasses.dataclass(frozen=True)
+class OnlineSpec(DecodeSpec):
+    """Streaming exact decode (convergence-point commits), one-shot form.
+
+    `stream_chunk` is the chunk size the one-shot `run` feeds with; `max_lag`
+    bounds commit latency (forced flushes make the forced part approximate).
+    For true incremental use build the decoder via `make_streaming`.
+    """
+    method: ClassVar[str] = "online"
+    legacy_tunables: ClassVar[Mapping[str, str]] = {
+        "stream_chunk": "stream_chunk", "max_lag": "max_lag"}
+    stream_chunk: int = 64
+    max_lag: int | None = None
+
+    def validate(self):
+        _check_pos(self.stream_chunk, "stream_chunk")
+        _check_opt_pos(self.max_lag, "max_lag")
+
+    def _run(self, log_pi, log_A, emissions):
+        return viterbi_online(log_pi, log_A, emissions,
+                              chunk_size=self.stream_chunk,
+                              max_lag=self.max_lag)
+
+    def make_streaming(self, log_pi, log_A):
+        """The stateful incremental decoder `serving.stream` wraps."""
+        return OnlineViterbiDecoder(log_pi, log_A, max_lag=self.max_lag,
+                                    constraint=self.constraint)
+
+
+@dataclasses.dataclass(frozen=True)
+class OnlineBeamSpec(DecodeSpec):
+    """Streaming dynamic beam: live state O(W*B), K never materialises; a
+    chunk is one launch of the beam kernel's chunk mode."""
+    method: ClassVar[str] = "online_beam"
+    legacy_tunables: ClassVar[Mapping[str, str]] = {
+        "beam_width": "beam_width", "chunk": "kchunk",
+        "stream_chunk": "stream_chunk", "max_lag": "max_lag"}
+    beam_width: int = 128
+    kchunk: int = 128
+    stream_chunk: int = 64
+    max_lag: int | None = None
+
+    def validate(self):
+        _check_pos(self.beam_width, "beam_width")
+        _check_pos(self.kchunk, "kchunk")
+        _check_pos(self.stream_chunk, "stream_chunk")
+        _check_opt_pos(self.max_lag, "max_lag")
+
+    def _run(self, log_pi, log_A, emissions):
+        return viterbi_online_beam(log_pi, log_A, emissions,
+                                   beam_width=self.beam_width,
+                                   kchunk=self.kchunk,
+                                   chunk_size=self.stream_chunk,
+                                   max_lag=self.max_lag)
+
+    def make_streaming(self, log_pi, log_A):
+        return OnlineBeamDecoder(log_pi, log_A, beam_width=self.beam_width,
+                                 kchunk=self.kchunk, max_lag=self.max_lag,
+                                 constraint=self.constraint)
+
+
 SPEC_BY_METHOD: dict[str, type[DecodeSpec]] = {
     cls.method: cls for cls in (
         VanillaSpec, CheckpointSpec, FlashSpec, FlashBSSpec,
-        BeamStaticSpec, BeamStaticMPSpec, AssocSpec, FusedSpec)
+        BeamStaticSpec, BeamStaticMPSpec, AssocSpec, FusedSpec,
+        OnlineSpec, OnlineBeamSpec)
 }
 
 
@@ -318,8 +382,6 @@ def spec_from_tunables(method: str, tunables: dict[str, Any],
             "constraint= is not a legacy tunable; construct a typed spec "
             "instead, e.g. FusedSpec(constraint=...) or "
             "with_constraint(spec, constraint)")
-    if method in NOT_PORTED:
-        raise not_ported(method)
     try:
         cls = SPEC_BY_METHOD[method]
     except KeyError:

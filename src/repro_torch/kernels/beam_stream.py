@@ -2,7 +2,7 @@
 
 The kernel replaces the Pallas TPU kernel `_beam_step_kernel` and its merge
 `_select_top_b` (src/repro/kernels/beam_stream.py:36, :60, :121).  It is
-one template with three entries:
+one template with four entries:
 
   * `bs_initial_pass_batch` -- the FLASH-BS initial pass of N sequences in
     one launch: the seeding top-B, every beam transition of the time loop,
@@ -11,7 +11,11 @@ one template with three entries:
     decodes of M tiles in one launch, with the midpoint bookkeeping and the
     exit-state fallback;
   * `beam_step_batch` -- one transition of N given beams, the counterpart of
-    the TPU `beam_step`.
+    the TPU `beam_step`;
+  * `bs_chunk_batch` -- N streaming beams through a chunk of C emission rows
+    in one launch: the seed of a new beam, a transition a row, every row's
+    slot states and slot backpointers (the `lax.scan` of `_beam_chunk_scan`,
+    src/repro/core/online.py:443, which is not Pallas).
 
 Each beam is owned by a thread-block cluster; the source comment in the .cu
 file says what bounds the kernel on the card and what its design does about
@@ -31,7 +35,7 @@ from .viterbi_dp import SMEM_BYTES, _check_cuda, _on_cuda, _require, _stream
 
 #: kernel launches since the last `reset_launches()`
 launches = {"beam_step_batch": 0, "bs_initial_pass_batch": 0,
-            "bs_segment_decode_batch": 0}
+            "bs_segment_decode_batch": 0, "bs_chunk_batch": 0}
 
 
 def reset_launches() -> None:
@@ -228,6 +232,67 @@ def beam_step_batch(log_A: torch.Tensor, em: torch.Tensor,
     return out_s, out_st, out_f
 
 
+def bs_chunk_batch(log_pi: torch.Tensor, log_A: torch.Tensor,
+                   em: torch.Tensor, scores: torch.Tensor,
+                   states: torch.Tensor, is_first: torch.Tensor, B: int,
+                   chunk: int):
+    """N streaming beams through a chunk of C >= 1 emission rows, one launch.
+
+    Args:
+      log_pi: (K,) float32 initial scores, contiguous; K = K_pad.
+      log_A:  (K, K) float32 transitions, contiguous; K a multiple of chunk.
+      em:     (N, C, K) float32 emissions, any strides but unit along K.
+      scores: (N, B) float32 carried beam scores, contiguous, 1 <= B <= K.
+      states: (N, B) int32 carried beam states, contiguous, each in [0, K).
+      is_first: (N,) bool, contiguous: the beam seeds from
+              ``log_pi + em[:, 0]`` (its scores and states are not read)
+              instead of taking a transition on row 0.  A first beam with
+              C = 1 is the seed alone.
+      B:      beam width.
+      chunk:  targets merged into the running top-B at a time; the result
+              does not depend on it (the kernel selects once over all K).
+
+    Returns:
+      (scores (N, B) float32, states (N, B) int32, hist_states (N, C, B)
+       int32, hist_froms (N, C, B) int32), bit-identical to
+      `ref.beam_chunk_ref`.
+    """
+    K = _model_args(log_pi, log_A, B)
+    _require(em.dim() == 3 and em.shape[2] == K and em.shape[1] >= 1,
+             f"em must be (N, C >= 1, {K}), got {tuple(em.shape)}")
+    N, C = em.shape[:2]
+    _require(scores.shape == states.shape == (N, B),
+             f"scores and states must be ({N}, {B})")
+    _require(is_first.shape == (N,), f"is_first must be ({N},)")
+    _require(isinstance(chunk, int) and chunk >= 1 and K % chunk == 0,
+             f"chunk={chunk} must divide K={K}")
+    _require(all(t.dtype == torch.float32
+                 for t in (log_pi, log_A, em, scores)),
+             "log_pi, log_A, em and scores must be float32")
+    _require(states.dtype == torch.int32, "states must be int32")
+    _require(is_first.dtype == torch.bool, "is_first must be bool")
+    if not _on_cuda(log_pi, log_A, em, scores, states, is_first):
+        return _ref.beam_chunk_ref(log_pi, log_A, em, scores, states,
+                                   is_first, B, chunk)
+    _require(all(t.is_contiguous()
+                 for t in (log_pi, log_A, scores, states, is_first)),
+             "log_pi, log_A, scores, states and is_first must be contiguous")
+    _require(em.stride(2) == 1, "em must have unit stride along K")
+    resident = pass_instance(K, B, 0) == "resident"
+    dev = em.device
+    out_s = torch.empty((N, B), dtype=torch.float32, device=dev)
+    out_st = torch.empty((N, B), dtype=torch.int32, device=dev)
+    hist = torch.empty((2, N, C, B), dtype=torch.int32, device=dev)
+    if N == 0:
+        return out_s, out_st, hist[0], hist[1]
+    _launch("bs_chunk_batch", dev, log_pi.data_ptr(), log_A.data_ptr(),
+            em.data_ptr(), em.stride(0), em.stride(1), scores.data_ptr(),
+            states.data_ptr(), is_first.data_ptr(), N, C, K, B,
+            int(resident), out_s.data_ptr(), out_st.data_ptr(),
+            hist[0].data_ptr(), hist[1].data_ptr())
+    return out_s, out_st, hist[0], hist[1]
+
+
 __all__ = ["beam_step_batch", "bs_initial_pass_batch",
-           "bs_segment_decode_batch", "pass_instance", "launches",
-           "reset_launches"]
+           "bs_segment_decode_batch", "bs_chunk_batch", "pass_instance",
+           "launches", "reset_launches"]

@@ -59,6 +59,9 @@ SIGNATURES = {
                                     _I32, _I32, _I32, _VOID, _VOID),
         "beam_step_batch": (_VOID, _VOID, _I64, _VOID, _VOID, _I32, _I32,
                             _I32, _VOID, _VOID, _VOID, _VOID),
+        "bs_chunk_batch": (_VOID, _VOID, _VOID, _I64, _I64, _VOID, _VOID,
+                           _VOID, _I32, _I32, _I32, _I32, _I32, _VOID, _VOID,
+                           _VOID, _VOID, _VOID),
     },
     "tropical": {
         "tropical_matmul_batch": (_VOID, _VOID, _I32, _I32, _I32, _I32, _I32,

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernel `_beam_step_kernel` and its merge
 // `_select_top_b` behind `beam_step` (src/repro/kernels/beam_stream.py:36,
-// :60, :121), and the host loop around it: one template, three C entries.
+// :60, :121), and the host loop around it: one template, four C entries.
 //
 //   bs_initial_pass_batch    the FLASH-BS initial pass of N sequences
 //                            (`core/flash_bs.py::_bs_initial_pass` of the
@@ -14,6 +14,14 @@
 //                            log_A[entry], s - 1 transitions, the midpoint
 //                            carry from step s / 2 on, the exit fallback.
 //   beam_step_batch          one transition of N given beams.
+//   bs_chunk_batch           N streaming beams through C rows of emissions
+//                            (`_beam_init` and the `lax.scan` of
+//                            `_beam_chunk_scan`, src/repro/core/online.py:
+//                            434-450, not Pallas): a beam flagged first seeds
+//                            from log_pi + em[0], the others carry their beam
+//                            into a transition on row 0; then a transition
+//                            per row, each row's slot states and from-slots
+//                            written out, and the final beam.
 //
 // A transition of a beam with B slots (scores[b], states[b]) and emissions
 // em[c] of the next step scores every target c against every slot,
@@ -88,7 +96,7 @@ constexpr float kSentinel = -4.0e9f;
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Mode { kStep = 0, kInitial = 1, kSegment = 2 };
+enum Mode { kStep = 0, kInitial = 1, kSegment = 2, kChunk = 3 };
 
 struct Args {
   const float* log_pi;         // (K,), the passes
@@ -97,17 +105,19 @@ struct Args {
   int64_t em_sn, em_st;
   const uint8_t* pad;          // (N, T) bool, strides (pad_sn, 1)
   int64_t pad_sn;
-  const float* scores;         // (N, B), kStep
-  const int* states;           // (N, B), kStep
+  const float* scores;         // (N, B), kStep and kChunk
+  const int* states;           // (N, B), kStep and kChunk
   const int* bounds;           // (nb,), kInitial
   int nb;
   const int64_t* entry;        // (N,), kSegment
   const int64_t* exit_state;   // (N,), kSegment
-  const uint8_t* is_first;     // (N,) bool, kSegment
+  const uint8_t* is_first;     // (N,) bool, kSegment and kChunk
   int N, T, K, B;
-  float* out_s;                // (N, B), kStep
-  int* out_st;                 // (N, B), kStep
+  float* out_s;                // (N, B), kStep and kChunk
+  int* out_st;                 // (N, B), kStep and kChunk
   int* out_f;                  // (N, B), kStep
+  int* out_hst;                // (N, T, B), kChunk: each row's slot states
+  int* out_hf;                 // (N, T, B), kChunk: ... and from-slots
   int* out_div;                // (N, nb), kInitial
   int* out_q;                  // (N,): q_last (kInitial), midpoint (kSegment)
   float* out_score;            // (N,), kInitial
@@ -371,6 +381,56 @@ beam_pass_kernel(const Args p) {
       continue;
     }
 
+    if (MODE == kChunk) {
+      // row t's beam into row t of the history, and the final beam, by CTA 0
+      auto record = [&](int t, int src) {
+        const Slot* sb = beam(src);
+        const int64_t o = ((int64_t)n * p.T + t) * B;
+        for (int i = tid; i < B; i += kThreads) {
+          const Slot x = sb[i];
+          p.out_hst[o + i] = x.state;
+          p.out_hf[o + i] = x.from;
+        }
+      };
+      const bool first = p.is_first[n] != 0;
+      if (first) {   // the stable top-B of log_pi + em[0], from-slots 0
+        prefill(0);
+        for (int j = tid; j < nw; j += kThreads) {
+          myv[j] = __fadd_rn(p.log_pi[c0 + j], em_n[c0 + j]);
+          myf[j] = 0;
+        }
+        select(0);
+        if (r == 0) record(0, 0);
+      } else {
+        for (int i = tid; i < B; i += kThreads) {
+          beam(0)[i] = Slot{p.scores[(int64_t)n * B + i],
+                            p.states[(int64_t)n * B + i], 0, 0};
+        }
+        __syncthreads();
+      }
+      const int T = p.T, t0 = first ? 1 : 0;
+      int cur = 0;
+      float e_next = 0.f;
+      if (t0 < T && jl < nw) e_next = em_n[(int64_t)t0 * p.em_st + c0 + jl];
+      for (int t = t0; t < T; ++t) {
+        const float e_cur = e_next;
+        if (t + 1 < T && jl < nw)   // the next row, while this one computes
+          e_next = em_n[(int64_t)(t + 1) * p.em_st + c0 + jl];
+        transition(cur, 1 - cur, em_n + (int64_t)t * p.em_st, e_cur);
+        cur = 1 - cur;
+        if (r == 0) record(t, cur);
+      }
+      if (r == 0) {
+        const Slot* sb = beam(cur);
+        for (int i = tid; i < B; i += kThreads) {
+          p.out_s[(int64_t)n * B + i] = sb[i].score;
+          p.out_st[(int64_t)n * B + i] = sb[i].state;
+        }
+      }
+      __syncthreads();
+      continue;
+    }
+
     // seed: the stable top-B of the first step's scores
     const bool first = MODE == kInitial || p.is_first[n];
     const int entry = MODE == kSegment ? (int)p.entry[n] : 0;
@@ -537,6 +597,36 @@ extern "C" int bs_segment_decode_batch(
   a.B = B;
   a.out_q = (int*)mid;
   return launch_instance<kSegment>(a, resident, stream);
+}
+
+// em (N, C, K) with strides (em_sn, em_st, 1); log_pi, log_A, scores,
+// states (N, B), is_first (N,) bool and the outputs contiguous.  scores and
+// states are read only for beams not flagged first.  hist_st and hist_f are
+// (N, C, B).
+extern "C" int bs_chunk_batch(const void* log_pi, const void* log_A,
+                              const void* em, int64_t em_sn, int64_t em_st,
+                              const void* scores, const void* states,
+                              const void* is_first, int N, int C, int K,
+                              int B, int resident, void* out_s, void* out_st,
+                              void* hist_st, void* hist_f, void* stream) {
+  Args a = {};
+  a.log_pi = (const float*)log_pi;
+  a.log_A = (const float*)log_A;
+  a.em = (const float*)em;
+  a.em_sn = em_sn;
+  a.em_st = em_st;
+  a.scores = (const float*)scores;
+  a.states = (const int*)states;
+  a.is_first = (const uint8_t*)is_first;
+  a.N = N;
+  a.T = C;
+  a.K = K;
+  a.B = B;
+  a.out_s = (float*)out_s;
+  a.out_st = (int*)out_st;
+  a.out_hst = (int*)hist_st;
+  a.out_hf = (int*)hist_f;
+  return launch_instance<kChunk>(a, resident, stream);
 }
 
 // em rows may be strided (em_sn floats apart); everything else contiguous.

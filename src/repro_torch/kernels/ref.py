@@ -192,6 +192,40 @@ def _stream_top_b(values: torch.Tensor, B: int, chunk: int | None = None):
     return run
 
 
+def beam_chunk_ref(log_pi: torch.Tensor, log_A: torch.Tensor,
+                   em: torch.Tensor, scores: torch.Tensor,
+                   states: torch.Tensor, is_first: torch.Tensor, B: int,
+                   chunk: int):
+    """Reference for the beam kernel's chunk mode: N streaming beams, each
+    advanced through C rows of emissions.
+
+    log_pi (K,), log_A (K, K) with chunk | K, em (N, C, K), scores (N, B),
+    states (N, B) int32, is_first (N,) bool.  A beam flagged `is_first`
+    seeds from ``log_pi + em[:, 0]`` (the stable top-B of `_stream_top_b`)
+    and ignores its `scores` and `states`; the others take a transition on
+    row 0 from the carried beam.  Every remaining row is one
+    `beam_transition_ref`.  Returns (scores (N, B), states (N, B), hist_states
+    (N, C, B), hist_froms (N, C, B)): the final beam and, for every row t,
+    the beam's states after it and their slot backpointers into the beam
+    before it (a seed row's are 0).  This is `_beam_init` followed by the
+    `lax.scan` of `_beam_chunk_scan` (src/repro/core/online.py:434-450),
+    batched over N.
+    """
+    N, C, _ = em.shape
+    seed_s, seed_st = _stream_top_b(log_pi + em[:, 0], B, chunk)
+    sc, st, fr = beam_transition_ref(log_A, em[:, 0], scores, states, chunk)
+    first = is_first[:, None]
+    sc, st = torch.where(first, seed_s, sc), torch.where(first, seed_st, st)
+    fr = torch.where(first, 0, fr)
+    hist_st = torch.empty((N, C, B), dtype=torch.int32, device=em.device)
+    hist_f = torch.empty((N, C, B), dtype=torch.int32, device=em.device)
+    hist_st[:, 0], hist_f[:, 0] = st, fr
+    for t in range(1, C):
+        sc, st, fr = beam_transition_ref(log_A, em[:, t], sc, st, chunk)
+        hist_st[:, t], hist_f[:, t] = st, fr
+    return sc, st, hist_st, hist_f
+
+
 def _beam_pass_step(log_A, em_t, is_pad, scores, states, chunk: int):
     """One beam transition of every beam, then the pad identity: a pad step
     keeps the beam and points every slot at itself.  (A full carry-freeze
@@ -314,6 +348,6 @@ def tropical_matmul_ref(a: torch.Tensor, b: torch.Tensor):
 __all__ = ["viterbi_forward_ref", "viterbi_forward_masked_ref",
            "viterbi_forward_masked_pen_ref", "viterbi_banded_forward_ref",
            "viterbi_backtrack_ref", "top_b", "merge_top_b",
-           "beam_transition_ref", "bs_initial_pass_ref",
+           "beam_transition_ref", "beam_chunk_ref", "bs_initial_pass_ref",
            "bs_segment_decode_ref", "beam_step_ref", "tropical_matmul_ref",
            "BEAM_SENTINEL"]

@@ -1,12 +1,14 @@
-"""repro_torch.serving: the batch tier (scheduler and alignment head).
-
-The streaming and inflight tiers of `repro.serving` wait for ROADMAP
-Queue 1 items 6 and 7.
-"""
+"""repro_torch.serving: the batch tier (scheduler and alignment head), the
+streaming tier (stream) and continuous inflight batching (inflight), as in
+`repro.serving`."""
 
 from .scheduler import Request, BatchScheduler
 from .alignment import (AlignmentConfig, make_alignment_head,
                         make_lexicon_align_head)
+from .stream import StreamConfig, StreamSession, StreamMux
+from .inflight import InflightScheduler, AdmissionRejected
 
 __all__ = ["Request", "BatchScheduler", "AlignmentConfig",
-           "make_alignment_head", "make_lexicon_align_head"]
+           "make_alignment_head", "make_lexicon_align_head",
+           "StreamConfig", "StreamSession", "StreamMux",
+           "InflightScheduler", "AdmissionRejected"]

@@ -49,15 +49,22 @@ def problem():
 # ---------------------------------------------------------------------------
 
 def test_every_method_has_a_spec():
+    """Every method of the JAX package, the streaming two included, has a
+    spec whose legacy form and fields equal the JAX spec's."""
     from repro.core import METHODS as J_METHODS
+    from repro.core import spec_from_tunables as j_spec_from_tunables
     assert set(SPEC_BY_METHOD) == set(METHODS)
-    assert set(METHODS) == set(J_METHODS) - {"online", "online_beam"}
+    assert METHODS == tuple(J_METHODS)
     for method, cls in SPEC_BY_METHOD.items():
         assert cls.method == method
         assert dataclasses.is_dataclass(cls)
     for method in ("online", "online_beam"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            spec_from_tunables(method, {})
+        kw = dict(stream_chunk=16, max_lag=8, chunk=32, bt=4)
+        spec, ignored = spec_from_tunables(method, kw)
+        spec_j, ignored_j = j_spec_from_tunables(method, kw)
+        assert type(spec).__name__ == type(spec_j).__name__
+        assert dataclasses.asdict(spec) == dataclasses.asdict(spec_j)
+        assert ignored == ignored_j
 
 
 @pytest.mark.parametrize("bad", [
@@ -233,6 +240,8 @@ _TUNABLES = {
     "beam_static": {"beam_width": 16},
     "beam_static_mp": {"beam_width": 16, "parallelism": 4},
     "assoc": {}, "fused": {},
+    "online": {"stream_chunk": 16, "max_lag": 32},
+    "online_beam": {"beam_width": 16, "chunk": 16, "stream_chunk": 16},
 }
 
 

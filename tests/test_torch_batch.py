@@ -343,8 +343,11 @@ def test_spec_from_tunables_matches_jax():
     fbs_j, _ = j_spec_from_tunables("flash_bs", {"beam_width": 16})
     assert fbs == FlashBSSpec(beam_width=16) and not ignored
     assert dataclasses.asdict(fbs) == dataclasses.asdict(fbs_j)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        spec_from_tunables("online", {})
+    online, ignored = spec_from_tunables("online", {"max_lag": 4, "bt": 2})
+    online_j, ignored_j = j_spec_from_tunables("online", {"max_lag": 4,
+                                                          "bt": 2})
+    assert dataclasses.asdict(online) == dataclasses.asdict(online_j)
+    assert online.max_lag == 4 and ignored == ignored_j == ("bt",)
     with pytest.raises(TypeError):
         spec_from_tunables("fused", {"constraint": None})
     assert as_decode_spec(spec) is spec

@@ -99,12 +99,17 @@ def test_every_c_entry_has_its_ctypes_signature():
         "viterbi_backtrack_plan", "viterbi_backtrack_batch"}
     assert set(build.SIGNATURES["beam_stream"]) == {
         "beam_pass_smem_bytes", "bs_initial_pass_batch",
-        "bs_segment_decode_batch", "beam_step_batch"}
+        "bs_segment_decode_batch", "beam_step_batch", "bs_chunk_batch"}
     assert set(build.SIGNATURES["tropical"]) == {"tropical_matmul_batch"}
     assert {src.stem for src in build.SOURCES} == set(build.SIGNATURES)
     for src in build.SOURCES:
         entries = re.findall(r'extern "C" int (\w+)\(', src.read_text())
         assert sorted(entries) == sorted(build.SIGNATURES[src.stem]), src.name
+        # each entry's parameter count matches its argtypes
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            assert len(params.split(",")) == len(
+                build.SIGNATURES[src.stem][name]), name
 
 
 def test_headers_are_hashed_with_the_sources_but_not_compiled(tmp_path,

@@ -443,7 +443,7 @@ def test_new_wrappers_on_cpu_count_nothing_and_reject_bad_args():
     assert set(kernels.launch_counts()) == {
         "viterbi_fwd_batch", "viterbi_fwd_batch_masked", "viterbi_banded_fwd",
         "viterbi_backtrack_batch", "beam_step_batch", "bs_initial_pass_batch",
-        "bs_segment_decode_batch", "tropical_matmul_batch"}
+        "bs_segment_decode_batch", "bs_chunk_batch", "tropical_matmul_batch"}
     assert not any(kernels.launch_counts().values())
     with pytest.raises(ValueError, match="divide"):
         bs.beam_step_batch(A, em[None], scores[None], states[None], 48)
@@ -588,6 +588,160 @@ def test_pass_wrappers_on_cpu_count_nothing_and_reject_bad_args():
         bs.bs_segment_decode_batch(lp, A, em, pad, entry, entry, first.int(),
                                    B)
 
+
+
+# ---------------------------------------------------------------------------
+# the beam kernel's chunk mode (streaming beam decode)
+# ---------------------------------------------------------------------------
+
+def _jax_beam_chunk(lp, A, em, scores, states, first, B, chunk):
+    """JAX's `_beam_init` (a first beam) and `_beam_chunk_scan` over the
+    rest of the chunk, as `OnlineBeamDecoder.feed` runs them, one beam:
+    (scores, states, hist_states, hist_froms) as numpy, a seed row's
+    from-slots 0."""
+    from repro.core.online import _beam_chunk_scan, _beam_init
+    hist_st, hist_f = [], []
+    if first:
+        scores, states = _beam_init(lp, em[0], B, chunk)
+        hist_st.append(np.asarray(states))
+        hist_f.append(np.zeros(B, np.int32))
+        em = em[1:]
+    if em.shape[0]:
+        scores, states, sts, froms = _beam_chunk_scan(A, em, scores, states,
+                                                      B, chunk)
+        hist_st += list(np.asarray(sts))
+        hist_f += list(np.asarray(froms))
+    return (np.asarray(scores), np.asarray(states), np.stack(hist_st),
+            np.stack(hist_f))
+
+
+def _padded_model(K, chunk, kind, seed):
+    """(log_pi, log_A) padded to a multiple of `chunk` with -2e9, as
+    `OnlineBeamDecoder` pads them.  "left_to_right": NEG_INF off the band
+    and a one-hot log_pi; "constrained": an Erdos-Renyi model plus the
+    penalties of a lexicon whose words chain four states, so real scores
+    sit at multiples of NEG_INF and tie each other, the padded states and
+    the sentinels."""
+    from repro_torch.core import LexiconConstraint
+    from repro_torch.core.constraints import init_penalty, transition_penalty
+    g = np.random.default_rng(seed)
+    if kind == "left_to_right":
+        hmm = left_to_right_hmm(g, K, 16, device=CPU)
+        lp, A = hmm.log_pi.numpy(), hmm.log_A.numpy()
+    else:
+        hmm = erdos_renyi_hmm(g, K, edge_prob=0.3, device=CPU)
+        lp, A = hmm.log_pi.numpy(), hmm.log_A.numpy()
+        if kind == "constrained":
+            words = tuple((tuple(range(w, min(w + 4, K))),)
+                          for w in range(0, K, 4))
+            c = LexiconConstraint(words)
+            lp = lp + init_penalty(c, K)
+            A = A + transition_penalty(c, K)
+    K_pad = -(-K // chunk) * chunk
+    A = np.pad(A, ((0, K_pad - K), (0, K_pad - K)),
+               constant_values=np.float32(-2e9))
+    lp = np.pad(lp, (0, K_pad - K), constant_values=np.float32(-2e9))
+    return lp.astype(np.float32), A.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "left_to_right", "constrained"])
+@pytest.mark.parametrize("K,B,chunk", [(200, 16, 128), (200, 128, 128),
+                                       (200, 200, 128), (64, 8, 16),
+                                       (3, 2, 3)])
+def test_beam_chunk_ref_matches_jax(kind, K, B, chunk):
+    """`ref.beam_chunk_ref` against JAX's `_beam_init` + `_beam_chunk_scan`
+    (src/repro/core/online.py:434-450), bitwise: N = 3 beams, the first
+    seeding, the others carrying, over three chained chunks (C = 1, 5, 9)
+    each continuing from the last one's output.  At K = 200 with chunk 128
+    every padded state's seed is -2e9 + -2e9 = -4e9, exactly the sentinel's
+    score, and its transitions tie the sentinel slots too."""
+    N = 3
+    lp, A = _padded_model(K, chunk, kind, seed=K + B)
+    K_pad = A.shape[0]
+    g = np.random.default_rng(K * B)
+    carry, tied = None, 0
+    for c, C in enumerate((1, 5, 9)):
+        em = (2.0 * g.standard_normal((N, C, K_pad))).astype(np.float32)
+        em[..., K:] = np.float32(-2e9)
+        first = np.array([c == 0, c == 0, c == 0])
+        if carry is None:
+            scores = np.zeros((N, B), np.float32)
+            states = np.zeros((N, B), np.int32)
+        else:
+            scores, states = carry
+            first[0] = True          # a new session joins a carried batch
+        out = ref.beam_chunk_ref(_t(lp), _t(A), _t(em), _t(scores),
+                                 _t(states), _t(first), B, chunk)
+        assert [tuple(x.shape) for x in out] == [(N, B), (N, B), (N, C, B),
+                                                 (N, C, B)]
+        for n in range(N):
+            want = _jax_beam_chunk(lp, A, em[n], scores[n], states[n],
+                                   bool(first[n]), B, chunk)
+            for x, y in zip(out, want):
+                assert _eq(x[n], y)
+        carry = (out[0].numpy(), out[1].numpy())
+        tied += int((carry[0] <= -1e9).sum())
+    if kind == "left_to_right" or (kind == "constrained" and B >= 128):
+        assert tied > 0      # NEG_INF sums and sentinel slots in the beams
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 32, 64])
+def test_beam_chunk_ref_does_not_depend_on_kchunk(chunk):
+    """Where K needs no padding (K = 64), the chunk mode's result is the
+    same for every chunk size, as the kernel's one selection per step
+    assumes, and equals the one-selection oracle step by step."""
+    lp, A = _padded_model(64, 64, "left_to_right", seed=3)
+    g = np.random.default_rng(4)
+    em = (2.0 * g.standard_normal((2, 12, 64))).astype(np.float32)
+    first = torch.tensor([True, True])
+    zeros = (torch.zeros((2, 16)), torch.zeros((2, 16), dtype=torch.int32))
+    out = ref.beam_chunk_ref(_t(lp), _t(A), _t(em), *zeros, first, 16, chunk)
+    want = ref.beam_chunk_ref(_t(lp), _t(A), _t(em), *zeros, first, 16, 64)
+    for x, y in zip(out, want):
+        assert torch.equal(x, y)
+    seed_s, seed_st = ref._stream_top_b(_t(lp + em[:, 0]), 16)
+    s, st = seed_s.numpy(), seed_st.numpy()
+    assert np.array_equal(out[2][:, 0].numpy(), st)
+    for t in range(1, 12):
+        s, st, f = _single_selection(A, em[:, t], s, st)
+        assert np.array_equal(out[2][:, t].numpy(), st)
+        assert np.array_equal(out[3][:, t].numpy(), f)
+
+
+def test_bs_chunk_batch_on_cpu_counts_nothing_and_rejects_bad_args():
+    """The chunk entry runs its plain version on the CPU, counts no launch,
+    and checks its arguments as `beam_step_batch` does."""
+    from repro_torch import kernels
+    from repro_torch.kernels import beam_stream as bs
+    K, N, C, B = 32, 2, 4, 8
+    A, em, lp = (_t(x) for x in _normal(12, (K, K), (N, C, K), (K,)))
+    sc = torch.zeros((N, B))
+    st = torch.zeros((N, B), dtype=torch.int32)
+    first = torch.tensor([True, False])
+    kernels.reset_launches()
+    out = bs.bs_chunk_batch(lp, A, em, sc, st, first, B, 16)
+    for x, y in zip(out, ref.beam_chunk_ref(lp, A, em, sc, st, first, B, 16)):
+        assert torch.equal(x, y)
+    assert not any(kernels.launch_counts().values())
+    bad = [("em must be", dict(em=em[:, :0])),
+           ("em must be", dict(em=em[..., :4])),
+           ("scores and states", dict(sc=sc[:, :4])),
+           ("is_first", dict(first=first[:1])),
+           ("divide", dict(chunk=12)),
+           ("beam width", dict(B=K + 1)),
+           ("float32", dict(A=A.double())),
+           ("int32", dict(st=st.long())),
+           ("bool", dict(first=first.int())),
+           ("devices", dict(em=em.to("meta")))]
+    args = dict(lp=lp, A=A, em=em, sc=sc, st=st, first=first, B=B, chunk=16)
+    for match, kw in bad:
+        a = {**args, **kw}
+        if "B" in kw:
+            a["sc"] = torch.zeros((N, a["B"]))
+            a["st"] = torch.zeros((N, a["B"]), dtype=torch.int32)
+        with pytest.raises(ValueError, match=match):
+            bs.bs_chunk_batch(a["lp"], a["A"], a["em"], a["sc"], a["st"],
+                              a["first"], a["B"], a["chunk"])
 
 # --- the cluster forward kernel's reduction, emulated in plain torch -------
 #

@@ -93,16 +93,20 @@ def test_scheduler_accepts_port_decoder(served):
 
 
 def test_alignment_head_default_is_fused_and_unported_raise():
-    """The default profile is now the JAX package's FLASH-BS (beam 128,
-    P = 8, chunk 128, whole layers); the streaming methods still raise."""
+    """The default profile is the JAX package's FLASH-BS (beam 128, P = 8,
+    chunk 128, whole layers); the streaming methods convert to the same
+    specs as the JAX config's."""
     import dataclasses
     spec = AlignmentConfig().to_spec()
     assert spec == FlashBSSpec(lanes=None)
     assert dataclasses.asdict(spec) == dataclasses.asdict(
         JAlignmentConfig().to_spec())
     assert AlignmentConfig("fused", beam_width=8).to_spec() == FusedSpec()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        AlignmentConfig("online").to_spec()
+    for method in ("online", "online_beam"):
+        spec = AlignmentConfig(method, beam_width=64, chunk=32).to_spec()
+        spec_j = JAlignmentConfig(method, beam_width=64, chunk=32).to_spec()
+        assert type(spec).__name__ == type(spec_j).__name__
+        assert dataclasses.asdict(spec) == dataclasses.asdict(spec_j)
 
 
 #: the serve lexicon's shape at K = 16: word w is the chain (4w .. 4w+3)
