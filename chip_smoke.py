@@ -113,6 +113,41 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      the `OnlineSpec(stream_chunk=16, max_lag=L).run` oracle (exact ones
      also == `viterbi_vanilla`); then 8 online sessions routed by
      `StreamMux(..., inflight=)` into a pool;
+  11. sharded decoding, the load test and the fault drills: the tropical
+     kernel (with the argmax) against its plain version, bitwise, at the
+     tensor-parallel steps' shapes, row (1, M, 256) x (1, 256, 512) and
+     column (1, M, 512) x (1, 512, 256), M from 1 to 256; then, in one
+     world of 4 ranks spawned by `launch.mesh.run_spmd` that share the
+     card over gloo: (a) `make_flash_viterbi_2d` on mesh (data 2, model
+     2), row and column layouts, at the paper's (T, K) = (511, 512) on its
+     Erdos-Renyi model (p = 0.253; path and score bitwise
+     `viterbi_vanilla`'s), on the serve's left-to-right model and on an
+     equal-weight left-to-right model with emissions in {0, 1} whose
+     paths tie across the model shards (score bitwise vanilla's, path ==
+     the same decode on CPU tensors; on the tie-heavy one the layouts'
+     paths must differ), each decode exactly one tropical launch a DP step
+     a rank, its host-clock time printed; (b) the 32 serve requests bucket by bucket through
+     `ViterbiDecoder.decode_sharded` over data = 4 for `fused`, FLASH-BS
+     (beam 128, P = 8) and the lexicon-constrained `fused` (JAX's route:
+     `constrain_inputs`, then the plain forward kernel), every bucket
+     bitwise the unsharded decode, launches a rank exact; (c) the sharded
+     alignment head on a bucket of 5; launches summed over the ranks.  In
+     this process: (d) the load test (`launch/loadtest.py`) at K = 512,
+     p = 0.253, lengths 128 / 256 / 511, 32 requests, a quarter streamed,
+     for `fused`, `flash_bs`, `--budget-kb` 32 and 1024 and the
+     inflight-versus-bucketed compare, each delivering every request once
+     with the oracle green, throughput, latency percentiles and commit lag
+     printed, each run's launches held to exactly its offline batches'
+     (forward and backtrack a `fused` batch, FLASH-BS's beam passes,
+     none for exact FLASH) plus one forward launch a stream block feed,
+     with the oracle run outside that count, and the inflight side one
+     slot-step launch a step and no other kernel; (e) the drills at
+     K = 512 with 16 requests: worker death (kill batch 1 and 0), the
+     budget shrink from 1024 to 32 KB (exact FLASH, P = 16, to FLASH-BS,
+     P = 1, beam 256), in a world of 4 ranks the mesh shrink 4 -> 2, and
+     the budget shrink at its default 64 -> 2 KB, which must be flagged
+     by the oracle with `reported_score_vs_path` alone (the narrow beam's
+     open fault, ROADMAP Queue 3);
   3. time each kernel and its plain version with CUDA events: the forward
      and backtrack kernels at the serve shapes (B = 8, T in {128, 256,
      512}, K = 512; the backtrack by CUDA-graph replay, on the forward's
@@ -847,18 +882,35 @@ def scan_levels(n: int) -> list[int]:
     return [half] + scan_levels(half) + ([even] if even else [])
 
 
-def beam_launches(batches, P: int = 8) -> dict[str, int]:
-    """Beam-kernel launches of FLASH-BS batches of padded lengths `batches`
-    with whole layers at once (``lanes=None``): per batch, one initial pass
-    and one tile launch for each layer of tiles of length s = Tp/P, ...,
-    2 (one per `decode_tiles` call of the wavefront)."""
+def beam_launches(batches, P: int = 8, lanes: int | None = None
+                  ) -> dict[str, int]:
+    """Beam-kernel launches of FLASH-BS batches of padded lengths `batches`:
+    per batch, one initial pass and, for each layer of n = Tp/s tiles of
+    length s = Tp/P, ..., 2, one tile launch per `lanes` tiles (one per
+    `decode_tiles` call of the wavefront; ``lanes=None``: the whole layer)."""
     from repro_torch.core import plan_padding
-    layers = 0
+    tiles = 0
     for bucket in batches:
         Tp, _ = plan_padding(bucket, P)
-        layers += int(np.log2(Tp // P))
+        s = Tp // P
+        while s >= 2:
+            tiles += 1 if lanes is None else -(-(Tp // s) // lanes)
+            s //= 2
     return dict(bs_initial_pass_batch=len(batches),
-                bs_segment_decode_batch=layers)
+                bs_segment_decode_batch=tiles)
+
+
+def counted(total: dict[str, int], fn, *args, **kw):
+    """(fn's result, the kernel launches it made); the launches are also
+    added into `total`."""
+    from repro_torch import kernels
+    kernels.reset_launches()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for name, n in counts.items():
+        total[name] += n
+    return out, counts
 
 
 def beam_case(dev, g, N: int, K: int, B: int):
@@ -1676,6 +1728,399 @@ def phase_inflight(dev) -> dict[str, int]:
     return {n: launches[n] + mux_launches[n] for n in launches}
 
 
+# ---------------------------------------------------------------------------
+# 11: sharded decoding, the load test and the fault drills
+# ---------------------------------------------------------------------------
+
+TP_T, TP_MESH = 511, (2, 2)     # the paper's (T, K) = (511, 512); (data, model)
+SHARD_RANKS = 4                 # ranks of phase 11's worlds, all on the card
+# the load test at the serve deployment's width
+LOAD = dict(states=SERVE_K, edge_prob=0.253, lengths=(128, 256, 511),
+            buckets=SERVE_T, requests=32, max_batch=SERVE_B,
+            stream_frac=0.25)
+
+
+def tp_steps(T: int, P: int) -> int:
+    """DP steps of one 2-D FLASH decode on a rank, one tropical launch each:
+    the initial pass's Tp - 1 and every layer's s - 1."""
+    from repro_torch.core import plan_padding
+    Tp, _ = plan_padding(T, P)
+    steps, s = Tp - 1, Tp // P
+    while s >= 2:
+        steps, s = steps + s - 1, s // 2
+    return steps
+
+
+def phase_tp_kernel(dev) -> float:
+    """11: the tropical kernel with the argmax at the TP steps' shapes
+    against its plain version, bitwise: row (1, M, K/2) x (1, K/2, K) and
+    column (1, M, K) x (1, K, K/2) for M tiles of a layer, on normal and
+    tie-heavy integer inputs.  Returns the max |value difference|."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tropical import tropical_matmul_batch
+
+    g = np.random.default_rng(19)
+    kl = SERVE_K // TP_MESH[1]
+    err = 0.0
+    for layout, (k, j) in (("row", (kl, SERVE_K)), ("col", (SERVE_K, kl))):
+        for M in (1, 2, 64, 127, 128, 255, 256):
+            for kind, draw in (("normal", g.standard_normal),
+                               ("integer", lambda s: g.integers(-3, 4, s))):
+                a, b = (torch.from_numpy(draw(s).astype(np.float32)).to(dev)
+                        for s in ((1, M, k), (1, k, j)))
+                err = max(err, check_same(
+                    f"tropical_matmul_batch TP {layout} {kind} (N,I,K,J)="
+                    f"(1,{M},{k},{j})", tropical_matmul_batch(a, b),
+                    ref.tropical_matmul_ref(a, b)))
+    return err
+
+
+def sharded_world(dev) -> dict:
+    """11a-11c in one rank of a world of SHARD_RANKS on the card (gloo).
+
+    A failed check raises in the rank that sees it, which fails the world.
+    Launches are counted around the sharded calls only, in every rank, and
+    summed over the world; rank 0 returns them with the lines to print."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import (NEG_INF, FlashBSSpec, FusedSpec,
+                                  LexiconConstraint, ViterbiDecoder,
+                                  erdos_renyi_hmm,
+                                  left_to_right_hmm, random_emissions,
+                                  viterbi_vanilla)
+    from repro_torch.core.distributed import make_flash_viterbi_2d
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.launch.serve import BUCKETS
+    from repro_torch.serving import BatchScheduler, make_alignment_head
+
+    rank = dist.get_rank()
+    mesh2d = Mesh(TP_MESH, ("data", "model"))
+    mesh4 = Mesh((SHARD_RANKS,), ("data",))
+    total = {name: 0 for name in kernels.launch_counts()}
+    lines = []
+
+    def fail(what):
+        raise SystemExit(f"FAIL rank {rank} {what}")
+
+    # 11a: the 2-D decoder at the paper's default workload, both layouts;
+    # on the serve's left-to-right model; and on an equal-weight
+    # left-to-right model (self-loop 1/2, steps 1/4: log(1/4) is exactly
+    # 2 log(1/2) in float32) with a uniform start and emissions in {0, 1},
+    # whose paths tie across the two model shards: the row layout keeps the
+    # highest tying shard, so the layouts' paths differ there
+    g = np.random.default_rng(11)
+    er = erdos_renyi_hmm(g, SERVE_K, 50, 0.253, device=dev)
+    ltr = left_to_right_hmm(np.random.default_rng(0), SERVE_K, 64, device=dev)
+    d = np.arange(SERVE_K)[None, :] - np.arange(SERVE_K)[:, None]
+    ties = (torch.zeros(SERVE_K, device=dev), torch.from_numpy(np.where(
+        d == 0, np.log(0.5), np.where((d == 1) | (d == 2), np.log(0.25),
+                                      NEG_INF)).astype(np.float32)).to(dev))
+    models = (("erdos-renyi", (er.log_pi, er.log_A),
+               random_emissions(g, TP_T, SERVE_K, device=dev)),
+              ("left-to-right", (ltr.log_pi, ltr.log_A), torch.from_numpy(
+                  (2.0 * g.standard_normal((TP_T, SERVE_K))).astype(
+                      np.float32)).to(dev)),
+              ("tie-heavy", ties, torch.from_numpy(
+                  np.random.default_rng(7).integers(0, 2, (TP_T, SERVE_K))
+                  .astype(np.float32)).to(dev)))
+    steps = tp_steps(TP_T, TP_MESH[0])
+    cpu = torch.device("cpu")
+    for model, (log_pi, log_A), em in models:
+        p_v, s_v = viterbi_vanilla(log_pi, log_A, em)
+        paths = {}
+        for shard in ("row", "col"):
+            dec = make_flash_viterbi_2d(mesh2d, TP_T, SERVE_K, shard=shard)
+            dist.barrier()
+            t0 = time.perf_counter()
+            (path, score), counts = counted(total, dec, log_pi, log_A,
+                                            em)
+            wall = time.perf_counter() - t0
+            n = counts["tropical_matmul_batch"]
+            check_launches(f"rank {rank} 2-D {model} {shard}", counts,
+                           dict(tropical_matmul_batch=steps))
+            if score.cpu().numpy().tobytes() != s_v.cpu().numpy().tobytes():
+                fail(f"2-D {model} {shard}: score {float(score)} != "
+                     f"viterbi_vanilla's {float(s_v)}")
+            if model == "erdos-renyi" and not torch.equal(path, p_v):
+                fail(f"2-D {model} {shard}: path != viterbi_vanilla")
+            if model != "erdos-renyi":
+                p_c, s_c = dec(log_pi.to(cpu), log_A.to(cpu), em.to(cpu))
+                if not (torch.equal(path.cpu(), p_c)
+                        and float(s_c) == float(score)):
+                    fail(f"2-D {model} {shard}: != the same decode on the "
+                         f"CPU")
+            paths[shard] = path
+            lines.append(f"2-D FLASH {model} (T,K)=({TP_T},{SERVE_K}) mesh "
+                         f"(data,model)={TP_MESH} {shard}: {wall:.4f} s on "
+                         f"the host clock (rank {rank}), {n} tropical "
+                         f"launches a rank")
+        differ = int((paths["row"] != paths["col"]).sum())
+        if model == "erdos-renyi":
+            if differ:
+                fail("2-D erdos-renyi: row path != col path")
+            lines.append("2-D FLASH erdos-renyi: both layouts' paths and "
+                         "scores == viterbi_vanilla (bitwise)")
+            continue
+        if model == "tie-heavy" and not differ:
+            fail("2-D tie-heavy: the layouts' paths are equal: the case no "
+                 "longer reaches the row layout's tie rule")
+        lines.append(f"2-D FLASH {model}: both layouts' scores == "
+                     f"viterbi_vanilla, paths == the same decode on CPU "
+                     f"tensors (bitwise); row and col paths differ in "
+                     f"{differ} steps")
+
+    # 11b: the serve deployment sharded over data = SHARD_RANKS, each bucket
+    # against the unsharded decode of the same bucket
+    cases = (("fused", FusedSpec()),
+             ("flash_bs", FlashBSSpec(beam_width=128, parallelism=8,
+                                      lanes=None)),
+             ("fused lexicon", FusedSpec(constraint=LexiconConstraint(
+                 LEXICON))))
+    for what, spec in cases:
+        dec = ViterbiDecoder(spec, ltr.log_pi, ltr.log_A, device=dev)
+        buckets, launches, wall = [], dict.fromkeys(total, 0), 0.0
+
+        def both(padded, lens, dec=dec, what=what):
+            nonlocal wall
+            dist.barrier()
+            t0 = time.perf_counter()
+            (ps, ss), counts = counted(total, dec.decode_sharded, padded,
+                                       lens, mesh=mesh4)
+            wall += time.perf_counter() - t0
+            for name, n in counts.items():
+                launches[name] += n
+            buckets.append(padded.shape[1])
+            p0, s0 = dec.decode_batch(padded, lens)
+            if not (torch.equal(ps, p0) and torch.equal(ss, s0)):
+                fail(f"sharded {what}: bucket {padded.shape} != unsharded")
+            return ps, ss
+
+        sched = BatchScheduler(both, max_batch=SERVE_B, buckets=BUCKETS)
+        for em in serve_requests():
+            sched.submit(em)
+        if len(sched.drain()) != 32:
+            fail(f"sharded {what}: not all 32 requests served")
+        nb = len(buckets)
+        want = (beam_launches(buckets) if what == "flash_bs" else
+                dict(viterbi_fwd_batch=nb, viterbi_backtrack_batch=nb))
+        check_launches(f"rank {rank} sharded {what}", launches, want)
+        lines.append(f"sharded serve {what} ({type(spec).__name__}) over data="
+                     f"{SHARD_RANKS}: 32 requests in {nb} buckets, all == "
+                     f"the unsharded decode (bitwise), {wall:.4f} s on the "
+                     f"host clock (rank {rank}), launches a rank "
+                     f"{ {k: v for k, v in launches.items() if v} }")
+
+    # 11c: the sharded alignment head on a bucket of 5 (padded to 8)
+    reqs = serve_requests()[:5]
+    lens = np.asarray([len(r) for r in reqs], np.int32)
+    Tb = next(b for b in BUCKETS if b >= lens.max())
+    padded = np.zeros((5, Tb, SERVE_K), np.float32)
+    for i, r in enumerate(reqs):
+        padded[i, :len(r)] = r
+    head = make_alignment_head(ltr.log_pi, ltr.log_A, FusedSpec(), mesh=mesh4,
+                               device=dev)
+    (hp, hs), counts = counted(total, head, padded, lens)
+    p0, s0 = head.decoder.decode_batch(padded, lens)
+    if not (hp.shape == (5, Tb) and torch.equal(hp, p0)
+            and torch.equal(hs, s0)):
+        fail("sharded alignment head: bucket of 5 != the unsharded decode")
+    lines.append(f"sharded alignment head: a bucket of 5 at T={Tb} over "
+                 f"data={SHARD_RANKS} (padded with 3 dummies) == the "
+                 f"unsharded decode (bitwise); launches a rank "
+                 f"{ {k: v for k, v in counts.items() if v} }")
+
+    names = sorted(total)
+    summed = torch.tensor([total[k] for k in names], dtype=torch.int64)
+    dist.all_reduce(summed)
+    return {"launches": dict(zip(names, summed.tolist())), "lines": lines}
+
+
+def load_report_line(what: str, rep: dict, card: str) -> str:
+    tp, lat = rep["throughput"], rep["latency_s"]
+
+    def pct(key):
+        p = lat[key]
+        return "n/a" if p is None else f"p50 {p['p50']:.4f} p99 {p['p99']:.4f}"
+
+    lag = rep["stream"]["commit_lag_frames"]
+    return (f"loadtest {what}: {rep['requests']['delivered']}/"
+            f"{rep['requests']['total']} delivered ({rep['requests']['stream']}"
+            f" streamed), {tp['requests_per_s']:.2f} req/s, "
+            f"{tp['frames_per_s']:.0f} frames/s over {tp['elapsed_s']:.4f} s; "
+            f"offline latency s {pct('offline')}; stream finish s "
+            f"{pct('stream_finish')}; feed s {pct('stream_feed')}; commit lag "
+            f"frames p50 {lag['p50'] if lag else 'n/a'} p99 "
+            f"{lag['p99'] if lag else 'n/a'} [{card}]")
+
+
+def phase_sharded(dev, card: str) -> dict[str, int]:
+    """11a-11c: sharded decoding in a world of SHARD_RANKS ranks sharing the
+    card (gloo); returns the launches summed over the ranks."""
+    from repro_torch.launch.mesh import run_spmd
+
+    t0 = time.perf_counter()
+    world = run_spmd(sharded_world, SHARD_RANKS, device=dev.type,
+                     backend="gloo")
+    for line in world["lines"]:
+        print(f"{line} [{card}]")
+    print(f"sharded world of {SHARD_RANKS} ranks: "
+          f"{time.perf_counter() - t0:.1f} s wall, spawn included; launches "
+          f"summed over ranks "
+          f"{ {k: v for k, v in world['launches'].items() if v} }")
+    return world["launches"]
+
+
+def offline_launches(spec, buckets) -> dict[str, int]:
+    """Kernel launches of offline batches of padded lengths `buckets` under
+    `spec`: the fused forward and backtrack once a batch, FLASH-BS's beam
+    passes (`beam_launches`), none for exact FLASH (its DP steps are tensor
+    operations of the host loop, `core/flash.py`)."""
+    n = len(buckets)
+    if spec.method == "fused":
+        return dict(viterbi_fwd_batch=n, viterbi_backtrack_batch=n)
+    if spec.method == "flash_bs":
+        lanes = spec.parallelism if spec.lanes == -1 else spec.lanes
+        return beam_launches(buckets, spec.parallelism, lanes)
+    if spec.method == "flash":
+        return {}
+    raise SystemExit(f"FAIL loadtest: no launch count for {spec!r}")
+
+
+def stream_feeds(work, block: int) -> int:
+    """Forward launches of the workload's exact streams through a mux of
+    one `block`: one a whole block, one for the remainder at finish (no
+    length here is 1 more than a multiple of the block)."""
+    return sum(-(-len(work.payloads[rid]) // block)
+               for rid, kind in work.kinds.items() if kind == "stream")
+
+
+def phase_load(dev, card: str) -> dict[str, int]:
+    """11d-11e: the load test at the serve deployment's width and the three
+    fault drills at K = 512.
+
+    Each load-test run is counted with its oracle off and its launches held
+    to exactly the offline batches' and the streams' (`offline_launches`,
+    `stream_feeds`); the oracle then runs outside the count.  Returns those
+    launches.  The drills' launches are not counted: their oracles run
+    inside them (and the rescale drill's in its ranks)."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.launch import loadtest as lt
+
+    t0 = time.perf_counter()
+    total = {name: 0 for name in kernels.launch_counts()}
+
+    # 11d: the load test at full width
+    for what, kw in (("fused", dict(method="fused")),
+                     ("flash_bs", dict(method="flash_bs")),
+                     ("--budget-kb 32", dict(budget_kb=32.0)),
+                     ("--budget-kb 1024", dict(budget_kb=1024.0))):
+        cfg = lt.LoadConfig(**LOAD, **kw, check_oracle=False,
+                            device=dev.type)
+        harness = lt.LoadHarness(cfg)
+        buckets, decode = [], harness.sched.fn
+
+        def recorded(padded, lens, decode=decode, buckets=buckets):
+            buckets.append(padded.shape[1])
+            return decode(padded, lens)
+
+        harness.sched.fn = recorded
+        rep, launches = counted(total, harness.run)
+        want = offline_launches(harness.spec, buckets)
+        want["viterbi_fwd_batch"] = (want.get("viterbi_fwd_batch", 0)
+                                     + stream_feeds(harness.work,
+                                                    cfg.stream_block))
+        check_launches(f"loadtest {what} {harness.spec!r}", launches, want)
+        oracle = harness.oracle()
+        r = rep["requests"]
+        if not (r["delivered"] == r["total"] == LOAD["requests"]
+                and r["duplicates"] == 0 and oracle["ok"]):
+            raise SystemExit(f"FAIL loadtest {what}: {r}, oracle "
+                             f"{oracle['offline']['mismatches'][:3]} "
+                             f"{oracle['stream']['mismatches'][:3]}")
+        print(load_report_line(f"{what} ({rep['spec']['type']})", rep, card))
+        print(f"loadtest {what}: {len(buckets)} offline batches (buckets "
+              f"{buckets}), launches exactly the batches' and the stream "
+              f"feeds' { {k: v for k, v in launches.items() if v} }; oracle "
+              f"ok (run after the count)")
+    cfg = lt.LoadConfig(**LOAD, device=dev.type)
+    rep = lt.run_inflight_compare(cfg)
+    if not rep["oracle_ok"] or rep["retraces"] != 0:
+        raise SystemExit(f"FAIL loadtest inflight compare: oracle "
+                         f"{rep['oracle_ok']}, retraces {rep['retraces']}, "
+                         f"slot steps {rep['inflight']['slot_step']}, "
+                         f"launches {rep['inflight']['launches']}")
+    feeds = stream_feeds(lt.make_workload(dataclasses.replace(
+        cfg, stream_frac=1.0)), cfg.stream_block)
+    check_launches("loadtest inflight compare, bucketed side",
+                   rep["bucketed"]["launches"], {"viterbi_fwd_batch": feeds})
+    for side in ("bucketed", "inflight"):
+        for name, n in rep[side]["launches"].items():
+            total[name] += n
+    p99 = rep["p99_completion_s"]
+    print(f"loadtest inflight compare: 32 streams, peak concurrency "
+          f"{rep['peak_concurrent_sessions']}; p99 completion s bucketed "
+          f"{p99['bucketed']:.4f} inflight {p99['inflight']:.4f}; feed s p50 "
+          f"{rep['inflight']['feed_latency_s']['p50']:.4f} p99 "
+          f"{rep['inflight']['feed_latency_s']['p99']:.4f}; bucketed "
+          f"{feeds} forward launches (one a block feed), inflight one "
+          f"slot-step launch a step and no other kernel "
+          f"{rep['inflight']['slot_step']} (retraces 0); oracle ok [{card}]")
+
+    # 11e: the three drills at K = 512
+    drill_cfg = lt.LoadConfig(**{**LOAD, "requests": 16, "stream_frac": 0.0,
+                                 "method": "fused", "device": dev.type})
+    keys = ("detected_dead", "restored_from_step", "resubmitted",
+            "downgraded", "under_budget", "probe_bit_identical",
+            "delivered_before_rescale", "delivered", "duplicates")
+    drills = (("worker_death kill batch 1",
+               lambda: lt.drill_worker_death(drill_cfg, kill_batch=1)),
+              ("worker_death kill batch 0",
+               lambda: lt.drill_worker_death(drill_cfg, kill_batch=0)),
+              # the serve's planner budgets: exact FLASH (P = 16) shrinks to
+              # FLASH-BS (P = 1, beam 256)
+              ("budget_shrink 1024 -> 32 KB", lambda: lt.drill_budget_shrink(
+                  drill_cfg, big_kb=1024.0, small_kb=32.0)),
+              ("mesh_rescale 4 -> 2",
+               lambda: lt.drill_mesh_rescale(drill_cfg, from_devices=4,
+                                             to_devices=2)))
+    for what, run in drills:
+        t1 = time.perf_counter()
+        d = run()
+        if not d["ok"]:
+            raise SystemExit(f"FAIL drill {what}: {json.dumps(d, default=str)[:2000]}")
+        print(f"drill {what}: ok in {time.perf_counter() - t1:.1f} s, "
+              f"{ {k: d[k] for k in keys if k in d} } [{card}]")
+
+    # the budget drill at its default rungs, 64 -> 2 KB (exact FLASH, P = 1,
+    # to FLASH-BS, P = 1, beam 16): an open fault (ROADMAP Queue 3) makes
+    # the narrow beam report a score that is not its path's, so the oracle
+    # must flag the beam phase, with that mismatch and no other
+    t1 = time.perf_counter()
+    d = lt.drill_budget_shrink(drill_cfg)
+    small, big = d["oracle"]["small"], d["oracle"]["big"]
+    kinds = {m["what"] for m in small["mismatches"]}
+    if not (not d["ok"] and kinds == {"reported_score_vs_path"}
+            and big["ok"] and big["exact"] and d["downgraded"]
+            and d["under_budget"] and d["delivered"] == d["expected"]
+            and d["duplicates"] == 0):
+        raise SystemExit(f"FAIL drill budget_shrink 64 -> 2 KB: expected "
+                         f"the beam phase flagged by reported_score_vs_path "
+                         f"alone, got {json.dumps(d, default=str)[:2000]}")
+    print(f"drill budget_shrink 64 -> 2 KB (defaults; known fault, ROADMAP "
+          f"Queue 3): flagged as expected in {time.perf_counter() - t1:.1f} "
+          f"s, {d['plans']['small']['spec']}: "
+          f"{len(small['mismatches'])} of {small['checked']} requests "
+          f"reported_score_vs_path {small['mismatches']}; exact phase ok, "
+          f"{ {k: d[k] for k in keys if k in d} } [{card}]")
+    print(f"load test and drills: {time.perf_counter() - t0:.1f} s wall; "
+          f"launches of the load-test runs (oracles outside the count; the "
+          f"drills' not counted) { {k: v for k, v in total.items() if v} }")
+    return total
+
+
 def phase_timing(dev, card: str) -> dict[str, dict]:
     from repro_torch.core import left_to_right_hmm
     from repro_torch.kernels import ref
@@ -2112,6 +2557,11 @@ def main() -> int:
                   phase_flash_bs_lexicon, phase_paper_workload,
                   phase_streaming, phase_inflight):
         for name, n in phase(dev).items():
+            launches[name] += n
+    errs["tropical_matmul_batch"] = max(errs["tropical_matmul_batch"],
+                                        phase_tp_kernel(dev))
+    for phase in (phase_sharded, phase_load):
+        for name, n in phase(dev, card).items():
             launches[name] += n
     for name, n in op_launches.items():
         launches[name] += n

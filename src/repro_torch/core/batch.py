@@ -19,13 +19,18 @@ Methods:
                     beam transition is one beam-kernel launch for all beams
                     in flight (exact when beam_width >= K).
 
-``mesh=`` raises `NotImplementedError` naming the ROADMAP item that ports
-it; nothing silently takes another path.
+With ``mesh=`` (a `core.mesh.Mesh` over an initialised process group)
+every rank holds the whole bucket, decodes its ``B / dp`` slice along
+``data_axis`` through the same unsharded call, and all-gathers the slices,
+so every rank returns the whole (B, T) paths and (B,) scores, bitwise those
+of the unsharded call.  A mesh without a process group raises; nothing is
+decoded unsharded in its place.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..kernels.ops import (viterbi_decode_fused_batch,
                            viterbi_decode_fused_batch_masked)
@@ -35,16 +40,6 @@ from .flash_bs import flash_bs_batch
 from .vanilla import viterbi_vanilla_masked
 
 BATCH_METHODS = ("vanilla", "flash", "flash_bs", "fused")
-
-#: what of the JAX package is not ported yet, and the ROADMAP item that ports it
-NOT_PORTED = {
-    "mesh": "ROADMAP Queue 1 item 8 (distributed)",
-}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: {NOT_PORTED[what]}")
 
 
 def _validate_lengths(lengths: torch.Tensor, T: int) -> None:
@@ -88,6 +83,7 @@ def viterbi_decode_batch(
     chunk: int = 128,
     bt: int = 8,
     mesh=None,
+    data_axis: str = "data",
     constraint=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decode a (possibly ragged) batch of emission sequences.
@@ -106,12 +102,20 @@ def viterbi_decode_batch(
         `flash_bs_viterbi` (lanes -1 means = parallelism, None the whole
         layer).
       bt: fused-kernel time-block size (no effect on the card).
-      mesh: not ported; a value other than None raises.
+      mesh: optional `core.mesh.Mesh`; when given, the batch shards over
+        ``data_axis`` (its size must divide B) and each rank decodes its
+        slice with the same per-sequence compute, so results stay
+        bit-identical to the unsharded call.  Every rank of the mesh calls
+        with the same inputs and gets the whole result.  A mesh whose
+        process group is not initialised raises RuntimeError.
+      data_axis: the mesh axis the batch shards over (unused without a
+        mesh).
       constraint: optional `core.constraints.ConstraintSpec`, shared by the
         whole bucket (per-step schedules index *absolute* step t, so ragged
         tails never reach the later rows).  ``fused`` keeps the inputs dense
         and fuses the penalty adds into the masked kernel; every other
-        method (and T == 1) pre-masks the inputs with `constrain_inputs`.
+        method, the sharded route and T == 1 pre-mask the inputs with
+        `constrain_inputs` (the plain kernels then run, as in JAX).
         Both are bit-identical to decoding the pre-masked model.
 
     Returns:
@@ -124,7 +128,7 @@ def viterbi_decode_batch(
         raise ValueError(
             f"unknown batch method {method!r}; choose from {BATCH_METHODS}")
     if mesh is not None:
-        raise not_ported("mesh")
+        _check_mesh(mesh)
     B, T, K = emissions.shape
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32)
@@ -132,7 +136,7 @@ def viterbi_decode_batch(
     _validate_lengths(lengths, T)
 
     if constraint is not None:
-        if method == "fused" and T > 1:
+        if method == "fused" and mesh is None and T > 1:
             t_pen, pi_pen, s_pen = compiled_penalties(constraint, K, T)
             return viterbi_decode_fused_batch_masked(
                 log_pi, log_A, emissions, lengths,
@@ -143,6 +147,12 @@ def viterbi_decode_batch(
     if T == 1:
         d0 = log_pi[None, :] + emissions[:, 0, :]
         return d0.argmax(dim=1).to(torch.int32)[:, None], d0.amax(dim=1)
+
+    if mesh is not None:
+        return _sharded_batch(emissions, log_pi, log_A, lengths, method,
+                              mesh=mesh, data_axis=data_axis,
+                              parallelism=parallelism, lanes=lanes,
+                              beam_width=beam_width, chunk=chunk, bt=bt)
 
     if method == "fused":
         return viterbi_decode_fused_batch(log_pi, log_A, emissions, lengths,
@@ -157,6 +167,41 @@ def viterbi_decode_batch(
         return _flash_batch(log_pi, log_A, emissions, pad, P, lanes)
     return flash_bs_batch(log_pi, log_A, emissions, pad, beam_width, P, lanes,
                           chunk)
+
+
+def _check_mesh(mesh) -> None:
+    from .mesh import Mesh
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a core.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    if not dist.is_initialized():
+        raise RuntimeError("mesh= needs an initialised torch.distributed "
+                           "process group; it never decodes unsharded")
+
+
+def _sharded_batch(emissions, log_pi, log_A, lengths, method, *, mesh,
+                   data_axis, **kw):
+    """Decode this rank's slice of the bucket along `data_axis`, then
+    all-gather the slices.
+
+    Sequences are independent, so the slice's decode is the unsharded
+    `viterbi_decode_batch` and per-sequence results are bit-identical to
+    the unsharded call; log_pi and log_A are whole on every rank.
+    """
+    dp = mesh.shape[data_axis]
+    B = emissions.shape[0]
+    if B % dp:
+        raise ValueError(
+            f"mesh axis {data_axis!r}={dp} must divide batch size {B}; pad "
+            f"the bucket with length-1 dummies (serving.alignment does this)")
+    if mesh.coord is None:
+        raise ValueError(f"this rank is not in {mesh}")
+    n = B // dp
+    mine = slice(mesh.coord[data_axis] * n, (mesh.coord[data_axis] + 1) * n)
+    paths, scores = viterbi_decode_batch(emissions[mine], log_pi, log_A,
+                                         lengths[mine], method=method, **kw)
+    return (mesh.all_gather(paths, data_axis),
+            mesh.all_gather(scores, data_axis))
 
 
 __all__ = ["viterbi_decode_batch", "BATCH_METHODS"]

@@ -27,6 +27,7 @@ decoded prefix unchanged.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import numpy as np
 import torch
@@ -76,18 +77,20 @@ def _dp_step(log_A, delta, em_t, is_pad):
     return torch.where(keep, delta, new), torch.where(keep, eye, psi)
 
 
-def _initial_pass(log_pi, log_A, em, pad, boundaries: np.ndarray):
-    """Full-sequence DP tracking division states at `boundaries` (static).
+def _initial_walk(dp_step, delta, em, pad, boundaries: np.ndarray):
+    """The initial pass from its seed `delta` (Bt, K) over steps 1..Tp-1,
+    tracking division states at `boundaries` (static); `dp_step(delta,
+    em_t, is_pad) -> (delta', psi)` is one DP step.
 
-    em (Bt, Tp, K), pad (Bt, Tp).  Returns (q_bounds (Bt, nb), q_last (Bt,),
+    em (Bt, Tp, K'), pad (Bt, Tp).  Returns (q_bounds (Bt, nb), q_last (Bt,),
     score (Bt,)).
     """
-    Bt, Tp, K = em.shape
+    Bt, Tp = pad.shape
+    K = delta.shape[1]
     nb = len(boundaries)
-    delta = log_pi + em[:, 0]
     div = torch.zeros((Bt, K, nb), dtype=torch.long, device=em.device)
     for t in range(1, Tp):
-        delta, psi = _dp_step(log_A, delta, em[:, t], pad[:, t])
+        delta, psi = dp_step(delta, em[:, t], pad[:, t])
         if nb:   # propagate along the best edges; a crossed boundary takes psi
             div = div.gather(1, psi[:, :, None].expand(-1, -1, nb))
             for i in np.flatnonzero(boundaries + 1 == t):
@@ -97,6 +100,31 @@ def _initial_pass(log_pi, log_A, em, pad, boundaries: np.ndarray):
     return q_bounds, q_last, score
 
 
+def _initial_pass(log_pi, log_A, em, pad, boundaries: np.ndarray):
+    """Full-sequence DP tracking division states at `boundaries` (static).
+
+    em (Bt, Tp, K), pad (Bt, Tp).  Returns (q_bounds (Bt, nb), q_last (Bt,),
+    score (Bt,)).
+    """
+    return _initial_walk(partial(_dp_step, log_A), log_pi + em[:, 0], em,
+                         pad, boundaries)
+
+
+def _segment_walk(dp_step, delta, em_seg, pad_seg, exit_state):
+    """The DP of M tiles of static length s from their seed `delta` (M, K)
+    -> q*_{midpoint}; `dp_step` as in `_initial_walk`."""
+    s = em_seg.shape[1]
+    tm = s // 2 - 1
+    mid = None        # all zeros until the midpoint step: nothing to carry
+    for tl in range(1, s):
+        delta, psi = dp_step(delta, em_seg[:, tl], pad_seg[:, tl])
+        if tl == tm + 1:
+            mid = psi
+        elif tl > tm + 1:
+            mid = mid.gather(1, psi)
+    return mid.gather(1, exit_state[:, None])[:, 0]
+
+
 def _segment_decode(log_pi, log_A, em_seg, pad_seg, entry, exit_state,
                     is_first):
     """Pruned subtask DP over M tiles of static length s -> q*_{midpoint}.
@@ -104,19 +132,11 @@ def _segment_decode(log_pi, log_A, em_seg, pad_seg, entry, exit_state,
     em_seg (M, s, K), pad_seg (M, s), entry / exit_state (M,) pinned states,
     is_first (M,) bool (the tile starts at step 0: seed from log_pi).
     """
-    s = em_seg.shape[1]
-    tm = s // 2 - 1
     pruned0 = log_A[entry] + em_seg[:, 0]
     first0 = log_pi + em_seg[:, 0]
     delta = torch.where(is_first[:, None], first0, pruned0)
-    mid = None        # all zeros until the midpoint step: nothing to carry
-    for tl in range(1, s):
-        delta, psi = _dp_step(log_A, delta, em_seg[:, tl], pad_seg[:, tl])
-        if tl == tm + 1:
-            mid = psi
-        elif tl > tm + 1:
-            mid = mid.gather(1, psi)
-    return mid.gather(1, exit_state[:, None])[:, 0]
+    return _segment_walk(partial(_dp_step, log_A), delta, em_seg, pad_seg,
+                         exit_state)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,9 @@ The head is a thin wrapper around `core.ViterbiDecoder`: the alignment config
 resolves to a typed `DecodeSpec`, and the decoder object owns the device and
 the ragged `lengths` contract.  `make_lexicon_align_head` adds a
 `LexiconConstraint` to the spec.  The default profile is FLASH-BS, as in the
-JAX package.  ``mesh=`` and the end-to-end encoder step wait for later
-slices (ROADMAP Queue 1 items 8 and 11).
+JAX package.  With ``mesh=`` the request bucket shards over the mesh's
+``data_axis`` (`ViterbiDecoder.decode_sharded`).  The end-to-end encoder
+step waits for the LM substrate (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ class AlignmentConfig:
         return spec
 
 
-def make_alignment_head(hmm_log_pi, hmm_log_A, cfg, *, device=None):
+def make_alignment_head(hmm_log_pi, hmm_log_A, cfg, *, mesh=None,
+                        data_axis: str = "data", device=None):
     """Returns align(emissions (B, T, K), lengths=None) -> (paths, scores).
 
     `cfg` is a `DecodeSpec` (preferred) or a legacy `AlignmentConfig`.
@@ -49,11 +51,19 @@ def make_alignment_head(hmm_log_pi, hmm_log_A, cfg, *, device=None):
     tropical-identity steps, so results are bit-identical to unbatched
     decodes of the unpadded payloads.  This is the `decode_batch_fn`
     contract `BatchScheduler` expects.  ``device=None`` means ``cuda``.
+
+    With ``mesh=`` (a `core.mesh.Mesh`) the bucket shards over
+    ``data_axis`` through `ViterbiDecoder.decode_sharded`, which pads a
+    bucket the axis does not divide with length-1 dummy rows and slices
+    them back; per-request results are unaffected.
     """
     dec = ViterbiDecoder(as_decode_spec(cfg), hmm_log_pi, hmm_log_A,
                          device=device)
 
     def align(em, lengths=None):
+        if mesh is not None:
+            return dec.decode_sharded(em, lengths, mesh=mesh,
+                                      data_axis=data_axis)
         return dec.decode_batch(em, lengths)
 
     align.decoder = dec
@@ -62,7 +72,7 @@ def make_alignment_head(hmm_log_pi, hmm_log_A, cfg, *, device=None):
 
 def make_lexicon_align_head(hmm_log_pi, hmm_log_A, words, *, cfg=None,
                             self_loops: bool = True, loop_words: bool = True,
-                            device=None):
+                            mesh=None, data_axis: str = "data", device=None):
     """Lexicon-constrained forced alignment: only lexicon arcs survive.
 
     `words` is the `LexiconConstraint` vocabulary: a sequence of words, each
@@ -76,14 +86,15 @@ def make_lexicon_align_head(hmm_log_pi, hmm_log_A, words, *, cfg=None,
     `AlignmentConfig()`, the FLASH-BS serving profile.  Its `constraint`
     field is replaced.  Returns the same ``align(emissions, lengths=None)``
     callable as `make_alignment_head`, with ``align.decoder`` and
-    ``align.constraint`` attached.  ``device=None`` means ``cuda``.
+    ``align.constraint`` attached; ``mesh`` / ``data_axis`` as there.
+    ``device=None`` means ``cuda``.
     """
     constraint = LexiconConstraint(words, self_loops=self_loops,
                                    loop_words=loop_words)
     spec = as_decode_spec(AlignmentConfig() if cfg is None else cfg)
     align = make_alignment_head(hmm_log_pi, hmm_log_A,
                                 with_constraint(spec, constraint),
-                                device=device)
+                                mesh=mesh, data_axis=data_axis, device=device)
     align.constraint = constraint
     return align
 

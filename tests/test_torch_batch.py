@@ -122,13 +122,14 @@ def test_batch_unknown_method_raises(batch_problem):
                                 dict(method="flash",
                                      constraint=BandConstraint((0,), 1))])
 def test_batch_unported_paths_raise(batch_problem, kw):
-    """`mesh=` is not ported: it raises naming its ROADMAP item, and nothing
-    silently takes another path.  The other three cases raised until FLASH
-    and FLASH-BS were ported; each is now held to the JAX batch, bitwise (a
-    one-step band from the same arguments on both sides)."""
+    """A `mesh` that is not a `core.mesh.Mesh` raises TypeError, before
+    anything is decoded (the sharded route itself is held to the unsharded
+    call in tests/test_torch_distributed.py).  The other three cases raised
+    until FLASH and FLASH-BS were ported; each is now held to the JAX batch,
+    bitwise (a one-step band from the same arguments on both sides)."""
     hmm, em = batch_problem
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        with pytest.raises(TypeError, match="core.mesh.Mesh"):
             viterbi_decode_batch(em, hmm.log_pi, hmm.log_A, **kw)
         assert set(BATCH_METHODS) == {"vanilla", "flash", "flash_bs", "fused"}
         return
@@ -178,18 +179,22 @@ def test_batch_rejects_a_constraint_that_is_not_one(batch_problem):
 @pytest.mark.parametrize("name", ["parallelism", "lanes", "beam_width",
                                   "chunk", "data_axis"])
 def test_batch_rejects_unported_tunables(batch_problem, name):
-    """`data_axis` belongs to the mesh path, which is not ported: passing it
-    is an error, not a no-op.  The FLASH and FLASH-BS tunables are taken now
-    and, as in the JAX package, change nothing for `fused`."""
+    """As in the JAX package, the FLASH and FLASH-BS tunables change nothing
+    for `fused`, and `data_axis` without a `mesh` changes nothing (JAX's
+    call takes it and ignores it), bitwise against JAX's call too."""
     hmm, em = batch_problem
-    if name == "data_axis":
-        with pytest.raises(TypeError, match=name):
-            viterbi_decode_batch(em, hmm.log_pi, hmm.log_A, **{name: 4})
-        return
+    value = "model" if name == "data_axis" else 4
     base = viterbi_decode_batch(em, hmm.log_pi, hmm.log_A, LENGTHS)
     out = viterbi_decode_batch(em, hmm.log_pi, hmm.log_A, LENGTHS,
-                               **{name: 4})
+                               **{name: value})
     assert torch.equal(base[0], out[0]) and torch.equal(base[1], out[1])
+    if name == "data_axis":
+        lp, la = _np(hmm)
+        paths_j, scores_j = j_decode_batch(em.numpy(), lp, la,
+                                           jnp.asarray(LENGTHS),
+                                           data_axis=value)
+        assert np.array_equal(out[0].numpy(), np.asarray(paths_j))
+        assert np.array_equal(out[1].numpy(), np.asarray(scores_j))
 
 
 @pytest.mark.parametrize("bad", [[0, 17, 33, 1, 5], [1, TMAX + 1, 3, 4, 5],

@@ -47,6 +47,9 @@ def test_ast_scan_tells_repro_from_repro_torch(tmp_path):
 
 
 def test_importing_every_module_pulls_in_no_jax():
+    """Importing every module of the port (the mesh, the launcher and the
+    load test among them) pulls in no JAX, builds no kernel, starts no
+    process group and makes no CUDA context."""
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
@@ -54,12 +57,19 @@ def test_importing_every_module_pulls_in_no_jax():
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "from repro_torch.kernels import build\n"
-        "assert not build._loaded   # importing builds and loads nothing\n")
+        "assert not build._loaded   # importing builds and loads nothing\n"
+        "import torch, torch.distributed as dist\n"
+        "assert not dist.is_initialized()   # no process group started\n"
+        "assert not torch.cuda.is_initialized()   # no CUDA context made\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "repro_torch.kernels.build" in MODULES
+    assert {"repro_torch.kernels.build", "repro_torch.core.mesh",
+            "repro_torch.launch.mesh",
+            "repro_torch.launch.loadtest", "repro_torch.core.distributed",
+            "repro_torch.checkpointing.manager",
+            "repro_torch.runtime.fault"} <= set(MODULES)
 
 
 def test_decoder_without_device_raises_on_a_cpu_only_host():
