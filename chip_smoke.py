@@ -148,6 +148,23 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      the budget shrink at its default 64 -> 2 KB, which must be flagged
      by the oracle with `reported_score_vs_path` alone (the narrow beam's
      open fault, ROADMAP Queue 3);
+  12. the end-to-end forced-alignment step (`make_e2e_align_step`): (a)
+     hubert-xlarge's full width (d 1280, 16 x 80 heads, d_ff 5120, vocab
+     512) at 2 layers in float32, the same weights on the card and on the
+     CPU, emissions within `E2E_PARITY_TOL`; (b) the whole CONFIG, 48
+     layers in bf16 drawn on the card from a seeded `torch.Generator`, on
+     (B, S) = (8, 256) frames (`FORCED_ALIGNMENT.seq_len`) and a
+     left-to-right HMM of K = 504 states, one a class, through the default
+     FLASH-BS step and the `fused` step: paths in range and monotone, the
+     decode bitwise the same decode of the same emissions on the CPU
+     (FLASH-BS's plain version; `viterbi_vanilla` for `fused`), launches
+     exactly one initial pass and 5 tile launches (Tp = 256 = 8 x 2^5), or
+     one forward and one backtrack; the bf16 emissions against the same
+     weights in float32 on the card within `E2E_BF16_TOL`, and what
+     allowing cuBLAS's reduced-precision bf16 reductions changes; (c) the
+     encoder (emissions), decode and whole-step times (CUDA events, median
+     of 7), frames/s, peak memory, the encoder's bound, and the device's
+     idle share of a step under `torch.profiler`;
   3. time each kernel and its plain version with CUDA events: the forward
      and backtrack kernels at the serve shapes (B = 8, T in {128, 256,
      512}, K = 512; the backtrack by CUDA-graph replay, on the forward's
@@ -197,6 +214,7 @@ import torch
 # Published H100 SXM peaks (NVIDIA data sheet) used for each kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12          # dense, on the tensor cores
 
 SERVE_T = (128, 256, 512)
 SERVE_B, SERVE_K = 8, 512
@@ -2121,6 +2139,230 @@ def phase_load(dev, card: str) -> dict[str, int]:
     return total
 
 
+#: phase 12: the e2e alignment step's batch, seed and parity batch
+E2E_B, E2E_SEED, E2E_PARITY_B = 8, 0, 2
+#: 12a: max / mean |emissions, card - CPU| at full width, 2 layers, float32
+#: (float32 against float64 on the CPU reads 0.0095 / 4.6e-5 there: the
+#: stacked init draws with 1/sqrt(2), so each product grows the ulps)
+E2E_PARITY_TOL = (0.05, 1e-3)
+#: 12b: max / mean |emissions, bf16 model - the same weights in float32|
+#: on the card, 48 layers: 3.0132 / 0.4864 measured on an H100 (PERF.md
+#: §5), the bounds 1.5x that.  JAX's init draws stacked layers with 1/sqrt(48), so
+#: every product grows its input about 5x and bf16's rounding moves the
+#: emissions far; the JAX package's own bf16 model moves as far from its
+#: float32 one (tests/test_torch_models.py)
+E2E_BF16_TOL = (4.5, 0.75)
+
+
+def encoder_work(cfg, n_params: int, B: int, S: int):
+    """(FLOPs of the bf16 products (projections, MLP, head), FLOPs of the
+    float32 attention (scores and values), bytes) of one encoder forward
+    and its emissions at (B, S): the `n_params` bf16 weights read once, the
+    frames read and the emissions written once."""
+    d, h, hk, hd, f, L = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.hd, cfg.d_ff, cfg.num_layers)
+    mm = 2.0 * B * S * (L * (d * (h + 2 * hk) * hd + h * hd * d + 2 * d * f)
+                        + d * cfg.vocab)
+    attn = 2.0 * 2 * B * L * h * S * S * hd
+    nbytes = 2 * n_params + 4 * B * S * d + 4 * B * S * cfg.vocab
+    return mm, attn, nbytes
+
+
+def median_ms(fn, runs: int = 7, warmup: int = 2) -> float:
+    """Median over `runs` calls of one call's time between two CUDA events
+    (host work between the call's launches included)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_e2e(dev, card: str) -> dict[str, int]:
+    """12: the end-to-end forced-alignment step (`make_e2e_align_step`):
+    the hubert-xlarge encoder, log-softmax emissions over its 504 classes,
+    then FLASH-BS (beam 128, P = 8) or `fused` over a left-to-right HMM of
+    one state a class.  Returns the launches of the two steps' runs."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.paper_hmm import FORCED_ALIGNMENT
+    from repro_torch import kernels
+    from repro_torch.core import (HMM, FusedSpec, ViterbiDecoder,
+                                  left_to_right_hmm, viterbi_vanilla)
+    from repro_torch.models import build_model
+    from repro_torch.serving import AlignmentConfig, make_e2e_align_step
+
+    t0 = time.perf_counter()
+    arch = get_arch("hubert_xlarge")
+    C, S, B, d = (arch.NUM_CLASSES, FORCED_ALIGNMENT.seq_len, E2E_B,
+                  arch.CONFIG.d_model)
+    hmm = left_to_right_hmm(np.random.default_rng(E2E_SEED), C, 64,
+                            device=dev)
+    lp_cpu, la_cpu = hmm.log_pi.cpu(), hmm.log_A.cpu()
+
+    # 12a: full width at 2 layers in float32, the same weights on the card
+    # and on the CPU (TF32 is off)
+    cfg2 = dataclasses.replace(arch.CONFIG, num_layers=2,
+                               dtype=torch.float32)
+    m_cpu = build_model(cfg2).init(torch.Generator().manual_seed(E2E_SEED),
+                                   device="cpu")
+    m_card = copy.deepcopy(m_cpu).to(dev)
+    x = torch.from_numpy(np.random.default_rng(E2E_SEED + 1).standard_normal(
+        (E2E_PARITY_B, S, d)).astype(np.float32))
+    hmm_cpu = HMM(lp_cpu, la_cpu, hmm.log_B.cpu())
+    em_c = make_e2e_align_step(m_cpu, hmm_cpu, FusedSpec(), C,
+                               device="cpu").emissions({"embeds": x})
+    em_g = make_e2e_align_step(m_card, hmm, FusedSpec(), C).emissions(
+        {"embeds": x})
+    err = (em_g.cpu() - em_c).abs()
+    print(f"e2e 12a width parity: {cfg2.name} at 2 layers (d {d}, "
+          f"{cfg2.num_heads} x {cfg2.hd} heads, d_ff {cfg2.d_ff}, vocab "
+          f"{cfg2.vocab}), float32, (B, S) = ({E2E_PARITY_B}, {S}): "
+          f"emissions card vs CPU max abs err {float(err.max()):.6g}, mean "
+          f"{float(err.mean()):.6g} (bounds {E2E_PARITY_TOL}), max "
+          f"|emission| {float(em_c.abs().max()):.4g}")
+    if not (bool(torch.isfinite(em_g).all())
+            and float(err.max()) <= E2E_PARITY_TOL[0]
+            and float(err.mean()) <= E2E_PARITY_TOL[1]):
+        raise SystemExit("FAIL e2e 12a: the card's emissions != the CPU's")
+    del m_cpu, m_card, em_g
+
+    # 12b: the whole model, 48 layers in bf16, drawn on the card
+    cfg = arch.CONFIG
+    gen = torch.Generator(device=dev).manual_seed(E2E_SEED)
+    t1 = time.perf_counter()
+    model = build_model(cfg).init(gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t1
+    embeds = torch.randn((B, S, d), generator=gen, device=dev)
+    batch = {"embeds": embeds}
+    allocated = torch.cuda.memory_allocated()
+    n_params = model.param_count()
+    print(f"e2e 12b: {cfg.name} {cfg.num_layers} layers, {cfg.dtype}, "
+          f"{n_params} parameters drawn on the card in "
+          f"{init_s:.2f} s ({allocated / 2**30:.3f} GiB allocated), (B, S) = "
+          f"({B}, {S}), K = {C}")
+    # Tp = 256 = P * 2^5 (core/flash.py's plan_padding, P = 8): one initial
+    # pass, then the wavefront's layers of tiles of 32, 16, 8, 4 and 2
+    # steps, one tile launch each (lanes=None)
+    expected = {"flash_bs": beam_launches([S]),
+                "fused": dict(viterbi_fwd_batch=1, viterbi_backtrack_batch=1)}
+    if expected["flash_bs"] != dict(bs_initial_pass_batch=1,
+                                    bs_segment_decode_batch=5):
+        raise SystemExit(f"FAIL e2e: FLASH-BS launches at S = {S} derive "
+                         f"as {expected['flash_bs']}")
+    steps = {"flash_bs": make_e2e_align_step(model, hmm, AlignmentConfig(),
+                                             C),
+             "fused": make_e2e_align_step(model, hmm, FusedSpec(), C)}
+    em = steps["fused"].emissions(batch)
+    em_cpu = em.cpu()
+    total = {name: 0 for name in kernels.launch_counts()}
+    peaks = {}
+    for what, step in steps.items():
+        torch.cuda.reset_peak_memory_stats()
+        (paths, scores), launches = counted(total, step, batch)
+        peaks[what] = torch.cuda.max_memory_allocated()
+        check_launches(f"e2e {what}", launches, expected[what])
+        steps_ok = paths[:, 1:] - paths[:, :-1]
+        if not (paths.shape == (B, S) and paths.dtype == torch.int32
+                and int(paths.min()) >= 0 and int(paths.max()) < C
+                and bool((steps_ok >= 0).all())
+                and bool(torch.isfinite(scores).all())):
+            raise SystemExit(f"FAIL e2e {what}: paths out of range, not "
+                             f"monotone, or scores not finite")
+        p2, s2 = step.decode(em)
+        if not (torch.equal(paths, p2) and torch.equal(scores, s2)):
+            raise SystemExit(f"FAIL e2e {what}: the step != its decode of "
+                             f"the same emissions")
+        if what == "flash_bs":
+            p_c, s_c = ViterbiDecoder(step.decoder.spec, lp_cpu, la_cpu,
+                                      device="cpu").decode_batch(em_cpu)
+            oracle = "the plain FLASH-BS on the CPU"
+        else:
+            rows = [viterbi_vanilla(lp_cpu, la_cpu, e) for e in em_cpu]
+            p_c = torch.stack([p for p, _ in rows])
+            s_c = torch.stack([s for _, s in rows])
+            oracle = "viterbi_vanilla on the CPU"
+        if not (torch.equal(paths.cpu(), p_c) and torch.equal(scores.cpu(),
+                                                               s_c)):
+            raise SystemExit(f"FAIL e2e {what}: decode != {oracle}")
+        print(f"e2e 12b {what} ({step.decoder.spec!r}): paths in [0, {C}) "
+              f"and monotone, max state {int(paths.max())}; decode == "
+              f"{oracle} (bitwise); launches exactly {launches_of(launches)}"
+              f"; peak allocated {peaks[what] / 2**30:.3f} GiB")
+
+    # 12b: the bf16 model against the same weights in float32 on the card
+    m32 = model.cast(torch.float32)
+    em32 = make_e2e_align_step(m32, hmm, FusedSpec(), C).emissions(batch)
+    del m32
+    diff = (em - em32).abs()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    diff_r = (steps["fused"].emissions(batch) - em32).abs()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    print(f"e2e 12b bf16 vs float32 weights on the card: emissions max abs "
+          f"err {float(diff.max()):.6g}, mean {float(diff.mean()):.6g} "
+          f"(bounds {E2E_BF16_TOL}; max |emission| "
+          f"{float(em32.abs().max()):.4g}); with cuBLAS's reduced-precision "
+          f"bf16 reductions allowed: max {float(diff_r.max()):.6g}, mean "
+          f"{float(diff_r.mean()):.6g}")
+    if not (bool(torch.isfinite(em).all())
+            and float(diff.max()) <= E2E_BF16_TOL[0]
+            and float(diff.mean()) <= E2E_BF16_TOL[1]):
+        raise SystemExit("FAIL e2e 12b: bf16 emissions outside their bound")
+    del em32, diff, diff_r
+    torch.cuda.empty_cache()
+
+    # 12c: times (CUDA events, warm, median of 7), the device's idle share
+    # of a step under the profiler, peak memory
+    mm, attn, nbytes = encoder_work(cfg, n_params, B, S)
+    t_bf16 = mm / BF16_OPS_PER_S * 1e3
+    t_typed = t_bf16 + attn / F32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    enc = median_ms(lambda: steps["fused"].emissions(batch))
+    print(f"timing e2e encoder (emissions) (B, S) = ({B}, {S}): {enc:.4f} "
+          f"ms; bound {max(t_typed, t_bytes):.4f} ms (operations: "
+          f"{mm / 1e12:.4f} TFLOP of bf16 products at 989 TFLOP/s = "
+          f"{t_bf16:.4f} ms, plus {attn / 1e12:.4f} TFLOP of float32 "
+          f"attention at 67 TFLOP/s; bytes {nbytes / 1e9:.4f} GB = "
+          f"{t_bytes:.4f} ms); {card}")
+    # every timing before the first profiler trace: a step timed after a
+    # trace runs slower (the steps are timed again after the traces below)
+    rows = {what: (median_ms(lambda: step.decode(em)),
+                   median_ms(lambda: step(batch)))
+            for what, step in steps.items()}
+    for what, (dec, whole) in rows.items():
+        print(f"timing e2e {what}: decode {dec:.4f} ms, whole step "
+              f"{whole:.4f} ms, {B * S / whole * 1e3:.1f} frames/s, peak "
+              f"allocated {peaks[what] / 2**30:.3f} GiB (weights "
+              f"{2 * n_params / 2**30:.3f} GiB, {allocated / 2**30:.3f} "
+              f"GiB allocated before the first step); {card}")
+    for what, step in steps.items():
+        drain_device_share(lambda: (lambda: step(batch)),
+                           f"e2e step {what}", card)
+    print(f"timing e2e whole step after the profiler traces: "
+          + ", ".join(f"{what} {median_ms(lambda: step(batch)):.4f} ms"
+                      for what, step in steps.items()) + f"; {card}")
+    print(f"e2e phase: {time.perf_counter() - t0:.1f} s wall; launches "
+          f"{launches_of(total)}; {card}")
+    del model, steps, em, embeds
+    torch.cuda.empty_cache()
+    return total
+
+
+def launches_of(counts: dict[str, int]) -> dict[str, int]:
+    return {k: v for k, v in counts.items() if v}
+
+
 def phase_timing(dev, card: str) -> dict[str, dict]:
     from repro_torch.core import left_to_right_hmm
     from repro_torch.kernels import ref
@@ -2536,6 +2778,9 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products reduce in float32 (phase 12 prints what allowing the
+    # reduced-precision reductions changes)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2560,7 +2805,7 @@ def main() -> int:
             launches[name] += n
     errs["tropical_matmul_batch"] = max(errs["tropical_matmul_batch"],
                                         phase_tp_kernel(dev))
-    for phase in (phase_sharded, phase_load):
+    for phase in (phase_sharded, phase_load, phase_e2e):
         for name, n in phase(dev, card).items():
             launches[name] += n
     for name, n in op_launches.items():

@@ -1,7 +1,8 @@
 """FLASH Viterbi on PyTorch and CUDA (NVIDIA Hopper).
 
 The PyTorch counterpart of the JAX package `repro`, module for module
-(`core/`, `kernels/`, `serving/`, `launch/`).  It imports torch and numpy and
+(`core/`, `kernels/`, `serving/`, `launch/`, `models/`, `configs/`,
+`runtime/`, `checkpointing/`).  It imports torch and numpy and
 never jax.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU and without ``device="cpu"`` they raise.
 

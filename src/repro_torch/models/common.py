@@ -1,0 +1,143 @@
+"""Shared model building blocks on PyTorch, as in `repro.models.common`:
+param tables, norms, MLPs, rotary.
+
+Parameters come from *layout tables* `{name: (shape, logical_axes,
+init_kind)}`, the JAX package's own tables.  The same table yields the init
+values and the parameter count, so the two cannot drift apart.  The tables'
+logical axes name the TPU mesh axes; they wait for the training slice
+(`param_specs`, `sharding/`), as does `chunked_cross_entropy`.
+
+Every op keeps JAX's dtypes: a norm computes in float32 and casts back to
+the input's dtype, and ``x @ W`` on bfloat16 operands returns bfloat16.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+Layout = dict  # {name: (shape, logical_axes, init_kind) | nested Layout}
+
+
+# ---------------------------------------------------------------------------
+# Param tables
+# ---------------------------------------------------------------------------
+
+def _init_tensor(shape, kind: str, dtype: torch.dtype,
+                 generator: torch.Generator | None, device) -> torch.Tensor:
+    """One leaf, drawn as `repro.models.common._init_array` draws it: normal
+    leaves scale by 1/sqrt(shape[0]) (so a stacked (L, d_in, d_out) leaf
+    scales by 1/sqrt(L), as in JAX), embeddings by 0.02; the draw is in
+    float32, then cast."""
+    if kind == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if kind == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if kind in ("normal", "embed"):
+        if kind == "normal":
+            fan_in = shape[0] if len(shape) > 1 else shape[-1]
+            scale = 1.0 / math.sqrt(max(fan_in, 1))
+        else:
+            scale = 0.02
+        draw = torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=device)
+        return (draw * scale).to(dtype)
+    raise ValueError(f"unknown init kind {kind!r}")
+
+
+def init_params(layout: Layout, dtype: torch.dtype = torch.bfloat16, *,
+                generator: torch.Generator | None = None, device=None):
+    """Materialise a nested dict of tensors from a layout table, leaves drawn
+    in the table's order from `generator` (which must live on `device`)."""
+    def build(lay):
+        return {name: (build(val) if isinstance(val, dict)
+                       else _init_tensor(val[0], val[2], dtype, generator,
+                                         device))
+                for name, val in lay.items()}
+    return build(layout)
+
+
+def param_count(layout: Layout) -> int:
+    def cnt(lay):
+        return sum(cnt(v) if isinstance(v, dict) else int(np.prod(v[0]))
+                   for v in lay.values())
+    return cnt(layout)
+
+
+# ---------------------------------------------------------------------------
+# Core ops
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+def _gelu_tanh(x):
+    return F.gelu(x, approximate="tanh")   # jax.nn.gelu(approximate=True)
+
+
+def act_fn(name: str):
+    return {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}[name]
+
+
+def glu_mlp(params, x, act: str = "silu"):
+    """Gated MLP (SwiGLU/GeGLU): (x W_g * act) * (x W_i) W_o."""
+    g = act_fn(act)(x @ params["wg"])
+    h = g * (x @ params["wi"])
+    return h @ params["wo"]
+
+
+def mlp(params, x, act: str = "gelu"):
+    return act_fn(act)(x @ params["wi"]) @ params["wo"]
+
+
+def glu_mlp_layout(d: int, f: int) -> Layout:
+    return {"wg": ((d, f), ("model_d", "ff"), "normal"),
+            "wi": ((d, f), ("model_d", "ff"), "normal"),
+            "wo": ((f, d), ("ff", "model_d"), "normal")}
+
+
+def mlp_layout(d: int, f: int) -> Layout:
+    return {"wi": ((d, f), ("model_d", "ff"), "normal"),
+            "wo": ((f, d), ("ff", "model_d"), "normal")}
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, device=x.device)       # (hd/2,)
+    angles = positions[..., :, None, None].float() * freqs     # (...,S,1,hd/2)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+__all__ = [
+    "Layout", "init_params", "param_count",
+    "rms_norm", "layer_norm", "act_fn", "glu_mlp", "mlp", "glu_mlp_layout",
+    "mlp_layout", "rope_frequencies", "apply_rope",
+]

@@ -6,17 +6,24 @@ resolves to a typed `DecodeSpec`, and the decoder object owns the device and
 the ragged `lengths` contract.  `make_lexicon_align_head` adds a
 `LexiconConstraint` to the spec.  The default profile is FLASH-BS, as in the
 JAX package.  With ``mesh=`` the request bucket shards over the mesh's
-``data_axis`` (`ViterbiDecoder.decode_sharded`).  The end-to-end encoder
-step waits for the LM substrate (ROADMAP Queue 1 item 11).
+``data_axis`` (`ViterbiDecoder.decode_sharded`).
+
+`make_e2e_align_step` is the serving step of the hubert cells: the encoder
+forward (`models.TransformerLM.encode`), log-softmax emissions over the
+first `num_classes` logits in float32, then one batched decode of the whole
+batch, as the JAX package's jitted step computes them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from ..core.constraints import LexiconConstraint, with_constraint
 from ..core.decoder import ViterbiDecoder
-from ..core.spec import as_decode_spec, spec_from_tunables
+from ..core.spec import (OnlineBeamSpec, OnlineSpec, as_decode_spec,
+                         spec_from_tunables)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,5 +106,67 @@ def make_lexicon_align_head(hmm_log_pi, hmm_log_A, words, *, cfg=None,
     return align
 
 
+def make_e2e_align_step(model, hmm, cfg, num_classes: int, *, device=None):
+    """Encoder forward + log-softmax emissions + Viterbi alignment.
+
+    The serving step for the hubert cells: ``step(batch)`` with
+    ``batch = {"embeds": (B, S, d)}`` returns (paths (B, S) int32, scores
+    (B,)).  `model` is a `models.TransformerLM` holding its weights on the
+    step's device, with an untied head (JAX's step reads ``params["head"]``);
+    `hmm` has one state a class, so K == `num_classes` <= the model's vocab.
+    `cfg` is a `DecodeSpec` or legacy `AlignmentConfig`; ``device=None``
+    means ``cuda``.  JAX's step also takes the parameter tree and a
+    ``params_treedef_hint`` it never reads; the model owns its weights here,
+    so both are dropped.
+
+    The streaming specs (`OnlineSpec`, `OnlineBeamSpec`; JAX's
+    ``jittable = False``) raise ValueError.  The decode is one
+    `ViterbiDecoder.decode_batch` over the batch (for FLASH-BS one launch a
+    pass for every sequence), bitwise JAX's ``jax.vmap(spec.run)`` on the
+    same emissions; a spec with no batched path decodes row by row.  Like
+    JAX's step, every frame attends to every other, so a row's emissions
+    depend on the frames it is padded with.  The step runs under
+    `torch.inference_mode`; ``step.emissions(batch)`` and
+    ``step.decode(em)`` are its two halves.
+    """
+    spec = as_decode_spec(cfg)
+    if isinstance(spec, (OnlineSpec, OnlineBeamSpec)):
+        raise ValueError(f"{type(spec).__name__} is a streaming spec and "
+                         f"cannot run inside the e2e step; use an offline "
+                         f"spec")
+    if not 1 <= num_classes <= model.cfg.vocab:
+        raise ValueError(f"num_classes={num_classes} must lie in [1, vocab="
+                         f"{model.cfg.vocab}]")
+    if int(hmm.log_A.shape[0]) != num_classes:
+        raise ValueError(f"the HMM has {int(hmm.log_A.shape[0])} states; the "
+                         f"step needs one a class ({num_classes})")
+    if model.head is None:
+        raise ValueError("the e2e step needs a model with an untied head")
+    dec = ViterbiDecoder(spec, hmm.log_pi, hmm.log_A, device=device)
+    if model.head.device.type != dec.device.type:
+        raise ValueError(f"the model's weights are on {model.head.device}, "
+                         f"the step runs on {dec.device}")
+
+    def emissions(batch) -> torch.Tensor:
+        with torch.inference_mode():
+            x = torch.as_tensor(batch["embeds"], device=dec.device)
+            logits = (model.encode(x) @ model.head).float()
+            return torch.log_softmax(logits[..., :num_classes], dim=-1)
+
+    def decode(em) -> tuple[torch.Tensor, torch.Tensor]:
+        with torch.inference_mode():
+            if spec.batch_method is not None:
+                return dec.decode_batch(em)
+            rows = [dec.decode(e) for e in em]
+            return (torch.stack([p for p, _ in rows]),
+                    torch.stack([s for _, s in rows]))
+
+    def step(batch) -> tuple[torch.Tensor, torch.Tensor]:
+        return decode(emissions(batch))
+
+    step.emissions, step.decode, step.decoder = emissions, decode, dec
+    return step
+
+
 __all__ = ["AlignmentConfig", "make_alignment_head",
-           "make_lexicon_align_head"]
+           "make_lexicon_align_head", "make_e2e_align_step"]

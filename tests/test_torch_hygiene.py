@@ -17,7 +17,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [
+    ROOT / "chip_smoke.py",
+    ROOT / "examples" / "torch_forced_alignment_serving.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(
         ".__init__") for p in PKG.rglob("*.py"))
@@ -69,7 +71,10 @@ def test_importing_every_module_pulls_in_no_jax():
             "repro_torch.launch.mesh",
             "repro_torch.launch.loadtest", "repro_torch.core.distributed",
             "repro_torch.checkpointing.manager",
-            "repro_torch.runtime.fault"} <= set(MODULES)
+            "repro_torch.runtime.fault", "repro_torch.models.convert",
+            "repro_torch.models.transformer",
+            "repro_torch.configs.hubert_xlarge",
+            "repro_torch.configs.paper_hmm"} <= set(MODULES)
 
 
 def test_decoder_without_device_raises_on_a_cpu_only_host():
