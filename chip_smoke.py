@@ -165,6 +165,20 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      encoder (emissions), decode and whole-step times (CUDA events, median
      of 7), frames/s, peak memory, the encoder's bound, and the device's
      idle share of a step under `torch.profiler`;
+  13. the five Viterbi examples (`examples/torch_*.py`) at their defaults
+     on the card through their `main`, launches counted, every path (and
+     score) bitwise the same example's decode on the CPU; then the analysis
+     gate's card checks (`repro_torch.analysis`): the Python mirror of the
+     kernels' shared-memory layouts equal to the C entries at every K from
+     1 to 29 056, the memory contracts at the gate's grid and (K, T) =
+     (512, 511) (allocated bytes against the planner's model, departures
+     failing unless their owning module waives them), the launch guard on
+     one decode per spec, and the deep flashprove run on the card (PV102
+     sees copies from the card to the host; the ptxas log of this build;
+     the gloo world of 2 for the collective check), any unwaived finding
+     fatal, its JSON report written to ``build/analysis/report.json``; the
+     line ``{"resources": [...]}`` (each kernel entry's registers, spill
+     bytes and shared bytes at K = 512) comes before the kernels line;
   3. time each kernel and its plain version with CUDA events: the forward
      and backtrack kernels at the serve shapes (B = 8, T in {128, 256,
      512}, K = 512; the backtrack by CUDA-graph replay, on the forward's
@@ -194,8 +208,9 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      drains and the inflight drain (with its commit-lag percentiles) on the
      host clock, twice each, and once each under the profiler.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no
+The line before the last is a JSON object with one entry per kernel (the
+`resources` object just before it); the last line is {"ok": true,
+"device": {...}}.  Exits non-zero, printing no
 result, when no CUDA device is available.
 """
 
@@ -686,12 +701,14 @@ def expected_batches(requests) -> list[tuple[int, int]]:
 def check_launches(what: str, launches: dict[str, int],
                    expected: dict[str, int]) -> None:
     """Each kernel in `expected` launched that many times, every other
-    never."""
-    for name, n in launches.items():
-        want = expected.get(name, 0)
-        if n != want:
-            raise SystemExit(f"FAIL {what}: {name} launched {n} times, "
-                             f"expected {want}")
+    never: the launch guard's check (`analysis.retrace.check_launches`),
+    a departure failing the run."""
+    from repro_torch.analysis.retrace import LaunchError
+    from repro_torch.analysis.retrace import check_launches as held
+    try:
+        held(what, launches, expected)
+    except LaunchError as e:
+        raise SystemExit(f"FAIL {e}") from None
 
 
 def phase_serve(dev) -> dict[str, int]:
@@ -887,17 +904,6 @@ def tropical_bound(a, b, with_args: bool = True):
     nbytes = a.element_size() * (N * I * K + N * K * J + N * I * J) \
         + (4 * N * I * J if with_args else 0)
     return bound_ms(nbytes, 2.0 * N * I * J * K)
-
-
-def scan_levels(n: int) -> list[int]:
-    """The N of each tropical launch of `core.assoc.associative_scan` over n
-    elements, replayed without data: the adjacent pairs, the recursion on
-    them, then the evens (a combine of no pairs launches nothing)."""
-    if n < 2:
-        return []
-    half = n // 2
-    even = half - 1 if n % 2 == 0 else half
-    return [half] + scan_levels(half) + ([even] if even else [])
 
 
 def beam_launches(batches, P: int = 8, lanes: int | None = None
@@ -1276,6 +1282,7 @@ def phase_flash_bs_lexicon(dev) -> dict[str, int]:
 def phase_paper_workload(dev) -> dict[str, int]:
     """8: the paper's algorithms at full width on its default workload."""
     from repro_torch import kernels
+    from repro_torch.analysis.retrace import scan_levels
     from repro_torch.core import (AssocSpec, BeamStaticMPSpec, BeamStaticSpec,
                                   CheckpointSpec, FlashBSSpec, FlashSpec,
                                   ViterbiDecoder, erdos_renyi_hmm,
@@ -2363,6 +2370,174 @@ def launches_of(counts: dict[str, int]) -> dict[str, int]:
     return {k: v for k, v in counts.items() if v}
 
 
+# ---------------------------------------------------------------------------
+# 13: the analysis gate's card checks and the five Viterbi examples
+# ---------------------------------------------------------------------------
+
+#: the gate's report, under the checkout's ignored build directory
+GATE_REPORT = Path(__file__).resolve().parent / "build" / "analysis" / \
+    "report.json"
+#: the memory contract's points: the gate's grid and the serve's (K, T)
+GATE_EXTRA_MEMORY = ((SERVE_K, 511),)
+EXAMPLES = ("torch_quickstart", "torch_batch_decode", "torch_adaptive_edge",
+            "torch_streaming_decode", "torch_map_matching")
+
+
+def phase_gate(dev, card: str) -> list[dict]:
+    """13a: the analysis gate on the card (`repro_torch.analysis`): the
+    Python mirror of the kernels' shared-memory arithmetic equal to the C
+    entries at every K from 1 to 29 056, the resource check with the live
+    ptxas log, the memory contracts at the gate's grid and (512, 511), the
+    launch guard on one decode per spec, and the deep flashprove run
+    (PV102 on the card); any unwaived finding fails.  Returns each kernel
+    entry's resources at the serve's K."""
+    from repro_torch.analysis import kernel_check as kc
+    from repro_torch.analysis.contracts import MEMORY_GRID, check_contracts
+    from repro_torch.analysis.prove import run_prove
+    from repro_torch.analysis.retrace import LaunchError, check_launch_guard
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    log = "\n".join(build.build_logs().values())
+    bad = kc.check_mirror(build.load("viterbi_dp"), build.load("beam_stream"),
+                          range(1, 29057))
+    if bad:
+        raise SystemExit(f"FAIL gate: the Python mirror differs from the C "
+                         f"entries at {len(bad)} point(s): {bad[:5]}")
+    print(f"gate: the Python mirror of the shared-memory layouts == "
+          f"viterbi_fwd_smem_bytes, beam_pass_smem_bytes and "
+          f"viterbi_backtrack_plan at every K from 1 to 29056 "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    t1 = time.perf_counter()
+    rep = check_contracts(device=dev,
+                          memory_grid=MEMORY_GRID + GATE_EXTRA_MEMORY)
+    for line in rep.waived:
+        print(f"gate contract waived: {line}")
+    if not rep.ok:
+        raise SystemExit("FAIL gate contracts: " + "; ".join(rep.failures))
+    ratios = ", ".join(f"{m} ({K}, {T}) {r:.4f}"
+                       for (m, K, T), r in sorted(rep.memory_ratios.items()))
+    print(f"gate contracts: {len(rep.checks)} passed, {len(rep.waived)} "
+          f"waived; allocated / model on the card: {ratios}; "
+          f"{time.perf_counter() - t1:.1f} s; {card}")
+
+    t1 = time.perf_counter()
+    try:
+        passed = check_launch_guard(dev)
+    except LaunchError as e:
+        raise SystemExit(f"FAIL gate launch guard: {e}") from None
+    print(f"gate launch guard: {'; '.join(passed)} "
+          f"({time.perf_counter() - t1:.1f} s)")
+
+    t1 = time.perf_counter()
+    report = run_prove(dev, deep=True, ptxas_log=log)
+    GATE_REPORT.parent.mkdir(parents=True, exist_ok=True)
+    report.dump(GATE_REPORT)
+    for f, reason in report.waived:
+        print(f"gate prove waived: {f.code} {f.subject}")
+    if not report.ok:
+        raise SystemExit("FAIL gate prove: "
+                         + "; ".join(str(f) for f in report.findings))
+    peaks = ", ".join(f"{s.split(':', 2)[2]} {v['ratio']}"
+                      for s, v in report.stats.items()
+                      if s.startswith("dispatch:") and "ratio" in v)
+    print(f"gate prove[deep, cuda]: {len(report.checks)} entries, 0 active "
+          f"findings, {len(report.waived)} waived, skipped "
+          f"{report.skipped}; peak live / model: {peaks}; report "
+          f"{GATE_REPORT}; {time.perf_counter() - t1:.1f} s")
+
+    resources = []
+    for name, r in kc.harvest_kernels(log).items():
+        if r["spill_bytes"] != 0 or r["registers"] is None:
+            raise SystemExit(f"FAIL gate resources: {name} {r}")
+        resources.append(dict(name=name, K=r["K"], instance=r["instance"],
+                              registers=r["registers"],
+                              spill_bytes=r["spill_bytes"],
+                              smem_bytes=r["smem_bytes"], card=card))
+    print(f"gate phase: {time.perf_counter() - t0:.1f} s wall")
+    return resources
+
+
+def load_example(name: str):
+    """The checkout's examples/<name>.py as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def held_equal(what: str, card, cpu) -> None:
+    """Paths (arrays) and scores (floats) of a card run bitwise the CPU's."""
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise SystemExit(f"FAIL example {what}: output {i} on the card "
+                             f"!= the CPU's")
+
+
+def phase_examples(dev, card: str) -> dict[str, int]:
+    """13b: each Viterbi example at its defaults on the card (its main,
+    launches counted), every path bitwise the same example's on the CPU
+    (FLASH-BS's path and score too, as phase 8 holds them)."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    total = {name: 0 for name in kernels.launch_counts()}
+    for name in EXAMPLES:
+        ex = load_example(name)
+        kernels.reset_launches()
+        out = ex.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        for k, n in launches.items():
+            total[k] += n
+        if name == "torch_quickstart":
+            K, T = 512, 512
+            pi, A, em = ex.make_model(0, K, T, cpu)
+            for spec in ex.SPECS:
+                p, s = ex.decode(spec, pi, A, em, cpu)
+                held_equal(f"{name} {ex.spec_name(spec)}",
+                           out["results"][ex.spec_name(spec)],
+                           (p.numpy(), float(s)))
+        elif name == "torch_batch_decode":
+            pi, A, em, lengths = ex.make_model(0, cpu)
+            p, s = ex.decode_batch(pi, A, em, lengths)
+            held_equal(name, (out["paths"], out["scores"]),
+                       (p.numpy(), s.numpy()))
+            if not (out["looped_equal"] and out["served_equal"]):
+                raise SystemExit(f"FAIL example {name}: {out}")
+        elif name == "torch_adaptive_edge":
+            K, T = 512, 512
+            pi, A, em = ex.make_model(0, K, T, cpu)
+            p, s = ex.decode(out["plan"].spec, pi, A, em, cpu)
+            held_equal(name, (out["path"], out["score"]),
+                       (p.numpy(), float(s)))
+        elif name == "torch_streaming_decode":
+            pi, A, em = ex.make_model(0, cpu)
+            p, s, _ = ex.stream_exact(pi, A, em, cpu, report=lambda line: 0)
+            (p1, s1), (p2, s2) = ex.mux_two(pi, A, em, cpu)
+            held_equal(name, (out["path"], out["score"]), (p, s))
+            held_equal(f"{name} beam 16", out["beam"], (p2, s2))
+        else:
+            pi, A, em, _, band = ex.make_model(7, cpu)
+            p1, s1 = ex.decode_single(band, pi, A, em[0], cpu)
+            pb, sb = ex.decode_batch(band, pi, A, em, ex.LENGTHS, cpu)
+            p3, s3, _ = ex.decode_stream(band, pi, A, em[0], cpu)
+            held_equal(f"{name} single", out["single"],
+                       (p1.numpy(), float(s1)))
+            held_equal(f"{name} batch", out["batch"],
+                       (pb.numpy(), sb.numpy()))
+            held_equal(f"{name} stream", out["stream"], (p3, float(s3)))
+        print(f"example {name}: card == CPU (bitwise); launches "
+              f"{launches_of(launches)}")
+    print(f"examples phase: {time.perf_counter() - t0:.1f} s wall; {card}")
+    return total
+
+
 def phase_timing(dev, card: str) -> dict[str, dict]:
     from repro_torch.core import left_to_right_hmm
     from repro_torch.kernels import ref
@@ -2537,6 +2712,7 @@ def phase_timing(dev, card: str) -> dict[str, dict]:
     # of its backtrack's table (replayed), the decode's own tropical and
     # backtrack launches under the profiler, and the whole decode on the
     # host clock
+    from repro_torch.analysis.retrace import scan_levels
     from repro_torch.core import AssocSpec, erdos_renyi_hmm, random_emissions
     levels = scan_levels(4095)
     pairs = [tuple(torch.from_numpy(g.standard_normal((n, 64, 64)).astype(
@@ -2805,9 +2981,10 @@ def main() -> int:
             launches[name] += n
     errs["tropical_matmul_batch"] = max(errs["tropical_matmul_batch"],
                                         phase_tp_kernel(dev))
-    for phase in (phase_sharded, phase_load, phase_e2e):
+    for phase in (phase_sharded, phase_load, phase_e2e, phase_examples):
         for name, n in phase(dev, card).items():
             launches[name] += n
+    resources = phase_gate(dev, card)
     for name, n in op_launches.items():
         launches[name] += n
     timing = phase_timing(dev, card) | phase_stream_timing(dev, card)
@@ -2837,6 +3014,7 @@ def main() -> int:
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, the "
           f"kernels' build included")
     print(card_line())
+    print(json.dumps({"resources": resources}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,4 +80,19 @@ def viterbi_assoc(log_pi, log_A, em):
     return paths[0], scores[0]
 
 
+#: The analysis gate's findings this module makes by design (`analysis.findings`
+#: has the grammar; PERF.md records the measured ratios).
+FLASHPROVE_WAIVERS = {
+    "PV104:dispatch:*:assoc": (
+        "the scan keeps each level's combined (pairs, K, K) values and the "
+        "backtrack's int32 argmax table beside the T K K prefixes the model "
+        "counts (3.4-3.7x on the card); on the CPU the plain tropical "
+        "product's broadcast adds to it"),
+    "PV103:dispatch:cpu:assoc": (
+        "the plain tropical product combines ~T/2 pairs a level by "
+        "materialising a (pairs, K, K, K) broadcast before its max; the "
+        "kernel on the card never does, and O(T K^2) products are the "
+        "modeled cost of the assoc method"),
+}
+
 __all__ = ["viterbi_assoc"]

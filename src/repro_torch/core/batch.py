@@ -21,16 +21,15 @@ Methods:
 
 With ``mesh=`` (a `core.mesh.Mesh` over an initialised process group)
 every rank holds the whole bucket, decodes its ``B / dp`` slice along
-``data_axis`` through the same unsharded call, and all-gathers the slices,
-so every rank returns the whole (B, T) paths and (B,) scores, bitwise those
-of the unsharded call.  A mesh without a process group raises; nothing is
-decoded unsharded in its place.
+``data_axis`` through the same unsharded call, and all-gathers the slices
+in one collective, so every rank returns the whole (B, T) paths and (B,)
+scores, bitwise those of the unsharded call.  A mesh without a process
+group raises; nothing is decoded unsharded in its place.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from ..kernels.ops import (viterbi_decode_fused_batch,
                            viterbi_decode_fused_batch_masked)
@@ -44,10 +43,12 @@ BATCH_METHODS = ("vanilla", "flash", "flash_bs", "fused")
 
 def _validate_lengths(lengths: torch.Tensor, T: int) -> None:
     """Eagerly reject lengths outside [1, T] instead of silently clipping."""
-    if lengths.numel() and (lengths.min() < 1 or lengths.max() > T):
+    # flashlint: disable=FL002(eager validation of host-side lengths metadata)
+    conc = lengths.cpu().numpy()
+    if conc.size and (conc.min() < 1 or conc.max() > T):
         raise ValueError(
             f"lengths must lie in [1, T={T}]; got range "
-            f"[{int(lengths.min())}, {int(lengths.max())}]")
+            f"[{int(conc.min())}, {int(conc.max())}]")
 
 
 def _pad_mask(T: int, lengths: torch.Tensor, device) -> torch.Tensor:
@@ -170,11 +171,11 @@ def viterbi_decode_batch(
 
 
 def _check_mesh(mesh) -> None:
-    from .mesh import Mesh
+    from .mesh import Mesh, process_group_ready
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a core.mesh.Mesh, got "
                         f"{type(mesh).__name__}")
-    if not dist.is_initialized():
+    if not process_group_ready():
         raise RuntimeError("mesh= needs an initialised torch.distributed "
                            "process group; it never decodes unsharded")
 
@@ -182,7 +183,7 @@ def _check_mesh(mesh) -> None:
 def _sharded_batch(emissions, log_pi, log_A, lengths, method, *, mesh,
                    data_axis, **kw):
     """Decode this rank's slice of the bucket along `data_axis`, then
-    all-gather the slices.
+    all-gather the slices in one collective.
 
     Sequences are independent, so the slice's decode is the unsharded
     `viterbi_decode_batch` and per-sequence results are bit-identical to
@@ -200,8 +201,13 @@ def _sharded_batch(emissions, log_pi, log_A, lengths, method, *, mesh,
     mine = slice(mesh.coord[data_axis] * n, (mesh.coord[data_axis] + 1) * n)
     paths, scores = viterbi_decode_batch(emissions[mine], log_pi, log_A,
                                          lengths[mine], method=method, **kw)
-    return (mesh.all_gather(paths, data_axis),
-            mesh.all_gather(scores, data_axis))
+    # one gather of both: the scores' float32 bits ride as an int32 column
+    packed = torch.cat([paths, scores.contiguous().view(torch.int32)[:, None]],
+                       dim=1)
+    whole = mesh.all_gather(packed, data_axis)
+    T = paths.shape[1]
+    return (whole[:, :T].contiguous(),
+            whole[:, T].contiguous().view(torch.float32))
 
 
 __all__ = ["viterbi_decode_batch", "BATCH_METHODS"]

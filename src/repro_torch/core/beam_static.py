@@ -62,4 +62,22 @@ def beam_static_mp_viterbi(log_pi, log_A, em, beam_width: int = 128,
         lanes=lanes, chunk=K)
 
 
+#: The analysis gate's findings this module makes by design (`analysis.findings`
+#: has the grammar; PERF.md records the measured ratios).
+FLASHPROVE_WAIVERS = {
+    "PV102:dispatch:*:beam_static[": (
+        "the static beam backtracks on the host through its survivor "
+        "tables, a 0-d tensor index a step: one sync a step"),
+    "PV104:dispatch:*:beam_static[": (
+        "the survivor tables are argmax's int64 (two rows of B a step) and "
+        "a step's (B, K) candidate blocks are live beside them"),
+    "PV104:dispatch:*:beam_static_mp": (
+        "FLASH-BS with chunk = K: flash_bs's padded emissions copy (and on "
+        "the CPU its plain passes' (lanes, K, K) gathers)"),
+    "PV104:memory:cuda:beam_static[": (
+        "the (B, K) candidate block and log_A[states] gather of a step and "
+        "the int64 survivor tables on the card's allocator: 6.5x the model "
+        "at (K, T) = (512, 511), over JAX's 4"),
+}
+
 __all__ = ["beam_static_viterbi", "beam_static_mp_viterbi"]

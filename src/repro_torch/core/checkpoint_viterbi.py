@@ -68,4 +68,20 @@ def viterbi_checkpoint(log_pi, log_A, em, seg_len: int | None = None):
     return path[:T], score
 
 
+#: The analysis gate's findings this module makes by design (`analysis.findings`
+#: has the grammar; PERF.md records the measured ratios).
+FLASHPROVE_WAIVERS = {
+    "PV102:dispatch:*:checkpoint": (
+        "each replayed segment backtracks on the host, indexing its psi with "
+        "the previous state, a 0-d tensor: one sync a step"),
+    "PV104:dispatch:*:checkpoint": (
+        "the emissions padded to whole segments, a (T, K) float32 copy the "
+        "sqrt(T) K model leaves out, dominate; a step's (K, K) scores and "
+        "the segment's int64 psi add to it: 6.5-12x on the dispatch grid"),
+    "PV104:memory:cuda:checkpoint": (
+        "the same (T, K) padded copy and (K, K) scores on the card's "
+        "allocator: 24.3x the model at (K, T) = (512, 511), over JAX's 16; "
+        "both grow faster than the model's sqrt(T) K"),
+}
+
 __all__ = ["viterbi_checkpoint"]

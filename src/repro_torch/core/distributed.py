@@ -133,8 +133,9 @@ def make_flash_viterbi_2d(mesh, T: int, K: int,
                 # an identity below every real entry
                 has = (entry >= lo) & (entry < lo + kl)
                 local = log_A_local[(entry - lo).clamp(0, kl - 1)]
-                row = mesh.all_reduce_max(
-                    torch.where(has[:, None], local, NEG_INF * 2), model_axis)
+                # flashlint: disable=FL007(pmax reduction identity for the non-owning shards, not an allowed-set mask)
+                owned = torch.where(has[:, None], local, NEG_INF * 2)
+                row = mesh.all_reduce_max(owned, model_axis)
                 return torch.where(is_first[:, None], log_pi + em0, row + em0)
             d0 = (torch.where(is_first[:, None], log_pi[lo:lo + kl],
                               log_A_local[entry]) + em0[:, lo:lo + kl])

@@ -237,4 +237,24 @@ def flash_viterbi(log_pi, log_A, em, parallelism: int = 8,
     return q_star[0, :T].to(torch.int32), score[0]
 
 
+#: The analysis gate's findings this module makes by design (`analysis.findings`
+#: has the grammar; PERF.md records the measured ratios).
+FLASHPROVE_WAIVERS = {
+    "PV104:dispatch:*:flash[": (
+        "the eager DP step materialises the (lanes, K, K) scores that XLA "
+        "fuses into its max, beside the (Tp, K) padded emissions copy: "
+        "7.7-28x the O(PK) model on the dispatch grid"),
+    "PV104:dispatch:*:flash:batch": (
+        "the same (batch x lanes, K, K) step scores and padded emissions "
+        "copy, per sequence of the batch"),
+    "PV103:dispatch:*:flash:batch": (
+        "the DP step broadcasts (batch x lanes, K, K) scores for one time "
+        "step; a per-step working set freed at the step's end, never a "
+        "retained table, and it scales with the lane count the planner "
+        "already bounds"),
+    "PV104:memory:cuda:flash[": (
+        "the (8, 512, 512) float32 step scores, 8.4 MB, on the card's "
+        "allocator: 151.6x the model at (K, T) = (512, 511), over JAX's 96"),
+}
+
 __all__ = ["flash_viterbi", "plan_padding", "pad_emissions"]

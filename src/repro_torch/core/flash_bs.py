@@ -139,4 +139,21 @@ def flash_bs_viterbi(log_pi, log_A, em, beam_width: int = 128,
     return path[0], score[0]
 
 
+#: The analysis gate's findings this module makes by design (`analysis.findings`
+#: has the grammar; PERF.md records the measured ratios).
+FLASHPROVE_WAIVERS = {
+    "PV104:dispatch:*:flash_bs": (
+        "the emissions padded to Tp steps and K_pad states, a (Tp, K_pad) "
+        "float32 copy the O(P B) beam model leaves out; on the CPU the beam "
+        "passes' plain versions also gather (lanes, K, K) score blocks"),
+    "PV103:dispatch:cpu:flash_bs:batch": (
+        "the plain beam passes gather and broadcast a (batch x lanes, K, K) "
+        "score block for one time step on the CPU: a per-step working set, "
+        "not retained state; the kernels on the card never materialise it "
+        "and the beam carry the planner models stays O(lanes x B)"),
+    "PV104:memory:cuda:flash_bs": (
+        "the (Tp, K_pad) padded emissions copy, 1 MB at (K, T) = (512, 511), "
+        "on the card's allocator: 66.7x the model, over JAX's 64"),
+}
+
 __all__ = ["flash_bs_viterbi", "pad_state_space"]

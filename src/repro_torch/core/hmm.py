@@ -36,6 +36,7 @@ def _numpy_rng(rng: Rng) -> np.random.Generator:
     if isinstance(rng, np.random.Generator):
         return rng
     if isinstance(rng, torch.Generator):
+        # flashlint: disable=FL002(model construction: one seed drawn from a torch generator for the host numpy generator)
         seed = torch.randint(0, 2**62, (1,), generator=rng).item()
         return np.random.default_rng(int(seed))
     raise TypeError(f"expected a numpy.random.Generator or torch.Generator, "
@@ -95,6 +96,7 @@ def erdos_renyi_hmm(rng: Rng, num_states: int, num_obs: int = 50,
     raw = g.uniform(0.05, 1.0, (K, K))
     weights = np.where(mask, raw, 0.0)
     probs = weights / weights.sum(axis=1, keepdims=True)
+    # flashlint: disable=FL007(model generator defining log_A itself; this IS the dense input constraints mask against)
     log_A = np.where(mask, np.log(np.maximum(probs, 1e-30)), NEG_INF)
     pi = g.dirichlet(np.full(K, 0.8))
     emit = g.dirichlet(np.full(num_obs, 0.5), size=K)
@@ -115,6 +117,7 @@ def left_to_right_hmm(rng: Rng, num_states: int, num_obs: int,
     noise = g.uniform(0.8, 1.2, (num_states, num_states))
     weights = np.where(allowed, base * noise, 0.0)
     probs = weights / np.maximum(weights.sum(axis=1, keepdims=True), 1e-30)
+    # flashlint: disable=FL007(model generator defining the left-to-right log_A, not a decode-time mask)
     log_A = np.where(allowed, np.log(np.maximum(probs, 1e-30)), NEG_INF)
     log_pi = np.full(num_states, NEG_INF)
     log_pi[0] = 0.0
@@ -132,9 +135,9 @@ def sample_observations(rng: Rng, hmm: HMM, length: int
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Ancestral sampling of (hidden states, observations), int64 on hmm's device."""
     g = _numpy_rng(rng)
-    log_pi = hmm.log_pi.double().cpu().numpy()
-    log_A = hmm.log_A.double().cpu().numpy()
-    log_B = hmm.log_B.double().cpu().numpy()
+    # flashlint: disable=FL002(ancestral sampling runs on the host: the model is read back once a call)
+    log_pi, log_A, log_B = (x.double().cpu().numpy()
+                            for x in (hmm.log_pi, hmm.log_A, hmm.log_B))
     states = np.zeros(length, np.int64)
     obs = np.zeros(length, np.int64)
     s = _categorical(g, log_pi)

@@ -32,6 +32,12 @@ import torch.distributed as dist
 COLLECTIVE_TIMEOUT_S = 60.0
 
 
+def process_group_ready() -> bool:
+    """Whether the default process group is initialised: a `Mesh` is built
+    over it, and its collectives need it alive."""
+    return dist.is_initialized()
+
+
 class PartitionSpec(tuple):
     """How a leaf shards, as `jax.sharding.PartitionSpec`: per dimension an
     axis name, None (not sharded) or a tuple of axis names."""
@@ -117,4 +123,5 @@ class Mesh(ShapeMesh):
         return torch.cat(parts, dim=dim)
 
 
-__all__ = ["COLLECTIVE_TIMEOUT_S", "Mesh", "ShapeMesh", "PartitionSpec"]
+__all__ = ["COLLECTIVE_TIMEOUT_S", "Mesh", "ShapeMesh", "PartitionSpec",
+           "process_group_ready"]

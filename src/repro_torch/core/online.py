@@ -122,6 +122,7 @@ class _StreamingDecoder:
     @property
     def path(self) -> np.ndarray:
         """States committed so far (a prefix of the final decoded path)."""
+        # flashlint: disable=FL002(committed prefix is a host-side python list, no device sync)
         return np.asarray(self._committed, dtype=np.int32)
 
     def _lo(self) -> int:
@@ -175,6 +176,7 @@ class _StreamingDecoder:
         if self.max_lag is not None and self.lag > self.max_lag:
             new += self._force_flush(self.lag - self.max_lag)
         self.stats["peak_lag"] = max(self.stats["peak_lag"], self.lag)
+        # flashlint: disable=FL002(newly committed states are a host list)
         return np.asarray(new, dtype=np.int32)
 
     def flush(self) -> tuple[np.ndarray, float]:
@@ -195,6 +197,7 @@ class _StreamingDecoder:
         self._drop_rows(len(rows))
         self._base = self._t
         self.score = score
+        # flashlint: disable=FL002(flush tail is a host list)
         return np.asarray(seg, dtype=np.int32), score
 
     def _check_open(self, chunk) -> None:
@@ -285,13 +288,15 @@ class OnlineViterbiDecoder(_ExactWindow):
 
     # -- window plumbing ----------------------------------------------------
     def _frontier_best(self) -> tuple[int, float]:
-        delta = self._delta.cpu().numpy()   # one transfer at a commit point
+        # flashlint: disable=FL002(commit point: one batched frontier transfer instead of two scalar syncs)
+        delta = self._delta.cpu().numpy()
         q = int(delta.argmax())
         return q, float(delta[q])
 
     def _mask_inconsistent(self, f_state: int) -> None:
         keep = torch.from_numpy(self._ancestor_keep(f_state)).to(
             self._delta.device)
+        # flashlint: disable=FL007(forced-commit suppression seam; accumulative add by design, not an allowed-set mask)
         self._delta = torch.where(keep, self._delta,
                                   self._delta + 4.0 * NEG_INF)
 
@@ -314,7 +319,7 @@ class OnlineViterbiDecoder(_ExactWindow):
         if em_chunk.shape[0]:
             psi, self._delta = viterbi_chunk_step(
                 self.log_A, em_chunk, self._delta, bt=self.bt)
-            # window transfer: the rows feed the host-side convergence scan
+            # flashlint: disable=FL002(window transfer: backpointers feed the host-side convergence scan)
             self._psis.append(psi.cpu().numpy())
             self._t += int(em_chunk.shape[0])
         return self._after_feed()
@@ -379,6 +384,7 @@ class SlotViterbiDecoder(_ExactWindow):
             raise RuntimeError("slot decoder already flushed")
         if self._t == 0:
             raise RuntimeError("slot decoder not seeded; call seed() first")
+        # flashlint: disable=FL002(psi rows are already host numpy — the scheduler batched the transfer)
         psi_rows = np.asarray(psi_rows, np.int32)
         if psi_rows.ndim != 2 or psi_rows.shape[1] != self.K:
             raise ValueError(f"expected (n, K={self.K}) psi rows, "
@@ -391,6 +397,7 @@ class SlotViterbiDecoder(_ExactWindow):
 
     # -- _StreamingDecoder surface ------------------------------------------
     def _frontier_best(self) -> tuple[int, float]:
+        # flashlint: disable=FL002(commit point: the injected frontier callback is the one batched row transfer)
         row = np.asarray(self._frontier())
         q = int(row.argmax())
         return q, float(row[q])
@@ -417,6 +424,7 @@ class SlotViterbiDecoder(_ExactWindow):
         self._finished = bool(state["finished"])
         self.score = state["score"]
         self.stats = dict(state["stats"])
+        # flashlint: disable=FL002(restoring a host-side snapshot, no device data involved)
         self._psis = [np.asarray(p, np.int32).copy() for p in state["psis"]]
 
 
@@ -485,11 +493,13 @@ class OnlineBeamDecoder(_StreamingDecoder):
             self._sstates = self._sstates[n:]
 
     def _frontier_best(self) -> tuple[int, float]:
-        scores = self._scores[0].cpu().numpy()   # one transfer at a commit
+        # flashlint: disable=FL002(commit point: one batched frontier transfer instead of two scalar syncs)
+        scores = self._scores[0].cpu().numpy()
         b = int(scores.argmax())
         return b, float(scores[b])
 
     def _identity_to_state(self, i, slot: int) -> int:
+        # flashlint: disable=FL002(window rows are host numpy already, no device sync)
         return int(self._sstates[i][slot])
 
     def _mask_inconsistent(self, f_state: int) -> None:
@@ -499,6 +509,7 @@ class OnlineBeamDecoder(_StreamingDecoder):
             anc = rows[i][anc]
         keep = torch.from_numpy(self._sstates[0][anc] == f_state).to(
             self._scores.device)
+        # flashlint: disable=FL007(beam forced-commit suppression seam, same accumulative add as the dense decoder)
         self._scores = torch.where(keep, self._scores,
                                    self._scores + 4.0 * NEG_INF)
 
@@ -527,7 +538,7 @@ class OnlineBeamDecoder(_StreamingDecoder):
         self._scores, self._states, sts, froms = bs_chunk_batch(
             self.log_pi, self.log_A, em_chunk[None], self._scores,
             self._states, is_first, self.B, self.kchunk)
-        # window transfer: slot states and pointers feed the host-side scan
+        # flashlint: disable=FL002(window transfer: slot states and pointers feed the host-side convergence scan)
         hist = torch.stack((sts[0], froms[0])).cpu().numpy()
         sts, froms = hist
         if first:   # row 0 is the seed: slot states at time 0, no pointers

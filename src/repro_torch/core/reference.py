@@ -8,6 +8,8 @@ share no code with the torch paths or the kernels.
 
 from __future__ import annotations
 
+# flashlint: disable-file=FL002(pure-numpy oracle: everything here is host-side by design)
+
 import itertools
 
 import numpy as np

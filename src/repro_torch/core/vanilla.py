@@ -71,5 +71,18 @@ def viterbi_vanilla_batched(log_pi: torch.Tensor, log_A: torch.Tensor,
     return (torch.stack([p for p, _ in out]), torch.stack([s for _, s in out]))
 
 
+#: The analysis gate's findings this module makes by design (`analysis.findings`
+#: has the grammar; PERF.md records the measured ratios).
+FLASHPROVE_WAIVERS = {
+    "PV102:dispatch:*:vanilla": (
+        "the plain baseline backtracks on the host: each step indexes psi "
+        "with the previous state, a 0-d tensor, one sync a step; it is the "
+        "independent oracle the kernels are held against, not a served path"),
+    "PV104:dispatch:*:vanilla[": (
+        "psi is argmax's int64, twice the model's int32 table, and two "
+        "steps' (K, K) score blocks are live at once in the eager loop: "
+        "2.5-2.8x the model on the dispatch grid"),
+}
+
 __all__ = ["viterbi_vanilla", "viterbi_vanilla_masked",
            "viterbi_vanilla_batched"]

@@ -94,9 +94,22 @@ def nvcc_command(source: Path, out: Path) -> list[str]:
     return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)]
 
 
+def log_path(source: Path) -> Path:
+    """Where nvcc's output for `source`'s library is kept."""
+    return library_path(source).with_suffix(".log")
+
+
+def build_logs() -> dict[str, str]:
+    """{name: nvcc's output} of every built library (ptxas's report of
+    registers, shared memory and spills), whichever call built it."""
+    return {src.stem: log_path(src).read_text() for src in SOURCES
+            if log_path(src).exists()}
+
+
 def build_all() -> dict[str, str]:
     """Build every source not yet built; returns {name: nvcc's output} for
-    the sources this call built.
+    the sources this call built (also kept beside each library, see
+    `build_logs`).
 
     One nvcc process per missing source, all started together, then waited
     for.  The output holds ptxas's report (registers, shared memory,
@@ -118,6 +131,7 @@ def build_all() -> dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{src.name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        log_path(src).write_text(log)
         os.replace(tmp, lib)
         logs[src.stem] = log
     if failed:
@@ -141,4 +155,4 @@ def load(name: str) -> ctypes.CDLL:
 
 
 __all__ = ["SOURCES", "HEADERS", "NVCC_FLAGS", "nvcc_command", "build_all", "load",
-           "library_path"]
+           "library_path", "log_path", "build_logs"]

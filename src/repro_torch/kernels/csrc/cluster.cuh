@@ -14,6 +14,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #include "cp_async.cuh"
 
 namespace {
@@ -106,7 +108,10 @@ __device__ __forceinline__ void st_async(float* dst, uint64_t* mbar, int rank,
 // `threads` threads and `smem` bytes of dynamic shared memory: as many
 // clusters as fit on the card at once (at most `tasks`), each of which walks
 // the tasks blockIdx.x / kCluster, + gridDim.x / kCluster, ...  The
-// occupancy query is cached per (kernel, smem).
+// occupancy query is cached per (device, kernel, smem): the current device
+// is part of the key, as the answer differs between cards, and the cache is
+// guarded by a mutex, as launches may come from several host threads at
+// once (the wrappers call in through ctypes, which releases the GIL).
 template <typename Arg>
 cudaError_t launch_persistent_clusters(void (*kernel)(Arg), const Arg& a,
                                        int tasks, int threads, size_t smem,
@@ -127,17 +132,26 @@ cudaError_t launch_persistent_clusters(void (*kernel)(Arg), const Arg& a,
   cfg.numAttrs = 1;
 
   struct Fit {
+    int device;
     const void* fn;
     size_t smem;
     int clusters;
   };
   static Fit cache[32];   // a ring of the last 32 queries
   static int cached = 0, next = 0;
+  static std::mutex cache_lock;
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
   int clusters = 0;
-  for (int i = 0; i < cached; ++i) {
-    if (cache[i].fn == (const void*)kernel && cache[i].smem == smem) {
-      clusters = cache[i].clusters;
-      break;
+  {
+    std::lock_guard<std::mutex> hold(cache_lock);
+    for (int i = 0; i < cached; ++i) {
+      if (cache[i].device == device && cache[i].fn == (const void*)kernel &&
+          cache[i].smem == smem) {
+        clusters = cache[i].clusters;
+        break;
+      }
     }
   }
   if (clusters == 0) {
@@ -145,7 +159,8 @@ cudaError_t launch_persistent_clusters(void (*kernel)(Arg), const Arg& a,
     err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
     if (err != cudaSuccess) return err;
     if (clusters < 1) return cudaErrorInvalidConfiguration;
-    cache[next] = Fit{(const void*)kernel, smem, clusters};
+    std::lock_guard<std::mutex> hold(cache_lock);
+    cache[next] = Fit{device, (const void*)kernel, smem, clusters};
     next = (next + 1) % 32;
     if (cached < 32) ++cached;
   }

@@ -310,6 +310,17 @@ def beam_step(log_A: torch.Tensor, em_t: torch.Tensor, scores: torch.Tensor,
     return s[0], st[0], f[0]
 
 
+#: The analysis gate's findings this module makes by design
+#: (`analysis.findings` has the grammar; PERF.md records the measured
+#: ratios).
+FLASHPROVE_WAIVERS = {
+    "PV104:dispatch:cuda:constrained[": (
+        "the band's centers and window starts travel to the card as int64 "
+        "(T each) and the global path is their int64 sum before its int32 "
+        "cast, beside the (T - 1, Kb) psi the banded model counts: 1.16x "
+        "the model at (K, T, width) = (64, 256, 8) and (128, 384, 8)"),
+}
+
 __all__ = ["viterbi_forward", "viterbi_forward_batch", "viterbi_chunk_step",
            "viterbi_slot_step", "viterbi_decode_fused",
            "viterbi_decode_fused_batch", "viterbi_forward_batch_masked",

@@ -313,6 +313,25 @@ def viterbi_backtrack_batch(psi: torch.Tensor, delta_T: torch.Tensor):
     return paths, scores
 
 
+#: The analysis gate's findings this module makes by design (`analysis.findings`
+#: has the grammar; PERF.md records the measured ratios).
+FLASHPROVE_WAIVERS = {
+    "PV104:dispatch:cpu:fused": (
+        "on the CPU the plain forward holds a step's (B, K, K) scores beside "
+        "psi; on the card the kernels allocate psi, delta and the path "
+        "alone, within the model"),
+    "PV104:dispatch:cpu:online[": (
+        "the plain forward's (1, K, K) step scores beside the chunk's psi, "
+        "on the CPU only"),
+    "PV104:dispatch:cpu:inflight": (
+        "the plain forward's (S, K, K) step scores beside the block's psi, "
+        "on the CPU only"),
+    "PV104:dispatch:cpu:constrained": (
+        "the plain banded forward's (T, Kb) int64 window index tables and "
+        "the plain masked forward's (B, T, K) penalised emissions copy, on "
+        "the CPU only"),
+}
+
 __all__ = ["viterbi_forward", "viterbi_forward_batch",
            "viterbi_forward_batch_masked", "viterbi_banded_forward",
            "viterbi_backtrack_batch", "forward_instance",

@@ -500,8 +500,9 @@ SLOT_STEP_KERNEL = "viterbi_fwd_batch"
 def slot_step_departures(launches: dict[str, int], steps: int) -> int:
     """How far an inflight run's kernel launches are from one slot-step
     launch a `step()` and no other kernel: 0 when they agree."""
-    return sum(abs(n - (steps if name == SLOT_STEP_KERNEL else 0))
-               for name, n in launches.items())
+    from ..analysis.retrace import launch_departures
+    return sum(abs(got - want) for got, want in launch_departures(
+        launches, {SLOT_STEP_KERNEL: steps}).values())
 
 
 def _counted_run(harness: LoadHarness) -> tuple[dict, dict[str, int]]:
@@ -710,17 +711,17 @@ def drill_worker_death(cfg: LoadConfig, ckpt_dir: str | None = None, *,
 
 def _mesh_rescale_rank(device, cfg: LoadConfig, to_devices: int) -> dict:
     """One rank of the rescale drill's world (see `drill_mesh_rescale`)."""
-    import torch.distributed as dist
-
     from ..checkpointing.elastic import abstract_target_mesh, plan_rescale
     from ..core.mesh import Mesh, PartitionSpec
+    from .mesh import world_rank, world_size
 
-    from_devices = dist.get_world_size()
+    from_devices = world_size()
     cfg = dataclasses.replace(cfg, stream_frac=0.0, device=str(device))
     work = make_workload(cfg)
     spec, _ = resolve_spec(cfg)
     hmm = work.hmm
-    # every rank builds both meshes: dist.new_group is called by all
+    # every rank builds both meshes: every rank of the world makes each
+    # mesh's subgroups
     mesh_from = Mesh((from_devices,), ("data",))
     mesh_to = Mesh((to_devices,), ("data",), ranks=range(to_devices))
     head_from = make_alignment_head(hmm.log_pi, hmm.log_A, spec,
@@ -780,7 +781,7 @@ def _mesh_rescale_rank(device, cfg: LoadConfig, to_devices: int) -> dict:
                for old in pending}
     while sched2.queue:
         deliver(sched2.step(), rid_of2)
-    if dist.get_rank():
+    if world_rank():
         return {"drill": "mesh_rescale", "left_at_rescale": False}
 
     ora = oracle_check(spec, hmm, work.payloads, delivered)

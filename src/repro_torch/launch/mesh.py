@@ -16,6 +16,7 @@ Importing this module starts no process and creates no process group.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -44,6 +45,48 @@ def make_test_mesh(*, multi_pod: bool = False) -> Mesh:
     shape = (2, 2, 2) if multi_pod else (4, 2)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return Mesh(shape, axes)
+
+
+def world_size() -> int:
+    """Ranks in the initialised world."""
+    return dist.get_world_size()
+
+
+def world_rank() -> int:
+    """This process's rank in the initialised world."""
+    return dist.get_rank()
+
+
+#: the torch.distributed collectives `count_collectives` sees
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+               "all_gather_object", "broadcast", "reduce", "reduce_scatter",
+               "reduce_scatter_tensor", "all_to_all", "all_to_all_single",
+               "scatter", "gather", "send", "recv", "isend", "irecv",
+               "barrier")
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Record, in order, every torch.distributed collective this process
+    calls inside the block (the mesh layer's own included); yields the
+    list of their names."""
+    calls: list[str] = []
+    saved = {name: getattr(dist, name) for name in COLLECTIVES
+             if hasattr(dist, name)}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
 
 
 def data_axis_size(mesh) -> int:
@@ -138,4 +181,5 @@ def run_spmd(fn, world: int, *, device=None, backend: str = "gloo",
 
 
 __all__ = ["make_production_mesh", "make_test_mesh", "data_axis_size",
+           "world_size", "world_rank", "COLLECTIVES", "count_collectives",
            "run_spmd"]

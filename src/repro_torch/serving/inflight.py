@@ -97,6 +97,7 @@ def _mask_slot(delta, slot: int, keep) -> None:
     """Suppress one slot's frontier hypotheses inconsistent with a forced
     commit (the f32 add of `OnlineViterbiDecoder`), in place."""
     row = delta[slot]
+    # flashlint: disable=FL007(slot forced-commit suppression, mirrors OnlineViterbiDecoder's annotated seam)
     delta[slot] = torch.where(keep, row, row + 4.0 * NEG_INF)
 
 

@@ -19,7 +19,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [
     ROOT / "chip_smoke.py",
-    ROOT / "examples" / "torch_forced_alignment_serving.py"]
+    ROOT / "examples" / "torch_forced_alignment_serving.py"] + [
+    ROOT / "examples" / f"torch_{name}.py"
+    for name in ("quickstart", "batch_decode", "adaptive_edge",
+                 "streaming_decode", "map_matching")]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(
         ".__init__") for p in PKG.rglob("*.py"))
@@ -156,6 +159,35 @@ def test_every_include_in_csrc_is_a_listed_header():
     assert local == {h.name for h in build.HEADERS}
 
 
+def test_the_analysis_gate_and_the_examples_are_scanned():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"src/repro_torch/analysis/lint.py",
+            "src/repro_torch/analysis/dispatch_check.py",
+            "src/repro_torch/analysis/kernel_check.py",
+            "examples/torch_quickstart.py",
+            "examples/torch_map_matching.py"} <= names
+    assert all(p.exists() for p in SOURCES)
+
+
+def test_occupancy_cache_is_keyed_on_the_device_and_guarded():
+    """The persistent-cluster launcher caches its occupancy query; the
+    answer differs between cards, and launches may come from several host
+    threads (ctypes releases the GIL): the key names the current device and
+    a mutex guards the lookup and the insert."""
+    import re
+    from repro_torch.kernels import build
+    src = (build.CSRC / "cluster.cuh").read_text()
+    fit = re.search(r"struct Fit \{(.*?)\};", src, re.S).group(1)
+    assert re.search(r"\bint device;", fit)
+    assert "cudaGetDevice(&device)" in src
+    lookup = src[src.index("for (int i = 0; i < cached; ++i)"):]
+    assert "cache[i].device == device" in lookup[:300]
+    assert "Fit{device," in src
+    assert "#include <mutex>" in src
+    assert "static std::mutex" in src
+    assert src.count("std::lock_guard<std::mutex>") == 2
+
+
 def _fake_nvcc(tmp_path, monkeypatch, body: str):
     """Points the build at a stand-in nvcc (a shell script) and a build
     directory under tmp_path."""
@@ -185,6 +217,19 @@ def test_build_all_starts_one_nvcc_per_source_together(tmp_path, monkeypatch):
     assert all(build.library_path(src).exists() for src in build.SOURCES)
     assert took < 0.9 * len(build.SOURCES)
     assert build.build_all() == {}          # built: nothing to do
+
+
+def test_build_logs_are_kept_beside_the_libraries(tmp_path, monkeypatch):
+    """The analysis gate reads ptxas's report whichever call built the
+    libraries."""
+    build = _fake_nvcc(tmp_path, monkeypatch, (
+        'out=""; prev=""\n'
+        'for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done\n'
+        'echo "ptxas info: Used 7 registers"; touch "$out"\n'))
+    assert build.build_logs() == {}
+    logs = build.build_all()
+    assert build.build_logs() == logs
+    assert build.build_all() == {} and build.build_logs() == logs
 
 
 def test_build_all_raises_when_nvcc_fails(tmp_path, monkeypatch):
