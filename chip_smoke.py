@@ -206,7 +206,29 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      128) seeding and carried, and the slot step at (64, 16, 512), per
      launch and per step (events and graph replay); the three streaming
      drains and the inflight drain (with its commit-lag percentiles) on the
-     host clock, twice each, and once each under the profiler.
+     host clock, twice each, and once each under the profiler;
+  14. causal-LM serving of the transformer family (`models/`, `configs/`;
+     no Viterbi kernel may launch): (a) each of tinyllama-1.1b, granite-8b,
+     gemma-2b, h2o-danube-3-4b (2 layers), moonshot-v1-16b-a3b and
+     deepseek-v2-236b (1 layer) at full width in float32, the same weights
+     on the card and on the CPU, a prefill of (2, 64) prompts (max_len 128)
+     and 4 greedy decode steps on both: logits within `LM_F32_TOL` of the
+     CPU's, greedy tokens equal, and the first step against a prefill over
+     65 tokens within `LM_F32_TF_TOL`; (b) granite-8b whole, 36 layers in
+     bf16 from a seed, 8 prompts of 511 tokens, max_len 1024, 64 greedy
+     steps; (c) tinyllama, gemma and danube whole, moonshot at 16 of 48
+     layers and deepseek-v2 at 2 of 60, bf16, 4 prompts of 511 tokens and
+     16 greedy steps; for each of (b) and (c) every logit finite, the first
+     step's logits against the last-position logits of a prefill over all
+     512 tokens within `LM_BF16_TOL` (MoE on a capacity that drops no
+     assignment), the prefill (CUDA events, median of 7) and decode-step
+     times, tokens/s, peak memory and cache bytes beside their bounds, then
+     one decode step and one prefill under `torch.profiler` (device busy
+     and idle share);
+     (d) danube's 4096-slot window ring at full width, 2 layers, float32:
+     a prefill of 4096 tokens and 1024 single-token steps (the ring wraps
+     once) against a prefill of all 5120 (rolled by 1024), then 16 greedy
+     steps from each cache, within `LM_RING_TOL`, tokens equal.
 
 The line before the last is a JSON object with one entry per kernel (the
 `resources` object just before it); the last line is {"ok": true,
@@ -2943,6 +2965,390 @@ def drain_device_share(prepare, what: str, card: str) -> None:
           f"{1 - busy / wall_us:.4f} of the wall time; {card}")
 
 
+# ---------------------------------------------------------------------------
+# 14: causal-LM serving of the transformer family
+# ---------------------------------------------------------------------------
+
+#: the six causal LMs, in ROADMAP's order (dense GQA / MQA / window, MoE, MLA)
+LM_IDS = ("tinyllama_1_1b", "granite_8b", "gemma_2b", "h2o_danube_3_4b",
+          "moonshot_v1_16b_a3b", "deepseek_v2_236b")
+LM_SEED = 0
+#: 14a: layers at full width in float32 (2; 1 for the MoE configs, whose
+#: float32 layer and embeddings take about 5 and 20 GB on each side)
+LM_PARITY_LAYERS = dict(moonshot_v1_16b_a3b=1, deepseek_v2_236b=1)
+#: 14a: (B, S) of the prompts, max_len, greedy decode steps
+LM_PARITY = (2, 64, 128, 4)
+#: 14a: max |logits, card - CPU| / max |logit| over the prefill and the
+#: decode steps, float32 (TF32 off): 1.5x the largest of the six measured
+#: on an H100 (1.7663e-4, danube; PERF.md §5)
+LM_F32_TOL = 2.65e-4
+#: 14a: max |first decode step's logits - the last-position logits of a
+#: prefill over all S + 1 tokens| / max |logit|, float32 on the card: 1.5x
+#: the largest of the six measured on an H100 (8.431e-5, granite)
+LM_F32_TF_TOL = 1.27e-4
+#: 14b / 14c: prompt length and max_len; (batch, decode steps) a config
+LM_PROMPT, LM_MAX_LEN = 511, 1024
+LM_SERVE = dict(granite_8b=(8, 64))
+LM_SERVE_DEFAULT = (4, 16)
+#: 14c: the depth cuts (the full models do not fit one card: moonshot's
+#: 48 layers would be 56 GB in bf16 plus a 35 GB float32 draw of its wg
+#: leaf, deepseek-v2's 60 layers 479 GB)
+LM_DEPTH = dict(moonshot_v1_16b_a3b=16, deepseek_v2_236b=2)
+#: 14b / 14c: max |first decode step's logits - the last-position logits
+#: of a prefill over all 512 tokens| / max |logit|, bf16: 1.5x each
+#: config's measured on an H100 (PERF.md §5).  JAX's init draws stacked
+#: layers with 1/sqrt(L), so activations grow through the stack and bf16's
+#: rounding of a (B, 1) step and a (B, 512) prefill moves the logits
+#: (0.026-0.088); in moonshot's 16 MoE layers it also flips router
+#: choices between near-equal experts (0.71)
+LM_BF16_TOL = dict(granite_8b=0.132, tinyllama_1_1b=0.0743,
+                   gemma_2b=0.0386, h2o_danube_3_4b=0.0776,
+                   moonshot_v1_16b_a3b=1.063, deepseek_v2_236b=0.0921)
+#: 14d: danube's ring: batch, first prefill, single-token steps, then
+#: greedy steps from each cache
+LM_RING = (2, 4096, 1024, 16)
+#: 14d: max |diff| / max |logit| of the wrapped ring's last step against
+#: the rolled prefill, and of the greedy steps from the two caches,
+#: float32: 1.5x the measured 3.7875e-6 and 1.7557e-3 on an H100 (the
+#: 1/sqrt(2)-scaled init saturates the softmax, so the two caches'
+#: rounding moves later steps more; PERF.md §5)
+LM_RING_TOL = (5.7e-6, 2.64e-3)
+
+
+def copy_to(model, device):
+    """A copy of `model` with every weight on `device`."""
+    from repro_torch.models import build_model
+
+    def conv(t):
+        return ([conv(v) for v in t] if isinstance(t, list) else
+                {k: conv(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.detach().to(device))
+    return build_model(model.cfg).load(conv(model.tree()))
+
+
+def greedy(model, tokens, max_len: int, steps: int, timed: bool = False):
+    """Prefill `tokens` (B, S), then `steps` greedy decode steps: (the
+    prefill's and each step's logits (B, 1 + steps, vocab), the greedy
+    tokens (B, 1 + steps), the cache, each step's ms by CUDA events when
+    `timed`)."""
+    logits, cache = model.prefill({"tokens": tokens}, max_len=max_len)
+    outs, toks, times = [logits], [logits[:, -1].argmax(-1, keepdim=True)], []
+    for _ in range(steps):
+        if timed:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        logits, cache = model.decode_step(toks[-1], cache)
+        toks.append(logits[:, -1].argmax(-1, keepdim=True))
+        if timed:
+            end.record()
+            times.append((start, end))
+        outs.append(logits)
+    torch.cuda.synchronize()
+    return (torch.cat(outs, 1), torch.cat(toks, 1), cache,
+            [a.elapsed_time(b) for a, b in times])
+
+
+def _matrix_params(tree: dict) -> int:
+    """The parameters of a layout's matrices (its leaves of 2 or more
+    axes)."""
+    return sum(_matrix_params(v) if isinstance(v, dict) else
+               (int(np.prod(v[0])) if len(v[0]) >= 2 else 0)
+               for v in tree.values())
+
+
+def lm_prefill_work(cfg, B: int, S: int):
+    """(FLOPs of the bf16 products, FLOPs in float32) of a causal prefill
+    of (B, S), as the port computes it: each layer's projections and MLP
+    (MoE: the shared experts a token, every expert over its capacity
+    buffer; the router in float32), attention in float32 over every (q,
+    kv) pair of the blocks (masked pairs included), the head at the last
+    position."""
+    from repro_torch.models.transformer import layer_layout
+    lay, acfg, N = layer_layout(cfg), cfg.attn_config(), B * S
+    d, L = cfg.d_model, cfg.num_layers
+    dense = _matrix_params(lay["attn"])
+    f32 = 0.0
+    experts = 0.0
+    if cfg.moe is not None:
+        e = cfg.moe
+        C = max(1, int(N * e.top_k * e.capacity_factor / e.num_experts))
+        dense += _matrix_params(lay["moe"].get("shared", {}))
+        experts = 2.0 * e.num_experts * C * 3 * d * e.d_ff_expert
+        f32 += 2.0 * N * d * e.num_experts
+    else:
+        dense += _matrix_params(lay["mlp"])
+    if acfg.kv_lora is not None:
+        hd_k = acfg.head_dim + acfg.rope_head_dim
+        hd_v = acfg.v_head_dim or acfg.head_dim
+    else:
+        hd_k = hd_v = acfg.head_dim
+    f32 += 2.0 * B * acfg.num_heads * S * S * (hd_k + hd_v)
+    mm = L * (2.0 * N * dense + experts) + 2.0 * B * d * cfg.vocab
+    return mm, L * f32
+
+
+def lm_decode_bytes(model, cache) -> float:
+    """Bytes a decode step must move: every weight it reads once (all of
+    them but an untied embedding table, of which it gathers B rows: the
+    dense dispatch runs every expert), and the cache's filled slots read
+    (the new position's entries written)."""
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if not model.cfg.tie_embeddings:
+        nbytes -= model.embed.numel() * model.embed.element_size()
+    for c in cache:
+        filled = int((c["pos"] >= 0).sum())
+        for name in ("k", "v", "latent"):
+            if name in c:
+                t = c[name]
+                nbytes += t.shape[0] * filled * t.shape[2] * t.element_size()
+    return float(nbytes)
+
+
+def cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for c in cache
+               for t in c.values())
+
+
+def free_card() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_width_parity(dev, card: str) -> None:
+    """14a: each config at full width in float32, the same weights on the
+    card and on the CPU (drawn on the card from a seed, then copied), a
+    prefill and greedy decode steps on both."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    B, S, max_len, steps = LM_PARITY
+    for arch in LM_IDS:
+        t0 = time.perf_counter()
+        layers = LM_PARITY_LAYERS.get(arch, 2)
+        cfg = dataclasses.replace(get_arch(arch).CONFIG, num_layers=layers,
+                                  dtype=torch.float32)
+        gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+        m_card = build_model(cfg).init(gen, device=dev)
+        m_cpu = copy_to(m_card, "cpu")
+        tokens = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+            0, cfg.vocab, (B, S), dtype=np.int32))
+        lg, tg, _, _ = greedy(m_card, tokens.to(dev), max_len, steps)
+        lc, tc, _, _ = greedy(m_cpu, tokens, max_len, steps)
+        scale = float(lc.abs().max())
+        err = float((lg.cpu() - lc).abs().max()) / scale
+        tf, _ = lm_teacher_forced(no_drop(m_card) if cfg.moe else m_card,
+                                  tokens.to(dev), tg[:, :1])
+        print(f"lm 14a width parity {cfg.name}: layers {layers} at full "
+              f"width (d {cfg.d_model}, {cfg.num_heads} x {cfg.hd} heads, "
+              f"kv {cfg.num_kv_heads}, vocab {cfg.vocab}), float32, (B, S) "
+              f"= ({B}, {S}), max_len {max_len}, {steps} greedy steps: "
+              f"max |logits card - CPU| / max |logit| {err:.6g} (bound "
+              f"{LM_F32_TOL}), max |logit| {scale:.4g}, greedy tokens equal "
+              f"{torch.equal(tg.cpu(), tc)}; teacher-forced on the card "
+              f"(the first decode step against a prefill over {S + 1} "
+              f"tokens{', MoE capacity dropping nothing' if cfg.moe else ''})"
+              f": {tf:.6g} (bound {LM_F32_TF_TOL}); "
+              f"{time.perf_counter() - t0:.1f} s; {card}")
+        if not (bool(torch.isfinite(lg).all()) and err <= LM_F32_TOL
+                and torch.equal(tg.cpu(), tc) and tf <= LM_F32_TF_TOL):
+            raise SystemExit(f"FAIL lm 14a {arch}: the card's logits or "
+                             f"greedy tokens != the CPU's")
+        del m_card, m_cpu, lg
+        free_card()
+
+
+def no_drop(model):
+    """The model on the same weight tensors with an MoE capacity that
+    drops no assignment: capacity factor (E + 1) / K, so C >= N, and an
+    expert takes at most one assignment a token."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+    cfg = model.cfg
+    moe = dataclasses.replace(
+        cfg.moe, capacity_factor=(cfg.moe.num_experts + 1) / cfg.moe.top_k)
+    return build_model(dataclasses.replace(cfg, moe=moe)).load(model.tree())
+
+
+def lm_teacher_forced(model, prompts, first) -> tuple[float, float]:
+    """(max |the decode step of `first` after a prefill of `prompts` - the
+    last-position logits of a prefill over both| / max |logit|, max
+    |logit|)."""
+    _, cache = model.prefill({"tokens": prompts}, max_len=LM_MAX_LEN)
+    step, _ = model.decode_step(first, cache)
+    full, _ = model.prefill({"tokens": torch.cat([prompts, first], 1)},
+                            max_len=LM_MAX_LEN)
+    scale = float(full.abs().max())
+    return float((step - full).abs().max()) / scale, scale
+
+
+def lm_serve(dev, card: str, arch: str) -> None:
+    """14b / 14c: one config at full width in bf16 (cut to LM_DEPTH
+    layers), weights drawn on the card: prompts of LM_PROMPT tokens,
+    greedy decode steps, the teacher-forced check, times and bounds."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    full_cfg = get_arch(arch).CONFIG
+    cfg = dataclasses.replace(
+        full_cfg, num_layers=LM_DEPTH.get(arch, full_cfg.num_layers))
+    B, steps = LM_SERVE.get(arch, LM_SERVE_DEFAULT)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    model = build_model(cfg).init(gen, device=dev)
+    n_params = model.param_count()
+    prompts = torch.randint(0, cfg.vocab, (B, LM_PROMPT), generator=gen,
+                            device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    cut = ("" if cfg.num_layers == full_cfg.num_layers else
+           f", cut from {full_cfg.num_layers} layers")
+    print(f"lm {cfg.name}: {cfg.num_layers} layers{cut}, {cfg.dtype}, "
+          f"{n_params} parameters ({build_model(full_cfg).param_count()} "
+          f"at full depth, {model.active_param_count()} active a token) "
+          f"drawn on the card in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+
+    torch.cuda.reset_peak_memory_stats()
+    logits, toks, cache, step_ms = greedy(model, prompts, LM_MAX_LEN, steps,
+                                          timed=True)
+    peak = torch.cuda.max_memory_allocated()
+    if not (bool(torch.isfinite(logits).all())
+            and logits.shape == (B, 1 + steps, cfg.vocab)
+            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab):
+        raise SystemExit(f"FAIL lm {arch}: logits not finite or tokens out "
+                         f"of range")
+    # teacher-forced: the first decode step (token 512) against a prefill
+    # over all 512 tokens; MoE on a capacity that drops nothing, since a
+    # step routes B tokens and a prefill B x 512 with their own capacities
+    first = toks[:, :1]
+    if cfg.moe is None:
+        err, scale = lm_teacher_forced(model, prompts, first)
+        what = ""
+    else:
+        err, scale = lm_teacher_forced(no_drop(model), prompts, first)
+        served, _ = lm_teacher_forced(model, prompts, first)
+        what = (f" (on capacity factor (E + 1) / K, no assignment dropped; with "
+                f"the configured capacity {served:.6g})")
+    print(f"lm {cfg.name} teacher-forced: max |decode step logits - "
+          f"prefill over all {LM_PROMPT + 1} tokens| / max |logit| "
+          f"{err:.6g}{what} (bound {LM_BF16_TOL[arch]}), max |logit| "
+          f"{scale:.4g}; every logit of the prefill and the {steps} greedy "
+          f"steps finite")
+    if not err <= LM_BF16_TOL[arch]:
+        raise SystemExit(f"FAIL lm {arch}: the decode step's logits are "
+                         f"outside their bound of the prefill's")
+
+    nbytes = lm_decode_bytes(model, cache)
+    pre = median_ms(lambda: model.prefill({"tokens": prompts},
+                                          max_len=LM_MAX_LEN))
+    mm, f32 = lm_prefill_work(cfg, B, LM_PROMPT)
+    t_mm, t_f32 = mm / BF16_OPS_PER_S * 1e3, f32 / F32_OPS_PER_S * 1e3
+    dec = float(np.median(step_ms))
+    print(f"timing lm {cfg.name} prefill (B, S) = ({B}, {LM_PROMPT}): "
+          f"{pre:.4f} ms ({B * LM_PROMPT / pre * 1e3:.1f} tokens/s); bound "
+          f"{t_mm + t_f32:.4f} ms (operations: {mm / 1e12:.4f} TFLOP of "
+          f"bf16 products at 989 TFLOP/s = {t_mm:.4f} ms, plus "
+          f"{f32 / 1e12:.4f} TFLOP in float32 at 67 TFLOP/s); {card}")
+    print(f"timing lm {cfg.name} decode step at B = {B}: median "
+          f"{dec:.4f} ms over {steps} greedy steps (min {min(step_ms):.4f}, "
+          f"max {max(step_ms):.4f}), {B / dec * 1e3:.1f} tokens/s; bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes: "
+          f"{nbytes / 1e9:.4f} GB of weights and filled cache at 3.35 "
+          f"TB/s); peak allocated {peak / 2**30:.3f} GiB, cache "
+          f"{cache_bytes(cache) / 2**30:.4f} GiB ({LM_MAX_LEN} slots); "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
+    # after every timing: a step timed after a profiler trace runs slower
+    tok = toks[:, -1:]
+    drain_device_share(lambda: (lambda: model.decode_step(tok, cache)),
+                       f"lm {cfg.name} decode step", card)
+    drain_device_share(lambda: (lambda: model.prefill(
+        {"tokens": prompts}, max_len=LM_MAX_LEN)), f"lm {cfg.name} prefill",
+        card)
+    del model, cache, logits
+    free_card()
+
+
+def lm_ring(dev, card: str) -> None:
+    """14d: danube's 4096-slot window ring at full width, 2 layers, float32
+    on the card: a prefill of 4096 tokens and 1024 single-token steps (the
+    ring wraps once) against a prefill of all 5120 (rolled by 1024), then
+    greedy steps from each cache."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    B, S1, n1, steps = LM_RING
+    cfg = dataclasses.replace(get_arch("h2o_danube_3_4b").CONFIG,
+                              num_layers=2, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    model = build_model(cfg).init(gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (B, S1 + n1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    max_len = S1 + n1 + steps + 1
+    _, c1 = model.prefill({"tokens": tokens[:, :S1]}, max_len=max_len)
+    for t in range(S1, S1 + n1):
+        l1, c1 = model.decode_step(tokens[:, t:t + 1], c1)
+    l2, c2 = model.prefill({"tokens": tokens}, max_len=max_len)
+    ring = c2[0]["k"].shape[1]
+    scale = float(l2.abs().max())
+    err = float((l1 - l2).abs().max()) / scale
+    first = l2[:, -1].argmax(-1, keepdim=True)
+    outs, toks = [], []
+    for c in (c1, c2):
+        tok, lg, tk = first, [], []
+        for _ in range(steps):
+            logits, c = model.decode_step(tok, c)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            lg.append(logits)
+            tk.append(tok)
+        outs.append(torch.cat(lg, 1))
+        toks.append(torch.cat(tk, 1))
+    err2 = float((outs[0] - outs[1]).abs().max()) / scale
+    same = torch.equal(toks[0], toks[1])
+    print(f"lm 14d {cfg.name} ring ({ring} slots, window {cfg.window}), 2 "
+          f"layers, float32, B = {B}: prefill {S1} + {n1} decode steps vs "
+          f"a prefill of {S1 + n1} (roll {(S1 + n1 - ring) % ring}): max "
+          f"|diff| / max |logit| {err:.6g}; then {steps} greedy steps from "
+          f"each cache: {err2:.6g} (bounds {LM_RING_TOL}), greedy tokens "
+          f"equal {same}; {time.perf_counter() - t0:.1f} s; {card}")
+    if not (ring == cfg.window and err <= LM_RING_TOL[0]
+            and err2 <= LM_RING_TOL[1] and same):
+        raise SystemExit("FAIL lm 14d: the wrapped ring != the rolled "
+                         "prefill's cache")
+    del model, c1, c2
+    free_card()
+
+
+def phase_lm(dev, card: str) -> dict[str, int]:
+    """14: causal-LM serving of the transformer family: 14a width parity
+    (float32, card against CPU), 14b granite-8b whole in bf16, 14c the
+    other five (moonshot and deepseek-v2 cut in depth), 14d danube's window
+    ring.  No Viterbi kernel may launch."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    lm_width_parity(dev, card)
+    for arch in ("granite_8b",) + tuple(a for a in LM_IDS
+                                        if a != "granite_8b"):
+        lm_serve(dev, card, arch)
+    lm_ring(dev, card)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_launches("lm", launches, {})
+    print(f"lm phase: {time.perf_counter() - t0:.1f} s wall; no Viterbi "
+          f"kernel launched; {card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2988,6 +3394,8 @@ def main() -> int:
     for name, n in op_launches.items():
         launches[name] += n
     timing = phase_timing(dev, card) | phase_stream_timing(dev, card)
+    for name, n in phase_lm(dev, card).items():
+        launches[name] += n
 
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = {

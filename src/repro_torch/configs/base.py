@@ -1,0 +1,112 @@
+"""Shape and input-spec machinery of the architecture configs, as in
+`repro.configs.base`.
+
+Every arch module exposes
+    CONFIG  -- the published configuration (`ModelConfig`)
+    SMOKE   -- a reduced same-family config for CPU tests
+    SKIPS   -- {shape_name: reason} cells excluded
+    input_specs(shape) -> InputSpec | None  (None = a skipped cell)
+
+The four LM shapes (seq_len x global_batch):
+    train_4k     4,096 x 256   -> train_step
+    prefill_32k  32,768 x 32   -> prefill
+    decode_32k   32,768 x 128  -> serve_step (1 new token, 32k cache)
+    long_500k    524,288 x 1   -> serve_step (1 new token, 500k context)
+
+An `InputSpec`'s arguments are tensors on the ``meta`` device: shapes and
+dtypes, no memory (the decode cache is ``init_cache(..., device="meta")``).
+The TPU sharding specs of the JAX package's `InputSpec` wait for the
+training slice (ROADMAP Queue 1 item 11c).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..models import build_model
+from ..models.transformer import ModelConfig
+
+SHAPES: dict[str, tuple[str, int, int]] = {
+    "train_4k": ("train", 4_096, 256),
+    "prefill_32k": ("prefill", 32_768, 32),
+    "decode_32k": ("decode", 32_768, 128),
+    "long_500k": ("decode", 524_288, 1),
+}
+
+
+@dataclasses.dataclass
+class InputSpec:
+    """Abstract inputs of one cell."""
+    kind: str                      # train | prefill | decode
+    seq_len: int
+    batch: int
+    args: dict                     # name -> tree of meta tensors
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def lm_input_specs(cfg: ModelConfig, shape: str,
+                   skips: dict[str, str] | None = None) -> InputSpec | None:
+    """Token-input LM specs; None for a skipped cell."""
+    if skips and shape in skips:
+        return None
+    kind, S, B = SHAPES[shape]
+    if kind == "train":
+        return InputSpec(kind, S, B, {"batch": {
+            "tokens": _meta((B, S), torch.int32),
+            "labels": _meta((B, S), torch.int32),
+            "mask": _meta((B, S), torch.float32)}})
+    if kind == "prefill":
+        return InputSpec(kind, S, B, {"batch": {
+            "tokens": _meta((B, S), torch.int32)}})
+    # decode: one new token against a cache of length S
+    cache = build_model(cfg).init_cache(B, S, device="meta")
+    return InputSpec(kind, S, B, {"tokens": _meta((B, 1), torch.int32),
+                                  "cache": cache})
+
+
+def embeds_input_specs(cfg: ModelConfig, shape: str,
+                       skips: dict[str, str] | None = None
+                       ) -> InputSpec | None:
+    """Encoder specs (hubert): the batch supplies precomputed frame
+    embeddings; no decode cells.  (The VLM variant with image tokens waits
+    for llava, ROADMAP Queue 1 item 11b.)"""
+    if skips and shape in skips:
+        return None
+    kind, S, B = SHAPES[shape]
+    embeds = _meta((B, S, cfg.d_model), cfg.dtype)
+    if kind == "train":
+        return InputSpec(kind, S, B, {"batch": {
+            "embeds": embeds, "labels": _meta((B, S), torch.int32),
+            "mask": _meta((B, S), torch.float32)}})
+    if kind == "prefill":
+        return InputSpec(kind, S, B, {"batch": {"embeds": embeds}})
+    return None
+
+
+def smoke_batch(cfg: ModelConfig, rng: np.random.Generator, batch: int = 2,
+                seq: int = 16, embeds: bool = False, device=None) -> dict:
+    """A concrete tiny batch drawn from `rng`, on `device` (None:
+    ``cuda``): tokens (or frame embeddings), labels and a mask."""
+    dev = resolve_device(device)
+    b = {"labels": rng.integers(0, cfg.vocab, (batch, seq), dtype=np.int32),
+         "mask": np.ones((batch, seq), np.float32)}
+    if embeds:
+        b["embeds"] = rng.standard_normal((batch, seq, cfg.d_model),
+                                          dtype=np.float32)
+    else:
+        b["tokens"] = rng.integers(0, cfg.vocab, (batch, seq), dtype=np.int32)
+    out = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    if embeds:
+        out["embeds"] = out["embeds"].to(cfg.dtype)
+    return out
+
+
+__all__ = ["SHAPES", "InputSpec", "lm_input_specs", "embeds_input_specs",
+           "smoke_batch"]

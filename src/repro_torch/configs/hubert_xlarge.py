@@ -9,11 +9,11 @@ log-softmax).  Encoder-only, so the decode cells are skipped.
 
 This is the paper-primary arch: its emissions feed the FLASH-BS forced-
 alignment step (`serving.alignment.make_e2e_align_step`), the paper's TIMIT
-workload.  `input_specs` (the dry-run and training cells) waits for the
-training slice (ROADMAP Queue 1 item 11c).
+workload.
 """
 
 from ..models.transformer import ModelConfig
+from .base import embeds_input_specs
 
 NUM_CLASSES = 504  # true classes; head padded to 512
 
@@ -36,3 +36,7 @@ SKIPS = {
     "decode_32k": "encoder-only: no autoregressive decode step",
     "long_500k": "encoder-only: no autoregressive decode step",
 }
+
+
+def input_specs(shape: str):
+    return embeds_input_specs(CONFIG, shape, SKIPS)

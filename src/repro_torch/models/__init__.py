@@ -1,11 +1,15 @@
-"""The model substrate on PyTorch, as in `repro.models`: the dense
-transformer stacks (encoder-only and the layers a causal LM shares with
-them), built from a `ModelConfig`; `convert` carries JAX parameter trees
+"""The model substrate on PyTorch, as in `repro.models`: the transformer
+stacks (encoder-only and causal: dense, GQA / MQA / sliding-window, MoE,
+MLA) built from a `ModelConfig`, with their prefill and decode over
+ring-buffer caches; `convert` carries JAX parameter trees and caches
 across."""
 
-from .transformer import EncoderLayer, ModelConfig, TransformerLM
+from .transformer import ModelConfig, TransformerLayer, TransformerLM
+from .moe import MoEConfig
 from .registry import build_model
-from .convert import params_from_jax, to_numpy_tree
+from .convert import (cache_from_jax, cache_to_numpy, params_from_jax,
+                      to_numpy_tree)
 
-__all__ = ["ModelConfig", "TransformerLM", "EncoderLayer", "build_model",
-           "params_from_jax", "to_numpy_tree"]
+__all__ = ["ModelConfig", "MoEConfig", "TransformerLM", "TransformerLayer",
+           "build_model", "params_from_jax", "to_numpy_tree",
+           "cache_from_jax", "cache_to_numpy"]

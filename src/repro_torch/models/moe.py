@@ -1,0 +1,131 @@
+"""Mixture-of-Experts layer on PyTorch, as in `repro.models.moe`: top-k
+routing, capacity-bounded dispatch into a dense (E, C, d) buffer, the
+experts as one batched product, and a weighted combine.
+
+The routing is JAX's, decision for decision:
+  * the top K experts of each token are the first K of a stable
+    descending sort of its router probabilities, so among equal
+    probabilities the lower expert index comes first (`jax.lax.top_k` is
+    stable; `torch.topk` promises no tie order);
+  * each (token, slot) assignment is ranked within its expert by an
+    exclusive cumsum in flat (token, slot) order, and assignments ranked
+    at or past the capacity C = max(1, int(N K cf / E)) are dropped (at a
+    decode step N is the batch, so C is often 1);
+  * each token's K weighted expert outputs are added slot after slot into
+    a float32 buffer that starts at zero, in a fixed order (JAX's scatter
+    add, without `index_add_`'s atomics).
+Every expert runs on its whole capacity buffer, used or not (the dense
+dispatch), so a decode step reads every expert's weights.  Shared experts
+(DeepSeek-V2) run densely beside the routed ones.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from .common import Layout, act_fn
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared: int = 0
+    capacity_factor: float = 1.0
+    router_dtype: str = "float32"
+    num_groups: int = 1      # >1: rank and capacity per contiguous token group
+
+
+def moe_layout(d: int, cfg: MoEConfig) -> Layout:
+    lay: Layout = {
+        "router": ((d, cfg.num_experts), ("model_d", None), "normal"),
+        "wg": ((cfg.num_experts, d, cfg.d_ff_expert),
+               ("experts", "model_d", "expert_ff"), "normal"),
+        "wi": ((cfg.num_experts, d, cfg.d_ff_expert),
+               ("experts", "model_d", "expert_ff"), "normal"),
+        "wo": ((cfg.num_experts, cfg.d_ff_expert, d),
+               ("experts", "expert_ff", "model_d"), "normal"),
+    }
+    if cfg.num_shared:
+        f = cfg.d_ff_expert * cfg.num_shared
+        lay["shared"] = {
+            "wg": ((d, f), ("model_d", "ff"), "normal"),
+            "wi": ((d, f), ("model_d", "ff"), "normal"),
+            "wo": ((f, d), ("ff", "model_d"), "normal"),
+        }
+    return lay
+
+
+def moe_forward(params, x, cfg: MoEConfig, act: str = "silu"):
+    """x: (B, S, D) -> ((B, S, D), aux load-balance loss).  With
+    ``num_groups`` G > 1 the B S tokens split into G contiguous groups,
+    each routed with its own ranks and capacity."""
+    B, S, D = x.shape
+    G = cfg.num_groups
+    if G == 1:
+        return _moe_dense(params, x, cfg, act)
+    if (B * S) % G:
+        raise ValueError(f"{B * S} tokens do not split into {G} groups")
+    outs, auxs = zip(*(_moe_dense(params, xs[None], cfg, act)
+                       for xs in x.reshape(G, B * S // G, D)))
+    return torch.cat(outs).reshape(B, S, D), torch.stack(auxs).mean()
+
+
+def _moe_dense(params, x, cfg: MoEConfig, act: str = "silu"):
+    B, S, D = x.shape
+    N = B * S
+    E, K = cfg.num_experts, cfg.top_k
+    C = max(1, int(N * K * cfg.capacity_factor / E))
+
+    xt = x.reshape(N, D)
+    rdt = getattr(torch, cfg.router_dtype)
+    probs = torch.softmax(xt.to(rdt) @ params["router"].to(rdt), dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :K], top_e[:, :K]              # (N, K)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)        # renormalise
+
+    # load-balance aux loss (Switch-style)
+    me = probs.mean(dim=0)
+    ce = F.one_hot(top_e[:, 0], E).to(probs.dtype).mean(dim=0)
+    aux = E * (me * ce).sum()
+
+    # rank within expert: position of each (token, slot) among its expert's
+    flat_e = top_e.reshape(N * K)
+    onehot = F.one_hot(flat_e, E).to(torch.int32)          # (N K, E)
+    ranks = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    rank = ranks.gather(1, flat_e[:, None])[:, 0]
+    keep = rank < C
+
+    # scatter tokens into (E, C + 1, D); C is the overflow bin, cut off
+    tok_idx = torch.arange(N, device=x.device).repeat_interleave(K)
+    slot = torch.where(keep, rank, C)
+    buf = torch.zeros((E, C + 1, D), dtype=xt.dtype, device=x.device)
+    buf[flat_e, slot] = xt[tok_idx]
+    buf = buf[:, :C]
+
+    # expert FFN, batched over E
+    g = act_fn(act)(torch.bmm(buf, params["wg"]))
+    h = g * torch.bmm(buf, params["wi"])
+    y = F.pad(torch.bmm(h, params["wo"]), (0, 0, 0, 1))    # (E, C + 1, D)
+
+    # combine: each kept assignment's output weighted by its router prob,
+    # the K slots of a token added in slot order
+    w = torch.where(keep, top_p.reshape(N * K), 0.0)
+    contrib = (y[flat_e, slot].float() * w[:, None]).reshape(N, K, D)
+    out = torch.zeros((N, D), dtype=torch.float32, device=x.device)
+    for k in range(K):
+        out = out + contrib[:, k]
+
+    if cfg.num_shared:
+        sp = params["shared"]
+        sg = act_fn(act)(xt @ sp["wg"])
+        out = out + ((sg * (xt @ sp["wi"])) @ sp["wo"]).float()
+
+    return out.to(x.dtype).reshape(B, S, D), aux
+
+
+__all__ = ["MoEConfig", "moe_layout", "moe_forward"]

@@ -2,7 +2,7 @@
 class, built from a `ModelConfig`.
 
 Only the ``transformer`` family is ported.  Griffin (RG-LRU) and xLSTM wait
-for the causal-LM slice (ROADMAP Queue 1 item 11b).
+for the second half of the causal-LM slice (ROADMAP Queue 1 item 11b).
 """
 
 from __future__ import annotations

@@ -1,35 +1,45 @@
 """Transformer assembly on PyTorch, as in `repro.models.transformer`: the
-dense stacks with a gated or plain MLP, bidirectional (encoder-only) or
-causal attention, sliding windows and rope.
+dense / GQA / MQA / sliding-window / MoE / MLA stacks, causal or
+encoder-only, with token or embedding inputs and tied or untied heads.
 
 `ModelConfig` is the JAX package's configuration with a `torch.dtype`.
 `model_layout` is JAX's layout table (layers stacked on axis 0 when
 ``scan_layers``), so `param_count` and the initial draw agree with JAX's.
-`TransformerLM` is an `nn.Module` whose layers are `EncoderLayer` modules
-in an `nn.ModuleList`, where JAX scans one layer body over stacked
+`TransformerLM` is an `nn.Module` whose layers are `TransformerLayer`
+modules in an `nn.ModuleList`, where JAX scans one layer body over stacked
 parameters.  Weights keep JAX's (d_in, d_out) orientation, so ``x @ W``
 reads as in JAX, and a product of bfloat16 operands stays bfloat16 until
 the head's logits are cast to float32, as in JAX.
 
-What serves an encoder is ported: `encode` and the encoder-only `prefill`
-on frame embeddings.  The causal prefill with its caches, token inputs,
-tied heads, `decode_step`, `init_cache`, MoE and MLA wait for the causal-LM
-slice (ROADMAP Queue 1 item 11b); `loss` waits for
-the training slice (item 11c).
+Serving is JAX's Model API:
+
+    model.prefill(batch, max_len)      -> (last-position logits, cache)
+    model.decode_step(tokens, cache)   -> (logits, cache)
+    model.init_cache(batch, max_len)   -> cache
+
+(the encoder-only prefill returns every position's logits and no cache).
+The cache is a list of one dict a layer, where JAX stacks the layers'
+caches on axis 0 (`models.convert.cache_from_jax` carries one across); a
+decode step updates it in place and returns it.  The Griffin and xLSTM
+families and llava's image tokens wait for ROADMAP Queue 1 item 11b;
+`loss` waits for the training slice (item 11c).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import math
 
 import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from .attention import AttnConfig, attn_layout, gqa_forward
+from .attention import (AttnConfig, attn_layout, gqa_decode, gqa_forward,
+                        gqa_init_cache, gqa_prefill_cache, mla_decode,
+                        mla_forward, mla_init_cache, mla_prefill_cache)
 from .common import (Layout, glu_mlp, glu_mlp_layout, init_params, mlp,
                      mlp_layout, param_count, rms_norm)
+from .moe import MoEConfig, moe_forward, moe_layout
 
 
 def _waits(what: str, item: str) -> NotImplementedError:
@@ -53,7 +63,7 @@ class ModelConfig:
     encoder_only: bool = False       # hubert: bidirectional, no decode
     window: int | None = None        # sliding-window attention
     rope_theta: float = 10000.0
-    moe: Any = None                  # MoE config; not ported yet
+    moe: MoEConfig | None = None
     mla: dict | None = None          # q_lora/kv_lora/rope_head_dim/v_head_dim
     embed_inputs: bool = True        # False: batch supplies "embeds" directly
     num_image_tokens: int = 0        # llava: prepended patch embeddings
@@ -99,15 +109,17 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 def layer_layout(cfg: ModelConfig) -> Layout:
-    if cfg.moe is not None:
-        raise _waits("MoE", "11b")
-    return {
+    lay: Layout = {
         "ln_attn": ((cfg.d_model,), (None,), "zeros"),
         "attn": attn_layout(cfg.attn_config()),
         "ln_mlp": ((cfg.d_model,), (None,), "zeros"),
-        "mlp": (glu_mlp_layout if cfg.mlp_glu else mlp_layout)(cfg.d_model,
-                                                               cfg.d_ff),
     }
+    if cfg.moe is not None:
+        lay["moe"] = moe_layout(cfg.d_model, cfg.moe)
+    else:
+        lay["mlp"] = (glu_mlp_layout if cfg.mlp_glu else mlp_layout)(
+            cfg.d_model, cfg.d_ff)
+    return lay
 
 
 def _stack_layout(lay: Layout, n: int) -> Layout:
@@ -148,39 +160,74 @@ def layer_trees(layers: dict, cfg: ModelConfig) -> list[dict]:
 # Layer body
 # ---------------------------------------------------------------------------
 
+def _ffn(cfg: ModelConfig, lp, h):
+    if cfg.moe is not None:
+        return moe_forward(lp["moe"], h, cfg.moe, act=cfg.act)[0]
+    return (glu_mlp if cfg.mlp_glu else mlp)(lp["mlp"], h, act=cfg.act)
+
+
 def layer_fwd(cfg: ModelConfig, lp, x, positions):
-    """Full-sequence layer, JAX's `_layer_fwd`.  Returns (x', kv)."""
+    """Full-sequence layer, JAX's `_layer_fwd` without the MoE aux loss
+    (training only).  Returns (x', kv): GQA's {"k", "v"} streams or MLA's
+    latent, what a causal prefill keeps in its cache."""
+    acfg = cfg.attn_config()
     h = rms_norm(x, lp["ln_attn"])
-    attn_out, kv = gqa_forward(lp["attn"], h, positions, cfg.attn_config())
+    fwd = mla_forward if acfg.kv_lora is not None else gqa_forward
+    attn_out, kv = fwd(lp["attn"], h, positions, acfg)
     x = x + attn_out
-    h = rms_norm(x, lp["ln_mlp"])
-    mlp_out = (glu_mlp if cfg.mlp_glu else mlp)(lp["mlp"], h, act=cfg.act)
-    return x + mlp_out, kv
+    return x + _ffn(cfg, lp, rms_norm(x, lp["ln_mlp"])), kv
+
+
+def layer_decode(cfg: ModelConfig, lp, x, cache_l):
+    """One position through a layer against its cache (JAX's
+    `_layer_decode`); the cache is updated in place.  Returns (x', cache)."""
+    acfg = cfg.attn_config()
+    h = rms_norm(x, lp["ln_attn"])
+    dec = mla_decode if acfg.kv_lora is not None else gqa_decode
+    attn_out, cache_l = dec(lp["attn"], h, cache_l, acfg)
+    x = x + attn_out
+    return x + _ffn(cfg, lp, rms_norm(x, lp["ln_mlp"])), cache_l
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-class EncoderLayer(nn.Module):
-    """One layer's weights (`layer_layout`'s names) and its forward."""
+class ParamTree(nn.Module):
+    """A nested dict of frozen tensors as a module: leaves are parameters,
+    sub-dicts child modules, each read back as ``tree[name]``."""
 
-    def __init__(self, cfg: ModelConfig, tree: dict):
+    def __init__(self, tree: dict):
         super().__init__()
-        self.cfg = cfg
-        self.ln_attn = _frozen(tree["ln_attn"])
-        self.attn = nn.ParameterDict(
-            {k: _frozen(v) for k, v in tree["attn"].items()})
-        self.ln_mlp = _frozen(tree["ln_mlp"])
-        self.mlp = nn.ParameterDict(
-            {k: _frozen(v) for k, v in tree["mlp"].items()})
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, _frozen(v))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
 
     def tree(self) -> dict:
-        return {"ln_attn": self.ln_attn, "attn": dict(self.attn),
-                "ln_mlp": self.ln_mlp, "mlp": dict(self.mlp)}
+        """The nested dict of the module's own tensors."""
+        out = dict(self.named_parameters(recurse=False))
+        out.update((k, m.tree()) for k, m in self.named_children())
+        return out
+
+
+class TransformerLayer(ParamTree):
+    """One layer's weights (`layer_layout`'s names), its full-sequence
+    forward and its decode step."""
+
+    def __init__(self, cfg: ModelConfig, tree: dict):
+        super().__init__(tree)
+        self.cfg = cfg
 
     def forward(self, x, positions):
-        return layer_fwd(self.cfg, self.tree(), x, positions)[0]
+        return layer_fwd(self.cfg, self.tree(), x, positions)
+
+    def decode(self, x, cache_l):
+        return layer_decode(self.cfg, self.tree(), x, cache_l)
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +236,8 @@ class EncoderLayer(nn.Module):
 
 class TransformerLM(nn.Module):
     """The model of one `ModelConfig`.  Built without weights; `init` draws
-    them from a generator, `load` takes a tree (see `models.convert`)."""
+    them from a generator, `load` takes a tree (see `models.convert`).
+    `prefill` and `decode_step` run where the weights lie."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -205,6 +253,16 @@ class TransformerLM(nn.Module):
     def param_count(self) -> int:
         """From the layout alone: nothing is allocated."""
         return param_count(self.layout())
+
+    def active_param_count(self) -> int:
+        """Per-token active parameters (MoE: the top_k routed experts and
+        the shared ones only)."""
+        cfg, total = self.cfg, self.param_count()
+        if cfg.moe is None:
+            return total
+        e = cfg.moe
+        per_expert = 3 * cfg.d_model * e.d_ff_expert
+        return total - cfg.num_layers * (e.num_experts - e.top_k) * per_expert
 
     def init(self, generator: torch.Generator | None = None, *,
              device=None) -> "TransformerLM":
@@ -226,7 +284,7 @@ class TransformerLM(nn.Module):
             raise ValueError(f"{len(tree['layers'])} layers given, "
                              f"{self.cfg.num_layers} configured")
         self.layers = nn.ModuleList(
-            EncoderLayer(self.cfg, lt) for lt in tree["layers"])
+            TransformerLayer(self.cfg, lt) for lt in tree["layers"])
         for name in ("embed", "ln_out", "head"):
             if name in tree:
                 setattr(self, name, _frozen(tree[name]))
@@ -249,38 +307,104 @@ class TransformerLM(nn.Module):
         return TransformerLM(dataclasses.replace(self.cfg, dtype=dtype)).load(
             conv(self.tree()))
 
+    # -- inputs and head ----------------------------------------------------
+    def _scaled(self, x):
+        """Gemma's embedding scale: sqrt(d) rounded to cfg.dtype first (45.25
+        in bf16 at d = 2048), as JAX's ``jnp.asarray(math.sqrt(d), dtype)``."""
+        if not self.cfg.embed_scale:
+            return x
+        return x * torch.tensor(math.sqrt(self.cfg.d_model),
+                                dtype=self.cfg.dtype, device=x.device)
+
+    def _check_servable(self):
+        cfg = self.cfg
+        if cfg.family != "transformer":
+            raise _waits(f"the {cfg.family} family", "11b")
+        if cfg.num_image_tokens:
+            raise _waits("llava's image-token inputs", "11b")
+
+    def _inputs(self, batch):
+        cfg = self.cfg
+        self._check_servable()
+        if not cfg.embed_inputs:
+            return batch["embeds"].to(self.ln_out.device, cfg.dtype)
+        return self._scaled(self.embed[batch["tokens"].to(self.embed.device)])
+
+    def _head(self):
+        if self.cfg.tie_embeddings and self.embed is not None:
+            return self.embed.T
+        return self.head
+
     # -- serving ------------------------------------------------------------
     def encode(self, embeds) -> torch.Tensor:
         """The layer stack over (B, S, d) inputs, then the output norm: JAX's
         `_run_stack` and ``rms_norm(x, params["ln_out"])``, in cfg.dtype."""
-        x = embeds.to(self.cfg.dtype)
+        return self._stack(embeds.to(self.cfg.dtype), keep_kv=False)[0]
+
+    def _stack(self, x, keep_kv: bool):
+        """(output-normed x, each layer's kv streams when `keep_kv`)."""
         positions = torch.arange(x.shape[1], device=x.device)
+        kvs = []
         for layer in self.layers:
-            x = layer(x, positions)
-        return rms_norm(x, self.ln_out)
+            x, kv = layer(x, positions)
+            if keep_kv:
+                kvs.append(kv)
+        return rms_norm(x, self.ln_out), kvs
 
     def prefill(self, batch, max_len: int | None = None):
-        """Encoder-only, on ``batch["embeds"]`` (B, S, d): (logits (B, S,
-        vocab) float32, None); encoders keep no cache.  The causal prefill,
-        token and image inputs and tied heads wait for item 11b."""
+        """JAX's `prefill`.  Causal: ``batch["tokens"]`` (B, S) -> (logits
+        (B, 1, vocab) float32 of the last position, the cache of positions
+        0..S-1 with room for `max_len` (None: S)).  Encoder-only: on
+        ``batch["embeds"]`` (B, S, d) -> (logits (B, S, vocab) float32,
+        None); encoders keep no cache."""
         cfg = self.cfg
-        if not cfg.encoder_only or cfg.embed_inputs or cfg.tie_embeddings:
-            raise _waits("the causal prefill, token inputs and tied heads",
-                         "11b")
-        return (self.encode(batch["embeds"]) @ self.head).float(), None
+        x, kvs = self._stack(self._inputs(batch),
+                             keep_kv=not cfg.encoder_only)
+        if cfg.encoder_only:
+            return (x @ self._head()).float(), None
+        logits = (x[:, -1:] @ self._head()).float()
+        max_len = max_len or x.shape[1]
+        acfg = cfg.attn_config()
+        if acfg.kv_lora is not None:
+            cache = [mla_prefill_cache(kv, max_len) for kv in kvs]
+        else:
+            cache = [gqa_prefill_cache(acfg, kv, max_len) for kv in kvs]
+        return logits, cache
 
     def decode_step(self, tokens, cache):
-        if self.cfg.encoder_only:
-            raise ValueError(
-                f"{self.cfg.name} is encoder-only: no decode step")
-        raise _waits("decode_step", "11b")
+        """One token a sequence, ``tokens`` (B, 1), against `cache`, which
+        the step updates in place (JAX's serve step donates it).  Returns
+        (logits (B, 1, vocab) float32, cache)."""
+        cfg = self.cfg
+        if cfg.encoder_only:
+            raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+        self._check_servable()
+        if len(cache) != cfg.num_layers:
+            raise ValueError(f"a cache of {len(cache)} layers for "
+                             f"{cfg.num_layers} layers")
+        x = self._scaled(self.embed[tokens.to(self.embed.device)])
+        for layer, cache_l in zip(self.layers, cache):
+            x, _ = layer.decode(x, cache_l)
+        x = rms_norm(x, self.ln_out)
+        return (x @ self._head()).float(), cache
 
-    def init_cache(self, batch: int, max_len: int):
-        raise _waits("init_cache", "11b")
+    def init_cache(self, batch: int, max_len: int, device=None) -> list:
+        """An empty cache on `device` (None: ``cuda``; ``"meta"`` gives its
+        shapes without memory): one dict a layer, a window-sized ring for
+        sliding-window layers."""
+        cfg = self.cfg
+        if cfg.encoder_only:
+            raise ValueError(f"{cfg.name} is encoder-only: no cache")
+        dev = resolve_device(device)
+        acfg = cfg.attn_config()
+        mk = mla_init_cache if acfg.kv_lora is not None else gqa_init_cache
+        return [mk(acfg, batch, max_len, cfg.dtype, dev)
+                for _ in range(cfg.num_layers)]
 
     def loss(self, batch):
         raise _waits("the training loss", "11c")
 
 
-__all__ = ["ModelConfig", "TransformerLM", "EncoderLayer", "model_layout",
-           "layer_layout", "layer_trees", "layer_fwd"]
+__all__ = ["ModelConfig", "TransformerLM", "TransformerLayer", "ParamTree",
+           "model_layout", "layer_layout", "layer_trees", "layer_fwd",
+           "layer_decode"]

@@ -33,7 +33,7 @@ from repro.models import attention as ja
 from repro.models import build_model as j_build
 from repro.models import common as jc
 from repro.models import transformer as jt
-from repro_torch.configs import ARCH_IDS, get_arch, paper_hmm
+from repro_torch.configs import ARCH_IDS, PORTED_IDS, get_arch, paper_hmm
 from repro_torch.models import (ModelConfig, TransformerLM, build_model,
                                 params_from_jax, to_numpy_tree)
 from repro_torch.models import attention as ta
@@ -322,22 +322,32 @@ def test_cast_copies_every_weight():
 # ---------------------------------------------------------------------------
 
 def test_the_unported_paths_raise_naming_their_item():
+    """What waits: the Griffin and xLSTM families and llava's image tokens
+    (item 11b), the training loss (item 11c); an encoder has no decode
+    step and no cache."""
     _, cfg = _smoke("float32")
     model = build_model(cfg)
     with pytest.raises(ValueError, match="encoder-only"):
         model.decode_step(None, None)
+    with pytest.raises(ValueError, match="encoder-only"):
+        model.init_cache(1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="11c"):
         model.loss({})
+    causal = get_arch("tinyllama_1_1b").SMOKE
+    with pytest.raises(NotImplementedError, match="11c"):
+        build_model(causal).loss({})
+    llava = build_model(dataclasses.replace(causal, num_image_tokens=4))
+    llava.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="11b"):
-        model.init_cache(1, 8)
-    causal = build_model(dataclasses.replace(cfg, encoder_only=False))
-    for call in (lambda: causal.prefill({}), lambda: causal.decode_step(
-            None, None)):
+        llava.prefill({"tokens": tokens, "image_embeds": None})
+    with pytest.raises(NotImplementedError, match="11b"):
+        llava.decode_step(tokens[:, :1], llava.init_cache(1, 8, device="cpu"))
+    griffin = TransformerLM(dataclasses.replace(causal, family="griffin"))
+    for call in (lambda: griffin.prefill({"tokens": tokens}),
+                 lambda: griffin.decode_step(tokens[:, :1], [])):
         with pytest.raises(NotImplementedError, match="11b"):
             call()
-    for bad in (dict(moe=object()), dict(mla={"kv_lora": 16, "q_lora": 16})):
-        with pytest.raises(NotImplementedError, match="11b"):
-            build_model(dataclasses.replace(cfg, **bad)).param_count()
     for family in ("griffin", "xlstm"):
         with pytest.raises(NotImplementedError, match="11b"):
             build_model(dataclasses.replace(cfg, family=family))
@@ -346,24 +356,39 @@ def test_the_unported_paths_raise_naming_their_item():
 
 
 def test_get_arch_knows_only_the_ported_ids():
+    """The encoder and the six transformer-family causal LMs are ported;
+    recurrentgemma, xlstm and llava wait for item 11b."""
     assert get_arch("hubert-xlarge").NUM_CLASSES == 504
+    assert set(PORTED_IDS) == {
+        "hubert_xlarge", "tinyllama_1_1b", "granite_8b", "gemma_2b",
+        "h2o_danube_3_4b", "moonshot_v1_16b_a3b", "deepseek_v2_236b"}
     for arch in ARCH_IDS:
-        if arch != "hubert_xlarge":
+        if arch in PORTED_IDS:
+            assert get_arch(arch).CONFIG.name
+        else:
             with pytest.raises(NotImplementedError, match="11b"):
                 get_arch(arch)
+    assert sorted(set(ARCH_IDS) - set(PORTED_IDS)) == [
+        "llava_next_34b", "recurrentgemma_2b", "xlstm_350m"]
     with pytest.raises(ValueError, match="unknown arch"):
         get_arch("bert")
 
 
 def test_configs_match_jax():
-    mod, j_mod = get_arch("hubert_xlarge"), j_get_arch("hubert_xlarge")
-    assert (mod.NUM_CLASSES, mod.SKIPS) == (j_mod.NUM_CLASSES, j_mod.SKIPS)
-    for which in ("CONFIG", "SMOKE"):
-        ours = dataclasses.asdict(getattr(mod, which))
-        theirs = dataclasses.asdict(getattr(j_mod, which))
-        assert ours.pop("dtype") == torch.bfloat16
-        assert theirs.pop("dtype") == jnp.bfloat16
-        assert ours == theirs
+    """Each ported config module field for field JAX's (MoE configs
+    compared as dicts), its SKIPS and, for hubert, NUM_CLASSES; the paper's
+    HMM workloads."""
+    for arch in PORTED_IDS:
+        mod, j_mod = get_arch(arch), j_get_arch(arch)
+        assert mod.SKIPS == j_mod.SKIPS, arch
+        assert getattr(mod, "NUM_CLASSES", None) == \
+            getattr(j_mod, "NUM_CLASSES", None)
+        for which in ("CONFIG", "SMOKE"):
+            ours = dataclasses.asdict(getattr(mod, which))
+            theirs = dataclasses.asdict(getattr(j_mod, which))
+            assert ours.pop("dtype") == torch.bfloat16
+            assert theirs.pop("dtype") == jnp.bfloat16
+            assert ours == theirs, (arch, which)
     for name in ("DEFAULT", "FORCED_ALIGNMENT"):
         assert dataclasses.asdict(getattr(paper_hmm, name)) == \
             dataclasses.asdict(getattr(j_paper_hmm, name))
