@@ -229,6 +229,29 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      a prefill of 4096 tokens and 1024 single-token steps (the ring wraps
      once) against a prefill of all 5120 (rolled by 1024), then 16 greedy
      steps from each cache, within `LM_RING_TOL`, tokens equal.
+  15. the recurrent families and llava's image tokens (`models/hybrid.py`,
+     `rglru.py`, `xlstm.py`; no Viterbi kernel may launch): (a)
+     recurrentgemma-2b (5 layers: one (rec, rec, attn) unit and the two
+     tail rec layers), xlstm-350m (2 layers) and llava-next-34b (2 layers,
+     32 image rows before the prompt) at full width in float32, card
+     against CPU as 14a, within `REC_F32_TOL` / `REC_F32_TF_TOL`; (b)
+     recurrentgemma-2b whole (26 layers, bf16), 8 prompts of 511 tokens,
+     max_len 1024, 64 greedy steps, a decode step after the 511 against a
+     prefill of 512; (c) xlstm-350m whole (24 layers), 8 prompts of 512
+     tokens (a multiple of its 256-row mLSTM chunk), 64 greedy steps, a
+     prefill of 256 and 256 single-token steps against a prefill of 512
+     and 255 + 1 against 256 (for xLSTM, 15a's check too, the logits'
+     gap is printed and unit 0's mLSTM state and conv tail are held:
+     `mlstm_state_gap`); (d) llava-next-34b at full width cut to
+     `LM_DEPTH` layers, 2 sequences of 2880 image embeddings and 192
+     tokens (3072 positions, a multiple of the attention's kv block),
+     max_len 4096, 16 greedy steps, 1024 single-token steps against a
+     prefill of all 4096 positions (`REC_TF`); for each of (b)-(d) the
+     init's peak memory beside its model from the
+     layout, the checks within `REC_BF16_TOL`, the prefill (CUDA events,
+     median of 7) and decode-step times, tokens/s, peak memory and cache
+     bytes beside their bounds, then one decode step and one prefill under
+     `torch.profiler` (device busy and idle share, kernel launches).
 
 The line before the last is a JSON object with one entry per kernel (the
 `resources` object just before it); the last line is {"ok": true,
@@ -2935,13 +2958,18 @@ def drain_device_share(prepare, what: str, card: str) -> None:
     """One drain under `torch.profiler`: `prepare()` sets it up and returns
     it, untimed.  Prints the device time of its kernels and copies and the
     share of the drain's wall time (host clock, under the profiler) in which
-    the device ran nothing."""
+    the device ran nothing.  The profiler records the device's activity
+    alone (no host op events, which nothing here reads: they stretch a
+    host-bound drain, and an xLSTM prefill's 309 000 launches would take
+    the trace about two minutes to parse); a CPU rehearsal, with no device,
+    records the host's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     drain = prepare()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA if torch.cuda.is_available()
+                  else ProfilerActivity.CPU]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         drain()
         torch.cuda.synchronize()
@@ -2957,11 +2985,12 @@ def drain_device_share(prepare, what: str, card: str) -> None:
         if b > end:
             busy += b - max(a, end)
             end = b
-    kernel_us = sum(b - a for a, b, name in spans
-                    if not name.startswith(("Memcpy", "Memset")))
+    kernels = [b - a for a, b, name in spans
+               if not name.startswith(("Memcpy", "Memset"))]
     print(f"{what} drain device share: wall {wall_us / 1e3:.3f} ms under the "
           f"profiler, device busy {busy / 1e3:.3f} ms ({len(spans)} device "
-          f"events; kernels {kernel_us / 1e3:.3f} ms), device idle "
+          f"events; {len(kernels)} kernel launches, "
+          f"{sum(kernels) / 1e3:.3f} ms), device idle "
           f"{1 - busy / wall_us:.4f} of the wall time; {card}")
 
 
@@ -2990,10 +3019,17 @@ LM_F32_TF_TOL = 1.27e-4
 LM_PROMPT, LM_MAX_LEN = 511, 1024
 LM_SERVE = dict(granite_8b=(8, 64))
 LM_SERVE_DEFAULT = (4, 16)
-#: 14c: the depth cuts (the full models do not fit one card: moonshot's
-#: 48 layers would be 56 GB in bf16 plus a 35 GB float32 draw of its wg
-#: leaf, deepseek-v2's 60 layers 479 GB)
-LM_DEPTH = dict(moonshot_v1_16b_a3b=16, deepseek_v2_236b=2)
+#: 14c / 15d: the depth cuts (the full models do not fit one card:
+#: moonshot's 48 layers would be 56 GB in bf16 plus a 35 GB float32 draw of
+#: its wg leaf, deepseek-v2's 60 layers 479 GB).  llava-next-34b's 60
+#: layers are 68.8 GB in bf16; the init draws each stacked leaf in float32
+#: beside everything drawn before it, so its peak (`init_peak_bytes`) is
+#: 0.917 + 1.703 L GB at L layers: 72.22 GiB at 45 layers, as measured on
+#: an H100 (PERF.md §4).  At 47 (75.4 GiB modeled) the init ran out of the
+#: card's 79.18 GiB, 3.21 GiB of it cached by the allocator in blocks too
+#: small for the last 12.85 GiB cast; 45 leaves about 3 GiB beside that
+LM_DEPTH = dict(moonshot_v1_16b_a3b=16, deepseek_v2_236b=2,
+                llava_next_34b=45)
 #: 14b / 14c: max |first decode step's logits - the last-position logits
 #: of a prefill over all 512 tokens| / max |logit|, bf16: 1.5x each
 #: config's measured on an H100 (PERF.md §5).  JAX's init draws stacked
@@ -3026,12 +3062,13 @@ def copy_to(model, device):
     return build_model(model.cfg).load(conv(model.tree()))
 
 
-def greedy(model, tokens, max_len: int, steps: int, timed: bool = False):
-    """Prefill `tokens` (B, S), then `steps` greedy decode steps: (the
-    prefill's and each step's logits (B, 1 + steps, vocab), the greedy
-    tokens (B, 1 + steps), the cache, each step's ms by CUDA events when
-    `timed`)."""
-    logits, cache = model.prefill({"tokens": tokens}, max_len=max_len)
+def greedy(model, batch: dict, max_len: int, steps: int,
+           timed: bool = False):
+    """Prefill `batch` (its tokens (B, S), and llava's image embeddings),
+    then `steps` greedy decode steps: (the prefill's and each step's logits
+    (B, 1 + steps, vocab), the greedy tokens (B, 1 + steps), the cache,
+    each step's ms by CUDA events when `timed`)."""
+    logits, cache = model.prefill(batch, max_len=max_len)
     outs, toks, times = [logits], [logits[:, -1].argmax(-1, keepdim=True)], []
     for _ in range(steps):
         if timed:
@@ -3049,12 +3086,55 @@ def greedy(model, tokens, max_len: int, steps: int, timed: bool = False):
             [a.elapsed_time(b) for a, b in times])
 
 
-def _matrix_params(tree: dict) -> int:
+def _matrix_params(tree: dict, stacked: int = 0) -> int:
     """The parameters of a layout's matrices (its leaves of 2 or more
-    axes)."""
-    return sum(_matrix_params(v) if isinstance(v, dict) else
-               (int(np.prod(v[0])) if len(v[0]) >= 2 else 0)
+    axes besides the `stacked` leading ones); a depthwise conv's (W, R)
+    taps count as a matrix, as a token takes W R multiply-adds of them."""
+    return sum(_matrix_params(v, stacked) if isinstance(v, dict) else
+               (int(np.prod(v[0])) if len(v[0]) >= 2 + stacked else 0)
                for v in tree.values())
+
+
+def _attn_f32(acfg, B: int, S: int) -> float:
+    """Float32 FLOPs of one layer's blockwise attention over (B, S): every
+    (q, kv) pair of the blocks, masked ones included."""
+    if acfg.kv_lora is not None:
+        hd_k = acfg.head_dim + acfg.rope_head_dim
+        hd_v = acfg.v_head_dim or acfg.head_dim
+    else:
+        hd_k = hd_v = acfg.head_dim
+    return 2.0 * B * acfg.num_heads * S * S * (hd_k + hd_v)
+
+
+def recurrent_prefill_work(cfg, B: int, S: int):
+    """(FLOPs of the bf16 products, FLOPs in float32) of a Griffin or xLSTM
+    prefill of (B, S), as the port computes it.  Products: every matrix
+    (and conv tap) once a token, the head at the last position.  Float32:
+    Griffin's attention layers as `_attn_f32`, each RG-LRU's gates (12 a
+    channel and position) and its log-depth scan (4 a channel and position
+    a pass, ceil(log2 S) passes); xLSTM's mLSTM parallel form over every
+    (t, s) pair of its chunks ((4 hd + 8) a pair and head: scores, values,
+    the decay matrix), its recurrence over the prompt (7 hd^2 a position
+    and head: the k v outer product, C's update, the read) and the sLSTM
+    recurrence (20 a channel and position)."""
+    import math
+
+    from repro_torch.models import build_model
+    model, N, d = build_model(cfg), B * S, cfg.d_model
+    lay = model.layout()
+    mm = 2.0 * N * (_matrix_params(lay["units"], stacked=1) + sum(
+        _matrix_params(v) for k, v in lay.items() if k.startswith("tail")))
+    mm += 2.0 * B * d * cfg.vocab
+    if cfg.family == "griffin":
+        n_rec = model.kinds.count("rec")
+        passes = math.ceil(math.log2(S)) if S > 1 else 0
+        f32 = n_rec * N * model.rcfg.d_rnn * (12 + 4 * passes)
+        f32 += model.n_units * _attn_f32(cfg.attn_config(), B, S)
+        return mm, f32
+    H, hd = cfg.num_heads, 2 * d // cfg.num_heads
+    f32 = model.n_units * (B * S * S * H * (4 * hd + 8)
+                           + N * H * 7 * hd * hd + N * d * 20)
+    return mm, f32
 
 
 def lm_prefill_work(cfg, B: int, S: int):
@@ -3063,7 +3143,9 @@ def lm_prefill_work(cfg, B: int, S: int):
     (MoE: the shared experts a token, every expert over its capacity
     buffer; the router in float32), attention in float32 over every (q,
     kv) pair of the blocks (masked pairs included), the head at the last
-    position."""
+    position; the recurrent families as `recurrent_prefill_work`."""
+    if cfg.family != "transformer":
+        return recurrent_prefill_work(cfg, B, S)
     from repro_torch.models.transformer import layer_layout
     lay, acfg, N = layer_layout(cfg), cfg.attn_config(), B * S
     d, L = cfg.d_model, cfg.num_layers
@@ -3078,25 +3160,32 @@ def lm_prefill_work(cfg, B: int, S: int):
         f32 += 2.0 * N * d * e.num_experts
     else:
         dense += _matrix_params(lay["mlp"])
-    if acfg.kv_lora is not None:
-        hd_k = acfg.head_dim + acfg.rope_head_dim
-        hd_v = acfg.v_head_dim or acfg.head_dim
-    else:
-        hd_k = hd_v = acfg.head_dim
-    f32 += 2.0 * B * acfg.num_heads * S * S * (hd_k + hd_v)
+    f32 += _attn_f32(acfg, B, S)
     mm = L * (2.0 * N * dense + experts) + 2.0 * B * d * cfg.vocab
     return mm, L * f32
+
+
+def _tensors(tree) -> list:
+    """The tensors of a nested dict (a cache entry)."""
+    return [t for v in tree.values()
+            for t in (_tensors(v) if isinstance(v, dict) else [v])]
 
 
 def lm_decode_bytes(model, cache) -> float:
     """Bytes a decode step must move: every weight it reads once (all of
     them but an untied embedding table, of which it gathers B rows: the
-    dense dispatch runs every expert), and the cache's filled slots read
-    (the new position's entries written)."""
+    dense dispatch runs every expert), an attention cache's filled slots
+    read (the new position's entries written), and every recurrent state
+    (RG-LRU h and conv tail; mLSTM C, n, m; sLSTM c, n, m, h; their conv
+    tails) read and written."""
     nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
     if not model.cfg.tie_embeddings:
         nbytes -= model.embed.numel() * model.embed.element_size()
     for c in cache:
+        if "pos" not in c:
+            nbytes += 2 * sum(t.numel() * t.element_size()
+                              for t in _tensors(c))
+            continue
         filled = int((c["pos"] >= 0).sum())
         for name in ("k", "v", "latent"):
             if name in c:
@@ -3107,7 +3196,7 @@ def lm_decode_bytes(model, cache) -> float:
 
 def cache_bytes(cache) -> int:
     return sum(t.numel() * t.element_size() for c in cache
-               for t in c.values())
+               for t in _tensors(c))
 
 
 def free_card() -> None:
@@ -3116,49 +3205,83 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def lm_width_parity(dev, card: str) -> None:
-    """14a: each config at full width in float32, the same weights on the
-    card and on the CPU (drawn on the card from a seed, then copied), a
-    prefill and greedy decode steps on both."""
+def fan_in_weights(model) -> str:
+    """Scale each of the model's block matrices in place from the std JAX's
+    init draws a stacked leaf with (1/sqrt(units)) to 1/sqrt(its d_in).
+    Returns a label for the printed line."""
+    import math
+    n_stack = model.n_units
+    for block in model.blocks:
+        for p in block.parameters():
+            if p.dim() >= 2:
+                p.mul_(math.sqrt(n_stack / p.shape[0]))
+    return "block matrices rescaled to std 1/sqrt(d_in)"
+
+
+def width_parity(dev, card: str, arch: str, layers: int, what: str,
+                 tol: float, tf_tol: float, n_image: int = 0,
+                 prepare=None) -> None:
+    """One config at full width in float32 (cut to `layers`), the same
+    weights on the card and on the CPU (drawn on the card from a seed,
+    `prepare(model)` applied when given, then copied), a prefill of
+    LM_PARITY's prompts (after `n_image` image rows drawn from the seed for
+    a VLM) and greedy decode steps on both: logits within `tol` x max
+    |logit| of the CPU's, greedy tokens equal, the first step against a
+    prefill over S + 1 tokens within `tf_tol` (for xLSTM its
+    `mlstm_state_gap`)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
 
     B, S, max_len, steps = LM_PARITY
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(arch).CONFIG, num_layers=layers,
+                              dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    m_card = build_model(cfg).init(gen, device=dev)
+    weights = f", {prepare(m_card)}" if prepare else ""
+    m_cpu = copy_to(m_card, "cpu")
+    rng = np.random.default_rng(LM_SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, S), dtype=np.int32))}
+    if n_image:
+        batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, n_image, cfg.d_model), dtype=np.float32))
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    lg, tg, _, _ = greedy(m_card, on_card, max_len, steps)
+    lc, tc, _, _ = greedy(m_cpu, batch, max_len, steps)
+    scale = float(lc.abs().max())
+    err = float((lg.cpu() - lc).abs().max()) / scale
+    tf, _, state = lm_teacher_forced(no_drop(m_card) if cfg.moe else m_card,
+                                     on_card, tg[:, :1])
+    image = f"{n_image} image rows + " if n_image else ""
+    print(f"lm {what} width parity {cfg.name}: layers {layers} at full "
+          f"width (d {cfg.d_model}, {cfg.num_heads} x {cfg.hd} heads, "
+          f"kv {cfg.num_kv_heads}, vocab {cfg.vocab}){weights}, float32, "
+          f"(B, S) = ({B}, {image}{S}), max_len {max_len}, {steps} greedy "
+          f"steps: max |logits card - CPU| / max |logit| {err:.6g} (bound "
+          f"{tol}), max |logit| {scale:.4g}, greedy tokens equal "
+          f"{torch.equal(tg.cpu(), tc)}; teacher-forced on the card "
+          f"(the first decode step against a prefill over {S + 1} "
+          f"tokens{', MoE capacity dropping nothing' if cfg.moe else ''})"
+          f": {teacher_forced_text(tf, state, tf_tol)}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
+    if not (bool(torch.isfinite(lg).all()) and err <= tol
+            and torch.equal(tg.cpu(), tc)
+            and (tf if state is None else state) <= tf_tol):
+        raise SystemExit(f"FAIL lm {what} {arch}: the card's logits or "
+                         f"greedy tokens != the CPU's")
+    del m_card, m_cpu, lg
+    free_card()
+
+
+def lm_width_parity(dev, card: str) -> None:
+    """14a: each transformer-family config at full width in float32, card
+    against CPU (`width_parity`)."""
     for arch in LM_IDS:
-        t0 = time.perf_counter()
-        layers = LM_PARITY_LAYERS.get(arch, 2)
-        cfg = dataclasses.replace(get_arch(arch).CONFIG, num_layers=layers,
-                                  dtype=torch.float32)
-        gen = torch.Generator(device=dev).manual_seed(LM_SEED)
-        m_card = build_model(cfg).init(gen, device=dev)
-        m_cpu = copy_to(m_card, "cpu")
-        tokens = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
-            0, cfg.vocab, (B, S), dtype=np.int32))
-        lg, tg, _, _ = greedy(m_card, tokens.to(dev), max_len, steps)
-        lc, tc, _, _ = greedy(m_cpu, tokens, max_len, steps)
-        scale = float(lc.abs().max())
-        err = float((lg.cpu() - lc).abs().max()) / scale
-        tf, _ = lm_teacher_forced(no_drop(m_card) if cfg.moe else m_card,
-                                  tokens.to(dev), tg[:, :1])
-        print(f"lm 14a width parity {cfg.name}: layers {layers} at full "
-              f"width (d {cfg.d_model}, {cfg.num_heads} x {cfg.hd} heads, "
-              f"kv {cfg.num_kv_heads}, vocab {cfg.vocab}), float32, (B, S) "
-              f"= ({B}, {S}), max_len {max_len}, {steps} greedy steps: "
-              f"max |logits card - CPU| / max |logit| {err:.6g} (bound "
-              f"{LM_F32_TOL}), max |logit| {scale:.4g}, greedy tokens equal "
-              f"{torch.equal(tg.cpu(), tc)}; teacher-forced on the card "
-              f"(the first decode step against a prefill over {S + 1} "
-              f"tokens{', MoE capacity dropping nothing' if cfg.moe else ''})"
-              f": {tf:.6g} (bound {LM_F32_TF_TOL}); "
-              f"{time.perf_counter() - t0:.1f} s; {card}")
-        if not (bool(torch.isfinite(lg).all()) and err <= LM_F32_TOL
-                and torch.equal(tg.cpu(), tc) and tf <= LM_F32_TF_TOL):
-            raise SystemExit(f"FAIL lm 14a {arch}: the card's logits or "
-                             f"greedy tokens != the CPU's")
-        del m_card, m_cpu, lg
-        free_card()
+        width_parity(dev, card, arch, LM_PARITY_LAYERS.get(arch, 2), "14a",
+                     LM_F32_TOL, LM_F32_TF_TOL)
 
 
 def no_drop(model):
@@ -3174,16 +3297,57 @@ def no_drop(model):
     return build_model(dataclasses.replace(cfg, moe=moe)).load(model.tree())
 
 
-def lm_teacher_forced(model, prompts, first) -> tuple[float, float]:
-    """(max |the decode step of `first` after a prefill of `prompts` - the
-    last-position logits of a prefill over both| / max |logit|, max
-    |logit|)."""
-    _, cache = model.prefill({"tokens": prompts}, max_len=LM_MAX_LEN)
-    step, _ = model.decode_step(first, cache)
-    full, _ = model.prefill({"tokens": torch.cat([prompts, first], 1)},
-                            max_len=LM_MAX_LEN)
+def mlstm_state_gap(stepped, full) -> float:
+    """max |stepped - prefilled| / max |prefilled| over xLSTM unit 0's mLSTM
+    state (C, n, m) and conv tail, the largest of the four: the mLSTM
+    block's input is the embeddings on both paths, and a prefill's
+    `_mlstm_final_state` runs the decode step's recurrence, so the two
+    agree to rounding (the products' shapes differ).  The logits do not:
+    JAX's `mlstm_step` builds its normaliser from unscaled keys (ROADMAP
+    Queue 3), and every later block takes that gap in."""
+    a, b = stepped[0]["m"], full[0]["m"]
+    pairs = [(a["conv"], b["conv"])] + [(a["rec"][k], b["rec"][k])
+                                        for k in ("C", "n", "m")]
+    return max(float((x.float() - y.float()).abs().max())
+               / float(y.float().abs().max()) for x, y in pairs)
+
+
+def stepped_vs_prefill(model, batch: dict, n_prefill: int,
+                       max_len: int) -> tuple[float, float, float | None]:
+    """(max |the last of the single-token decode steps that take a prefill
+    of batch's first `n_prefill` tokens (after its image rows) to the end
+    of its tokens - the last-position logits of a prefill over all of
+    them| / max |logit|, max |logit|, for xLSTM the `mlstm_state_gap` of
+    their caches, else None)."""
+    tokens = batch["tokens"]
+    _, cache = model.prefill(dict(batch, tokens=tokens[:, :n_prefill]),
+                             max_len=max_len)
+    for t in range(n_prefill, tokens.shape[1]):
+        step, cache = model.decode_step(tokens[:, t:t + 1], cache)
+    full, full_cache = model.prefill(batch, max_len=max_len)
     scale = float(full.abs().max())
-    return float((step - full).abs().max()) / scale, scale
+    state = (mlstm_state_gap(cache, full_cache)
+             if model.cfg.family == "xlstm" else None)
+    return float((step - full).abs().max()) / scale, scale, state
+
+
+def teacher_forced_text(err: float, state: float | None, bound) -> str:
+    """A teacher-forced check's reading beside its bound: the logits' gap,
+    or for xLSTM (`state` not None) the logits' gap, not held, and the
+    unit-0 mLSTM state's gap, held."""
+    if state is None:
+        return f"{err:.6g} (bound {bound})"
+    return (f"{err:.6g} (the reference's normaliser gap, not held); unit "
+            f"0's mLSTM state and conv tail against the prefill's, max "
+            f"|diff| / max |value| {state:.6g} (bound {bound})")
+
+
+def lm_teacher_forced(model, batch: dict, first):
+    """`stepped_vs_prefill` of one decode step, of `first`, after a prefill
+    of `batch`."""
+    tokens = torch.cat([batch["tokens"], first], 1)
+    return stepped_vs_prefill(model, dict(batch, tokens=tokens),
+                              batch["tokens"].shape[1], LM_MAX_LEN)
 
 
 def lm_serve(dev, card: str, arch: str) -> None:
@@ -3215,7 +3379,8 @@ def lm_serve(dev, card: str, arch: str) -> None:
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
 
     torch.cuda.reset_peak_memory_stats()
-    logits, toks, cache, step_ms = greedy(model, prompts, LM_MAX_LEN, steps,
+    logits, toks, cache, step_ms = greedy(model, {"tokens": prompts},
+                                          LM_MAX_LEN, steps,
                                           timed=True)
     peak = torch.cuda.max_memory_allocated()
     if not (bool(torch.isfinite(logits).all())
@@ -3228,11 +3393,13 @@ def lm_serve(dev, card: str, arch: str) -> None:
     # step routes B tokens and a prefill B x 512 with their own capacities
     first = toks[:, :1]
     if cfg.moe is None:
-        err, scale = lm_teacher_forced(model, prompts, first)
+        err, scale, _ = lm_teacher_forced(model, {"tokens": prompts},
+                                          first)
         what = ""
     else:
-        err, scale = lm_teacher_forced(no_drop(model), prompts, first)
-        served, _ = lm_teacher_forced(model, prompts, first)
+        err, scale, _ = lm_teacher_forced(no_drop(model),
+                                          {"tokens": prompts}, first)
+        served, _, _ = lm_teacher_forced(model, {"tokens": prompts}, first)
         what = (f" (on capacity factor (E + 1) / K, no assignment dropped; with "
                 f"the configured capacity {served:.6g})")
     print(f"lm {cfg.name} teacher-forced: max |decode step logits - "
@@ -3349,6 +3516,206 @@ def phase_lm(dev, card: str) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 15: the recurrent families (Griffin, xLSTM) and llava's image tokens
+# ---------------------------------------------------------------------------
+
+REC_IDS = ("recurrentgemma_2b", "xlstm_350m", "llava_next_34b")
+#: 15a: layers at full width in float32 (Griffin: one (rec, rec, attn)
+#: unit and the two tail rec layers; xLSTM: one (mLSTM, sLSTM) unit), and
+#: llava's image rows (JAX's `_embed_tokens` takes any number)
+REC_PARITY_LAYERS = dict(recurrentgemma_2b=5, xlstm_350m=2, llava_next_34b=2)
+REC_PARITY_IMAGE = 32
+#: 15a: max |logits, card - CPU| / max |logit| and the teacher-forced
+#: check on the card (the first step against a prefill over 65 tokens),
+#: float32 (TF32 off): 1.5x the values measured on an H100 (PERF.md §6):
+#: recurrentgemma 2.42092e-3 and 6.20179e-4 (JAX's init draws the
+#: unit's matrices with std 1/sqrt(units) = 1, so the softmax and the
+#: RG-LRU's gates saturate), llava 5.3906e-6 and 4.89726e-6, xlstm
+#: 3.55691e-6 and, of unit 0's mLSTM state and conv tail
+#: (`mlstm_state_gap`), 1.12398e-6.  xlstm runs on its block matrices
+#: rescaled to std 1/sqrt(d_in) (`fan_in_weights`): on JAX's init it is
+#: chaotic, the card's and the CPU's float32 logits 1.41052 x max |logit|
+#: apart with other greedy tokens (my chip run 1 of PR 23, PERF.md §6).
+#: Its teacher-forced logits' gap (0.970949) is the reference's:
+#: `mlstm_step` builds its normaliser from unscaled keys (ROADMAP Queue 3)
+REC_F32_TOL = dict(recurrentgemma_2b=3.63e-3, xlstm_350m=5.35e-6,
+                   llava_next_34b=8.09e-6)
+REC_F32_TF_TOL = dict(recurrentgemma_2b=9.3e-4, xlstm_350m=1.69e-6,
+                      llava_next_34b=7.35e-6)
+#: 15b-d: (batch, prompt tokens, max_len, greedy steps).  xLSTM's prompt is
+#: a multiple of its mLSTM chunk (256) and llava's 2880 image rows + 192
+#: tokens a multiple of the attention's kv block (1024), as JAX's prefill
+#: requires of a sequence longer than one block (511 tokens would give
+#: 3391 positions, which both packages refuse)
+REC_SERVE = dict(recurrentgemma_2b=(8, 511, 1024, 64),
+                 xlstm_350m=(8, 512, 1024, 64),
+                 llava_next_34b=(2, 192, 4096, 16))
+#: 15b-d: the teacher-forced checks, bf16, as (prompt tokens prefilled,
+#: tokens in all): single-token steps from a prefill of the first
+#: against a prefill of all, the last step's logits.  recurrentgemma: the
+#: step after 511 against 512; xLSTM (A) 256 + 256 against 512 (the
+#: recurrent form against the chunked parallel form) and (B) 255 + 1
+#: against 256; llava: 2880 image rows + 192 tokens, then 1024 steps,
+#: against a prefill of 2880 + 1216 (the next length the blocks take)
+REC_TF = dict(recurrentgemma_2b={"recurrentgemma_2b": (511, 512)},
+              xlstm_350m={"xlstm_a": (256, 512), "xlstm_b": (255, 256)},
+              llava_next_34b={"llava_next_34b": (192, 1216)})
+#: 15b-d: their bounds, 1.5x the values measured on an H100 (PERF.md
+#: §6): max |diff| / max |logit|, recurrentgemma 0.0609568 and llava
+#: 0.0738393; for xLSTM `mlstm_state_gap`, 0 in both (A) and (B): unit 0's
+#: stepped mLSTM state and conv tail equal the prefill's bitwise (its
+#: logits' gaps, 1.43655 and 1.1439, are the reference's normaliser gap
+#: grown through 12 units, printed, not held)
+REC_BF16_TOL = dict(recurrentgemma_2b=0.0914, xlstm_a=0.0, xlstm_b=0.0,
+                    llava_next_34b=0.111)
+
+
+def init_peak_bytes(layout, itemsize: int) -> int:
+    """The most memory `init_params` holds while it draws `layout` leaf by
+    leaf: the leaves drawn so far in the dtype, plus, at a drawn leaf, its
+    float32 draw (scaled in place) beside its cast."""
+    done = peak = 0
+
+    def walk(lay):
+        nonlocal done, peak
+        for v in lay.values():
+            if isinstance(v, dict):
+                walk(v)
+                continue
+            n = int(np.prod(v[0]))
+            draw = 4 * n if v[2] in ("normal", "embed") and itemsize != 4 \
+                else 0
+            peak = max(peak, done + draw + n * itemsize)
+            done += n * itemsize
+    walk(layout)
+    return peak
+
+
+def recurrent_serve(dev, card: str, arch: str) -> None:
+    """15b-d: one config at full width in bf16 (cut to LM_DEPTH layers),
+    weights (and llava's image embeddings) drawn on the card from
+    LM_SEED: the init's peak beside its model, greedy decode, the
+    teacher-forced checks, times and bounds, the device's idle share."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    full_cfg = get_arch(arch).CONFIG
+    cfg = dataclasses.replace(
+        full_cfg, num_layers=LM_DEPTH.get(arch, full_cfg.num_layers))
+    B, S, max_len, steps = REC_SERVE[arch]
+    checks = REC_TF[arch]
+    n_text = max(n for _, n in checks.values())
+    n_img = cfg.num_image_tokens
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg).init(gen, device=dev)
+    init_peak = torch.cuda.max_memory_allocated()
+    modeled = init_peak_bytes(model.layout(), 2)
+    n_params = model.param_count()
+    text = torch.randint(0, cfg.vocab, (B, max(S, n_text)), generator=gen,
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": text[:, :S]}
+    if n_img:
+        batch["image_embeds"] = torch.randn(
+            (B, n_img, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+    torch.cuda.synchronize()
+    cut = ("" if cfg.num_layers == full_cfg.num_layers else
+           f", cut from {full_cfg.num_layers} layers")
+    print(f"lm 15 {cfg.name}: {cfg.num_layers} layers{cut}, {cfg.dtype}, "
+          f"{n_params} parameters ({build_model(full_cfg).param_count()} "
+          f"at full depth) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s: peak {init_peak / 2**30:.3f} "
+          f"GiB during the init (modeled from the layout "
+          f"{modeled / 2**30:.3f} GiB), "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated after "
+          f"it, {torch.cuda.mem_get_info()[1] / 2**30:.3f} GiB on the card")
+
+    torch.cuda.reset_peak_memory_stats()
+    logits, toks, cache, step_ms = greedy(model, batch, max_len, steps,
+                                          timed=True)
+    peak = torch.cuda.max_memory_allocated()
+    if not (bool(torch.isfinite(logits).all())
+            and logits.shape == (B, 1 + steps, cfg.vocab)
+            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab):
+        raise SystemExit(f"FAIL lm 15 {arch}: logits not finite or tokens "
+                         f"out of range")
+    for name, (n_pre, n_all) in checks.items():
+        t1 = time.perf_counter()
+        err, scale, state = stepped_vs_prefill(
+            model, dict(batch, tokens=text[:, :n_all]), n_pre, max_len)
+        print(f"lm 15 {cfg.name} teacher-forced ({name}): a prefill of "
+              f"{n_img + n_pre} positions and {n_all - n_pre} decode steps "
+              f"against a prefill of all {n_img + n_all}: max |diff| / max "
+              f"|logit| "
+              f"{teacher_forced_text(err, state, REC_BF16_TOL[name])}, max "
+              f"|logit| {scale:.4g}; every logit of the prefill and the "
+              f"{steps} greedy steps finite; "
+              f"{time.perf_counter() - t1:.1f} s")
+        if not (err if state is None else state) <= REC_BF16_TOL[name]:
+            raise SystemExit(f"FAIL lm 15 {arch}: the decode steps' logits "
+                             f"are outside their bound of the prefill's")
+
+    nbytes = lm_decode_bytes(model, cache)
+    pre = median_ms(lambda: model.prefill(batch, max_len=max_len))
+    mm, f32 = lm_prefill_work(cfg, B, n_img + S)
+    t_mm, t_f32 = mm / BF16_OPS_PER_S * 1e3, f32 / F32_OPS_PER_S * 1e3
+    dec = float(np.median(step_ms))
+    image = f"{n_img} image rows + " if n_img else ""
+    print(f"timing lm 15 {cfg.name} prefill (B, S) = ({B}, {image}{S}): "
+          f"{pre:.4f} ms ({B * (n_img + S) / pre * 1e3:.1f} positions/s); "
+          f"bound {t_mm + t_f32:.4f} ms (operations: {mm / 1e12:.4f} TFLOP "
+          f"of bf16 products at 989 TFLOP/s = {t_mm:.4f} ms, plus "
+          f"{f32 / 1e12:.4f} TFLOP in float32 at 67 TFLOP/s); {card}")
+    print(f"timing lm 15 {cfg.name} decode step at B = {B}: median "
+          f"{dec:.4f} ms over {steps} greedy steps (min {min(step_ms):.4f}, "
+          f"max {max(step_ms):.4f}), {B / dec * 1e3:.1f} tokens/s; bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes: "
+          f"{nbytes / 1e9:.4f} GB of weights, states read and written and "
+          f"filled ring slots at 3.35 TB/s); peak allocated "
+          f"{peak / 2**30:.3f} GiB, cache {cache_bytes(cache) / 2**30:.4f} "
+          f"GiB (max_len {max_len}); {time.perf_counter() - t0:.1f} s; "
+          f"{card}")
+    # after every timing: a step timed after a profiler trace runs slower
+    tok = toks[:, -1:]
+    drain_device_share(lambda: (lambda: model.decode_step(tok, cache)),
+                       f"lm 15 {cfg.name} decode step", card)
+    drain_device_share(lambda: (lambda: model.prefill(batch,
+                                                      max_len=max_len)),
+                       f"lm 15 {cfg.name} prefill", card)
+    del model, cache, logits, batch
+    free_card()
+
+
+def phase_recurrent(dev, card: str) -> dict[str, int]:
+    """15: the recurrent families and llava's image tokens: 15a width
+    parity (float32, card against CPU), 15b recurrentgemma-2b whole, 15c
+    xlstm-350m whole, 15d llava-next-34b at full width cut in depth (bf16).
+    No Viterbi kernel may launch."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    for arch in REC_IDS:
+        layers = REC_PARITY_LAYERS[arch]
+        n_image = REC_PARITY_IMAGE if arch == "llava_next_34b" else 0
+        width_parity(dev, card, arch, layers, "15a", REC_F32_TOL[arch],
+                     REC_F32_TF_TOL[arch], n_image=n_image,
+                     prepare=fan_in_weights if arch == "xlstm_350m" else
+                     None)
+    for arch in REC_IDS:
+        recurrent_serve(dev, card, arch)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_launches("hybrid", launches, {})
+    print(f"recurrent phase: {time.perf_counter() - t0:.1f} s wall; no "
+          f"Viterbi kernel launched; {card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3394,8 +3761,9 @@ def main() -> int:
     for name, n in op_launches.items():
         launches[name] += n
     timing = phase_timing(dev, card) | phase_stream_timing(dev, card)
-    for name, n in phase_lm(dev, card).items():
-        launches[name] += n
+    for phase in (phase_lm, phase_recurrent):
+        for name, n in phase(dev, card).items():
+            launches[name] += n
 
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = {

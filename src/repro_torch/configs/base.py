@@ -14,7 +14,9 @@ The four LM shapes (seq_len x global_batch):
     long_500k    524,288 x 1   -> serve_step (1 new token, 500k context)
 
 An `InputSpec`'s arguments are tensors on the ``meta`` device: shapes and
-dtypes, no memory (the decode cache is ``init_cache(..., device="meta")``).
+dtypes, no memory (the decode cache is ``init_cache(..., device="meta")``,
+in the port's per-layer form: a list of one dict a layer, or a
+`models.hybrid.StateCache` for the recurrent families).
 The TPU sharding specs of the JAX package's `InputSpec` wait for the
 training slice (ROADMAP Queue 1 item 11c).
 """
@@ -72,14 +74,23 @@ def lm_input_specs(cfg: ModelConfig, shape: str,
 
 
 def embeds_input_specs(cfg: ModelConfig, shape: str,
-                       skips: dict[str, str] | None = None
-                       ) -> InputSpec | None:
-    """Encoder specs (hubert): the batch supplies precomputed frame
-    embeddings; no decode cells.  (The VLM variant with image tokens waits
-    for llava, ROADMAP Queue 1 item 11b.)"""
+                       skips: dict[str, str] | None = None,
+                       num_image_tokens: int = 0) -> InputSpec | None:
+    """Specs of the modality-frontend stubs.  Encoder (hubert): the batch
+    supplies precomputed frame embeddings; no decode cells.  VLM (llava):
+    text tokens plus `num_image_tokens` patch embeddings, seq_len counting
+    both; its decode cells are the token LM's."""
     if skips and shape in skips:
         return None
     kind, S, B = SHAPES[shape]
+    if num_image_tokens:
+        base = lm_input_specs(cfg, shape, skips)
+        if kind != "decode":
+            base.args["batch"]["tokens"] = _meta((B, S - num_image_tokens),
+                                                 torch.int32)
+            base.args["batch"]["image_embeds"] = _meta(
+                (B, num_image_tokens, cfg.d_model), cfg.dtype)
+        return base
     embeds = _meta((B, S, cfg.d_model), cfg.dtype)
     if kind == "train":
         return InputSpec(kind, S, B, {"batch": {
@@ -91,9 +102,12 @@ def embeds_input_specs(cfg: ModelConfig, shape: str,
 
 
 def smoke_batch(cfg: ModelConfig, rng: np.random.Generator, batch: int = 2,
-                seq: int = 16, embeds: bool = False, device=None) -> dict:
+                seq: int = 16, num_image_tokens: int = 0,
+                embeds: bool = False, device=None) -> dict:
     """A concrete tiny batch drawn from `rng`, on `device` (None:
-    ``cuda``): tokens (or frame embeddings), labels and a mask."""
+    ``cuda``): tokens (or frame embeddings), labels and a mask; with
+    `num_image_tokens`, seq - num_image_tokens tokens and that many patch
+    embeddings (seq counts both)."""
     dev = resolve_device(device)
     b = {"labels": rng.integers(0, cfg.vocab, (batch, seq), dtype=np.int32),
          "mask": np.ones((batch, seq), np.float32)}
@@ -101,10 +115,16 @@ def smoke_batch(cfg: ModelConfig, rng: np.random.Generator, batch: int = 2,
         b["embeds"] = rng.standard_normal((batch, seq, cfg.d_model),
                                           dtype=np.float32)
     else:
-        b["tokens"] = rng.integers(0, cfg.vocab, (batch, seq), dtype=np.int32)
+        b["tokens"] = rng.integers(0, cfg.vocab,
+                                   (batch, seq - num_image_tokens),
+                                   dtype=np.int32)
+    if num_image_tokens:
+        b["image_embeds"] = rng.standard_normal(
+            (batch, num_image_tokens, cfg.d_model), dtype=np.float32)
     out = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
-    if embeds:
-        out["embeds"] = out["embeds"].to(cfg.dtype)
+    for k in ("embeds", "image_embeds"):
+        if k in out:
+            out[k] = out[k].to(cfg.dtype)
     return out
 
 

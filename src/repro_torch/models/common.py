@@ -31,7 +31,9 @@ def _init_tensor(shape, kind: str, dtype: torch.dtype,
     """One leaf, drawn as `repro.models.common._init_array` draws it: normal
     leaves scale by 1/sqrt(shape[0]) (so a stacked (L, d_in, d_out) leaf
     scales by 1/sqrt(L), as in JAX), embeddings by 0.02; the draw is in
-    float32, then cast."""
+    float32, scaled in place (no second float32 copy of the leaf), then
+    cast.  ``rglru_a`` draws nothing: JAX's float64 inverse-softplus values,
+    spaced for a stable RG-LRU decay, broadcast to `shape`."""
     if kind == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
     if kind == "ones":
@@ -44,7 +46,13 @@ def _init_tensor(shape, kind: str, dtype: torch.dtype,
             scale = 0.02
         draw = torch.randn(shape, generator=generator, dtype=torch.float32,
                            device=device)
-        return (draw * scale).to(dtype)
+        return draw.mul_(scale).to(dtype)
+    if kind == "rglru_a":  # see rglru.py: softplus^-1 spaced for stable decay
+        u = np.linspace(0.9, 0.999, shape[-1])
+        val = np.log(np.expm1(-np.log(u) / (8.0 / 256)))   # inverse softplus
+        row = torch.from_numpy(val.astype(np.float32)).to(device=device,
+                                                          dtype=dtype)
+        return row.expand(shape).contiguous()
     raise ValueError(f"unknown init kind {kind!r}")
 
 

@@ -1,19 +1,29 @@
 """Carry parameter trees and decode caches between the JAX package and
 the port.
 
-A JAX parameter tree is a nested dict of arrays under JAX's names, with the
-layers stacked on axis 0 under ``params["layers"]`` (or as ``"l0"``,
-``"l1"``, ... when the config does not scan its layers), MoE's shared
-experts a nested dict, and ``head`` absent when the embeddings are tied.
+A JAX parameter tree is a nested dict of arrays under JAX's names:
+  * transformer: the layers stacked on axis 0 under ``params["layers"]``
+    (or as ``"l0"``, ``"l1"``, ... when the config does not scan its
+    layers), MoE's shared experts a nested dict, and ``head`` absent when
+    the embeddings are tied;
+  * Griffin: ``units`` = {rec1, rec2, attn} stacked on axis 0 over the
+    units, ``tail{i}`` the tail rec layers, ``embed``, ``ln_out``;
+  * xLSTM: ``units`` = {ln_m, m, ln_s, s} stacked, ``embed``, ``ln_out``.
 `params_from_jax` builds the port's model from one, so that both packages
 compute with the same weights; `to_numpy_tree` gives the tree back.
 
-A JAX decode cache is one dict ({"k", "v", "pos", "next"}, or MLA's
-{"latent", "pos", "next"}) with every leaf stacked on axis 0 over the
-layers (a list of dicts when the config does not scan its layers); the
-port keeps a list of one dict a layer.  `cache_from_jax` and
-`cache_to_numpy` carry it across and back, the state that crosses between
-the packages beside the weights.
+A JAX decode cache:
+  * transformer: one dict ({"k", "v", "pos", "next"}, or MLA's {"latent",
+    "pos", "next"}) with every leaf stacked on axis 0 over the layers (a
+    list of dicts when the config does not scan its layers);
+  * Griffin: {"rec1", "rec2": {h float32, conv} stacked over the units,
+    "attn": the rings stacked, "tails": [{h, conv}], "next"};
+  * xLSTM: {"units": {"m": {"rec": {C, n, m}, "conv"}, "s": {"rec": {c, n,
+    m, h}, "conv"}} stacked, "next"}.
+The port keeps a list of one dict a layer (a `hybrid.StateCache`, with
+``next``, for the recurrent families; one dict a unit for xLSTM).
+`cache_from_jax` and `cache_to_numpy` carry it across and back, the state
+that crosses between the packages beside the weights.
 
 Arrays are read through numpy (a JAX array converts itself), bfloat16 by
 its bits, so nothing here imports JAX.
@@ -25,8 +35,15 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from .hybrid import StateCache
 from .registry import build_model
-from .transformer import ModelConfig, TransformerLM, layer_trees
+from .transformer import ModelConfig, layer_trees
+
+#: the cache leaves kept in the model's dtype; other floating leaves (the
+#: recurrent states) are float32, positions int32
+_MODEL_DTYPE_LEAVES = ("k", "v", "latent", "conv")
+#: the Griffin unit's layers, in order
+_GRIFFIN_UNIT = ("rec1", "rec2", "attn")
 
 
 def _tensor(a, dtype: torch.dtype | None, device) -> torch.Tensor:
@@ -47,14 +64,16 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig, *,
-                    device=None) -> TransformerLM:
+def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None):
     """The built model of `cfg` holding the weights of JAX tree `tree`, cast
     to ``cfg.dtype`` on `device` (None: ``cuda``)."""
     dev = resolve_device(device)
     tree = _map(tree, lambda a: _tensor(a, cfg.dtype, dev))
-    tree["layers"] = layer_trees(tree["layers"], cfg)
-    return build_model(cfg).load(tree)
+    model = build_model(cfg)
+    if cfg.family == "transformer":
+        tree["layers"] = layer_trees(tree["layers"], cfg)
+        return model.load(tree)
+    return model.load(model.layer_trees(tree))
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -64,51 +83,98 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _stack(items: list):
-    """A list of like trees of arrays as one tree stacked on axis 0."""
+def _stack(items: list, stack=np.stack):
+    """A list of like trees of leaves as one tree, `stack` joining each
+    leaf's items (on a new axis 0)."""
     first = items[0]
     if isinstance(first, dict):
-        return {k: _stack([it[k] for it in items]) for k in first}
-    return np.stack(items)
+        return {k: _stack([it[k] for it in items], stack) for k in first}
+    return stack(items)
 
 
-def to_numpy_tree(model: TransformerLM) -> dict:
+def _griffin_units(layers: list, n_units: int, stack) -> dict:
+    """One tree a Griffin layer (in layer order) as JAX's {rec1, rec2,
+    attn} stacked over the units."""
+    return {name: _stack([layers[3 * u + j] for u in range(n_units)], stack)
+            for j, name in enumerate(_GRIFFIN_UNIT)}
+
+
+def to_numpy_tree(model) -> dict:
     """The model's weights as a JAX parameter tree of numpy arrays (layers
-    stacked on axis 0 when ``cfg.scan_layers``); bfloat16 weights come back
-    as float32, which holds them exactly."""
+    stacked on axis 0 where JAX stacks them); bfloat16 weights come back as
+    float32, which holds them exactly."""
     tree = _map(model.tree(), _host)
-    layers = tree["layers"]
-    if model.cfg.scan_layers:
-        tree["layers"] = _stack(layers)
+    cfg = model.cfg
+    if cfg.family == "griffin":
+        layers = tree.pop("layers")
+        tree["units"] = _griffin_units(layers, model.n_units, np.stack)
+        for i in range(model.n_tail):
+            tree[f"tail{i}"] = layers[3 * model.n_units + i]
+    elif cfg.family == "xlstm":
+        tree["units"] = _stack(tree["units"])
+    elif cfg.scan_layers:
+        tree["layers"] = _stack(tree["layers"])
     else:
-        tree["layers"] = {f"l{i}": lt for i, lt in enumerate(layers)}
+        tree["layers"] = {f"l{i}": lt for i, lt in enumerate(tree["layers"])}
     return tree
 
 
-def cache_from_jax(cache, cfg: ModelConfig, *, device=None) -> list[dict]:
-    """The port's cache (one dict a layer) of JAX decode cache `cache`
-    (stacked on axis 0 when ``cfg.scan_layers``, else a list), on `device`
-    (None: ``cuda``): keys, values and latents in ``cfg.dtype``, positions
-    int32."""
+def cache_from_jax(cache, cfg: ModelConfig, *, device=None) -> list:
+    """The port's cache of JAX decode cache `cache`, on `device` (None:
+    ``cuda``): keys, values, latents and conv tails in ``cfg.dtype``, the
+    recurrent states float32, positions int32."""
     dev = resolve_device(device)
 
-    def leaf(a):
+    def leaf(name, a, i):
         a = np.asarray(a)
-        integer = np.issubdtype(a.dtype, np.integer)
-        return _tensor(a, torch.int32 if integer else cfg.dtype, dev)
+        a = a if i is None else a[i]
+        if np.issubdtype(a.dtype, np.integer):
+            return _tensor(a, torch.int32, dev)
+        return _tensor(a, cfg.dtype if name in _MODEL_DTYPE_LEAVES
+                       else torch.float32, dev)
 
+    def entry(tree, i=None):
+        """One layer's (unit's) dict: slice `i` of stacked leaves."""
+        return {k: (entry(v, i) if isinstance(v, dict) else leaf(k, v, i))
+                for k, v in tree.items()}
+
+    def pos(a):
+        return _tensor(np.asarray(a), torch.int32, dev)
+
+    if cfg.family == "griffin":
+        n_units = cfg.num_layers // 3
+        entries = [entry(cache[name], u) for u in range(n_units)
+                   for name in _GRIFFIN_UNIT]
+        entries += [entry(t) for t in cache["tails"]]
+        return StateCache(entries, pos(cache["next"]))
+    if cfg.family == "xlstm":
+        return StateCache([entry(cache["units"], u)
+                           for u in range(cfg.num_layers // 2)],
+                          pos(cache["next"]))
     if not cfg.scan_layers:
-        return [_map(dict(c), leaf) for c in cache]
-    return [{k: leaf(np.asarray(v)[i]) for k, v in cache.items()}
-            for i in range(cfg.num_layers)]
+        return [entry(dict(c)) for c in cache]
+    return [entry(cache, i) for i in range(cfg.num_layers)]
 
 
-def cache_to_numpy(cache: list[dict], cfg: ModelConfig):
-    """JAX's layout of the port's cache: one dict with every leaf stacked
-    on axis 0 over the layers (a list of dicts when the config does not
-    scan its layers), as numpy arrays; bfloat16 comes back as float32."""
-    per_layer = [_map(c, _host) for c in cache]
-    return _stack(per_layer) if cfg.scan_layers else per_layer
+def _jax_layout(cache: list, cfg: ModelConfig, leaf, stack):
+    """JAX's layout of the port's cache (the module docstring), each tensor
+    through `leaf` and the layers' (units') leaves joined by `stack`."""
+    per_layer = [_map(c, leaf) for c in cache]
+    if cfg.family == "griffin":
+        n_units = cfg.num_layers // 3
+        out = _griffin_units(per_layer, n_units, stack)
+        out["tails"] = per_layer[3 * n_units:]
+        out["next"] = leaf(cache.next)
+        return out
+    if cfg.family == "xlstm":
+        return {"units": _stack(per_layer, stack), "next": leaf(cache.next)}
+    return _stack(per_layer, stack) if cfg.scan_layers else per_layer
+
+
+def cache_to_numpy(cache: list, cfg: ModelConfig):
+    """JAX's layout of the port's cache as numpy arrays; bfloat16 comes
+    back as float32."""
+    return _jax_layout(cache, cfg, _host, np.stack)
 
 
 __all__ = ["params_from_jax", "to_numpy_tree", "cache_from_jax",

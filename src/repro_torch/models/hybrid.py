@@ -1,0 +1,368 @@
+"""The recurrent model stacks on PyTorch, as in `repro.models.hybrid`:
+Griffin (RecurrentGemma) and xLSTM.
+
+Both have `TransformerLM`'s Model API (`init`, `load`, `tree`, `cast`,
+`param_count`, `prefill`, `decode_step`, `init_cache`).  JAX scans repeating
+*units* over stacked parameters (RecurrentGemma: (rec, rec, local-attn) x 8
++ 2 tail rec layers for 26; xLSTM-350m: (mLSTM, sLSTM) x 12 for 24); the
+port keeps one parameter tree a layer (Griffin, in layer order) or a unit
+(xLSTM) in an `nn.ModuleList`, and its caches likewise: a `StateCache`,
+one dict a layer or unit, where JAX stacks them (`models.convert` carries
+them across).  `layer_trees` splits JAX's layout into that form.
+
+Both families are sub-quadratic: the recurrent state is O(1) in sequence
+length, and Griffin's local attention caches only its window (a ring).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from ..core.device import resolve_device
+from . import rglru as rg
+from . import xlstm as xl
+from .attention import (attn_layout, gqa_decode, gqa_forward, gqa_init_cache,
+                        gqa_prefill_cache)
+from .common import (Layout, glu_mlp, glu_mlp_layout, init_params,
+                     param_count, rms_norm)
+from .transformer import (ModelConfig, ParamTree, _frozen, _stack_layout,
+                          _waits)
+
+
+class StateCache(list):
+    """A recurrent family's decode cache: one dict a layer (Griffin) or a
+    unit (xLSTM), as the transformer's list, and `next`, the position of
+    the next token (JAX's top-level ``"next"``), a 0-d int32 tensor that a
+    decode step advances in place."""
+
+    def __init__(self, entries, next_pos: torch.Tensor):
+        super().__init__(entries)
+        self.next = next_pos
+
+
+def _pick(tree, i: int):
+    return {k: (_pick(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+def _map(tree, fn):
+    return {k: (_map(v, fn) if isinstance(v, dict) else fn(v))
+            for k, v in tree.items()}
+
+
+def _assign(dst: dict, src: dict) -> None:
+    """Copy each tensor of `src` into the same-named tensor of `dst`."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _assign(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+def _compact(state: dict) -> dict:
+    """A prefill's state as tensors of their own (not views that keep the
+    sequence's activations alive)."""
+    return _map(state, lambda t: t.contiguous())
+
+
+class _RecurrentLM(nn.Module):
+    """What the two families share: weights as one `ParamTree` a block
+    (a Griffin layer, an xLSTM unit) under ``tree()[self.BLOCKS]``, the
+    embedding (tied head) and the output norm.  A family sets `n_blocks`
+    and defines `layout()` (JAX's table) and `layer_trees(tree)` (JAX's
+    parameter tree as `load` takes it)."""
+
+    BLOCKS = "layers"
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.blocks = nn.ModuleList()
+        self.register_parameter("embed", None)
+        self.register_parameter("ln_out", None)
+
+    def param_count(self) -> int:
+        """From the layout alone: nothing is allocated."""
+        return param_count(self.layout())
+
+    def active_param_count(self) -> int:
+        return self.param_count()
+
+    def init(self, generator: torch.Generator | None = None, *,
+             device=None):
+        """Draw the weights on `device` (None: ``cuda``) from `generator`
+        (None: a fresh one seeded 0 on that device), leaf by leaf in the
+        layout's order, as JAX's `init_params` draws them."""
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        return self.load(self.layer_trees(init_params(
+            self.layout(), self.cfg.dtype, generator=generator, device=dev)))
+
+    def load(self, tree: dict):
+        """Take the weights of `tree`: JAX's parameter names, with
+        ``tree[self.BLOCKS]`` a list of one nested dict a block."""
+        blocks = tree[self.BLOCKS]
+        if len(blocks) != self.n_blocks:
+            raise ValueError(f"{len(blocks)} {self.BLOCKS} given, "
+                             f"{self.n_blocks} configured")
+        self.blocks = nn.ModuleList(ParamTree(t) for t in blocks)
+        self.embed = _frozen(tree["embed"])
+        self.ln_out = _frozen(tree["ln_out"])
+        return self
+
+    def tree(self) -> dict:
+        return {self.BLOCKS: [b.tree() for b in self.blocks],
+                "embed": self.embed, "ln_out": self.ln_out}
+
+    def cast(self, dtype: torch.dtype):
+        """A copy of the model with every weight cast to `dtype`."""
+        tree = self.tree()
+        conv = {self.BLOCKS: [_map(b, lambda t: t.detach().to(dtype))
+                              for b in tree[self.BLOCKS]],
+                "embed": self.embed.detach().to(dtype),
+                "ln_out": self.ln_out.detach().to(dtype)}
+        return type(self)(dataclasses.replace(self.cfg, dtype=dtype)).load(
+            conv)
+
+    def _tokens(self, tokens):
+        return self.embed[tokens.to(self.embed.device)]
+
+    def _logits(self, x):
+        return (rms_norm(x, self.ln_out) @ self.embed.T).float()
+
+    def loss(self, batch):
+        raise _waits("the training loss", "11c")
+
+
+# ---------------------------------------------------------------------------
+# Griffin / RecurrentGemma
+# ---------------------------------------------------------------------------
+
+class GriffinLM(_RecurrentLM):
+    """(rec, rec, local-attn) repeating pattern + GeGLU MLP per layer; the
+    layers in order, `kinds[i]` "rec" or "attn"."""
+
+    def __init__(self, cfg: ModelConfig):
+        if cfg.family != "griffin":
+            raise ValueError(f"GriffinLM takes the griffin family, not "
+                             f"{cfg.family!r}")
+        super().__init__(cfg)
+        self.n_units, self.n_tail = divmod(cfg.num_layers, 3)
+        self.rcfg = rg.RGLRUConfig(d_model=cfg.d_model,
+                                   d_rnn=cfg.d_rnn or cfg.d_model,
+                                   conv_width=cfg.conv_width)
+        self.kinds = ["rec", "rec", "attn"] * self.n_units + \
+            ["rec"] * self.n_tail
+        self.n_blocks = cfg.num_layers
+
+    # -- layouts --------------------------------------------------------
+    def _layer(self, mix: Layout) -> Layout:
+        d = self.cfg.d_model
+        return {"ln_mix": ((d,), (None,), "zeros"),
+                "mix": mix,
+                "ln_mlp": ((d,), (None,), "zeros"),
+                "mlp": glu_mlp_layout(d, self.cfg.d_ff)}
+
+    def layout(self) -> Layout:
+        cfg = self.cfg
+        rec = self._layer(rg.rglru_layout(self.rcfg))
+        unit = {"rec1": rec, "rec2": rec,
+                "attn": self._layer(attn_layout(cfg.attn_config()))}
+        lay: Layout = {
+            "embed": ((cfg.vocab, cfg.d_model), ("vocab", "model_d"), "embed"),
+            "units": _stack_layout(unit, self.n_units),
+            "ln_out": ((cfg.d_model,), (None,), "zeros"),
+        }
+        for i in range(self.n_tail):
+            lay[f"tail{i}"] = rec
+        return lay
+
+    def layer_trees(self, tree: dict) -> dict:
+        """JAX's {"units": {rec1, rec2, attn} stacked, "tail{i}", ...} as
+        one tree a layer in layer order (stacked leaves sliced: views)."""
+        layers = [_pick(tree["units"][name], u) for u in range(self.n_units)
+                  for name in ("rec1", "rec2", "attn")]
+        layers += [tree[f"tail{i}"] for i in range(self.n_tail)]
+        return {"layers": layers, "embed": tree["embed"],
+                "ln_out": tree["ln_out"]}
+
+    # -- blocks -----------------------------------------------------------
+    def _mlp(self, lp, x):
+        return x + glu_mlp(lp["mlp"], rms_norm(x, lp["ln_mlp"]),
+                           act=self.cfg.act)
+
+    def _embed(self, tokens):
+        """Always scaled by sqrt(d) rounded to the dtype, as JAX's
+        ``_embed``."""
+        x = self._tokens(tokens)
+        return x * torch.tensor(math.sqrt(self.cfg.d_model),
+                                dtype=self.cfg.dtype, device=x.device)
+
+    # -- serving ----------------------------------------------------------
+    def prefill(self, batch, max_len: int | None = None):
+        """``batch["tokens"]`` (B, S) -> (logits (B, 1, vocab) float32 of
+        the last position, the cache: each rec layer's {h, conv}, each
+        attention layer's window ring with room for `max_len` (None: S))."""
+        cfg, acfg = self.cfg, self.cfg.attn_config()
+        x = self._embed(batch["tokens"])
+        S = x.shape[1]
+        max_len = max_len or S
+        positions = torch.arange(S, device=x.device)
+        entries = []
+        for kind, layer in zip(self.kinds, self.blocks):
+            lp = layer.tree()
+            h = rms_norm(x, lp["ln_mix"])
+            if kind == "rec":
+                y, st = rg.block_forward(lp["mix"], h, self.rcfg, None)
+                entries.append(_compact(st))
+            else:
+                y, kv = gqa_forward(lp["mix"], h, positions, acfg)
+                entries.append(gqa_prefill_cache(acfg, kv, max_len))
+            x = self._mlp(lp, x + y)
+        cache = StateCache(entries, torch.tensor(S, dtype=torch.int32,
+                                                 device=x.device))
+        return self._logits(x[:, -1:]), cache
+
+    def decode_step(self, tokens, cache: StateCache):
+        """One token a sequence, ``tokens`` (B, 1), against `cache`, which
+        the step updates in place (no host sync).  Returns (logits (B, 1,
+        vocab) float32, cache)."""
+        if len(cache) != self.cfg.num_layers:
+            raise ValueError(f"a cache of {len(cache)} layers for "
+                             f"{self.cfg.num_layers} layers")
+        acfg = self.cfg.attn_config()
+        x = self._embed(tokens)
+        for kind, layer, entry in zip(self.kinds, self.blocks, cache):
+            lp = layer.tree()
+            h = rms_norm(x, lp["ln_mix"])
+            if kind == "rec":
+                y, st = rg.block_forward(lp["mix"], h, self.rcfg, entry)
+                _assign(entry, st)
+            else:
+                y, _ = gqa_decode(lp["mix"], h, entry, acfg)
+            x = self._mlp(lp, x + y)
+        cache.next.add_(1)
+        return self._logits(x), cache
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> StateCache:
+        """An empty cache on `device` (None: ``cuda``; ``"meta"`` gives its
+        shapes without memory)."""
+        cfg, dev = self.cfg, resolve_device(device)
+        acfg = cfg.attn_config()
+        entries = [rg.init_state(self.rcfg, batch, cfg.dtype, dev)
+                   if kind == "rec" else
+                   gqa_init_cache(acfg, batch, max_len, cfg.dtype, dev)
+                   for kind in self.kinds]
+        return StateCache(entries, torch.zeros((), dtype=torch.int32,
+                                               device=dev))
+
+
+# ---------------------------------------------------------------------------
+# xLSTM
+# ---------------------------------------------------------------------------
+
+class XLSTMLM(_RecurrentLM):
+    """Alternating (mLSTM, sLSTM) units; the cache holds one dict a unit."""
+
+    BLOCKS = "units"
+
+    def __init__(self, cfg: ModelConfig):
+        if cfg.family != "xlstm" or cfg.num_layers % 2:
+            raise ValueError(f"XLSTMLM takes the xlstm family with an even "
+                             f"number of layers, not {cfg.family!r} with "
+                             f"{cfg.num_layers}")
+        super().__init__(cfg)
+        self.n_units = self.n_blocks = cfg.num_layers // 2
+        self.xcfg = xl.XLSTMConfig(d_model=cfg.d_model,
+                                   num_heads=cfg.num_heads,
+                                   conv_width=cfg.conv_width)
+
+    def layout(self) -> Layout:
+        cfg = self.cfg
+        d = cfg.d_model
+        unit = {
+            "ln_m": ((d,), (None,), "zeros"),
+            "m": xl.mlstm_layout(self.xcfg),
+            "ln_s": ((d,), (None,), "zeros"),
+            "s": xl.slstm_layout(self.xcfg),
+        }
+        return {
+            "embed": ((cfg.vocab, d), ("vocab", "model_d"), "embed"),
+            "units": _stack_layout(unit, self.n_units),
+            "ln_out": ((d,), (None,), "zeros"),
+        }
+
+    def layer_trees(self, tree: dict) -> dict:
+        """JAX's {"units": stacked, ...} as one tree a unit (views)."""
+        return {"units": [_pick(tree["units"], u)
+                          for u in range(self.n_units)],
+                "embed": tree["embed"], "ln_out": tree["ln_out"]}
+
+    def _unit(self, up, x, state):
+        m_state = None if state is None else state["m"]
+        s_state = None if state is None else state["s"]
+        y, m_new = xl.mlstm_block(up["m"], rms_norm(x, up["ln_m"]),
+                                  self.xcfg, m_state)
+        x = x + y
+        y, s_new = xl.slstm_block(up["s"], rms_norm(x, up["ln_s"]),
+                                  self.xcfg, s_state)
+        return x + y, {"m": m_new, "s": s_new}
+
+    def _fresh_state(self, batch: int, device) -> dict:
+        cfg, W = self.cfg, self.xcfg.conv_width
+        hd = cfg.d_model * 2 // cfg.num_heads  # mLSTM runs at 2x width
+        return {
+            "m": {"rec": xl.init_mlstm_state(batch, cfg.num_heads, hd,
+                                             device=device),
+                  "conv": torch.zeros((batch, W - 1, cfg.d_model * 2),
+                                      dtype=cfg.dtype, device=device)},
+            "s": {"rec": xl.init_slstm_state(batch, cfg.d_model,
+                                             device=device),
+                  "conv": torch.zeros((batch, W - 1, cfg.d_model),
+                                      dtype=cfg.dtype, device=device)},
+        }
+
+    def prefill(self, batch, max_len: int | None = None):
+        """``batch["tokens"]`` (B, S) -> (logits (B, 1, vocab) float32 of
+        the last position, the cache).  Each unit starts from a fresh state
+        (the conv tails from zeros), as JAX's; `max_len` is not needed (the
+        state does not grow).  Above 256 positions S must be a multiple of
+        256 (`xlstm.mlstm_chunked`)."""
+        x = self._tokens(batch["tokens"])
+        B, S = x.shape[:2]
+        entries = []
+        for unit in self.blocks:
+            x, st = self._unit(unit.tree(), x, self._fresh_state(B, x.device))
+            entries.append(_compact(st))
+        cache = StateCache(entries, torch.tensor(S, dtype=torch.int32,
+                                                 device=x.device))
+        return self._logits(x[:, -1:]), cache
+
+    def decode_step(self, tokens, cache: StateCache):
+        """One token a sequence against `cache`, updated in place (no host
+        sync).  Returns (logits (B, 1, vocab) float32, cache)."""
+        if len(cache) != self.n_units:
+            raise ValueError(f"a cache of {len(cache)} units for "
+                             f"{self.n_units} units")
+        x = self._tokens(tokens)
+        for unit, entry in zip(self.blocks, cache):
+            x, st = self._unit(unit.tree(), x, entry)
+            _assign(entry, st)
+        cache.next.add_(1)
+        return self._logits(x), cache
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> StateCache:
+        """An empty cache on `device` (None: ``cuda``; ``"meta"`` gives its
+        shapes); `max_len` is not needed (the state does not grow)."""
+        dev = resolve_device(device)
+        return StateCache([self._fresh_state(batch, dev)
+                           for _ in range(self.n_units)],
+                          torch.zeros((), dtype=torch.int32, device=dev))
+
+
+__all__ = ["GriffinLM", "XLSTMLM", "StateCache"]

@@ -20,9 +20,11 @@ Serving is JAX's Model API:
 (the encoder-only prefill returns every position's logits and no cache).
 The cache is a list of one dict a layer, where JAX stacks the layers'
 caches on axis 0 (`models.convert.cache_from_jax` carries one across); a
-decode step updates it in place and returns it.  The Griffin and xLSTM
-families and llava's image tokens wait for ROADMAP Queue 1 item 11b;
-`loss` waits for the training slice (item 11c).
+decode step updates it in place and returns it.  A VLM config (llava,
+``num_image_tokens``) prepends ``batch["image_embeds"]`` (B, N_img, d) to
+the prompt's token embeddings; its decode continues at position N_img +
+S_text.  The Griffin and xLSTM families are `models.hybrid`'s; `loss`
+waits for the training slice (item 11c).
 """
 
 from __future__ import annotations
@@ -316,19 +318,18 @@ class TransformerLM(nn.Module):
         return x * torch.tensor(math.sqrt(self.cfg.d_model),
                                 dtype=self.cfg.dtype, device=x.device)
 
-    def _check_servable(self):
-        cfg = self.cfg
-        if cfg.family != "transformer":
-            raise _waits(f"the {cfg.family} family", "11b")
-        if cfg.num_image_tokens:
-            raise _waits("llava's image-token inputs", "11b")
-
     def _inputs(self, batch):
+        """JAX's `_embed_tokens`: the frame embeddings of an encoder, else
+        the token embeddings, after the image embeddings of a VLM, then
+        scaled where the config says."""
         cfg = self.cfg
-        self._check_servable()
-        if not cfg.embed_inputs:
+        if not cfg.embed_inputs and not cfg.num_image_tokens:
             return batch["embeds"].to(self.ln_out.device, cfg.dtype)
-        return self._scaled(self.embed[batch["tokens"].to(self.embed.device)])
+        x = self.embed[batch["tokens"].to(self.embed.device)]
+        if cfg.num_image_tokens:
+            img = batch["image_embeds"].to(x.device, cfg.dtype)
+            x = torch.cat([img, x], dim=1)
+        return self._scaled(x)
 
     def _head(self):
         if self.cfg.tie_embeddings and self.embed is not None:
@@ -352,9 +353,10 @@ class TransformerLM(nn.Module):
         return rms_norm(x, self.ln_out), kvs
 
     def prefill(self, batch, max_len: int | None = None):
-        """JAX's `prefill`.  Causal: ``batch["tokens"]`` (B, S) -> (logits
-        (B, 1, vocab) float32 of the last position, the cache of positions
-        0..S-1 with room for `max_len` (None: S)).  Encoder-only: on
+        """JAX's `prefill`.  Causal: ``batch["tokens"]`` (B, S) (after
+        ``batch["image_embeds"]`` (B, N_img, d) for a VLM: S counts both)
+        -> (logits (B, 1, vocab) float32 of the last position, the cache of
+        positions 0..S-1 with room for `max_len` (None: S)).  Encoder-only: on
         ``batch["embeds"]`` (B, S, d) -> (logits (B, S, vocab) float32,
         None); encoders keep no cache."""
         cfg = self.cfg
@@ -378,7 +380,6 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         if cfg.encoder_only:
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-        self._check_servable()
         if len(cache) != cfg.num_layers:
             raise ValueError(f"a cache of {len(cache)} layers for "
                              f"{cfg.num_layers} layers")

@@ -34,8 +34,9 @@ from repro.models import build_model as j_build
 from repro.models import common as jc
 from repro.models import transformer as jt
 from repro_torch.configs import ARCH_IDS, PORTED_IDS, get_arch, paper_hmm
-from repro_torch.models import (ModelConfig, TransformerLM, build_model,
-                                params_from_jax, to_numpy_tree)
+from repro_torch.models import (GriffinLM, ModelConfig, TransformerLM,
+                                XLSTMLM, build_model, params_from_jax,
+                                to_numpy_tree)
 from repro_torch.models import attention as ta
 from repro_torch.models import common as tc
 from repro_torch.models import transformer as tt
@@ -322,67 +323,63 @@ def test_cast_copies_every_weight():
 # ---------------------------------------------------------------------------
 
 def test_the_unported_paths_raise_naming_their_item():
-    """What waits: the Griffin and xLSTM families and llava's image tokens
-    (item 11b), the training loss (item 11c); an encoder has no decode
-    step and no cache."""
+    """What waits: only the training loss (item 11c), in every family.  An
+    encoder has no decode step and no cache; an unknown family or arch
+    raises; llava's image tokens and the recurrent families now serve."""
     _, cfg = _smoke("float32")
     model = build_model(cfg)
     with pytest.raises(ValueError, match="encoder-only"):
         model.decode_step(None, None)
     with pytest.raises(ValueError, match="encoder-only"):
         model.init_cache(1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="11c"):
-        model.loss({})
+    for arch in ("hubert_xlarge", "tinyllama_1_1b", "recurrentgemma_2b",
+                 "xlstm_350m", "llava_next_34b"):
+        with pytest.raises(NotImplementedError, match="11c"):
+            build_model(get_arch(arch).SMOKE).loss({})
     causal = get_arch("tinyllama_1_1b").SMOKE
-    with pytest.raises(NotImplementedError, match="11c"):
-        build_model(causal).loss({})
     llava = build_model(dataclasses.replace(causal, num_image_tokens=4))
     llava.init(torch.Generator().manual_seed(0), device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="11b"):
-        llava.prefill({"tokens": tokens, "image_embeds": None})
-    with pytest.raises(NotImplementedError, match="11b"):
-        llava.decode_step(tokens[:, :1], llava.init_cache(1, 8, device="cpu"))
-    griffin = TransformerLM(dataclasses.replace(causal, family="griffin"))
-    for call in (lambda: griffin.prefill({"tokens": tokens}),
-                 lambda: griffin.decode_step(tokens[:, :1], [])):
-        with pytest.raises(NotImplementedError, match="11b"):
-            call()
-    for family in ("griffin", "xlstm"):
-        with pytest.raises(NotImplementedError, match="11b"):
-            build_model(dataclasses.replace(cfg, family=family))
+    image = torch.zeros((1, 4, causal.d_model))
+    logits, cache = llava.prefill({"tokens": tokens, "image_embeds": image},
+                                  max_len=12)
+    assert logits.shape == (1, 1, causal.vocab)
+    assert int(cache[0]["next"]) == 8
+    for family, cls in (("griffin", GriffinLM), ("xlstm", XLSTMLM)):
+        smoke = get_arch({"griffin": "recurrentgemma_2b",
+                          "xlstm": "xlstm_350m"}[family]).SMOKE
+        assert isinstance(build_model(smoke), cls)
+    with pytest.raises(ValueError, match="griffin family"):
+        GriffinLM(get_arch("xlstm_350m").SMOKE)
+    with pytest.raises(ValueError, match="even number of layers"):
+        XLSTMLM(dataclasses.replace(get_arch("xlstm_350m").SMOKE,
+                                    num_layers=3))
     with pytest.raises(ValueError, match="unknown family"):
         build_model(dataclasses.replace(cfg, family="rnn"))
 
 
 def test_get_arch_knows_only_the_ported_ids():
-    """The encoder and the six transformer-family causal LMs are ported;
-    recurrentgemma, xlstm and llava wait for item 11b."""
+    """Every arch id of the JAX package is ported: the encoder, the
+    transformer family's causal LMs, llava, recurrentgemma and xlstm."""
     assert get_arch("hubert-xlarge").NUM_CLASSES == 504
-    assert set(PORTED_IDS) == {
-        "hubert_xlarge", "tinyllama_1_1b", "granite_8b", "gemma_2b",
-        "h2o_danube_3_4b", "moonshot_v1_16b_a3b", "deepseek_v2_236b"}
+    assert PORTED_IDS == ARCH_IDS
     for arch in ARCH_IDS:
-        if arch in PORTED_IDS:
-            assert get_arch(arch).CONFIG.name
-        else:
-            with pytest.raises(NotImplementedError, match="11b"):
-                get_arch(arch)
-    assert sorted(set(ARCH_IDS) - set(PORTED_IDS)) == [
-        "llava_next_34b", "recurrentgemma_2b", "xlstm_350m"]
+        assert get_arch(arch).CONFIG.name
+        assert get_arch(arch.replace("_", "-")) is get_arch(arch)
+    assert get_arch("llava_next_34b").NUM_IMAGE_TOKENS == 2880
     with pytest.raises(ValueError, match="unknown arch"):
         get_arch("bert")
 
 
 def test_configs_match_jax():
     """Each ported config module field for field JAX's (MoE configs
-    compared as dicts), its SKIPS and, for hubert, NUM_CLASSES; the paper's
-    HMM workloads."""
+    compared as dicts), its SKIPS, hubert's NUM_CLASSES and llava's
+    NUM_IMAGE_TOKENS; the paper's HMM workloads."""
     for arch in PORTED_IDS:
         mod, j_mod = get_arch(arch), j_get_arch(arch)
         assert mod.SKIPS == j_mod.SKIPS, arch
-        assert getattr(mod, "NUM_CLASSES", None) == \
-            getattr(j_mod, "NUM_CLASSES", None)
+        for name in ("NUM_CLASSES", "NUM_IMAGE_TOKENS"):
+            assert getattr(mod, name, None) == getattr(j_mod, name, None)
         for which in ("CONFIG", "SMOKE"):
             ours = dataclasses.asdict(getattr(mod, which))
             theirs = dataclasses.asdict(getattr(j_mod, which))
