@@ -252,6 +252,28 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      median of 7) and decode-step times, tokens/s, peak memory and cache
      bytes beside their bounds, then one decode step and one prefill under
      `torch.profiler` (device busy and idle share, kernel launches).
+  16. training (`train/`, `optim/`, `data/`, the models' `loss`; no
+     Viterbi kernel may launch): (a) every config's SMOKE in float32,
+     weights drawn on the card from a seed and copied to the CPU, one
+     `make_train_step` step at accum_steps 2 on a (4, 16) numpy batch on
+     both: loss, grad_norm, the first moment (the clipped gradient) and
+     every updated weight within `TRAIN_F32_TOL` of the CPU's, and
+     tinyllama's once more with ``compress_accum`` (its moment holds the
+     dequantized gradients); (b) tinyllama-1.1b at full width cut to 2
+     layers, float32, (B, S) = (2, 512), its layer matrices rescaled to
+     std 1/sqrt(d_in) (JAX's init draws the 2-layer stack at std
+     1/sqrt(2), which saturates the attention's softmax), held as (a); (c) tinyllama-1.1b
+     whole (22 layers, bf16) at train_4k's S = 4096, microbatches of 2 at
+     accum_steps 2 from `SyntheticTokenPipeline`: a warm-up step, 3 steps
+     and 2 with ``compress_accum`` timed by CUDA events, beside the bound
+     (bf16 products at 989 TFLOP/s plus float32 attention at 67, x 3), the
+     useful FLOPs (`launch.model_flops`) and their share of 989 TFLOP/s,
+     peak memory, the optimizer's and the error-feedback buffers' bytes,
+     then one step under `torch.profiler` (device busy and idle share,
+     kernel launches); (d) `launch.train.main` on the card with
+     tests/test_system.py's tinyllama SMOKE arguments (the loss falls by
+     more than 0.3), and its full / part / resume trio (the resumed losses
+     within rtol 2e-4, atol 2e-5 of the uninterrupted run's).
 
 The line before the last is a JSON object with one entry per kernel (the
 `resources` object just before it); the last line is {"ok": true,
@@ -2954,11 +2976,12 @@ def time_backtrack(vdp, ref, psi, dT, what: str, card: str) -> dict:
     return dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
 
 
-def drain_device_share(prepare, what: str, card: str) -> None:
+def drain_device_share(prepare, what: str, card: str, top: int = 0) -> None:
     """One drain under `torch.profiler`: `prepare()` sets it up and returns
     it, untimed.  Prints the device time of its kernels and copies and the
     share of the drain's wall time (host clock, under the profiler) in which
-    the device ran nothing.  The profiler records the device's activity
+    the device ran nothing, and with `top` the kernels (by name, cut to 60
+    characters) that took the most device time.  The profiler records the device's activity
     alone (no host op events, which nothing here reads: they stretch a
     host-bound drain, and an xLSTM prefill's 309 000 launches would take
     the trace about two minutes to parse); a CPU rehearsal, with no device,
@@ -2992,6 +3015,14 @@ def drain_device_share(prepare, what: str, card: str) -> None:
           f"events; {len(kernels)} kernel launches, "
           f"{sum(kernels) / 1e3:.3f} ms), device idle "
           f"{1 - busy / wall_us:.4f} of the wall time; {card}")
+    if top:
+        by_name: dict[str, list[float]] = {}
+        for a, b, name in spans:
+            by_name.setdefault(name[:60], []).append(b - a)
+        ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]
+        print(f"{what} top {top} kernels by device time: " + "; ".join(
+            f"{name} {sum(us) / 1e3:.3f} ms in {len(us)}"
+            for name, us in ranked) + f"; {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -3207,14 +3238,19 @@ def free_card() -> None:
 
 def fan_in_weights(model) -> str:
     """Scale each of the model's block matrices in place from the std JAX's
-    init draws a stacked leaf with (1/sqrt(units)) to 1/sqrt(its d_in).
-    Returns a label for the printed line."""
+    init draws a stacked leaf with (1/sqrt(units), or 1/sqrt(layers) for a
+    transformer's stack) to 1/sqrt(its d_in).  Returns a label for the
+    printed line."""
     import math
-    n_stack = model.n_units
-    for block in model.blocks:
-        for p in block.parameters():
-            if p.dim() >= 2:
-                p.mul_(math.sqrt(n_stack / p.shape[0]))
+    if hasattr(model, "blocks"):
+        n_stack, blocks = model.n_units, model.blocks
+    else:
+        n_stack, blocks = model.cfg.num_layers, model.layers
+    with torch.no_grad():
+        for block in blocks:
+            for p in block.parameters():
+                if p.dim() >= 2:
+                    p.mul_(math.sqrt(n_stack / p.shape[0]))
     return "block matrices rescaled to std 1/sqrt(d_in)"
 
 
@@ -3716,6 +3752,318 @@ def phase_recurrent(dev, card: str) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 16: training
+# ---------------------------------------------------------------------------
+
+TRAIN_SEED = 0
+#: 16a / 16b: bounds, card against CPU, float32 (TF32 off): (|loss| rel,
+#: |grad_norm| rel, max over leaves of max |m card - m CPU| / max |m|,
+#: max |w card - w CPU| / lr over the weights whose gradient is resolved
+#: (|m| above 1e-3 x its leaf's max; an unresolved one may flip the sign
+#: of its normalised step, held to 2.05 lr)): 1.5x an H100 probe run
+#: (PERF.md §6), the loss's at least 2.4e-7 (two float32 ulps;
+#: several configs measured 0).  JAX's init draws a stacked leaf with
+#: std 1/sqrt(layers), and the recurrent SMOKEs' backward amplifies the
+#: card's and the CPU's float32 rounding most: Griffin's first moment
+#: 4.0e-3, xLSTM's 2.9e-3 of max |m| apart.  16b ("tinyllama_1_1b/width")
+#: runs on matrices rescaled to std 1/sqrt(d_in) (`fan_in_weights`): on
+#: JAX's 1/sqrt(2) its softmax saturates, and one probe's first moments
+#: were 7.9e-2 x max |m| apart, resolved weights 2 lr
+TRAIN_F32_TOL = {
+    "recurrentgemma_2b": (1.03e-6, 2.82e-3, 6.0e-3, 0.287),
+    "deepseek_v2_236b": (2.4e-7, 2.86e-5, 1.23e-4, 3.58e-4),
+    "moonshot_v1_16b_a3b": (2.4e-7, 3.43e-5, 5.86e-5, 3.58e-4),
+    "tinyllama_1_1b": (2.4e-7, 7.81e-6, 7.17e-5, 2.68e-4),
+    "h2o_danube_3_4b": (2.4e-7, 6.96e-6, 3.14e-5, 1.79e-4),
+    "granite_8b": (2.4e-7, 1.72e-5, 7.13e-5, 1.79e-4),
+    "gemma_2b": (2.4e-7, 1.82e-5, 1.03e-4, 1.54e-3),
+    "xlstm_350m": (2.58e-7, 4.63e-4, 4.34e-3, 0.0965),
+    "hubert_xlarge": (2.4e-7, 1.83e-5, 7.82e-5, 1.79e-4),
+    "llava_next_34b": (2.4e-7, 2.03e-5, 1.25e-4, 2.79e-4),
+    "tinyllama_1_1b/compress": (2.4e-7, 4.28e-6, 1.18e-2, 1.79e-4),
+    "tinyllama_1_1b/width": (2.4e-7, 3.39e-4, 3.41e-4, 3.35e-5),
+}
+#: 16a: (B, S) of the batch (two microbatches of 2), 16b: (B, S)
+TRAIN_PARITY = (4, 16)
+TRAIN_WIDTH = (2, 512)
+#: 16c: microbatch, accum_steps, sequence length
+TRAIN_MAIN = (2, 2, 4096)
+#: 16d: tests/test_system.py's tinyllama SMOKE runs
+TRAIN_LOOP = ["--arch", "tinyllama-1.1b", "--smoke", "--device", "cuda"]
+TRAIN_RESUME_TOL = (2e-4, 2e-5)
+
+
+def _np_leaves(tree) -> list:
+    """The numpy leaves of a nested dict, in its key order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _np_leaves(v)]
+    return [np.asarray(tree)]
+
+
+def train_batch(cfg, rng: np.random.Generator, B: int, S: int) -> dict:
+    """A numpy batch of the config's inputs (tokens after llava's image
+    embeddings, or an encoder's frame embeddings), labels and a mask."""
+    b = {"labels": rng.integers(0, cfg.vocab, (B, S), dtype=np.int32),
+         "mask": (rng.random((B, S)) < 0.8).astype(np.float32)}
+    if not cfg.embed_inputs and not cfg.num_image_tokens:
+        b["embeds"] = rng.standard_normal((B, S, cfg.d_model),
+                                          dtype=np.float32)
+        return b
+    n = cfg.num_image_tokens
+    b["tokens"] = rng.integers(0, cfg.vocab, (B, S - n), dtype=np.int32)
+    if n:
+        b["image_embeds"] = rng.standard_normal((B, n, cfg.d_model),
+                                                dtype=np.float32)
+    return b
+
+
+def train_parity(dev, card: str, cfg, B: int, S: int, what: str,
+                 tol, compress: bool = False, prepare=None) -> None:
+    """One train step of `cfg` at accum_steps 2 on the card and on the CPU
+    from the same weights (drawn on the card from TRAIN_SEED, then
+    `prepare(model)` when given) and batch: the gaps of `TRAIN_F32_TOL`,
+    printed beside their bounds, each fatal."""
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import (train_state_from_jax,
+                                            train_state_to_numpy)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+
+    t0 = time.perf_counter()
+    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=1,
+                                       total_steps=10),
+                       accum_steps=2, compress_accum=compress)
+    m_card = build_model(cfg)
+    s_card = init_train_state(
+        m_card, torch.Generator(device=dev).manual_seed(TRAIN_SEED),
+        device=dev)
+    weights = f", {prepare(m_card)}" if prepare else ""
+    m_cpu = build_model(cfg)
+    s_cpu = train_state_from_jax(train_state_to_numpy(s_card, m_card),
+                                 m_cpu, device="cpu")
+    batch = train_batch(cfg, np.random.default_rng(TRAIN_SEED), B, S)
+    out = []
+    for model, state, d in ((m_card, s_card, dev), (m_cpu, s_cpu, "cpu")):
+        state, met = make_train_step(model, tcfg)(
+            state, {k: torch.from_numpy(v).to(d) for k, v in batch.items()})
+        out.append((train_state_to_numpy(state, model),
+                    {k: float(v) for k, v in met.items()}))
+    torch.cuda.synchronize()
+    (card_st, card_m), (cpu_st, cpu_m) = out
+    lr = cpu_m["lr"]
+    loss = abs(card_m["loss"] - cpu_m["loss"]) / abs(cpu_m["loss"])
+    gn = abs(card_m["grad_norm"] - cpu_m["grad_norm"]) / cpu_m["grad_norm"]
+    mom = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+              for a, b in zip(_np_leaves(card_st["opt"]["m"]),
+                              _np_leaves(cpu_st["opt"]["m"])))
+    w_res = w_all = 0.0
+    for a, b, m in zip(_np_leaves(card_st["params"]),
+                       _np_leaves(cpu_st["params"]),
+                       _np_leaves(cpu_st["opt"]["m"])):
+        gap = np.abs(a - b) / lr
+        resolved = np.abs(m) > 1e-3 * np.abs(m).max()
+        w_all = max(w_all, float(gap.max()))
+        w_res = max(w_res, float(gap[resolved].max(initial=0.0)))
+    finite = all(np.isfinite(x).all() for x in _np_leaves(card_st))
+    gaps = (loss, gn, mom, w_res)
+    kind = ", compress_accum (int8 error feedback)" if compress else ""
+    print(f"train {what} {cfg.name}: {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab}, float32, (B, S) = ({B}, {S}),"
+          f" accum_steps 2{kind}{weights}: loss {card_m['loss']:.6f} "
+          f"(card) "
+          f"{cpu_m['loss']:.6f} (CPU); card - CPU: loss rel {loss:.4g}, "
+          f"grad_norm rel {gn:.4g}, first moment {mom:.4g} x max |m|, "
+          f"weights {w_res:.4g} lr where the gradient is resolved "
+          f"({w_all:.4g} lr anywhere; bound 2.05); bounds {tol}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
+    if not (finite and w_all <= 2.05
+            and all(g <= t for g, t in zip(gaps, tol))):
+        raise SystemExit(f"FAIL train {what} {cfg.name}: the card's step "
+                         f"!= the CPU's")
+    del m_card, s_card
+    free_card()
+
+
+def lm_train_work(cfg, B: int, S: int):
+    """(FLOPs of the bf16 products, FLOPs in float32 the step needs, FLOPs
+    in float32 the port computes) of one training step of a transformer
+    over (B, S): `lm_prefill_work`'s forward with the head over every
+    position, times 3 (forward, and backward at twice the forward); the
+    recomputation of each layer in backward is not counted.  The float32
+    attention the step needs counts the causal (q, kv) pairs
+    (`launch.model_flops.attention_fwd_flops`); the port computes every
+    pair of the blocks, masked ones included."""
+    from repro_torch.launch.model_flops import attention_fwd_flops
+    mm, f32_all = lm_prefill_work(cfg, B, S)
+    mm += 2.0 * B * (S - 1) * cfg.d_model * cfg.vocab
+    f32 = (f32_all - cfg.num_layers * _attn_f32(cfg.attn_config(), B, S)
+           + attention_fwd_flops(cfg, S, B))
+    return 3 * mm, 3 * f32, 3 * f32_all
+
+
+def train_main(dev, card: str) -> None:
+    """16c: tinyllama-1.1b whole in bf16 at S = 4096."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import (SyntheticTokenPipeline,
+                                           TokenPipelineConfig)
+    from repro_torch.launch.model_flops import useful_flops
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+
+    t0 = time.perf_counter()
+    mb, A, S = TRAIN_MAIN
+    B = mb * A
+    cfg = get_arch("tinyllama_1_1b").CONFIG
+    model = build_model(cfg)
+    state = init_train_state(
+        model, torch.Generator(device=dev).manual_seed(TRAIN_SEED),
+        device=dev)
+    n_params = model.param_count()
+    pipe = SyntheticTokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=S, global_batch=B, seed=TRAIN_SEED))
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch(i).items()} for i in range(7)]
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    steps = {c: make_train_step(model, TrainConfig(
+        opt=opt, accum_steps=A, compress_accum=c)) for c in (False, True)}
+    torch.cuda.synchronize()
+    print(f"train 16c {cfg.name}: {cfg.num_layers} layers, {cfg.dtype}, "
+          f"{n_params} parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated "
+          f"(weights and AdamW's moments); {card}")
+
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = {False: [], True: []}, []
+    plan = [False] + [False] * 3 + [True] * 2
+    for i, compress in enumerate(plan):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, met = steps[compress](state, batches[i])
+        end.record()
+        metrics.append(met)
+        if i:
+            times[compress].append((start, end))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    vals = [{k: float(v) for k, v in m.items()} for m in metrics]
+    if not all(np.isfinite([v["loss"], v["grad_norm"]]).all() for v in vals):
+        raise SystemExit("FAIL train 16c: a loss or grad_norm is not finite")
+    plain = [a.elapsed_time(b) for a, b in times[False]]
+    comp = [a.elapsed_time(b) for a, b in times[True]]
+    ms = float(np.mean(plain))
+    mm, f32, f32_all = lm_train_work(cfg, B, S)
+    t_mm, t_f32 = mm / BF16_OPS_PER_S * 1e3, f32 / F32_OPS_PER_S * 1e3
+    t_all = t_mm + f32_all / F32_OPS_PER_S * 1e3
+    useful = useful_flops(model, "train", S, B)
+    bytes_w = n_params * 2
+    print(f"train 16c {cfg.name} losses "
+          f"{[round(v['loss'], 4) for v in vals]}, grad_norm "
+          f"{[round(v['grad_norm'], 4) for v in vals]} (warm-up, 3 plain, "
+          f"2 compress_accum), every one finite; {card}")
+    print(f"timing train 16c {cfg.name} step (B, S) = ({B}, {S}) as "
+          f"{A} microbatches of {mb}: {ms:.2f} ms a step (steps "
+          f"{[round(t, 2) for t in plain]} ms), {B * S / ms * 1e3:.1f} "
+          f"tokens/s; with compress_accum {[round(t, 2) for t in comp]} ms"
+          f"; bound {t_mm + t_f32:.2f} ms (operations: {mm / 1e12:.2f} "
+          f"TFLOP of bf16 products at 989 TFLOP/s = {t_mm:.2f} ms, plus "
+          f"{f32 / 1e12:.2f} TFLOP in float32 attention over the causal "
+          f"pairs at 67 TFLOP/s = {t_f32:.2f} ms, forward + backward x "
+          f"3), {ms / (t_mm + t_f32):.2f}x the bound; counted over every "
+          f"pair of the blocks, as the port computes them (masked ones "
+          f"included, {f32_all / 1e12:.2f} TFLOP in float32), it would be "
+          f"{t_all:.2f} ms; useful FLOPs (launch.model_flops) "
+          f"{useful:.4g} a step = {useful / ms / 1e9:.2f} TFLOP/s, "
+          f"{useful / ms / 1e9 / 989:.4f} of 989 TFLOP/s; peak allocated "
+          f"{peak / 2**30:.3f} GiB: weights {bytes_w / 2**30:.3f} GiB, "
+          f"AdamW's m and v {n_params * 8 / 2**30:.3f} GiB, the float32 "
+          f"accumulators {n_params * 4 / 2**30:.3f} GiB, with "
+          f"compress_accum the int8 buffers {n_params / 2**30:.3f} GiB and "
+          f"the float32 residual {n_params * 4 / 2**30:.3f} GiB instead; "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
+    batch = batches[-1]
+    drain_device_share(lambda: (lambda: steps[False](state, batch)),
+                       f"train 16c {cfg.name} step", card, top=8)
+    del model, state, batches
+    free_card()
+
+
+def train_loop(card: str) -> None:
+    """16d: `launch.train.main` on the card: tests/test_system.py's runs."""
+    import shutil
+
+    from repro_torch.launch.train import main as train
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "train_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    losses = train(TRAIN_LOOP + [
+        "--steps", "30", "--batch", "4", "--seq", "64", "--lr", "1e-2",
+        "--ckpt-dir", str(root / "loss"), "--ckpt-every", "10",
+        "--log-every", "100"])
+    fall = losses[0] - losses[-1]
+    args = TRAIN_LOOP + ["--batch", "2", "--seq", "32", "--lr", "1e-3",
+                           "--horizon", "10", "--ckpt-every", "5",
+                           "--log-every", "100"]
+    full = train(["--steps", "10", "--ckpt-dir", str(root / "a")] + args)
+    part = train(["--steps", "5", "--ckpt-dir", str(root / "b")] + args)
+    resumed = train(["--steps", "10", "--resume",
+                     "--ckpt-dir", str(root / "b")] + args)
+    rtol, atol = TRAIN_RESUME_TOL
+    gap = np.abs(np.asarray(full[5:]) - np.asarray(resumed))
+    ok_resume = bool(np.all(gap <= atol + rtol * np.abs(full[5:])))
+    print(f"train 16d launch.train: tinyllama SMOKE, 30 steps of (4, 64) at lr "
+          f"1e-2: loss {losses[0]:.4f} -> {losses[-1]:.4f} (fell "
+          f"{fall:.4f}, must exceed 0.3); resume: 5 steps, then 5 more "
+          f"from the step-5 checkpoint against 10 uninterrupted: max "
+          f"|diff| {gap.max():.4g} (rtol {rtol}, atol {atol}), the first 5 "
+          f"equal {part == full[:5]}, the resumed equal "
+          f"{resumed == full[5:]}; {time.perf_counter() - t0:.1f} s; "
+          f"{card}")
+    if not (np.isfinite(losses).all() and fall > 0.3 and ok_resume):
+        raise SystemExit("FAIL train 16d: the loss did not fall by 0.3 or "
+                         "the resumed run departs from the uninterrupted")
+
+
+def phase_train(dev, card: str) -> dict[str, int]:
+    """16: training; 16a each family's SMOKE and 16b tinyllama at full
+    width (2 layers), card against CPU; 16c tinyllama-1.1b whole at S =
+    4096; 16d `launch.train.main`.  No Viterbi kernel may launch."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCH_IDS, get_arch
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    B, S = TRAIN_PARITY
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_arch(arch).SMOKE, dtype=torch.float32)
+        train_parity(dev, card, cfg, B, S, "16a", TRAIN_F32_TOL[arch])
+    cfg = dataclasses.replace(get_arch("tinyllama_1_1b").SMOKE,
+                              dtype=torch.float32)
+    train_parity(dev, card, cfg, B, S, "16a",
+                 TRAIN_F32_TOL["tinyllama_1_1b/compress"], compress=True)
+    cfg = dataclasses.replace(get_arch("tinyllama_1_1b").CONFIG,
+                              num_layers=2, dtype=torch.float32)
+    train_parity(dev, card, cfg, *TRAIN_WIDTH, "16b",
+                 TRAIN_F32_TOL["tinyllama_1_1b/width"],
+                 prepare=fan_in_weights)
+    train_main(dev, card)
+    train_loop(card)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_launches("train", launches, {})
+    print(f"train phase: {time.perf_counter() - t0:.1f} s wall; no Viterbi "
+          f"kernel launched; {card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3761,7 +4109,7 @@ def main() -> int:
     for name, n in op_launches.items():
         launches[name] += n
     timing = phase_timing(dev, card) | phase_stream_timing(dev, card)
-    for phase in (phase_lm, phase_recurrent):
+    for phase in (phase_lm, phase_recurrent, phase_train):
         for name, n in phase(dev, card).items():
             launches[name] += n
 

@@ -2,7 +2,7 @@
 
 The PyTorch counterpart of the JAX package `repro`, module for module
 (`core/`, `kernels/`, `serving/`, `launch/`, `models/`, `configs/`,
-`runtime/`, `checkpointing/`).  It imports torch and numpy and
+`runtime/`, `checkpointing/`, `train/`, `optim/`, `data/`, `sharding/`).  It imports torch and numpy and
 never jax.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU and without ``device="cpu"`` they raise.
 

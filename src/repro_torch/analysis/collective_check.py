@@ -92,6 +92,10 @@ def check_collectives(quick: bool = False, deep: bool = False, *,
                       inject: bool = False) -> ProveReport:
     """Run the sharded paths in a CPU world; PV301 per departure.
 
+    It takes no device, by design: what it counts is the collectives a
+    decode calls, which the device does not change, and a gloo world of
+    CPU processes runs on any host, where ranks on one card could not
+    use NCCL.  So it does not go through `resolve_device`.
     ``quick`` checks one path; ``deep`` equals the default run (the walk is
     exhaustive over the sharded paths already).  ``inject`` adds a
     reduction to each rank's slice decode: the positive control, which

@@ -39,6 +39,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.planner import spec_state_bytes
 from ..core.spec import (AssocSpec, BeamStaticMPSpec, BeamStaticSpec,
                          CheckpointSpec, DecodeSpec, FlashBSSpec, FlashSpec,
@@ -330,14 +331,16 @@ def check_streaming_contracts(specs: Sequence[DecodeSpec] = STREAMING_SPECS,
 # Aggregate entry point
 # ---------------------------------------------------------------------------
 
-def check_contracts(quick: bool = False, device="cpu",
+def check_contracts(quick: bool = False, device=None,
                     memory_grid: Sequence[tuple[int, int]] | None = None
                     ) -> ContractReport:
-    """Run every contract family over every registered spec on `device`.
+    """Run every contract family over every registered spec on `device`
+    (None: ``cuda``; a host without a GPU raises unless given ``"cpu"``).
 
     ``quick`` shrinks the grids to one point each; `memory_grid` overrides
     the memory contract's grid (the smoke adds the serve's (512, 511)).
     """
+    device = resolve_device(device)
     # keep the registry honest: every method must be covered by one family
     covered = ({s.method for s in TRACEABLE_SPECS}
                | {s.method for s in STREAMING_SPECS})

@@ -44,6 +44,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
+from ..core.device import resolve_device
 from .contracts import seeded_hmm
 from .findings import Finding, ProveReport
 
@@ -302,10 +303,12 @@ def _record(report: ProveReport, subject: str, fn, model: int,
     report.checks.append(subject)
 
 
-def check_dispatch(device="cpu", quick: bool = False, deep: bool = False,
+def check_dispatch(device=None, quick: bool = False, deep: bool = False,
                    specs: Sequence | None = None,
                    crosscheck: Callable | None = None) -> ProveReport:
-    """Run every planner-reachable decode entry under the probe.
+    """Run every planner-reachable decode entry under the probe, on
+    `device` (None: ``cuda``; a host without a GPU raises unless given
+    ``"cpu"``).
 
     ``quick`` shrinks the grids to one point each; ``deep`` extends them
     with JAX's serving-sized points.  ``crosscheck`` defaults to
@@ -319,7 +322,7 @@ def check_dispatch(device="cpu", quick: bool = False, deep: bool = False,
     from ..core.spec import SPEC_BY_METHOD, FusedSpec
 
     crosscheck = crosscheck or crosscheck_state_bytes
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if specs is None:
         specs = tuple(cls() for cls in SPEC_BY_METHOD.values())
 

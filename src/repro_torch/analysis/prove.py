@@ -23,18 +23,18 @@ from .findings import (ProveReport, apply_waivers, collect_waivers,
 __all__ = ["run_prove"]
 
 
-def run_prove(device="cpu", quick: bool = False, deep: bool = False,
+def run_prove(device=None, quick: bool = False, deep: bool = False,
               ptxas_log: str | None = None) -> ProveReport:
-    """Run all flashprove passes on `device`; a report with waivers
+    """Run all flashprove passes on `device` (None: ``cuda``; a host
+    without a GPU raises unless given ``"cpu"``); a report with waivers
     applied.  `ptxas_log` is the kernels' ptxas ``-v`` report (the card's
     build); without it the spill check is listed as skipped."""
-    import torch
-
+    from ..core.device import resolve_device
     from .collective_check import check_collectives
     from .dispatch_check import check_dispatch
     from .kernel_check import check_kernels
 
-    dev = torch.device(device)
+    dev = resolve_device(device)
     report = ProveReport()
     report.extend(check_dispatch(dev, quick=quick, deep=deep))
     report.extend(check_kernels(ptxas_log, quick=quick, deep=deep))

@@ -16,9 +16,10 @@ The four LM shapes (seq_len x global_batch):
 An `InputSpec`'s arguments are tensors on the ``meta`` device: shapes and
 dtypes, no memory (the decode cache is ``init_cache(..., device="meta")``,
 in the port's per-layer form: a list of one dict a layer, or a
-`models.hybrid.StateCache` for the recurrent families).
-The TPU sharding specs of the JAX package's `InputSpec` wait for the
-training slice (ROADMAP Queue 1 item 11c).
+`models.hybrid.StateCache` for the recurrent families).  Its `shardings`
+are `core.mesh.PartitionSpec` trees, JAX's: the batch over "data" (over
+("pod", "data") with ``multi_pod``), a decode cache's in JAX's stacked
+layout (`model.cache_specs`), with the batch replicated at batch 1.
 """
 
 from __future__ import annotations
@@ -29,8 +30,10 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.mesh import PartitionSpec as P
 from ..models import build_model
 from ..models.transformer import ModelConfig
+from ..sharding.rules import MULTI_POD_RULES, SINGLE_POD_RULES
 
 SHAPES: dict[str, tuple[str, int, int]] = {
     "train_4k": ("train", 4_096, 256),
@@ -47,33 +50,49 @@ class InputSpec:
     seq_len: int
     batch: int
     args: dict                     # name -> tree of meta tensors
+    shardings: dict                # name -> PartitionSpec tree (same keys)
 
 
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def lm_input_specs(cfg: ModelConfig, shape: str,
+def _batch_axes(multi_pod: bool):
+    return ("pod", "data") if multi_pod else "data"
+
+
+def lm_input_specs(cfg: ModelConfig, shape: str, multi_pod: bool = False,
                    skips: dict[str, str] | None = None) -> InputSpec | None:
     """Token-input LM specs; None for a skipped cell."""
     if skips and shape in skips:
         return None
     kind, S, B = SHAPES[shape]
+    ba = _batch_axes(multi_pod)
     if kind == "train":
         return InputSpec(kind, S, B, {"batch": {
             "tokens": _meta((B, S), torch.int32),
             "labels": _meta((B, S), torch.int32),
-            "mask": _meta((B, S), torch.float32)}})
+            "mask": _meta((B, S), torch.float32)}},
+            {"batch": {"tokens": P(ba, None), "labels": P(ba, None),
+                       "mask": P(ba, None)}})
     if kind == "prefill":
         return InputSpec(kind, S, B, {"batch": {
-            "tokens": _meta((B, S), torch.int32)}})
+            "tokens": _meta((B, S), torch.int32)}},
+            {"batch": {"tokens": P(ba, None)}})
     # decode: one new token against a cache of length S
-    cache = build_model(cfg).init_cache(B, S, device="meta")
+    model = build_model(cfg)
+    cache = model.init_cache(B, S, device="meta")
+    rules = MULTI_POD_RULES if multi_pod else SINGLE_POD_RULES
+    if B == 1:  # long-context single stream: the batch cannot shard
+        rules = dataclasses.replace(rules, rules={**rules.rules,
+                                                  "batch": None})
     return InputSpec(kind, S, B, {"tokens": _meta((B, 1), torch.int32),
-                                  "cache": cache})
+                                  "cache": cache},
+                     {"tokens": P(rules.axis("batch"), None),
+                      "cache": model.cache_specs(rules)})
 
 
-def embeds_input_specs(cfg: ModelConfig, shape: str,
+def embeds_input_specs(cfg: ModelConfig, shape: str, multi_pod: bool = False,
                        skips: dict[str, str] | None = None,
                        num_image_tokens: int = 0) -> InputSpec | None:
     """Specs of the modality-frontend stubs.  Encoder (hubert): the batch
@@ -83,21 +102,26 @@ def embeds_input_specs(cfg: ModelConfig, shape: str,
     if skips and shape in skips:
         return None
     kind, S, B = SHAPES[shape]
+    ba = _batch_axes(multi_pod)
     if num_image_tokens:
-        base = lm_input_specs(cfg, shape, skips)
+        base = lm_input_specs(cfg, shape, multi_pod, skips)
         if kind != "decode":
             base.args["batch"]["tokens"] = _meta((B, S - num_image_tokens),
                                                  torch.int32)
             base.args["batch"]["image_embeds"] = _meta(
                 (B, num_image_tokens, cfg.d_model), cfg.dtype)
+            base.shardings["batch"]["image_embeds"] = P(ba, None, None)
         return base
     embeds = _meta((B, S, cfg.d_model), cfg.dtype)
     if kind == "train":
         return InputSpec(kind, S, B, {"batch": {
             "embeds": embeds, "labels": _meta((B, S), torch.int32),
-            "mask": _meta((B, S), torch.float32)}})
+            "mask": _meta((B, S), torch.float32)}},
+            {"batch": {"embeds": P(ba, None, None), "labels": P(ba, None),
+                       "mask": P(ba, None)}})
     if kind == "prefill":
-        return InputSpec(kind, S, B, {"batch": {"embeds": embeds}})
+        return InputSpec(kind, S, B, {"batch": {"embeds": embeds}},
+                         {"batch": {"embeds": P(ba, None, None)}})
     return None
 
 

@@ -38,5 +38,5 @@ SKIPS = {
 }
 
 
-def input_specs(shape: str):
-    return embeds_input_specs(CONFIG, shape, SKIPS)
+def input_specs(shape: str, multi_pod: bool = False):
+    return embeds_input_specs(CONFIG, shape, multi_pod, SKIPS)

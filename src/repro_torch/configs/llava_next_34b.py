@@ -29,6 +29,6 @@ SMOKE = ModelConfig(
 SKIPS = {"long_500k": "pure full attention (no sub-quadratic path)"}
 
 
-def input_specs(shape: str):
-    return embeds_input_specs(CONFIG, shape, SKIPS,
+def input_specs(shape: str, multi_pod: bool = False):
+    return embeds_input_specs(CONFIG, shape, multi_pod, SKIPS,
                               num_image_tokens=NUM_IMAGE_TOKENS)

@@ -27,5 +27,5 @@ SMOKE = ModelConfig(
 SKIPS = {"long_500k": "pure full attention (no sub-quadratic path)"}
 
 
-def input_specs(shape: str):
-    return lm_input_specs(CONFIG, shape, SKIPS)
+def input_specs(shape: str, multi_pod: bool = False):
+    return lm_input_specs(CONFIG, shape, multi_pod, SKIPS)

@@ -23,5 +23,5 @@ SMOKE = ModelConfig(
 SKIPS: dict = {}
 
 
-def input_specs(shape: str):
-    return lm_input_specs(CONFIG, shape, SKIPS)
+def input_specs(shape: str, multi_pod: bool = False):
+    return lm_input_specs(CONFIG, shape, multi_pod, SKIPS)

@@ -3,9 +3,10 @@ param tables, norms, MLPs, rotary.
 
 Parameters come from *layout tables* `{name: (shape, logical_axes,
 init_kind)}`, the JAX package's own tables.  The same table yields the init
-values and the parameter count, so the two cannot drift apart.  The tables'
-logical axes name the TPU mesh axes; they wait for the training slice
-(`param_specs`, `sharding/`), as does `chunked_cross_entropy`.
+values, the parameter count, the meta tensors of `abstract_params` and the
+`core.mesh.PartitionSpec` tree of `param_specs` (through
+`sharding.rules`), so they cannot drift apart.  Trees from the table are in
+JAX's layout: layers stacked on axis 0 where JAX stacks them.
 
 Every op keeps JAX's dtypes: a norm computes in float32 and casts back to
 the input's dtype, and ``x @ W`` on bfloat16 operands returns bfloat16.
@@ -18,6 +19,9 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from ..sharding.rules import ShardingRules, spec_tree_from_layout
 
 Layout = dict  # {name: (shape, logical_axes, init_kind) | nested Layout}
 
@@ -66,6 +70,22 @@ def init_params(layout: Layout, dtype: torch.dtype = torch.bfloat16, *,
                                          device))
                 for name, val in lay.items()}
     return build(layout)
+
+
+def abstract_params(layout: Layout, dtype: torch.dtype = torch.bfloat16):
+    """The tree of a layout as tensors on the ``meta`` device: shapes and
+    dtypes, no memory."""
+    def build(lay):
+        return {name: (build(v) if isinstance(v, dict)
+                       else torch.empty(v[0], dtype=dtype, device="meta"))
+                for name, v in lay.items()}
+    return build(layout)
+
+
+def param_specs(rules: ShardingRules, layout: Layout):
+    """The PartitionSpec tree of a layout under `rules`
+    (`sharding.rules.spec_tree_from_layout`, under JAX's name)."""
+    return spec_tree_from_layout(rules, layout)
 
 
 def param_count(layout: Layout) -> int:
@@ -144,8 +164,47 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def _chunk_nll(hs, embed_t, ts, ms):
+    """(sum of the chunk's masked NLL, sum of its mask), float32."""
+    logits = (hs @ embed_t).float()                         # (B, c, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, ts.long()[..., None])[..., 0]
+    return ((logz - gold) * ms).sum(), ms.sum()
+
+
+def chunked_cross_entropy(hidden, embed_t, targets, mask, chunk: int = 512):
+    """CE over huge vocabularies without materialising (B, S, V) at once,
+    as JAX's `chunked_cross_entropy`.
+
+    hidden: (B, S, D); embed_t: (D, V) output head; targets / mask: (B, S).
+    The chunks of `chunk` positions run in order; each chunk's logits
+    (the product in hidden's dtype cast to float32, JAX's order: product
+    first, cast after; JAX's leading ``logits_fn`` argument is dropped, as
+    every caller passes that cast) are recomputed in backward
+    (`torch.utils.checkpoint`, as JAX's ``jax.checkpoint(body)``), so the
+    live logits stay at (B, chunk, V).  S must be a multiple of `chunk`
+    (JAX's reshape fails otherwise); ValueError if not.
+    """
+    B, S, D = hidden.shape
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the "
+                         f"loss chunk {chunk}")
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, chunk):
+        nll, m = checkpoint(_chunk_nll, hidden[:, i:i + chunk],
+                            embed_t, targets[:, i:i + chunk],
+                            mask[:, i:i + chunk], use_reentrant=False)
+        tot, cnt = tot + nll, cnt + m
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
 __all__ = [
-    "Layout", "init_params", "param_count",
+    "Layout", "init_params", "abstract_params", "param_specs", "param_count",
+    "chunked_cross_entropy",
     "rms_norm", "layer_norm", "act_fn", "glu_mlp", "mlp", "glu_mlp_layout",
     "mlp_layout", "rope_frequencies", "apply_rope",
 ]

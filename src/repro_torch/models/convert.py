@@ -25,6 +25,15 @@ The port keeps a list of one dict a layer (a `hybrid.StateCache`, with
 `cache_from_jax` and `cache_to_numpy` carry it across and back, the state
 that crosses between the packages beside the weights.
 
+A JAX training state is ``{"params", "opt": {"m", "v", "step"}}`` with m
+and v float32 trees in the parameters' layout; the port's
+(`train.train_step`) holds the same in its own per-layer layout.
+`train_state_from_jax` and `train_state_to_numpy` carry it across and
+back, and `jax_layout` maps any tree in the port's parameter layout (a
+gradient, a moment) to JAX's.  `jax_leaf_groups` lists, for each JAX leaf,
+the port's tensors it stacks: int8 error feedback takes one scale a JAX
+leaf (`optim.compression`).
+
 Arrays are read through numpy (a JAX array converts itself), bfloat16 by
 its bits, so nothing here imports JAX.
 """
@@ -64,16 +73,21 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _port_layout(tree: dict, model) -> dict:
+    """A tree in JAX's parameter layout split into the port's (stacked
+    leaves sliced: views)."""
+    if model.cfg.family == "transformer":
+        return {**tree, "layers": layer_trees(tree["layers"], model.cfg)}
+    return model.layer_trees(tree)
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None):
     """The built model of `cfg` holding the weights of JAX tree `tree`, cast
     to ``cfg.dtype`` on `device` (None: ``cuda``)."""
     dev = resolve_device(device)
-    tree = _map(tree, lambda a: _tensor(a, cfg.dtype, dev))
     model = build_model(cfg)
-    if cfg.family == "transformer":
-        tree["layers"] = layer_trees(tree["layers"], cfg)
-        return model.load(tree)
-    return model.load(model.layer_trees(tree))
+    return model.load(_port_layout(
+        _map(tree, lambda a: _tensor(a, cfg.dtype, dev)), model))
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -99,24 +113,79 @@ def _griffin_units(layers: list, n_units: int, stack) -> dict:
             for j, name in enumerate(_GRIFFIN_UNIT)}
 
 
-def to_numpy_tree(model) -> dict:
-    """The model's weights as a JAX parameter tree of numpy arrays (layers
-    stacked on axis 0 where JAX stacks them); bfloat16 weights come back as
-    float32, which holds them exactly."""
-    tree = _map(model.tree(), _host)
+def _jax_params(tree: dict, model, stack) -> dict:
+    """A tree in the port's parameter layout (`model.tree()`'s) in JAX's,
+    the layers' (units') leaves joined by `stack`."""
+    tree = dict(tree)
     cfg = model.cfg
     if cfg.family == "griffin":
         layers = tree.pop("layers")
-        tree["units"] = _griffin_units(layers, model.n_units, np.stack)
+        tree["units"] = _griffin_units(layers, model.n_units, stack)
         for i in range(model.n_tail):
             tree[f"tail{i}"] = layers[3 * model.n_units + i]
     elif cfg.family == "xlstm":
-        tree["units"] = _stack(tree["units"])
+        tree["units"] = _stack(tree["units"], stack)
     elif cfg.scan_layers:
-        tree["layers"] = _stack(tree["layers"])
+        tree["layers"] = _stack(tree["layers"], stack)
     else:
         tree["layers"] = {f"l{i}": lt for i, lt in enumerate(tree["layers"])}
     return tree
+
+
+def jax_layout(tree: dict, model) -> dict:
+    """A tree in the port's parameter layout (weights, gradients, moments)
+    as JAX's of numpy arrays (layers stacked on axis 0 where JAX stacks
+    them); bfloat16 comes back as float32, which holds it exactly."""
+    return _jax_params(_map(tree, _host), model, np.stack)
+
+
+def to_numpy_tree(model) -> dict:
+    """The model's weights as a JAX parameter tree of numpy arrays."""
+    return jax_layout(model.tree(), model)
+
+
+def jax_leaf_groups(tree: dict, model) -> list[list[torch.Tensor]]:
+    """For each leaf of JAX's layout of `tree` (in the port's parameter
+    layout), the port's tensors it stacks, in stack order (one tensor for
+    a leaf JAX does not stack)."""
+    groups = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        else:
+            groups.append(t if isinstance(t, list) else [t])
+    walk(_jax_params(tree, model, list))
+    return groups
+
+
+def train_state_from_jax(state: dict, model, *, device=None) -> dict:
+    """The port's training state of JAX's ``{"params", "opt": {"m", "v",
+    "step"}}`` (numpy, or arrays numpy reads): the weights loaded into
+    `model` in ``model.cfg.dtype``, the moments float32 and the step int32
+    on `device` (None: ``cuda``).  The weights are the model's own tensors
+    (``state["params"]`` is ``model.tree()``)."""
+    dev = resolve_device(device)
+
+    def port(tree, dtype):
+        return _port_layout(_map(tree, lambda a: _tensor(a, dtype, dev)),
+                            model)
+    model.load(port(state["params"], model.cfg.dtype))
+    opt = state["opt"]
+    return {"params": model.tree(),
+            "opt": {"m": port(opt["m"], torch.float32),
+                    "v": port(opt["v"], torch.float32),
+                    "step": _tensor(opt["step"], torch.int32, dev)}}
+
+
+def train_state_to_numpy(state: dict, model) -> dict:
+    """JAX's layout of the port's training state, as numpy arrays."""
+    opt = state["opt"]
+    return {"params": jax_layout(state["params"], model),
+            "opt": {"m": jax_layout(opt["m"], model),
+                    "v": jax_layout(opt["v"], model),
+                    "step": _host(opt["step"])}}
 
 
 def cache_from_jax(cache, cfg: ModelConfig, *, device=None) -> list:
@@ -178,4 +247,5 @@ def cache_to_numpy(cache: list, cfg: ModelConfig):
 
 
 __all__ = ["params_from_jax", "to_numpy_tree", "cache_from_jax",
-           "cache_to_numpy"]
+           "cache_to_numpy", "jax_layout", "jax_leaf_groups",
+           "train_state_from_jax", "train_state_to_numpy"]

@@ -12,6 +12,13 @@ them across).  `layer_trees` splits JAX's layout into that form.
 
 Both families are sub-quadratic: the recurrent state is O(1) in sequence
 length, and Griffin's local attention caches only its window (a ring).
+
+`loss(batch)` is JAX's: the chunked cross entropy on the tied head, each
+unit (Griffin's (rec, rec, attn), an xLSTM unit) recomputed in backward
+under ``cfg.remat_policy``; Griffin's tail layers run outside the remat,
+as outside JAX's scan.  xLSTM's loss skips the mLSTM's final-state loop
+(``need_state=False``), which XLA drops from JAX's loss as dead code.
+Serving runs under `torch.no_grad`.
 """
 
 from __future__ import annotations
@@ -20,17 +27,20 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.device import resolve_device
+from ..core.mesh import PartitionSpec as P
 from . import rglru as rg
 from . import xlstm as xl
 from .attention import (attn_layout, gqa_decode, gqa_forward, gqa_init_cache,
                         gqa_prefill_cache)
-from .common import (Layout, glu_mlp, glu_mlp_layout, init_params,
-                     param_count, rms_norm)
-from .transformer import (ModelConfig, ParamTree, _frozen, _stack_layout,
-                          _waits)
+from .common import (Layout, abstract_params, chunked_cross_entropy,
+                     glu_mlp, glu_mlp_layout, init_params, param_count,
+                     param_specs, rms_norm)
+from .transformer import (ModelConfig, ParamTree, _frozen, _remat,
+                          _stack_layout)
 
 
 class StateCache(list):
@@ -92,6 +102,14 @@ class _RecurrentLM(nn.Module):
     def active_param_count(self) -> int:
         return self.param_count()
 
+    def abstract_params(self) -> dict:
+        """JAX's parameter tree (its stacked layout) as meta tensors."""
+        return abstract_params(self.layout(), self.cfg.dtype)
+
+    def param_specs(self, rules) -> dict:
+        """JAX's PartitionSpec tree of the parameters under `rules`."""
+        return param_specs(rules, self.layout())
+
     def init(self, generator: torch.Generator | None = None, *,
              device=None):
         """Draw the weights on `device` (None: ``cuda``) from `generator`
@@ -130,13 +148,22 @@ class _RecurrentLM(nn.Module):
             conv)
 
     def _tokens(self, tokens):
-        return self.embed[tokens.to(self.embed.device)]
+        """The embedding rows of `tokens` (a gather; its backward sums rows
+        in a fixed order on the card, where indexing's would use
+        atomics)."""
+        return F.embedding(tokens.to(self.embed.device), self.embed)
 
     def _logits(self, x):
         return (rms_norm(x, self.ln_out) @ self.embed.T).float()
 
-    def loss(self, batch):
-        raise _waits("the training loss", "11c")
+    def _ce(self, x, batch):
+        """JAX's loss head: the output norm, then the chunked cross entropy
+        on the tied embedding."""
+        S = x.shape[1]
+        return chunked_cross_entropy(
+            rms_norm(x, self.ln_out), self.embed.T,
+            batch["labels"].to(x.device), batch["mask"].to(x.device).float(),
+            chunk=min(self.cfg.loss_chunk, S))
 
 
 # ---------------------------------------------------------------------------
@@ -203,31 +230,57 @@ class GriffinLM(_RecurrentLM):
         return x * torch.tensor(math.sqrt(self.cfg.d_model),
                                 dtype=self.cfg.dtype, device=x.device)
 
+    def _block_fwd(self, i: int, x, positions):
+        """Layer `i` over the full sequence: (x', its rec state {h, conv}
+        or its attention kv streams)."""
+        lp = self.blocks[i].tree()
+        h = rms_norm(x, lp["ln_mix"])
+        if self.kinds[i] == "rec":
+            y, out = rg.block_forward(lp["mix"], h, self.rcfg, None)
+        else:
+            y, out = gqa_forward(lp["mix"], h, positions,
+                                 self.cfg.attn_config())
+        return self._mlp(lp, x + y), out
+
+    def _unit_loss(self, u: int, x, positions):
+        for i in range(3 * u, 3 * u + 3):
+            x, _ = self._block_fwd(i, x, positions)
+        return x
+
+    # -- training ---------------------------------------------------------
+    def loss(self, batch) -> torch.Tensor:
+        """JAX's `GriffinLM.loss` on ``batch["tokens"]``, ``["labels"]``
+        and ``["mask"]`` (B, S): a 0-d float32 tensor."""
+        x = self._embed(batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        unit = _remat(self._unit_loss, self.cfg.remat_policy)
+        for u in range(self.n_units):
+            x = unit(u, x, positions)
+        for i in range(3 * self.n_units, self.cfg.num_layers):
+            x, _ = self._block_fwd(i, x, positions)
+        return self._ce(x, batch)
+
     # -- serving ----------------------------------------------------------
+    @torch.no_grad()
     def prefill(self, batch, max_len: int | None = None):
         """``batch["tokens"]`` (B, S) -> (logits (B, 1, vocab) float32 of
         the last position, the cache: each rec layer's {h, conv}, each
         attention layer's window ring with room for `max_len` (None: S))."""
-        cfg, acfg = self.cfg, self.cfg.attn_config()
+        acfg = self.cfg.attn_config()
         x = self._embed(batch["tokens"])
         S = x.shape[1]
         max_len = max_len or S
         positions = torch.arange(S, device=x.device)
         entries = []
-        for kind, layer in zip(self.kinds, self.blocks):
-            lp = layer.tree()
-            h = rms_norm(x, lp["ln_mix"])
-            if kind == "rec":
-                y, st = rg.block_forward(lp["mix"], h, self.rcfg, None)
-                entries.append(_compact(st))
-            else:
-                y, kv = gqa_forward(lp["mix"], h, positions, acfg)
-                entries.append(gqa_prefill_cache(acfg, kv, max_len))
-            x = self._mlp(lp, x + y)
+        for i, kind in enumerate(self.kinds):
+            x, out = self._block_fwd(i, x, positions)
+            entries.append(_compact(out) if kind == "rec" else
+                           gqa_prefill_cache(acfg, out, max_len))
         cache = StateCache(entries, torch.tensor(S, dtype=torch.int32,
                                                  device=x.device))
         return self._logits(x[:, -1:]), cache
 
+    @torch.no_grad()
     def decode_step(self, tokens, cache: StateCache):
         """One token a sequence, ``tokens`` (B, 1), against `cache`, which
         the step updates in place (no host sync).  Returns (logits (B, 1,
@@ -260,6 +313,21 @@ class GriffinLM(_RecurrentLM):
                    for kind in self.kinds]
         return StateCache(entries, torch.zeros((), dtype=torch.int32,
                                                device=dev))
+
+
+    def cache_specs(self, rules):
+        """JAX's PartitionSpec tree of the decode cache, in its stacked
+        layout (`convert.cache_to_numpy`'s)."""
+        b = rules.axis("batch")
+        rec = {"h": P(None, b), "conv": P(None, b, None, None)}
+        rec_tail = {"h": P(b), "conv": P(b, None, None)}
+        return {
+            "rec1": rec, "rec2": rec,
+            "attn": {"k": P(None, b, None, None), "v": P(None, b, None, None),
+                     "pos": P(None, None), "next": P(None)},
+            "tails": [rec_tail for _ in range(self.n_tail)],
+            "next": P(),
+        }
 
 
 # ---------------------------------------------------------------------------
@@ -303,11 +371,11 @@ class XLSTMLM(_RecurrentLM):
                           for u in range(self.n_units)],
                 "embed": tree["embed"], "ln_out": tree["ln_out"]}
 
-    def _unit(self, up, x, state):
+    def _unit(self, up, x, state, need_state: bool = True):
         m_state = None if state is None else state["m"]
         s_state = None if state is None else state["s"]
         y, m_new = xl.mlstm_block(up["m"], rms_norm(x, up["ln_m"]),
-                                  self.xcfg, m_state)
+                                  self.xcfg, m_state, need_state=need_state)
         x = x + y
         y, s_new = xl.slstm_block(up["s"], rms_norm(x, up["ln_s"]),
                                   self.xcfg, s_state)
@@ -327,6 +395,23 @@ class XLSTMLM(_RecurrentLM):
                                       dtype=cfg.dtype, device=device)},
         }
 
+    def _unit_loss(self, u: int, x):
+        return self._unit(self.blocks[u].tree(), x, None,
+                          need_state=False)[0]
+
+    # -- training ---------------------------------------------------------
+    def loss(self, batch) -> torch.Tensor:
+        """JAX's `XLSTMLM.loss` on ``batch["tokens"]``, ``["labels"]`` and
+        ``["mask"]`` (B, S): a 0-d float32 tensor.  No mLSTM final state is
+        computed (`xlstm.mlstm_block`'s ``need_state``)."""
+        x = self._tokens(batch["tokens"])
+        unit = _remat(self._unit_loss, self.cfg.remat_policy)
+        for u in range(self.n_units):
+            x = unit(u, x)
+        return self._ce(x, batch)
+
+    # -- serving ----------------------------------------------------------
+    @torch.no_grad()
     def prefill(self, batch, max_len: int | None = None):
         """``batch["tokens"]`` (B, S) -> (logits (B, 1, vocab) float32 of
         the last position, the cache).  Each unit starts from a fresh state
@@ -343,6 +428,7 @@ class XLSTMLM(_RecurrentLM):
                                                  device=x.device))
         return self._logits(x[:, -1:]), cache
 
+    @torch.no_grad()
     def decode_step(self, tokens, cache: StateCache):
         """One token a sequence against `cache`, updated in place (no host
         sync).  Returns (logits (B, 1, vocab) float32, cache)."""
@@ -364,5 +450,18 @@ class XLSTMLM(_RecurrentLM):
                            for _ in range(self.n_units)],
                           torch.zeros((), dtype=torch.int32, device=dev))
 
+
+    def cache_specs(self, rules):
+        """JAX's PartitionSpec tree of the decode cache, in its stacked
+        layout (`convert.cache_to_numpy`'s)."""
+        b = rules.axis("batch")
+        one = {
+            "m": {"rec": {"C": P(None, b), "n": P(None, b), "m": P(None, b)},
+                  "conv": P(None, b, None, None)},
+            "s": {"rec": {"c": P(None, b), "n": P(None, b), "m": P(None, b),
+                          "h": P(None, b)},
+                  "conv": P(None, b, None, None)},
+        }
+        return {"units": one, "next": P()}
 
 __all__ = ["GriffinLM", "XLSTMLM", "StateCache"]

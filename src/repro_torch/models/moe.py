@@ -101,10 +101,11 @@ def _moe_dense(params, x, cfg: MoEConfig, act: str = "silu"):
     keep = rank < C
 
     # scatter tokens into (E, C + 1, D); C is the overflow bin, cut off
-    tok_idx = torch.arange(N, device=x.device).repeat_interleave(K)
     slot = torch.where(keep, rank, C)
     buf = torch.zeros((E, C + 1, D), dtype=xt.dtype, device=x.device)
-    buf[flat_e, slot] = xt[tok_idx]
+    # each token's row once a slot (backward: K rows summed a token, not
+    # an indexed accumulate, which takes atomics on the card)
+    buf[flat_e, slot] = xt.repeat_interleave(K, dim=0)
     buf = buf[:, :C]
 
     # expert FFN, batched over E

@@ -23,30 +23,38 @@ caches on axis 0 (`models.convert.cache_from_jax` carries one across); a
 decode step updates it in place and returns it.  A VLM config (llava,
 ``num_image_tokens``) prepends ``batch["image_embeds"]`` (B, N_img, d) to
 the prompt's token embeddings; its decode continues at position N_img +
-S_text.  The Griffin and xLSTM families are `models.hybrid`'s; `loss`
-waits for the training slice (item 11c).
+S_text.  The Griffin and xLSTM families are `models.hybrid`'s.
+
+Training is JAX's ``model.loss(params, batch)`` as ``model.loss(batch)``
+on the module's own weights: the chunked cross entropy, plus MoE's
+load-balance term, each layer recomputed in backward under
+``cfg.remat_policy`` (`_remat`).  The weights are frozen (no gradient)
+until `train.init_train_state` makes them trainable, and serving runs under
+`torch.no_grad`, so a prefill or decode step builds no autograd graph
+whichever the weights are.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.device import resolve_device
+from ..core.mesh import PartitionSpec as P
 from .attention import (AttnConfig, attn_layout, gqa_decode, gqa_forward,
                         gqa_init_cache, gqa_prefill_cache, mla_decode,
                         mla_forward, mla_init_cache, mla_prefill_cache)
-from .common import (Layout, glu_mlp, glu_mlp_layout, init_params, mlp,
-                     mlp_layout, param_count, rms_norm)
+from .common import (Layout, abstract_params, chunked_cross_entropy,
+                     glu_mlp, glu_mlp_layout, init_params, mlp, mlp_layout,
+                     param_count, param_specs, rms_norm)
 from .moe import MoEConfig, moe_forward, moe_layout
-
-
-def _waits(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +82,7 @@ class ModelConfig:
     use_rope: bool = True            # False: frontend supplies positions (hubert)
     tie_embeddings: bool = True
     scan_layers: bool = True         # the layout stacks layers on axis 0
-    remat_policy: str = "full"       # training only; not ported yet
+    remat_policy: str = "full"       # none | dots | full (training only)
     dtype: torch.dtype = torch.bfloat16
     # griffin/xlstm extras
     block_pattern: tuple = ()
@@ -104,6 +112,33 @@ class ModelConfig:
             rope_head_dim=mla.get("rope_head_dim", 64),
             v_head_dim=mla.get("v_head_dim"),
             causal_schedule=self.causal_schedule)
+
+
+#: the ops whose outputs the "dots" policy keeps: products without batch
+#: dimensions (``x @ W`` reaches ``aten.mm``; attention's batched products
+#: do not), as JAX's ``checkpoint_dots_with_no_batch_dims``
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """`fn` recomputed in backward as JAX's ``jax.checkpoint`` under the
+    config's policy: "full" keeps only its inputs, "dots" also the outputs
+    of its plain products (`_DOTS`), "none" is the plain call."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"unknown remat policy {policy!r}: none | dots | full")
 
 
 # ---------------------------------------------------------------------------
@@ -163,21 +198,25 @@ def layer_trees(layers: dict, cfg: ModelConfig) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 def _ffn(cfg: ModelConfig, lp, h):
+    """(the MLP's or MoE's output, MoE's load-balance aux loss; 0.0 for a
+    dense MLP)."""
     if cfg.moe is not None:
-        return moe_forward(lp["moe"], h, cfg.moe, act=cfg.act)[0]
-    return (glu_mlp if cfg.mlp_glu else mlp)(lp["mlp"], h, act=cfg.act)
+        return moe_forward(lp["moe"], h, cfg.moe, act=cfg.act)
+    return (glu_mlp if cfg.mlp_glu else mlp)(lp["mlp"], h, act=cfg.act), 0.0
 
 
 def layer_fwd(cfg: ModelConfig, lp, x, positions):
-    """Full-sequence layer, JAX's `_layer_fwd` without the MoE aux loss
-    (training only).  Returns (x', kv): GQA's {"k", "v"} streams or MLA's
-    latent, what a causal prefill keeps in its cache."""
+    """Full-sequence layer, JAX's `_layer_fwd`.  Returns (x', kv, aux): kv
+    is GQA's {"k", "v"} streams or MLA's latent, what a causal prefill
+    keeps in its cache; aux is MoE's load-balance loss (0.0 for a dense
+    MLP), which the training loss adds."""
     acfg = cfg.attn_config()
     h = rms_norm(x, lp["ln_attn"])
     fwd = mla_forward if acfg.kv_lora is not None else gqa_forward
     attn_out, kv = fwd(lp["attn"], h, positions, acfg)
     x = x + attn_out
-    return x + _ffn(cfg, lp, rms_norm(x, lp["ln_mlp"])), kv
+    out, aux = _ffn(cfg, lp, rms_norm(x, lp["ln_mlp"]))
+    return x + out, kv, aux
 
 
 def layer_decode(cfg: ModelConfig, lp, x, cache_l):
@@ -188,7 +227,7 @@ def layer_decode(cfg: ModelConfig, lp, x, cache_l):
     dec = mla_decode if acfg.kv_lora is not None else gqa_decode
     attn_out, cache_l = dec(lp["attn"], h, cache_l, acfg)
     x = x + attn_out
-    return x + _ffn(cfg, lp, rms_norm(x, lp["ln_mlp"])), cache_l
+    return x + _ffn(cfg, lp, rms_norm(x, lp["ln_mlp"]))[0], cache_l
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -228,6 +267,11 @@ class TransformerLayer(ParamTree):
     def forward(self, x, positions):
         return layer_fwd(self.cfg, self.tree(), x, positions)
 
+    def train_forward(self, x, positions):
+        """(x', aux): the layer as the training loss runs it (no kv)."""
+        x, _, aux = layer_fwd(self.cfg, self.tree(), x, positions)
+        return x, aux
+
     def decode(self, x, cache_l):
         return layer_decode(self.cfg, self.tree(), x, cache_l)
 
@@ -255,6 +299,14 @@ class TransformerLM(nn.Module):
     def param_count(self) -> int:
         """From the layout alone: nothing is allocated."""
         return param_count(self.layout())
+
+    def abstract_params(self) -> dict:
+        """JAX's parameter tree (its stacked layout) as meta tensors."""
+        return abstract_params(self.layout(), self.cfg.dtype)
+
+    def param_specs(self, rules) -> dict:
+        """JAX's PartitionSpec tree of the parameters under `rules`."""
+        return param_specs(rules, self.layout())
 
     def active_param_count(self) -> int:
         """Per-token active parameters (MoE: the top_k routed experts and
@@ -318,6 +370,12 @@ class TransformerLM(nn.Module):
         return x * torch.tensor(math.sqrt(self.cfg.d_model),
                                 dtype=self.cfg.dtype, device=x.device)
 
+    def _rows(self, tokens):
+        """The embedding rows of `tokens` (a gather; its backward sums rows
+        in a fixed order on the card, where indexing's would use
+        atomics)."""
+        return F.embedding(tokens.to(self.embed.device), self.embed)
+
     def _inputs(self, batch):
         """JAX's `_embed_tokens`: the frame embeddings of an encoder, else
         the token embeddings, after the image embeddings of a VLM, then
@@ -325,7 +383,7 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         if not cfg.embed_inputs and not cfg.num_image_tokens:
             return batch["embeds"].to(self.ln_out.device, cfg.dtype)
-        x = self.embed[batch["tokens"].to(self.embed.device)]
+        x = self._rows(batch["tokens"])
         if cfg.num_image_tokens:
             img = batch["image_embeds"].to(x.device, cfg.dtype)
             x = torch.cat([img, x], dim=1)
@@ -337,6 +395,7 @@ class TransformerLM(nn.Module):
         return self.head
 
     # -- serving ------------------------------------------------------------
+    @torch.no_grad()
     def encode(self, embeds) -> torch.Tensor:
         """The layer stack over (B, S, d) inputs, then the output norm: JAX's
         `_run_stack` and ``rms_norm(x, params["ln_out"])``, in cfg.dtype."""
@@ -347,11 +406,12 @@ class TransformerLM(nn.Module):
         positions = torch.arange(x.shape[1], device=x.device)
         kvs = []
         for layer in self.layers:
-            x, kv = layer(x, positions)
+            x, kv, _ = layer(x, positions)
             if keep_kv:
                 kvs.append(kv)
         return rms_norm(x, self.ln_out), kvs
 
+    @torch.no_grad()
     def prefill(self, batch, max_len: int | None = None):
         """JAX's `prefill`.  Causal: ``batch["tokens"]`` (B, S) (after
         ``batch["image_embeds"]`` (B, N_img, d) for a VLM: S counts both)
@@ -373,6 +433,7 @@ class TransformerLM(nn.Module):
             cache = [gqa_prefill_cache(acfg, kv, max_len) for kv in kvs]
         return logits, cache
 
+    @torch.no_grad()
     def decode_step(self, tokens, cache):
         """One token a sequence, ``tokens`` (B, 1), against `cache`, which
         the step updates in place (JAX's serve step donates it).  Returns
@@ -383,7 +444,7 @@ class TransformerLM(nn.Module):
         if len(cache) != cfg.num_layers:
             raise ValueError(f"a cache of {len(cache)} layers for "
                              f"{cfg.num_layers} layers")
-        x = self._scaled(self.embed[tokens.to(self.embed.device)])
+        x = self._scaled(self._rows(tokens))
         for layer, cache_l in zip(self.layers, cache):
             x, _ = layer.decode(x, cache_l)
         x = rms_norm(x, self.ln_out)
@@ -402,8 +463,52 @@ class TransformerLM(nn.Module):
         return [mk(acfg, batch, max_len, cfg.dtype, dev)
                 for _ in range(cfg.num_layers)]
 
-    def loss(self, batch):
-        raise _waits("the training loss", "11c")
+    def cache_specs(self, rules):
+        """JAX's PartitionSpec tree of the decode cache, in its stacked
+        layout (`convert.cache_to_numpy`'s): the batch over the data axis,
+        the kv heads over the model axis; MLA's latent, which has no heads
+        axis, sharded along its sequence."""
+        cfg = self.cfg
+        lead = (None,) if cfg.scan_layers else ()
+        kv_axis = ("kv_heads" if (cfg.mla is None and cfg.num_kv_heads > 1)
+                   else None)
+
+        def spec(*ax):
+            return P(*(rules.axis(a) if isinstance(a, str) else a
+                       for a in lead + ax))
+
+        if cfg.attn_config().kv_lora is not None:
+            one = {"latent": spec("batch", "heads", None),
+                   "pos": spec("heads"), "next": spec()}
+        else:
+            one = {"k": spec("batch", None, kv_axis),
+                   "v": spec("batch", None, kv_axis),
+                   "pos": spec(None), "next": spec()}
+        return one if cfg.scan_layers else [one] * cfg.num_layers
+
+    # -- training -----------------------------------------------------------
+    def loss(self, batch) -> torch.Tensor:
+        """JAX's `loss`: the chunked cross entropy of ``batch["labels"]``
+        under ``batch["mask"]`` (B, S), plus 0.01 x MoE's aux loss summed
+        over the layers / num_layers.  Inputs as `prefill` takes them (an
+        encoder's ``batch["embeds"]``, a VLM's image embeddings first);
+        each layer recomputed in backward under ``cfg.remat_policy``.  S
+        must be a multiple of min(loss_chunk, S).  A 0-d float32 tensor."""
+        cfg = self.cfg
+        x = self._inputs(batch)
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)
+        aux = 0.0
+        for layer in self.layers:
+            x, a = _remat(layer.train_forward, cfg.remat_policy)(x,
+                                                                 positions)
+            aux = aux + a
+        x = rms_norm(x, self.ln_out)
+        ce = chunked_cross_entropy(
+            x, self._head(),
+            batch["labels"].to(x.device), batch["mask"].to(x.device).float(),
+            chunk=min(cfg.loss_chunk, S))
+        return ce + 0.01 * aux / max(cfg.num_layers, 1)
 
 
 __all__ = ["ModelConfig", "TransformerLM", "TransformerLayer", "ParamTree",

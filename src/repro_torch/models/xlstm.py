@@ -145,8 +145,12 @@ def _mlstm_final_state(q, k, v, log_i, log_f):
     return st
 
 
-def mlstm_block(params, x, cfg: XLSTMConfig, state=None):
-    """Pre-up-projected mLSTM block. Returns (y, new_state)."""
+def mlstm_block(params, x, cfg: XLSTMConfig, state=None,
+                need_state: bool = True):
+    """Pre-up-projected mLSTM block. Returns (y, new_state).  Over a
+    sequence, ``need_state=False`` skips the recurrence that gives the
+    final state (`_mlstm_final_state`, S eager steps) and returns None as
+    the recurrent state: the training loss reads no state."""
     B, S, _ = x.shape
     H = cfg.num_heads
     up = x @ params["w_up"]
@@ -163,7 +167,8 @@ def mlstm_block(params, x, cfg: XLSTMConfig, state=None):
 
     if state is None or S > 1:
         h = mlstm_chunked(q, k, v, log_i, log_f)
-        mst = _mlstm_final_state(q, k, v, log_i, log_f)
+        mst = (_mlstm_final_state(q, k, v, log_i, log_f) if need_state
+               else None)
     else:
         h, mst = mlstm_step(q, k, v, log_i, log_f, state["rec"])
     hp = h.reshape(B, S, -1).to(x.dtype)

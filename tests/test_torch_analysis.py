@@ -284,7 +284,7 @@ def test_cli_device_cpu_and_no_silent_fallback():
 # ---------------------------------------------------------------------------
 
 def test_every_registered_method_has_contract_coverage():
-    report = check_contracts(quick=True)
+    report = check_contracts(quick=True, device="cpu")
     assert report.ok, "\n".join(report.failures)
     assert any("registry coverage" in c for c in report.checks)
 
@@ -532,3 +532,16 @@ def test_every_jax_disable_has_its_port_counterpart():
                    or (lines[i - 1].strip().startswith("#")
                        and f"flashlint: disable={code}(" in lines[i - 1]))
         assert covered, f"{port_file}:{i + 1} lacks JAX's {code} disable"
+
+
+@pytest.mark.parametrize("entry", ["run_prove", "check_contracts",
+                                   "check_dispatch"])
+def test_the_gate_entry_points_default_to_the_card(entry):
+    """Given no device, each library entry point runs on ``cuda``: on a
+    host without a GPU it raises before any work, never falling back to
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch import analysis
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        getattr(analysis, entry)()

@@ -68,7 +68,7 @@ def test_the_examples_import_no_jax():
     import ast
     for name in ("torch_quickstart", "torch_batch_decode",
                  "torch_adaptive_edge", "torch_streaming_decode",
-                 "torch_map_matching"):
+                 "torch_map_matching", "torch_train_lm"):
         tree = ast.parse((ROOT / "examples" / f"{name}.py").read_text())
         roots = {a.name.split(".")[0] for n in ast.walk(tree)
                  if isinstance(n, ast.Import) for a in n.names}
@@ -260,3 +260,17 @@ def test_map_matching_is_bitwise_the_jax_example():
 def test_map_matching_runs_on_the_cpu():
     out = load("torch_map_matching").main(["--device", "cpu"])
     assert np.array_equal(out["single"][0], out["stream"][0])
+
+
+# ---------------------------------------------------------------------------
+# the training example
+# ---------------------------------------------------------------------------
+
+def test_train_lm_runs_on_the_cpu(tmp_path, monkeypatch):
+    """The default mode (tinyllama's SMOKE) for a few steps on the CPU,
+    its checkpoints under the working directory's build/."""
+    monkeypatch.chdir(tmp_path)
+    ex = load("torch_train_lm")
+    losses = ex.main(["--device", "cpu", "--steps", "4"])
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert (tmp_path / "build" / "lm_smoke" / "step_4").is_dir()

@@ -194,8 +194,9 @@ def test_layer_fwd_matches_jax():
     lp["ln_attn"] = _rand(g, 64, scale=0.1)
     x = _rand(g, 2, 16, 64)
     (jlp, jx, jpos), (tlp, tx, tpos) = _both((lp, x, np.arange(16)))
-    out_j, _, _ = jt._layer_fwd(jcfg, jlp, jx, jpos)
-    out_t, _ = tt.layer_fwd(cfg, tlp, tx, tpos)
+    out_j, _, aux_j = jt._layer_fwd(jcfg, jlp, jx, jpos)
+    out_t, _, aux_t = tt.layer_fwd(cfg, tlp, tx, tpos)
+    assert float(aux_t) == float(aux_j) == 0.0    # a dense MLP: no aux
     assert jax.tree_util.tree_structure(lay) == \
         jax.tree_util.tree_structure(jt.layer_layout(jcfg))
     _close(out_t, out_j)
@@ -323,9 +324,10 @@ def test_cast_copies_every_weight():
 # ---------------------------------------------------------------------------
 
 def test_the_unported_paths_raise_naming_their_item():
-    """What waits: only the training loss (item 11c), in every family.  An
-    encoder has no decode step and no cache; an unknown family or arch
-    raises; llava's image tokens and the recurrent families now serve."""
+    """Nothing waits: the training loss (item 11c) runs in every family
+    (its parity with JAX: tests/test_torch_train.py).  An encoder has no
+    decode step and no cache; an unknown family or arch raises; llava's
+    image tokens and the recurrent families serve."""
     _, cfg = _smoke("float32")
     model = build_model(cfg)
     with pytest.raises(ValueError, match="encoder-only"):
@@ -334,8 +336,20 @@ def test_the_unported_paths_raise_naming_their_item():
         model.init_cache(1, 8, device="cpu")
     for arch in ("hubert_xlarge", "tinyllama_1_1b", "recurrentgemma_2b",
                  "xlstm_350m", "llava_next_34b"):
-        with pytest.raises(NotImplementedError, match="11c"):
-            build_model(get_arch(arch).SMOKE).loss({})
+        c = get_arch(arch).SMOKE
+        m = build_model(c).init(torch.Generator().manual_seed(0),
+                                device="cpu")
+        n = c.num_image_tokens
+        batch = {"labels": torch.zeros((1, 16), dtype=torch.int32),
+                 "mask": torch.ones((1, 16))}
+        if c.embed_inputs or n:
+            batch["tokens"] = torch.zeros((1, 16 - n), dtype=torch.int32)
+        else:
+            batch["embeds"] = torch.zeros((1, 16, c.d_model))
+        if n:
+            batch["image_embeds"] = torch.zeros((1, n, c.d_model))
+        loss = m.loss(batch)
+        assert loss.shape == () and bool(torch.isfinite(loss))
     causal = get_arch("tinyllama_1_1b").SMOKE
     llava = build_model(dataclasses.replace(causal, num_image_tokens=4))
     llava.init(torch.Generator().manual_seed(0), device="cpu")
