@@ -274,6 +274,25 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      tests/test_system.py's tinyllama SMOKE arguments (the loss falls by
      more than 0.3), and its full / part / resume trio (the resumed losses
      within rtol 2e-4, atol 2e-5 of the uninterrupted run's).
+  17. sharded training (`make_train_step(..., mesh=)`, `sharding.placement`;
+     no Viterbi kernel may launch): (a) a world of 8 ranks sharing the card
+     (gloo) on the (data 4, model 2) mesh under SINGLE_POD_RULES and the
+     (pod 2, data 2, model 2) mesh under MULTI_POD_RULES: every config's
+     SMOKE in float32 and tinyllama's with ``compress_accum``, one sharded
+     step at accum_steps 2 on a (8, 16) batch with a random 0.8 mask (per-
+     rank mask counts differ), each rank's rows from `shard_rows`, the
+     state placed by `shard_train_state` and gathered back, against the
+     single-process step on the card from the same weights and batch: the
+     four gaps of 16a within `SHARD_TRAIN_TOL`; (b) tinyllama-1.1b whole
+     (22 layers, bf16) on (data 2, model 2), 4 ranks sharing the card, at
+     S = 2048, a global batch of 4 (one row a data rank a microbatch) at
+     accum_steps 2 (train_4k cut to the card, `SHARD_MAIN`; the plan of a
+     rank's peak printed and checked against the free memory first): a warm-up step and 3 timed steps on the host clock, the
+     share of each in collectives (host clock around them, after a
+     synchronise), the first step's loss and grad_norm against the
+     single-process step on the same global batch within
+     `SHARD_TRAIN_BF16_TOL`, each rank's bytes at rest against the specs'
+     share (`SHARD_REST_SLACK` above it fails) and each rank's peak.
 
 The line before the last is a JSON object with one entry per kernel (the
 `resources` object just before it); the last line is {"ok": true,
@@ -3818,6 +3837,37 @@ def train_batch(cfg, rng: np.random.Generator, B: int, S: int) -> dict:
     return b
 
 
+def _np_paths(tree, prefix: str = "") -> dict:
+    """{path: numpy leaf} of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _np_paths(sub, f"{prefix}/{key}").items()}
+    return {prefix: np.asarray(tree)}
+
+
+def step_gaps(st, met, ref_st, ref_met):
+    """((loss rel, grad_norm rel, max over leaves of max |m - m ref| / max
+    |m ref|, max |w - w ref| / lr over the weights whose gradient is
+    resolved (|m ref| above 1e-3 x its leaf's max)), max |w - w ref| / lr
+    anywhere, every leaf of `st` finite) of two train states in JAX's
+    layout (numpy) and their metrics; leaves matched by path."""
+    lr = ref_met["lr"]
+    loss = abs(met["loss"] - ref_met["loss"]) / abs(ref_met["loss"])
+    gn = abs(met["grad_norm"] - ref_met["grad_norm"]) / ref_met["grad_norm"]
+    m, ref_m = _np_paths(st["opt"]["m"]), _np_paths(ref_st["opt"]["m"])
+    mom = max(float(np.abs(m[k] - b).max() / max(np.abs(b).max(), 1e-30))
+              for k, b in ref_m.items())
+    w, ref_w = _np_paths(st["params"]), _np_paths(ref_st["params"])
+    w_res = w_all = 0.0
+    for k, b in ref_w.items():
+        gap = np.abs(w[k] - b) / lr
+        resolved = np.abs(ref_m[k]) > 1e-3 * np.abs(ref_m[k]).max()
+        w_all = max(w_all, float(gap.max()))
+        w_res = max(w_res, float(gap[resolved].max(initial=0.0)))
+    finite = all(np.isfinite(x).all() for x in _np_leaves(st))
+    return (loss, gn, mom, w_res), w_all, finite
+
+
 def train_parity(dev, card: str, cfg, B: int, S: int, what: str,
                  tol, compress: bool = False, prepare=None) -> None:
     """One train step of `cfg` at accum_steps 2 on the card and on the CPU
@@ -3852,22 +3902,8 @@ def train_parity(dev, card: str, cfg, B: int, S: int, what: str,
                     {k: float(v) for k, v in met.items()}))
     torch.cuda.synchronize()
     (card_st, card_m), (cpu_st, cpu_m) = out
-    lr = cpu_m["lr"]
-    loss = abs(card_m["loss"] - cpu_m["loss"]) / abs(cpu_m["loss"])
-    gn = abs(card_m["grad_norm"] - cpu_m["grad_norm"]) / cpu_m["grad_norm"]
-    mom = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
-              for a, b in zip(_np_leaves(card_st["opt"]["m"]),
-                              _np_leaves(cpu_st["opt"]["m"])))
-    w_res = w_all = 0.0
-    for a, b, m in zip(_np_leaves(card_st["params"]),
-                       _np_leaves(cpu_st["params"]),
-                       _np_leaves(cpu_st["opt"]["m"])):
-        gap = np.abs(a - b) / lr
-        resolved = np.abs(m) > 1e-3 * np.abs(m).max()
-        w_all = max(w_all, float(gap.max()))
-        w_res = max(w_res, float(gap[resolved].max(initial=0.0)))
-    finite = all(np.isfinite(x).all() for x in _np_leaves(card_st))
-    gaps = (loss, gn, mom, w_res)
+    gaps, w_all, finite = step_gaps(card_st, card_m, cpu_st, cpu_m)
+    loss, gn, mom, w_res = gaps
     kind = ", compress_accum (int8 error feedback)" if compress else ""
     print(f"train {what} {cfg.name}: {cfg.num_layers} layers, d "
           f"{cfg.d_model}, vocab {cfg.vocab}, float32, (B, S) = ({B}, {S}),"
@@ -4064,6 +4100,437 @@ def phase_train(dev, card: str) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 17: sharded training
+# ---------------------------------------------------------------------------
+
+#: 17a: the two test meshes, each with its rules' name
+SHARD_MESHES = ((("data", "model"), (4, 2), "SINGLE_POD_RULES"),
+                (("pod", "data", "model"), (2, 2, 2), "MULTI_POD_RULES"))
+#: 17a: (B, S) of the global batch: two microbatches of 4, one row of each
+#: a data rank
+SHARD_PARITY = (8, 16)
+#: 17a: bounds, the sharded step against the single-process step on the
+#: card, float32 (TF32 off), as `TRAIN_F32_TOL`'s gaps: 1.5x an H100 probe
+#: run (PERF.md §6; both meshes measured the same), the relative ones at
+#: least 2.4e-7 and the weights' at least 2.4e-4 lr (two float32 ulps each:
+#: a weight in [1, 2) at lr 1e-3 moves in steps of 1.19e-4 lr).  On
+#: JAX's init xLSTM's SMOKE step amplifies float32 rounding to a 3.9e-2 x
+#: max |m| and 2 lr gap against its own float64 step (one process, CPU),
+#: and so did the sharded step against the single-process one on the card
+#: (3.4e-2 and 2 lr): it is held on block matrices rescaled to std
+#: 1/sqrt(d_in) (`SHARD_FAN_IN`, `fan_in_weights`), where that float64 gap
+#: is 6.1e-6 and 1.2e-4 lr
+SHARD_TRAIN_TOL = {
+    "recurrentgemma_2b": (2.4e-7, 3.71e-4, 9.14e-4, 0.027),
+    "deepseek_v2_236b": (2.4e-7, 1.16e-5, 5.96e-5, 3.8e-4),
+    "moonshot_v1_16b_a3b": (2.4e-7, 2.81e-5, 4.35e-4, 1.88e-3),
+    "tinyllama_1_1b": (2.4e-7, 1.0e-5, 2.33e-5, 2.4e-4),
+    "h2o_danube_3_4b": (2.4e-7, 2.45e-6, 2.16e-5, 2.4e-4),
+    "granite_8b": (2.4e-7, 6.47e-6, 9.71e-5, 2.4e-4),
+    "gemma_2b": (2.4e-7, 2.4e-7, 1.09e-6, 2.4e-4),
+    "xlstm_350m": (2.4e-7, 2.4e-7, 5.31e-6, 2.4e-4),
+    "hubert_xlarge": (2.4e-7, 3.31e-5, 2.4e-4, 2.4e-4),
+    "llava_next_34b": (2.4e-7, 1.47e-5, 3.11e-5, 2.4e-4),
+    "tinyllama_1_1b/compress": (2.4e-7, 1.73e-5, 1.18e-2, 2.4e-4),
+}
+#: 17a: the configs held on `fan_in_weights`
+SHARD_FAN_IN = ("xlstm_350m",)
+#: 17b: (data, model) ranks, rows a data rank a microbatch, accum_steps, S;
+#: train_4k's global batch of 256 is cut to data x rows x accum_steps = 4,
+#: and its S of 4096 to 2048: at 4096 a rank's plan is 16.9 GiB, 69 GiB
+#: for four with their contexts, too close to the card's 79.18 GiB for
+#: four allocators' slack (NVIDIA H100 80GB HBM3, 700.00 W; a probe at
+#: 4096 ran out; PERF.md §6)
+SHARD_MAIN = ((2, 2), 1, 2, 2048)
+#: 17b: the train_4k cell's S and global batch that SHARD_MAIN cuts
+SHARD_MAIN_CELL = (4096, 256)
+#: 17b: bounds on the first step's (loss, grad_norm) relative to the
+#: single-process step on the same global batch, bf16: 1.5x an H100 probe
+#: run (PERF.md §6; the loss, summed in float32, measured 0: at least
+#: 2.4e-7)
+SHARD_TRAIN_BF16_TOL = (2.4e-7, 4.44e-4)
+#: 17b: bytes at rest a rank may hold beside its blocks: a probe (NVIDIA
+#: H100 80GB HBM3, 700.00 W) measured 256 MiB more allocated from the
+#: first step on, the same after every step (not the training state); a
+#: whole copy of the weights would add 2.05 GiB
+SHARD_REST_SLACK = 512 * 2**20
+
+
+def card_settings() -> None:
+    """The float settings of every phase: TF32 off, bf16 products reduced
+    in float32 (`main` and every spawned rank)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def shard_cases() -> list[tuple[str, bool]]:
+    from repro_torch.configs import ARCH_IDS
+    return [(a, False) for a in ARCH_IDS] + [("tinyllama_1_1b", True)]
+
+
+def shard_parity_cfg(arch: str):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch).SMOKE, dtype=torch.float32)
+
+
+def shard_parity_tcfg(compress: bool):
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig
+    return TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=1,
+                                       total_steps=10),
+                       accum_steps=2, compress_accum=compress)
+
+
+def shard_parity_init(dev, arch: str):
+    """(the model of `arch`'s float32 SMOKE, its whole train state): the
+    weights drawn on the card from TRAIN_SEED (`SHARD_FAN_IN`'s rescaled)."""
+    from repro_torch.models import build_model
+    from repro_torch.train import init_train_state
+
+    model = build_model(shard_parity_cfg(arch))
+    state = init_train_state(
+        model, torch.Generator(device=dev).manual_seed(TRAIN_SEED),
+        device=dev)
+    if arch in SHARD_FAN_IN:
+        fan_in_weights(model)
+    return model, state
+
+
+def summed_launches(total: dict) -> dict:
+    """`total` (launches on this rank) summed over the world."""
+    import torch.distributed as dist
+    names = sorted(total)
+    summed = torch.tensor([total[k] for k in names], dtype=torch.int64)
+    dist.all_reduce(summed)
+    return dict(zip(names, summed.tolist()))
+
+
+def shard_parity_world(dev, batches: dict) -> dict:
+    """17a in one rank of the world of 8: each case's sharded step on both
+    meshes; rank 0 returns the gathered states, metrics and the launches
+    summed over the ranks."""
+    from repro_torch import kernels
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.data.pipeline import shard_rows
+    from repro_torch.models.convert import train_state_to_numpy
+    from repro_torch.sharding import rules as rule_tables
+    from repro_torch.sharding.placement import data_axes, shard_train_state
+    from repro_torch.train import make_train_step
+
+    card_settings()
+    kernels.reset_launches()
+    B = SHARD_PARITY[0]
+    out = {}
+    for axes, shape, rules_name in SHARD_MESHES:
+        mesh = Mesh(shape, axes)
+        rules = getattr(rule_tables, rules_name)
+        rows = shard_rows(B, mesh, 2, data_axes(rules, mesh))
+        for arch, compress in shard_cases():
+            model, state = shard_parity_init(dev, arch)
+            state = shard_train_state(state, model, mesh, rules)
+            step = make_train_step(model, shard_parity_tcfg(compress),
+                                   mesh=mesh, rules=rules)
+            state, met = step(state, {k: torch.from_numpy(v[rows]).to(dev)
+                                      for k, v in batches[arch].items()})
+            out[(rules_name, arch, compress)] = (
+                train_state_to_numpy(state, model, mesh, rules),
+                {k: float(v) for k, v in met.items()})
+            del model, state
+    out["launches"] = summed_launches(kernels.launch_counts())
+    return out
+
+
+def shard_parity(dev, card: str) -> dict[str, int]:
+    """17a: the sharded step against the single-process step on the card,
+    every SMOKE in float32 and tinyllama's with compress_accum, on the two
+    test meshes."""
+    from repro_torch.launch.mesh import run_spmd
+    from repro_torch.models.convert import train_state_to_numpy
+    from repro_torch.train import make_train_step
+
+    t0 = time.perf_counter()
+    B, S = SHARD_PARITY
+    batches = {arch: train_batch(shard_parity_cfg(arch),
+                                 np.random.default_rng(TRAIN_SEED), B, S)
+               for arch, _ in shard_cases()}
+    refs = {}
+    for arch, compress in shard_cases():
+        model, state = shard_parity_init(dev, arch)
+        state, met = make_train_step(model, shard_parity_tcfg(compress))(
+            state, {k: torch.from_numpy(v).to(dev)
+                    for k, v in batches[arch].items()})
+        refs[(arch, compress)] = (train_state_to_numpy(state, model),
+                                  {k: float(v) for k, v in met.items()})
+    del model, state
+    free_card()
+    t_ref = time.perf_counter() - t0
+    world = run_spmd(shard_parity_world, 8, device=dev.type,
+                     backend="gloo", args=(batches,))
+    bad = []
+    for axes, shape, rules_name in SHARD_MESHES:
+        for arch, compress in shard_cases():
+            st, met = world[(rules_name, arch, compress)]
+            ref_st, ref_met = refs[(arch, compress)]
+            gaps, w_all, finite = step_gaps(st, met, ref_st, ref_met)
+            key = arch + ("/compress" if compress else "")
+            tol = SHARD_TRAIN_TOL[key]
+            ok = (finite and w_all <= 2.05 and met["lr"] == ref_met["lr"]
+                  and all(g <= t for g, t in zip(gaps, tol)))
+            weights = (", block matrices rescaled to std 1/sqrt(d_in)"
+                       if arch in SHARD_FAN_IN else "")
+            print(f"train sharded 17a {key} on {dict(zip(axes, shape))} "
+                  f"({rules_name}), float32, (B, S) = ({B}, {S}), "
+                  f"accum_steps 2{weights}: loss {met['loss']:.6f} (sharded) "
+                  f"{ref_met['loss']:.6f} (one process); sharded - one "
+                  f"process: loss rel {gaps[0]:.4g}, grad_norm rel "
+                  f"{gaps[1]:.4g}, first moment {gaps[2]:.4g} x max |m|, "
+                  f"weights {gaps[3]:.4g} lr where the gradient is "
+                  f"resolved ({w_all:.4g} lr anywhere; bound 2.05); bounds "
+                  f"{tol}; {card}")
+            if not ok:
+                bad.append(f"{key} on {rules_name}")
+    print(f"train sharded 17a: references {t_ref:.1f} s, world of 8 "
+          f"{time.perf_counter() - t0 - t_ref:.1f} s wall (spawn "
+          f"included); launches summed over ranks "
+          f"{ {k: v for k, v in world['launches'].items() if v} }; {card}")
+    if bad:
+        raise SystemExit(f"FAIL train sharded 17a: the sharded step != the "
+                         f"single-process step: {bad}")
+    return world["launches"]
+
+
+def spec_share_bytes(model, mesh, rules) -> int:
+    """A rank's bytes of the training state under `train_state_specs`:
+    each leaf's bytes over the ranks its spec shards it over."""
+    from repro_torch.sharding.placement import data_axes
+    from repro_torch.train import abstract_train_state, train_state_specs
+
+    specs = train_state_specs(model, rules,
+                              mesh.axis_size(data_axes(rules, mesh)))
+
+    def walk(t, spec):
+        if isinstance(t, dict):
+            return sum(walk(t[k], spec[k]) for k in t)
+        n = t.numel() * t.element_size()
+        for ax in spec:
+            if ax is not None:
+                n //= mesh.axis_size(ax)
+        return n
+    return walk(abstract_train_state(model), specs)
+
+
+def shard_main_world(dev, batches: list) -> list:
+    """17b in one rank of the world of 4: tinyllama-1.1b whole, a warm-up
+    step and 3 timed ones; every rank's readings, gathered."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.data.pipeline import shard_rows
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding.placement import (data_axes,
+                                                shard_train_state,
+                                                state_bytes)
+    from repro_torch.sharding.rules import SINGLE_POD_RULES as rules
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+
+    card_settings()
+    kernels.reset_launches()
+    shape, _, A, _ = SHARD_MAIN
+    mesh = Mesh(shape, ("data", "model"))
+    model = build_model(get_arch("tinyllama_1_1b").CONFIG)
+    t0 = time.perf_counter()
+    state = shard_train_state(init_train_state(
+        model, torch.Generator(device=dev).manual_seed(TRAIN_SEED),
+        device=dev), model, mesh, rules)
+    free_card()
+    t_init = time.perf_counter() - t0
+    rows = shard_rows(len(batches[0]["tokens"]), mesh, A,
+                      data_axes(rules, mesh))
+    step = make_train_step(model, TrainConfig(
+        opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100),
+        accum_steps=A), mesh=mesh, rules=rules)
+    #: host seconds and calls in each collective of the mesh
+    seen = {"all_reduce_sum": [0.0, 0], "all_gather": [0.0, 0]}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seen[name][0] += time.perf_counter() - t
+            seen[name][1] += 1
+            return out
+        return call
+    for name in seen:
+        setattr(mesh, name, timed(name, getattr(mesh, name)))
+    torch.cuda.reset_peak_memory_stats()
+    readings, rest = [], []
+    for batch in batches:
+        local = {k: torch.from_numpy(v[rows]).to(dev)
+                 for k, v in batch.items()}
+        torch.cuda.synchronize()
+        c0 = {k: list(v) for k, v in seen.items()}
+        t = time.perf_counter()
+        state, met = step(state, local)
+        torch.cuda.synchronize()
+        readings.append((time.perf_counter() - t,
+                         {k: (seen[k][0] - c0[k][0], seen[k][1] - c0[k][1])
+                          for k in seen},
+                         float(met["loss"]), float(met["grad_norm"])))
+        del local, met
+        rest.append(torch.cuda.memory_allocated())
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    free_card()
+    mine = {"rank": dist.get_rank(), "coord": mesh.coord,
+            "readings": readings, "peak": peak, "reserved": reserved,
+            "init_s": t_init,
+            "rest": torch.cuda.memory_allocated(), "rest_steps": rest,
+            "blocks": state_bytes(state),
+            "share": spec_share_bytes(model, mesh, rules),
+            "meta": all(p.is_meta for p in model.parameters()),
+            "launches": summed_launches(kernels.launch_counts())}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
+
+
+def shard_main(dev, card: str) -> dict[str, int]:
+    """17b: tinyllama-1.1b whole (bf16) on (data 2, model 2), 4 ranks
+    sharing the card, against the single-process step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import (SyntheticTokenPipeline,
+                                           TokenPipelineConfig)
+    from repro_torch.launch.mesh import run_spmd
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+
+    t0 = time.perf_counter()
+    (dp, tp), rows, A, S = SHARD_MAIN
+    B = dp * rows * A
+    cfg = get_arch("tinyllama_1_1b").CONFIG
+    pipe = SyntheticTokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=S, global_batch=B, seed=TRAIN_SEED))
+    batches = [pipe.batch(i) for i in range(4)]
+    model = build_model(cfg)
+    n = model.param_count()
+    state = init_train_state(
+        model, torch.Generator(device=dev).manual_seed(TRAIN_SEED),
+        device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    state, met = make_train_step(model, TrainConfig(
+        opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100),
+        accum_steps=A))(state, {k: torch.from_numpy(v).to(dev)
+                                for k, v in batches[0].items()})
+    ref = {k: float(v) for k, v in met.items()}
+    ref_peak = torch.cuda.max_memory_allocated()
+    del model, state, met
+    free_card()
+    # the plan: a rank holds its blocks (weights / tp, AdamW's m and v
+    # / (dp tp)), and in a step the whole bf16 weights, their float32 sums,
+    # a microbatch's bf16 gradients and one row's activations, which the
+    # single-process step (B / A rows a microbatch) shows
+    held = 2 * n + 8 * n + 4 * n + 2 * n
+    act_row = max(ref_peak - held, 0) / (B // A)
+    plan = (2 * n / tp + 8 * n / (dp * tp) + 2 * n + 4 * n + 2 * n
+            + rows * act_row)
+    free, total = torch.cuda.mem_get_info()
+    context = total - free          # this process's, as each rank's
+    need = dp * tp * (plan + context)
+    cell_s, cell_b = SHARD_MAIN_CELL
+    print(f"train sharded 17b plan: train_4k's global batch of {cell_b} cut "
+          f"to {B} ({rows} row a data rank a microbatch, accum_steps {A}), "
+          f"its S of {cell_s} cut to {S}; single-process step on the {B} "
+          f"rows (microbatches of {B // A}): peak {ref_peak / 2**30:.3f} "
+          f"GiB, so one row's activations about {act_row / 2**30:.3f} GiB; a"
+          f" rank's peak about {plan / 2**30:.3f} GiB beside a context of "
+          f"{context / 2**30:.3f} GiB, {dp * tp} ranks {need / 2**30:.3f} "
+          f"GiB of the {free / 2**30:.2f} GiB free of the card's "
+          f"{total / 2**30:.2f} GiB; {card}")
+    if need > 0.85 * free:
+        raise SystemExit("FAIL train sharded 17b: the plan does not fit the "
+                         "card; cut S")
+    t1 = time.perf_counter()
+    every = run_spmd(shard_main_world, dp * tp, device=dev.type,
+                     backend="gloo", args=(batches,))
+    t_world = time.perf_counter() - t1
+    first = every[0]["readings"][0]
+    loss_gap = abs(first[2] - ref["loss"]) / abs(ref["loss"])
+    gn_gap = abs(first[3] - ref["grad_norm"]) / ref["grad_norm"]
+    losses = [r[2] for r in every[0]["readings"]]
+    bad = []
+    metrics = [[r[2:] for r in w["readings"]] for w in every]
+    if any(m != metrics[0] for m in metrics):
+        bad.append("the ranks report different losses or grad_norms")
+    if not np.isfinite(losses).all():
+        bad.append("a loss is not finite")
+    if not (loss_gap <= SHARD_TRAIN_BF16_TOL[0]
+            and gn_gap <= SHARD_TRAIN_BF16_TOL[1]):
+        bad.append("the first step departs from the single-process step")
+    for w in every:
+        step_ms = [1e3 * r[0] for r in w["readings"][1:]]
+        share = [sum(t for t, _ in r[1].values()) / r[0]
+                 for r in w["readings"][1:]]
+        kinds = "; ".join(
+            f"{k} {np.mean([1e3 * r[1][k][0] for r in w['readings'][1:]]):.1f}"
+            f" ms in {w['readings'][1][1][k][1]} calls"
+            for k in w["readings"][1][1])
+        print(f"timing train sharded 17b rank {w['rank']} {w['coord']}: "
+              f"init and placement {w['init_s']:.1f} s; warm-up "
+              f"{1e3 * w['readings'][0][0]:.1f} ms, steps "
+              f"{[round(t, 1) for t in step_ms]} ms (host clock, "
+              f"synchronised), {np.mean(step_ms):.1f} ms a step, "
+              f"{B * S / np.mean(step_ms) * 1e3:.1f} tokens/s over the "
+              f"world; in collectives {[round(x, 4) for x in share]} of "
+              f"each step ({kinds} a step); state at rest "
+              f"{w['blocks'] / 2**30:.4f} GiB (the specs' share "
+              f"{w['share'] / 2**30:.4f} GiB), allocated at rest "
+              f"{w['rest'] / 2**30:.4f} GiB (after each step "
+              f"{[round(x / 2**30, 4) for x in w['rest_steps']]}), peak "
+              f"{w['peak'] / 2**30:.3f} GiB (reserved "
+              f"{w['reserved'] / 2**30:.3f} GiB); model weights released "
+              f"{w['meta']}; {card}")
+        if w["blocks"] != w["share"] or \
+                w["rest"] > w["share"] + SHARD_REST_SLACK or not w["meta"]:
+            bad.append(f"rank {w['rank']} holds more than its share")
+    print(f"train sharded 17b tinyllama-1.1b: {cfg.num_layers} layers, bf16,"
+          f" {n} parameters, on (data {dp}, model {tp}); losses "
+          f"{[round(x, 4) for x in losses]} (warm-up, 3 timed), every one "
+          f"finite; first step against the single-process step: loss "
+          f"{first[2]:.6f} / {ref['loss']:.6f} (rel {loss_gap:.4g}), "
+          f"grad_norm {first[3]:.4f} / {ref['grad_norm']:.4f} (rel "
+          f"{gn_gap:.4g}); bounds {SHARD_TRAIN_BF16_TOL}; world of "
+          f"{dp * tp} {t_world:.1f} s wall (spawn included), phase "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
+    if bad:
+        raise SystemExit(f"FAIL train sharded 17b: {bad}")
+    return every[0]["launches"]
+
+
+def phase_train_sharded(dev, card: str) -> dict[str, int]:
+    """17: sharded training; 17a parity on the two test meshes, 17b
+    tinyllama-1.1b whole on 4 ranks.  No Viterbi kernel may launch."""
+    t0 = time.perf_counter()
+    launches = shard_parity(dev, card)
+    for name, k in shard_main(dev, card).items():
+        launches[name] += k
+    check_launches("train sharded", launches, {})
+    print(f"train sharded phase: {time.perf_counter() - t0:.1f} s wall; no "
+          f"Viterbi kernel launched in any rank; {card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4073,11 +4540,9 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     # bf16 products reduce in float32 (phase 12 prints what allowing the
     # reduced-precision reductions changes)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    card_settings()
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -4109,7 +4574,8 @@ def main() -> int:
     for name, n in op_launches.items():
         launches[name] += n
     timing = phase_timing(dev, card) | phase_stream_timing(dev, card)
-    for phase in (phase_lm, phase_recurrent, phase_train):
+    for phase in (phase_lm, phase_recurrent, phase_train,
+                  phase_train_sharded):
         for name, n in phase(dev, card).items():
             launches[name] += n
 

@@ -10,11 +10,18 @@ which every rank must call), holds its own coordinate, and runs an axis's
 collectives in that axis's subgroup.  `ShapeMesh` is the shape alone and owns
 no processes: the production shapes and rescale targets are described by it.
 
+A collective runs over one axis or a tuple of axes (the sharded train step
+reduces over ("pod", "data")): a tuple's ranks are ordered row-major over
+its axes, as `checkpointing.elastic` cuts a dimension sharded over them.
+The subgroups of a tuple are made at its first use, which every rank of the
+world must reach in the same order (as it reaches the collectives).
+
 Ranks that share one card use the gloo backend (NCCL refuses two ranks on one
-device); gloo runs `all_reduce` (MAX) and the list form of `all_gather` on
-CUDA tensors, moving them through host memory.  On hosts with one card per
-rank, ``backend="nccl"`` runs the same code.  The factories and the launcher
-that makes the world are in `launch.mesh`.
+device); gloo runs `all_reduce` (MAX, SUM) and the list form of `all_gather`
+on CUDA tensors, moving them through host memory, and the mesh uses no other
+collective.  On hosts with one card per rank, ``backend="nccl"`` runs the
+same code.  The factories and the launcher that makes the world are in
+`launch.mesh`.
 
 Importing this module starts no process and creates no process group.
 """
@@ -30,6 +37,14 @@ import torch.distributed as dist
 
 #: seconds a collective may wait for its peers before it raises
 COLLECTIVE_TIMEOUT_S = 60.0
+#: elements a sum-reduction moves in one collective (gloo stages each piece
+#: of a CUDA tensor in host memory)
+REDUCE_PIECE = 1 << 26
+
+
+def axes_of(axes) -> tuple[str, ...]:
+    """An axis name or a tuple of them, as a tuple."""
+    return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
 def process_group_ready() -> bool:
@@ -48,7 +63,11 @@ class PartitionSpec(tuple):
 
 class ShapeMesh:
     """Axis names and sizes only: ``mesh.shape[axis]`` as JAX callers read
-    it.  Owns no processes."""
+    it.  Owns no processes.  `coord` is None; set it to a position
+    ({axis: index}) to cut that position's blocks without a world
+    (`checkpointing.elastic`, `sharding.placement`)."""
+
+    coord = None
 
     def __init__(self, axis_sizes, axis_names):
         sizes, names = tuple(int(s) for s in axis_sizes), tuple(axis_names)
@@ -61,6 +80,16 @@ class ShapeMesh:
 
     def __repr__(self):
         return f"{type(self).__name__}({self.shape})"
+
+    def axis_size(self, axes) -> int:
+        """Positions along `axes` (an axis name or a tuple of them)."""
+        return math.prod(self.shape[a] for a in axes_of(axes))
+
+    def index(self, axes) -> int:
+        """This position's index along `axes`, row-major over a tuple."""
+        axes = axes_of(axes)
+        return int(np.ravel_multi_index([self.coord[a] for a in axes],
+                                        [self.shape[a] for a in axes]))
 
 
 class Mesh(ShapeMesh):
@@ -91,37 +120,74 @@ class Mesh(ShapeMesh):
         if me in self.ranks:
             where = np.unravel_index(self.ranks.index(me), sizes)
             self.coord = dict(zip(self.axis_names, (int(i) for i in where)))
-        grid = np.asarray(self.ranks).reshape(sizes)
-        timeout = datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)
+        self._grid = np.asarray(self.ranks).reshape(sizes)
+        #: axes -> (this rank's subgroup, its members row-major over axes)
         self._groups = {}
-        for i, name in enumerate(self.axis_names):
-            for members in np.moveaxis(grid, i, -1).reshape(-1, sizes[i]):
-                members = [int(r) for r in members]
-                group = dist.new_group(members, timeout=timeout)
-                if me in members:
-                    self._groups[name] = group
+        self._made = set()
+        for name in self.axis_names:
+            self._make_groups((name,))
 
-    def group(self, axis: str):
-        """This rank's process subgroup along `axis`."""
+    def _make_groups(self, axes: tuple[str, ...]) -> None:
+        """Every subgroup along `axes` (each rank calls `dist.new_group`
+        for each of them, in the same order)."""
+        unknown = set(axes) - set(self.axis_names)
+        if unknown or len(set(axes)) != len(axes):
+            raise ValueError(f"axes {axes} are not distinct axes of {self}")
+        pos = [self.axis_names.index(a) for a in axes]
+        n = math.prod(self.shape[a] for a in axes)
+        timeout = datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)
+        me = dist.get_rank()
+        rows = np.moveaxis(self._grid, pos, list(range(-len(axes), 0)))
+        for members in rows.reshape(-1, n):
+            members = [int(r) for r in members]
+            group = dist.new_group(members, timeout=timeout)
+            if me in members:
+                self._groups[axes] = (group, members)
+        self._made.add(axes)
+
+    def _group(self, axes):
+        axes = axes_of(axes)
+        if axes not in self._made:
+            self._make_groups(axes)
         if self.coord is None:
             raise ValueError(f"rank {dist.get_rank()} is not in {self}")
-        return self._groups[axis]
+        return self._groups[axes]
 
-    def all_reduce_max(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+    def group(self, axes):
+        """This rank's process subgroup along `axes` (an axis name or a
+        tuple of them)."""
+        return self._group(axes)[0]
+
+    def all_reduce_max(self, x: torch.Tensor, axis) -> torch.Tensor:
         """Elementwise maximum of `x` over `axis` (a new tensor)."""
         out = x.clone()
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group(axis))
         return out
 
-    def all_gather(self, x: torch.Tensor, axis: str, dim: int = 0
+    def all_reduce_sum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """`x` (contiguous) summed elementwise over `axes`, in place, in
+        pieces of `REDUCE_PIECE` elements; returns `x`."""
+        if not x.is_contiguous():
+            raise ValueError("all_reduce_sum needs a contiguous tensor")
+        group = self.group(axes)
+        flat = x.view(-1)
+        for i in range(0, flat.numel(), REDUCE_PIECE):
+            dist.all_reduce(flat[i:i + REDUCE_PIECE], op=dist.ReduceOp.SUM,
+                            group=group)
+        return x
+
+    def all_gather(self, x: torch.Tensor, axes, dim: int = 0
                    ) -> torch.Tensor:
-        """The `x` of every rank along `axis`, concatenated on `dim` in the
-        axis's order."""
+        """The `x` of every rank along `axes`, concatenated on `dim` in
+        the axes' order (row-major over a tuple)."""
+        group, members = self._group(axes)
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.shape[axis])]
-        dist.all_gather(parts, x, group=self.group(axis))
-        return torch.cat(parts, dim=dim)
+        parts = [torch.empty_like(x) for _ in members]
+        dist.all_gather(parts, x, group=group)
+        # the group's ranks are in ascending order, the axes' in `members`
+        by_rank = dict(zip(sorted(members), parts))
+        return torch.cat([by_rank[r] for r in members], dim=dim)
 
 
-__all__ = ["COLLECTIVE_TIMEOUT_S", "Mesh", "ShapeMesh", "PartitionSpec",
-           "process_group_ready"]
+__all__ = ["COLLECTIVE_TIMEOUT_S", "REDUCE_PIECE", "Mesh", "ShapeMesh",
+           "PartitionSpec", "axes_of", "process_group_ready"]

@@ -4,8 +4,9 @@
 Every batch is a pure function of (seed, step): after a restart the loader
 resumes from the checkpointed step with bit-identical data and no state
 shared between hosts.  Batches are numpy arrays on the host; the caller
-moves them to its device.  `sharded_batch`, which places a batch by a
-sharding tree, waits for sharded training (ROADMAP Queue 1 item 11d).
+moves them to its device.  `sharded_batch` gives a rank of a mesh its rows
+of a step's batch, in the order the sharded train step reads them
+(`shard_rows`).
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import numpy as np
 import torch
 
 from ..core.hmm import HMM, sample_observations
+from ..sharding.placement import data_axes
+from ..sharding.rules import SINGLE_POD_RULES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +73,34 @@ class SyntheticTokenPipeline:
             out["mask"][:, :n] = 0.0
         return out
 
+    def sharded_batch(self, step: int, mesh, accum_steps: int = 1,
+                      rules=SINGLE_POD_RULES) -> dict:
+        """This rank's rows of ``batch(step)`` on `mesh`, whose batch axes
+        `rules` name (`shard_rows`): what JAX's ``sharded_batch`` places
+        on this rank's devices, as the train step's microbatches read
+        it."""
+        rows = shard_rows(self.cfg.global_batch, mesh, accum_steps,
+                          data_axes(rules, mesh))
+        return {k: v[rows] for k, v in self.batch(step).items()}
+
+
+def shard_rows(n: int, mesh, accum_steps: int, axes) -> np.ndarray:
+    """The rows this rank holds of a batch of `n` rows that the train step
+    splits into `accum_steps` microbatches, each split over the data ranks
+    along `axes` (row-major over a tuple): JAX reshapes the global batch
+    to (A, n / A, ...), so microbatch i is rows i n/A .. (i + 1) n/A, and
+    data rank r holds rows i n/A + r n/(A R) .. i n/A + (r + 1) n/(A R) of
+    it (R ranks).  Microbatch by microbatch, in order; a contiguous slice
+    a rank would group other rows into its microbatches."""
+    A, R = accum_steps, mesh.axis_size(axes)
+    if n % (A * R):
+        raise ValueError(f"a batch of {n} rows does not split into {A} "
+                         f"microbatches over {R} data ranks")
+    per, r = n // (A * R), mesh.index(axes)
+    return np.concatenate([np.arange(i * n // A + r * per,
+                                     i * n // A + (r + 1) * per)
+                           for i in range(A)])
+
 
 @dataclasses.dataclass(frozen=True)
 class EmissionPipelineConfig:
@@ -102,5 +133,5 @@ class HMMEmissionPipeline:
         return {"obs": obs, "emissions": ems}
 
 
-__all__ = ["TokenPipelineConfig", "SyntheticTokenPipeline",
+__all__ = ["TokenPipelineConfig", "SyntheticTokenPipeline", "shard_rows",
            "EmissionPipelineConfig", "HMMEmissionPipeline"]

@@ -176,7 +176,8 @@ def _chunk_nll(hs, embed_t, ts, ms):
     return ((logz - gold) * ms).sum(), ms.sum()
 
 
-def chunked_cross_entropy(hidden, embed_t, targets, mask, chunk: int = 512):
+def chunked_cross_entropy(hidden, embed_t, targets, mask, chunk: int = 512,
+                          mask_count=None):
     """CE over huge vocabularies without materialising (B, S, V) at once,
     as JAX's `chunked_cross_entropy`.
 
@@ -188,6 +189,11 @@ def chunked_cross_entropy(hidden, embed_t, targets, mask, chunk: int = 512):
     (`torch.utils.checkpoint`, as JAX's ``jax.checkpoint(body)``), so the
     live logits stay at (B, chunk, V).  S must be a multiple of `chunk`
     (JAX's reshape fails otherwise); ValueError if not.
+
+    The masked NLL's sum is divided by max(`mask_count`, 1): by default
+    this batch's own mask sum; the sharded train step passes the count of
+    the global batch, so that a rank's result is its share of the global
+    mean (shares of unequal counts do not average to it).
     """
     B, S, D = hidden.shape
     if S % chunk:
@@ -199,6 +205,8 @@ def chunked_cross_entropy(hidden, embed_t, targets, mask, chunk: int = 512):
                             embed_t, targets[:, i:i + chunk],
                             mask[:, i:i + chunk], use_reentrant=False)
         tot, cnt = tot + nll, cnt + m
+    if mask_count is not None:
+        cnt = mask_count
     return tot / torch.clamp_min(cnt, 1.0)
 
 

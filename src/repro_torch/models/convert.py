@@ -29,8 +29,8 @@ A JAX training state is ``{"params", "opt": {"m", "v", "step"}}`` with m
 and v float32 trees in the parameters' layout; the port's
 (`train.train_step`) holds the same in its own per-layer layout.
 `train_state_from_jax` and `train_state_to_numpy` carry it across and
-back, and `jax_layout` maps any tree in the port's parameter layout (a
-gradient, a moment) to JAX's.  `jax_leaf_groups` lists, for each JAX leaf,
+back (a sharded state gathered first), and `jax_layout` maps any tree in
+the port's parameter layout (a gradient, a moment) to JAX's.  `jax_leaf_groups` lists, for each JAX leaf,
 the port's tensors it stacks: int8 error feedback takes one scale a JAX
 leaf (`optim.compression`).
 
@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..sharding.rules import SINGLE_POD_RULES
 from .hybrid import StateCache
 from .registry import build_model
 from .transformer import ModelConfig, layer_trees
@@ -73,9 +74,10 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def _port_layout(tree: dict, model) -> dict:
+def port_layout(tree: dict, model) -> dict:
     """A tree in JAX's parameter layout split into the port's (stacked
-    leaves sliced: views)."""
+    leaves sliced: views; a stacked leaf may also be a list of the layers'
+    tensors, as `jax_pieces` gives it)."""
     if model.cfg.family == "transformer":
         return {**tree, "layers": layer_trees(tree["layers"], model.cfg)}
     return model.layer_trees(tree)
@@ -86,15 +88,15 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None):
     to ``cfg.dtype`` on `device` (None: ``cuda``)."""
     dev = resolve_device(device)
     model = build_model(cfg)
-    return model.load(_port_layout(
+    return model.load(port_layout(
         _map(tree, lambda a: _tensor(a, cfg.dtype, dev)), model))
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """A numpy copy; bfloat16 comes back as float32, which holds it
-    exactly."""
+    """A numpy copy (of a CPU tensor too: it shares no memory with `t`);
+    bfloat16 comes back as float32, which holds it exactly."""
     t = t.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
 
 def _stack(items: list, stack=np.stack):
@@ -144,6 +146,13 @@ def to_numpy_tree(model) -> dict:
     return jax_layout(model.tree(), model)
 
 
+def jax_pieces(tree: dict, model) -> dict:
+    """A tree in the port's parameter layout in JAX's, each stacked leaf
+    the list of the port's tensors it stacks, in stack order (the tensors
+    themselves; `port_layout` takes it back)."""
+    return _jax_params(tree, model, list)
+
+
 def jax_leaf_groups(tree: dict, model) -> list[list[torch.Tensor]]:
     """For each leaf of JAX's layout of `tree` (in the port's parameter
     layout), the port's tensors it stacks, in stack order (one tensor for
@@ -156,7 +165,7 @@ def jax_leaf_groups(tree: dict, model) -> list[list[torch.Tensor]]:
                 walk(v)
         else:
             groups.append(t if isinstance(t, list) else [t])
-    walk(_jax_params(tree, model, list))
+    walk(jax_pieces(tree, model))
     return groups
 
 
@@ -169,8 +178,8 @@ def train_state_from_jax(state: dict, model, *, device=None) -> dict:
     dev = resolve_device(device)
 
     def port(tree, dtype):
-        return _port_layout(_map(tree, lambda a: _tensor(a, dtype, dev)),
-                            model)
+        return port_layout(_map(tree, lambda a: _tensor(a, dtype, dev)),
+                           model)
     model.load(port(state["params"], model.cfg.dtype))
     opt = state["opt"]
     return {"params": model.tree(),
@@ -179,8 +188,14 @@ def train_state_from_jax(state: dict, model, *, device=None) -> dict:
                     "step": _tensor(opt["step"], torch.int32, dev)}}
 
 
-def train_state_to_numpy(state: dict, model) -> dict:
-    """JAX's layout of the port's training state, as numpy arrays."""
+def train_state_to_numpy(state: dict, model, mesh=None,
+                         rules=SINGLE_POD_RULES) -> dict:
+    """JAX's layout of the port's training state, as numpy arrays.  A state
+    sharded on `mesh` under `rules` (`sharding.placement`; every rank of
+    the mesh calls this) is gathered first."""
+    if mesh is not None:
+        from ..sharding.placement import gather_train_state
+        state = gather_train_state(state, model, mesh, rules)
     opt = state["opt"]
     return {"params": jax_layout(state["params"], model),
             "opt": {"m": jax_layout(opt["m"], model),
@@ -247,5 +262,6 @@ def cache_to_numpy(cache: list, cfg: ModelConfig):
 
 
 __all__ = ["params_from_jax", "to_numpy_tree", "cache_from_jax",
-           "cache_to_numpy", "jax_layout", "jax_leaf_groups",
+           "cache_to_numpy", "jax_layout", "jax_leaf_groups", "jax_pieces",
+           "port_layout",
            "train_state_from_jax", "train_state_to_numpy"]

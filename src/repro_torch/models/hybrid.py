@@ -156,14 +156,15 @@ class _RecurrentLM(nn.Module):
     def _logits(self, x):
         return (rms_norm(x, self.ln_out) @ self.embed.T).float()
 
-    def _ce(self, x, batch):
+    def _ce(self, x, batch, mask_count=None):
         """JAX's loss head: the output norm, then the chunked cross entropy
-        on the tied embedding."""
+        on the tied embedding (divided by `mask_count`, default the mask's
+        sum)."""
         S = x.shape[1]
         return chunked_cross_entropy(
             rms_norm(x, self.ln_out), self.embed.T,
             batch["labels"].to(x.device), batch["mask"].to(x.device).float(),
-            chunk=min(self.cfg.loss_chunk, S))
+            chunk=min(self.cfg.loss_chunk, S), mask_count=mask_count)
 
 
 # ---------------------------------------------------------------------------
@@ -248,9 +249,10 @@ class GriffinLM(_RecurrentLM):
         return x
 
     # -- training ---------------------------------------------------------
-    def loss(self, batch) -> torch.Tensor:
+    def loss(self, batch, mask_count=None) -> torch.Tensor:
         """JAX's `GriffinLM.loss` on ``batch["tokens"]``, ``["labels"]``
-        and ``["mask"]`` (B, S): a 0-d float32 tensor."""
+        and ``["mask"]`` (B, S): a 0-d float32 tensor (`mask_count` as
+        `TransformerLM.loss` takes it)."""
         x = self._embed(batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)
         unit = _remat(self._unit_loss, self.cfg.remat_policy)
@@ -258,7 +260,7 @@ class GriffinLM(_RecurrentLM):
             x = unit(u, x, positions)
         for i in range(3 * self.n_units, self.cfg.num_layers):
             x, _ = self._block_fwd(i, x, positions)
-        return self._ce(x, batch)
+        return self._ce(x, batch, mask_count)
 
     # -- serving ----------------------------------------------------------
     @torch.no_grad()
@@ -400,15 +402,16 @@ class XLSTMLM(_RecurrentLM):
                           need_state=False)[0]
 
     # -- training ---------------------------------------------------------
-    def loss(self, batch) -> torch.Tensor:
+    def loss(self, batch, mask_count=None) -> torch.Tensor:
         """JAX's `XLSTMLM.loss` on ``batch["tokens"]``, ``["labels"]`` and
-        ``["mask"]`` (B, S): a 0-d float32 tensor.  No mLSTM final state is
-        computed (`xlstm.mlstm_block`'s ``need_state``)."""
+        ``["mask"]`` (B, S): a 0-d float32 tensor (`mask_count` as
+        `TransformerLM.loss` takes it).  No mLSTM final state is computed
+        (`xlstm.mlstm_block`'s ``need_state``)."""
         x = self._tokens(batch["tokens"])
         unit = _remat(self._unit_loss, self.cfg.remat_policy)
         for u in range(self.n_units):
             x = unit(u, x)
-        return self._ce(x, batch)
+        return self._ce(x, batch, mask_count)
 
     # -- serving ----------------------------------------------------------
     @torch.no_grad()

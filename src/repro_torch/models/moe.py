@@ -17,16 +17,46 @@ The routing is JAX's, decision for decision:
 Every expert runs on its whole capacity buffer, used or not (the dense
 dispatch), so a decode step reads every expert's weights.  Shared experts
 (DeepSeek-V2) run densely beside the routed ones.
+
+Inside `global_routing(mesh, axes)` (the sharded train step) each rank
+holds its rows of a global batch, the ranks of `axes` in global row order,
+and a layer routes as JAX's SPMD layer routes the global batch: C from the
+global token count, each assignment ranked within its expert after the
+assignments of the ranks before it (one all-gather of the per-expert counts
+a layer call), and the aux loss's top-1 fractions from the global counts.
+A rank's aux is its share, E sum_e (its summed probabilities_e / N global)
+x ce_e global, so the shares sum to JAX's aux; the counts carry no
+gradient.  Outside it a layer routes its own tokens, as JAX's unsharded
+layer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 import torch.nn.functional as F
 
 from .common import Layout, act_fn
+
+#: (mesh, axes) of the data group that routes as one batch, while
+#: `global_routing` is active (a module global, not a context variable:
+#: layers recomputed in backward may run on autograd's own threads)
+_DATA_GROUP = None
+
+
+@contextlib.contextmanager
+def global_routing(mesh, axes):
+    """Route every MoE layer run inside the block (its recomputation in
+    backward included) over the tokens of the ranks along `axes` of
+    `mesh`, each holding as many tokens, in rank order."""
+    global _DATA_GROUP
+    saved, _DATA_GROUP = _DATA_GROUP, (mesh, axes)
+    try:
+        yield
+    finally:
+        _DATA_GROUP = saved
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +98,8 @@ def moe_forward(params, x, cfg: MoEConfig, act: str = "silu"):
     G = cfg.num_groups
     if G == 1:
         return _moe_dense(params, x, cfg, act)
+    if _DATA_GROUP is not None:
+        raise ValueError("token groups are not routed over a data group")
     if (B * S) % G:
         raise ValueError(f"{B * S} tokens do not split into {G} groups")
     outs, auxs = zip(*(_moe_dense(params, xs[None], cfg, act)
@@ -75,29 +107,53 @@ def moe_forward(params, x, cfg: MoEConfig, act: str = "silu"):
     return torch.cat(outs).reshape(B, S, D), torch.stack(auxs).mean()
 
 
+def route(probs, cfg: MoEConfig):
+    """The routing of N tokens' router probabilities (N, E): (top_p, top_e
+    (N, K), flat_e (N K,), each (token, slot) assignment's rank within its
+    expert (N K,), the capacity C, the aux loss); an assignment is kept
+    when its rank is below C.  Over a data group (`global_routing`) the
+    ranks, C and the aux are the global batch's (the aux this rank's
+    share), and a rank's dispatch buffer has a row for every global slot."""
+    N, E = probs.shape
+    K = cfg.top_k
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :K], top_e[:, :K]              # (N, K)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)        # renormalise
+    flat_e = top_e.reshape(N * K)
+    onehot = F.one_hot(flat_e, E).to(torch.int32)          # (N K, E)
+    # rank within expert: position of each (token, slot) among its expert's
+    ranks = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    first = F.one_hot(top_e[:, 0], E)
+    if _DATA_GROUP is None:
+        C = max(1, int(N * K * cfg.capacity_factor / E))
+        # load-balance aux loss (Switch-style)
+        me = probs.mean(dim=0)
+        ce = first.to(probs.dtype).mean(dim=0)
+    else:
+        mesh, axes = _DATA_GROUP
+        n = N * mesh.axis_size(axes)                       # global tokens
+        C = max(1, int(n * K * cfg.capacity_factor / E))
+        with torch.no_grad():
+            counts = torch.stack([onehot.sum(dim=0),
+                                  first.sum(dim=0)])[None]  # (1, 2, E)
+            every = mesh.all_gather(counts, axes)          # (ranks, 2, E)
+            ranks = ranks + every[:mesh.index(axes), 0].sum(dim=0)
+            ce = every[:, 1].sum(dim=0).to(probs.dtype) / n
+        me = probs.sum(dim=0) / n
+    aux = E * (me * ce).sum()
+    rank = ranks.gather(1, flat_e[:, None])[:, 0]
+    return top_p, top_e, flat_e, rank, C, aux
+
+
 def _moe_dense(params, x, cfg: MoEConfig, act: str = "silu"):
     B, S, D = x.shape
     N = B * S
     E, K = cfg.num_experts, cfg.top_k
-    C = max(1, int(N * K * cfg.capacity_factor / E))
 
     xt = x.reshape(N, D)
     rdt = getattr(torch, cfg.router_dtype)
     probs = torch.softmax(xt.to(rdt) @ params["router"].to(rdt), dim=-1)
-    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_e = top_p[:, :K], top_e[:, :K]              # (N, K)
-    top_p = top_p / top_p.sum(dim=-1, keepdim=True)        # renormalise
-
-    # load-balance aux loss (Switch-style)
-    me = probs.mean(dim=0)
-    ce = F.one_hot(top_e[:, 0], E).to(probs.dtype).mean(dim=0)
-    aux = E * (me * ce).sum()
-
-    # rank within expert: position of each (token, slot) among its expert's
-    flat_e = top_e.reshape(N * K)
-    onehot = F.one_hot(flat_e, E).to(torch.int32)          # (N K, E)
-    ranks = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
-    rank = ranks.gather(1, flat_e[:, None])[:, 0]
+    top_p, top_e, flat_e, rank, C, aux = route(probs, cfg)
     keep = rank < C
 
     # scatter tokens into (E, C + 1, D); C is the overflow bin, cut off
@@ -129,4 +185,5 @@ def _moe_dense(params, x, cfg: MoEConfig, act: str = "silu"):
     return out.to(x.dtype).reshape(B, S, D), aux
 
 
-__all__ = ["MoEConfig", "moe_layout", "moe_forward"]
+__all__ = ["MoEConfig", "moe_layout", "moe_forward", "route",
+           "global_routing"]

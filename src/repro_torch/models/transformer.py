@@ -487,13 +487,15 @@ class TransformerLM(nn.Module):
         return one if cfg.scan_layers else [one] * cfg.num_layers
 
     # -- training -----------------------------------------------------------
-    def loss(self, batch) -> torch.Tensor:
+    def loss(self, batch, mask_count=None) -> torch.Tensor:
         """JAX's `loss`: the chunked cross entropy of ``batch["labels"]``
         under ``batch["mask"]`` (B, S), plus 0.01 x MoE's aux loss summed
         over the layers / num_layers.  Inputs as `prefill` takes them (an
         encoder's ``batch["embeds"]``, a VLM's image embeddings first);
         each layer recomputed in backward under ``cfg.remat_policy``.  S
-        must be a multiple of min(loss_chunk, S).  A 0-d float32 tensor."""
+        must be a multiple of min(loss_chunk, S).  A 0-d float32 tensor.
+        `mask_count`: what the cross entropy divides by (default: the
+        mask's sum; `common.chunked_cross_entropy`)."""
         cfg = self.cfg
         x = self._inputs(batch)
         S = x.shape[1]
@@ -507,7 +509,7 @@ class TransformerLM(nn.Module):
         ce = chunked_cross_entropy(
             x, self._head(),
             batch["labels"].to(x.device), batch["mask"].to(x.device).float(),
-            chunk=min(cfg.loss_chunk, S))
+            chunk=min(cfg.loss_chunk, S), mask_count=mask_count)
         return ce + 0.01 * aux / max(cfg.num_layers, 1)
 
 

@@ -18,10 +18,12 @@ parameters and the moments (JAX's train step donates the state).
 
 A tree is a nested dict / list of tensors.  `zero1_specs` and
 `opt_state_specs` take PartitionSpec and shape trees in JAX's layout
-(`model.param_specs`, `model.abstract_params`), the layout sharded training
-will read (ROADMAP Queue 1 item 11d): the first / second moments carry
-additional sharding over the data axes (ZeRO-1), the largest
-still-replicated axis that the data size divides.
+(`model.param_specs`, `model.abstract_params`): the first / second moments
+carry additional sharding over the data axes (ZeRO-1), the largest
+still-replicated axis that the data size divides.  The sharded train step
+reads them (`sharding.placement`): each rank holds its block of m and v and
+updates that region of each weight with `update_regions`, whose global norm
+comes from the whole gradients summed over the data axes.
 """
 
 from __future__ import annotations
@@ -91,29 +93,49 @@ def global_norm(tree) -> torch.Tensor:
                         for l in tree_leaves(tree)]).square().sum().sqrt()
 
 
+def _apply(cfg: AdamWConfig, p, g, m, v, scale, lr, b1c, b2c) -> None:
+    """The update of one leaf (or one region of it), in place."""
+    g = g.float() * scale
+    m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+    v.copy_(cfg.b2 * v + (1 - cfg.b2) * g.square())
+    pf = p.float()
+    delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
+        + cfg.weight_decay * pf
+    p.copy_(pf - lr * delta)
+
+
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads, state: dict, params):
     """One AdamW step over matching trees of gradients (any float dtype),
     moments and parameters.  The parameters and ``state["m"]``,
     ``state["v"]`` are updated in place.  Returns (params, new state,
     metrics {"grad_norm", "lr"}: 0-d float32 tensors)."""
-    step = state["step"] + 1
+    step, metrics = update_regions(
+        cfg, grads, _zip(params, grads, state["m"], state["v"]),
+        state["step"])
+    return params, {"m": state["m"], "v": state["v"], "step": step}, metrics
+
+
+@torch.no_grad()
+def update_regions(cfg: AdamWConfig, grads, regions, step: torch.Tensor):
+    """The AdamW step of `update` over `regions`: the global norm and the
+    clip scale from the whole gradient tree `grads`, then each (weights
+    to update in place, their gradient, their m, their v) that `regions`
+    yields: every leaf (`update`), or ZeRO-1's region of each leaf a rank
+    holds the moments of, with `grads` summed over the data axes so that
+    every rank computes the same scale (`sharding.placement.
+    TrainPlacement.regions`).  Returns (the new step, metrics
+    {"grad_norm", "lr"})."""
+    step = step + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                         max=1.0)
     lr = schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step.float()
     b2c = 1 - cfg.b2 ** step.float()
-    for p, g, m, v in _zip(params, grads, state["m"], state["v"]):
-        g = g.float() * scale
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g.square())
-        pf = p.float()
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
-            + cfg.weight_decay * pf
-        p.copy_(pf - lr * delta)
-    metrics = {"grad_norm": gnorm, "lr": lr}
-    return params, {"m": state["m"], "v": state["v"], "step": step}, metrics
+    for p, g, m, v in regions:
+        _apply(cfg, p, g, m, v, scale, lr, b1c, b2c)
+    return step, {"grad_norm": gnorm, "lr": lr}
 
 
 def zero1_specs(param_spec_tree, param_shape_tree, data_axes=("data",),
@@ -150,5 +172,5 @@ def opt_state_specs(param_spec_tree, param_shape_tree, data_axes=("data",),
     return {"m": mom, "v": mom, "step": P()}
 
 
-__all__ = ["AdamWConfig", "schedule", "init_state", "update", "global_norm",
-           "zero1_specs", "opt_state_specs"]
+__all__ = ["AdamWConfig", "schedule", "init_state", "update",
+           "update_regions", "global_norm", "zero1_specs", "opt_state_specs"]

@@ -13,8 +13,11 @@ Conventions (MaxText-style megatron sharding):
   * seq            -> "data" only for the long-context decode cells (batch=1)
   * everything else replicated
 
-The port runs on one card today; sharded training reads these specs
-(ROADMAP Queue 1 item 11d).
+The sharded train step reads these specs (`sharding.placement`): each
+weight is stored sharded as its spec says, AdamW's moments also over the
+batch axes (ZeRO-1), and the batch is split over the batch axes.  Compute
+is replicated over "model" (each rank runs the whole model on the gathered
+weights) until Megatron compute over it (ROADMAP Queue 1 item 11e).
 """
 
 from __future__ import annotations

@@ -22,8 +22,35 @@ stacked layout (`optim.compression`); like JAX's, they live for one step,
 and the residual's memory takes the dequantized gradients at its end.
 
 `abstract_train_state` and `train_state_specs` describe the state in JAX's
-stacked layout (meta tensors, PartitionSpec trees), the layout sharded
-training will read (ROADMAP Queue 1 item 11d).
+stacked layout (meta tensors, PartitionSpec trees).
+
+``make_train_step(model, tcfg, mesh, rules)`` is the sharded step, JAX's
+SPMD step on a mesh of ranks (`core.mesh.Mesh`): it computes the unsharded
+step on the global batch.  The state holds this rank's block of every leaf
+of ``train_state_specs(model, rules, data size)``
+(`sharding.placement.shard_train_state`; the moments ZeRO-1's blocks), and
+the batch this rank's rows of it (`data.pipeline.SyntheticTokenPipeline.
+sharded_batch`: in each microbatch the data ranks' rows in global order).
+A step:
+  1. gathers each weight over the axes its spec shards into the model's
+     working tensors (a tied head once);
+  2. all-reduces the microbatches' mask counts over the data axes and
+     runs forward and backward on the rank's rows, the cross entropy
+     divided by the global count and MoE routed over the global batch
+     (`models.moe.global_routing`), so a rank's loss is its share;
+  3. sums the float32 gradients over the data axes (one collective after
+     the plain accumulation, one a microbatch before the int8 error
+     feedback);
+  4. takes the global norm and the clip scale from the whole summed
+     gradients, and updates the region of each weight that the rank's
+     moments cover (`optim.adamw.update_regions`);
+  5. gathers each weight's block whole again over the data axes, and
+     leaves the model holding no weights (meta tensors), so that a rank
+     holds only its blocks between steps;
+  6. reports the loss as the sum of the ranks' shares.
+Compute is replicated over "model": every rank of a data row runs the
+whole model on its rows (Megatron compute over "model" is ROADMAP Queue 1
+item 11e).  A rank that fails fails its collectives' peers.
 """
 
 from __future__ import annotations
@@ -35,7 +62,10 @@ from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map,
                                 tree_unflatten)
 
 from ..models.convert import jax_leaf_groups
+from ..models.moe import global_routing
 from ..optim import adamw, compression
+from ..sharding.placement import TrainPlacement
+from ..sharding.rules import SINGLE_POD_RULES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,73 +125,156 @@ def _bind(model, params: dict) -> dict:
     return _trainable(model)
 
 
-def make_train_step(model, tcfg: TrainConfig):
-    A = tcfg.accum_steps
+def _micro(batch: dict, A: int) -> list[dict]:
+    """The batch's A microbatches: rows i B/A .. (i + 1) B/A each, as JAX's
+    reshape to (A, B / A, ...) splits it."""
+    n = next(iter(batch.values())).shape[0]
+    if n % A:
+        raise ValueError(f"batch of {n} rows does not split into {A} "
+                         f"microbatches")
+    mb = n // A
+    return [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            for i in range(A)]
 
-    def grads_of(leaves, batch):
-        """(the loss detached, d loss / d each leaf)."""
-        loss = model.loss(batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
-                                for p, g in zip(leaves, grads)]
 
-    def micro(batch: dict) -> list[dict]:
-        """The batch's A microbatches: rows i B/A .. (i + 1) B/A each, as
-        JAX's reshape to (A, B / A, ...) splits it."""
-        n = next(iter(batch.values())).shape[0]
-        if n % A:
-            raise ValueError(f"batch of {n} rows does not split into "
-                             f"{A} microbatches")
-        mb = n // A
-        return [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                for i in range(A)]
+def _grads_of(model, leaves, batch, mask_count=None):
+    """(the loss detached, d loss / d each leaf)."""
+    loss = model.loss(batch, mask_count=mask_count)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves, grads)]
 
-    def accumulated(leaves: list, spec, batch: dict):
-        lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        if not tcfg.compress_accum:
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in leaves]
-            for mb in micro(batch):
-                loss, grads = grads_of(leaves, mb)
-                for a, g in zip(acc, grads):
-                    a.add_(g)
-                del grads
-                lsum = lsum + loss
-            return lsum / A, [a.div_(A) for a in acc]
-        # int8 error-feedback accumulation, one scale a JAX leaf: the
-        # buffers in the parameters' tree, grouped as JAX's leaves
-        def zeros(dtype):
-            return tree_unflatten([torch.zeros(p.shape, dtype=dtype,
-                                               device=p.device)
-                                   for p in leaves], spec)
-        qs, res = zeros(torch.int8), zeros(torch.float32)
-        groups = list(zip(jax_leaf_groups(qs, model),
-                          jax_leaf_groups(res, model)))
-        scales = [torch.zeros((), dtype=torch.float32,
-                              device=leaves[0].device)] * len(groups)
-        for mb in micro(batch):
-            loss, grads = grads_of(leaves, mb)
-            grads = jax_leaf_groups(tree_unflatten(grads, spec), model)
-            for i, ((q, r), g) in enumerate(zip(groups, grads)):
-                _, scales[i], _ = compression.ef_accumulate(q, scales[i], r,
-                                                            g)
+
+class _Flat(list):
+    """float32 zeros shaped like `leaves`: views of one buffer, ``flat``,
+    which the sharded step sums over the data axes in one collective."""
+
+    def __init__(self, leaves):
+        sizes = [p.numel() for p in leaves]
+        self.flat = torch.zeros(sum(sizes), dtype=torch.float32,
+                                device=leaves[0].device)
+        super().__init__(part.view(p.shape) for part, p in zip(
+            self.flat.split(sizes), leaves))
+
+
+def _accumulated(model, tcfg: TrainConfig, leaves: list, spec,
+                 batches: list, counts=None, reduce=None):
+    """(the microbatches' losses summed / A, the gradients summed / A in
+    float32).  Without `reduce`, one process's step.  With it, the sharded
+    step's: `counts[i]` is the global batch's mask count of microbatch i,
+    and ``reduce(buffers)`` sums a `_Flat` over the data axes in place, once
+    after the plain sum (which is linear), or each microbatch's gradient
+    before its int8 error feedback (which quantises the global gradient,
+    as JAX's SPMD step does)."""
+    A = len(batches)
+    device = leaves[0].device
+    lsum = torch.zeros((), dtype=torch.float32, device=device)
+
+    def grads_of(i, mb):
+        return _grads_of(model, leaves, mb,
+                         None if counts is None else counts[i])
+
+    if not (tcfg.compress_accum and A > 1):
+        acc = _Flat(leaves)
+        for i, mb in enumerate(batches):
+            loss, grads = grads_of(i, mb)
+            for a, g in zip(acc, grads):
+                a.add_(g)
             del grads
             lsum = lsum + loss
-        for (q, r), scale in zip(groups, scales):
-            for qi, ri in zip(q, r):     # JAX's dequantize(q, s) / A
-                torch.mul(qi.float(), scale, out=ri).div_(A)
-        return lsum / A, tree_leaves(res)
+        if reduce:
+            reduce(acc)
+        return lsum / A, [a.div_(A) for a in acc]
+    # int8 error-feedback accumulation, one scale a JAX leaf: the
+    # buffers in the parameters' tree, grouped as JAX's leaves
+    def zeros(dtype):
+        return tree_unflatten([torch.zeros(p.shape, dtype=dtype,
+                                           device=p.device)
+                               for p in leaves], spec)
+    qs, res = zeros(torch.int8), zeros(torch.float32)
+    groups = list(zip(jax_leaf_groups(qs, model),
+                      jax_leaf_groups(res, model)))
+    scales = [torch.zeros((), dtype=torch.float32, device=device)] * len(
+        groups)
+    summed = _Flat(leaves) if reduce else None
+    for i, mb in enumerate(batches):
+        loss, grads = grads_of(i, mb)
+        if reduce:
+            for b, g in zip(summed, grads):
+                b.copy_(g)
+            reduce(summed)
+            grads = summed
+        grads = jax_leaf_groups(tree_unflatten(grads, spec), model)
+        for j, ((q, r), g) in enumerate(zip(groups, grads)):
+            _, scales[j], _ = compression.ef_accumulate(q, scales[j], r, g)
+        del grads
+        lsum = lsum + loss
+    for (q, r), scale in zip(groups, scales):
+        for qi, ri in zip(q, r):     # JAX's dequantize(q, s) / A
+            torch.mul(qi.float(), scale, out=ri).div_(A)
+    return lsum / A, tree_leaves(res)
+
+
+def make_train_step(model, tcfg: TrainConfig, mesh=None,
+                    rules=SINGLE_POD_RULES):
+    """The train step of `model` (see the module docstring); with `mesh`,
+    the sharded step on it under `rules`."""
+    if mesh is not None:
+        return _sharded_step(model, tcfg, mesh, rules)
+    A = tcfg.accum_steps
 
     def train_step(state: dict, batch: dict):
         params = _bind(model, state["params"])
         leaves, spec = tree_flatten(params)
         if A > 1:
-            loss, grads = accumulated(leaves, spec, batch)
+            loss, grads = _accumulated(model, tcfg, leaves, spec,
+                                       _micro(batch, A))
         else:
-            loss, grads = grads_of(leaves, batch)
+            loss, grads = _grads_of(model, leaves, batch)
         params, opt, metrics = adamw.update(
             tcfg.opt, tree_unflatten(grads, spec), state["opt"], params)
         return {"params": params, "opt": opt}, {"loss": loss, **metrics}
+
+    return train_step
+
+
+def _release(model) -> None:
+    """Leave `model` holding no weights (meta tensors of their shapes)."""
+    model.load(tree_map(lambda t: t.detach().to("meta"), model.tree()))
+
+
+def _sharded_step(model, tcfg: TrainConfig, mesh, rules):
+    """The SPMD step of JAX's ``jit(make_train_step(...))`` over a state
+    placed by `train_state_specs` (`sharding.placement`); see the module
+    docstring."""
+    place = TrainPlacement(model, mesh, rules)
+    axes = place.data_axes
+    mesh.group(axes)       # every rank makes the data group's subgroups now
+
+    def reduce(buffers: _Flat) -> None:
+        mesh.all_reduce_sum(buffers.flat, axes)
+
+    def train_step(state: dict, batch: dict):
+        blocks, opt = state["params"], state["opt"]
+        model.load(place.gather_params(blocks))
+        leaves, spec = tree_flatten(_trainable(model))
+        batches = _micro(batch, tcfg.accum_steps)
+        counts = mesh.all_reduce_sum(torch.stack([
+            mb["mask"].to(leaves[0].device).float().sum()
+            for mb in batches]), axes)
+        with global_routing(mesh, axes):
+            share, grads = _accumulated(model, tcfg, leaves, spec, batches,
+                                        counts, reduce)
+        grads = tree_unflatten(grads, spec)
+        step, metrics = adamw.update_regions(
+            tcfg.opt, grads, place.regions(blocks, grads, opt["m"],
+                                           opt["v"]), opt["step"])
+        place.rebuild(blocks)
+        _release(model)
+        loss = mesh.all_reduce_sum(share, axes)
+        return ({"params": blocks, "opt": {"m": opt["m"], "v": opt["v"],
+                                           "step": step}},
+                {"loss": loss, **metrics})
 
     return train_step
 
