@@ -19,9 +19,10 @@ world must reach in the same order (as it reaches the collectives).
 Ranks that share one card use the gloo backend (NCCL refuses two ranks on one
 device); gloo runs `all_reduce` (MAX, SUM) and the list form of `all_gather`
 on CUDA tensors, moving them through host memory, and the mesh uses no other
-collective.  On hosts with one card per rank, ``backend="nccl"`` runs the
-same code.  The factories and the launcher that makes the world are in
-`launch.mesh`.
+collective: Megatron's pair of differentiable sums (`Mesh.reduce_from`,
+`Mesh.copy_to`) runs `all_reduce_sum` in forward or in backward.  On hosts
+with one card per rank, ``backend="nccl"`` runs the same code.  The
+factories and the launcher that makes the world are in `launch.mesh`.
 
 Importing this module starts no process and creates no process group.
 """
@@ -176,6 +177,21 @@ class Mesh(ShapeMesh):
                             group=group)
         return x
 
+    def reduce_from(self, x: torch.Tensor, axes, dtype=None
+                    ) -> torch.Tensor:
+        """`x` summed over `axes`, differentiably: forward a sum, backward
+        the identity (Megatron's sum after a row-parallel product).  The
+        sum runs in float32 and is rounded once to `dtype` (default `x`'s:
+        a float32 partial product is summed and rounded to its operands'
+        dtype)."""
+        return _ReduceFrom.apply(x, self, axes, dtype or x.dtype)
+
+    def copy_to(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """`x` itself in forward; in backward its gradient summed over
+        `axes` (the conjugate of `reduce_from`, before a column-parallel
+        product), in float32 and rounded once to the gradient's dtype."""
+        return _CopyTo.apply(x, self, axes)
+
     def all_gather(self, x: torch.Tensor, axes, dim: int = 0
                    ) -> torch.Tensor:
         """The `x` of every rank along `axes`, concatenated on `dim` in
@@ -187,6 +203,36 @@ class Mesh(ShapeMesh):
         # the group's ranks are in ascending order, the axes' in `members`
         by_rank = dict(zip(sorted(members), parts))
         return torch.cat([by_rank[r] for r in members], dim=dim)
+
+
+def _summed(mesh: Mesh, x: torch.Tensor, axes, dtype) -> torch.Tensor:
+    """A new tensor: `x` summed over `axes` in float32, in `dtype`."""
+    out = x.float().contiguous()
+    if out is x:
+        out = x.clone(memory_format=torch.contiguous_format)
+    return mesh.all_reduce_sum(out, axes).to(dtype)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dtype):
+        ctx.dtype = x.dtype
+        return _summed(mesh, x, axes, dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype), None, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(ctx.mesh, grad, ctx.axes, grad.dtype), None, None
 
 
 __all__ = ["COLLECTIVE_TIMEOUT_S", "REDUCE_PIECE", "Mesh", "ShapeMesh",

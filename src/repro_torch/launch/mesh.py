@@ -65,18 +65,28 @@ COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
                "barrier")
 
 
+class Calls(list):
+    """The names of the collectives a block called, in order; ``groups``
+    holds the process group each was given (None: the default group)."""
+
+    def __init__(self):
+        super().__init__()
+        self.groups = []
+
+
 @contextlib.contextmanager
 def count_collectives():
     """Record, in order, every torch.distributed collective this process
     calls inside the block (the mesh layer's own included); yields the
-    list of their names."""
-    calls: list[str] = []
+    list of their names (a `Calls`, with their groups)."""
+    calls = Calls()
     saved = {name: getattr(dist, name) for name in COLLECTIVES
              if hasattr(dist, name)}
 
     def counted(name, fn):
         def call(*args, **kwargs):
             calls.append(name)
+            calls.groups.append(kwargs.get("group"))
             return fn(*args, **kwargs)
         return call
 
@@ -181,5 +191,5 @@ def run_spmd(fn, world: int, *, device=None, backend: str = "gloo",
 
 
 __all__ = ["make_production_mesh", "make_test_mesh", "data_axis_size",
-           "world_size", "world_rank", "COLLECTIVES", "count_collectives",
-           "run_spmd"]
+           "world_size", "world_rank", "COLLECTIVES", "Calls",
+           "count_collectives", "run_spmd"]

@@ -31,6 +31,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from ..sharding import tensor_parallel
 from .common import Layout, apply_rope, rms_norm
 
 _MASK_VALUE = -1e30
@@ -200,12 +201,16 @@ def _split_heads(x, n, hd):
 def gqa_forward(params, x, positions, cfg: AttnConfig):
     """Full-sequence GQA attention (encoder / prefill).  Returns (out,
     {"k", "v"}), the (B, S, Hkv*hd) key and value streams (what a causal
-    prefill stores in its cache)."""
+    prefill stores in its cache).  Under `tensor_parallel.model_parallel`
+    the weights are this rank's heads: wq / wk / wv run column-parallel
+    on one input (MQA's single kv head replicated) and wo row-parallel,
+    one sum over "model" each way."""
     B, S, _ = x.shape
+    cfg = tensor_parallel.local_attn(cfg)
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _split_heads(x @ params["wq"], h, hd)
-    k = _split_heads(x @ params["wk"], hk, hd)
-    v = _split_heads(x @ params["wv"], hk, hd)
+    q, k, v = tensor_parallel.column(x, params["wq"], params["wk"],
+                                     params["wv"])
+    q, k, v = (_split_heads(t, n, hd) for t, n in ((q, h), (k, hk), (v, hk)))
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -224,7 +229,8 @@ def gqa_forward(params, x, positions, cfg: AttnConfig):
     out = _full_sequence(q, (k_flat, v_flat), expand, positions, cfg,
                          1.0 / math.sqrt(hd))
     out = out.to(x.dtype).reshape(B, S, h * hd)
-    return out @ params["wo"], {"k": k_flat, "v": v_flat}
+    return (tensor_parallel.row(out, params["wo"]),
+            {"k": k_flat, "v": v_flat})
 
 
 def _write_slot(cache, name: str, new, slot):

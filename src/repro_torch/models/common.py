@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding import tensor_parallel
 from ..sharding.rules import ShardingRules, spec_tree_from_layout
 
 Layout = dict  # {name: (shape, logical_axes, init_kind) | nested Layout}
@@ -123,14 +124,18 @@ def act_fn(name: str):
 
 
 def glu_mlp(params, x, act: str = "silu"):
-    """Gated MLP (SwiGLU/GeGLU): (x W_g * act) * (x W_i) W_o."""
-    g = act_fn(act)(x @ params["wg"])
-    h = g * (x @ params["wi"])
-    return h @ params["wo"]
+    """Gated MLP (SwiGLU/GeGLU): (x W_g * act) * (x W_i) W_o.  Under
+    `tensor_parallel.model_parallel` the weights are this rank's ff
+    columns: W_g and W_i column-parallel on one input (one sum of its
+    gradient), W_o row-parallel (one sum)."""
+    xg, xi = tensor_parallel.column(x, params["wg"], params["wi"])
+    return tensor_parallel.row(act_fn(act)(xg) * xi, params["wo"])
 
 
 def mlp(params, x, act: str = "gelu"):
-    return act_fn(act)(x @ params["wi"]) @ params["wo"]
+    """Plain MLP: act(x W_i) W_o, tensor-parallel as `glu_mlp`."""
+    (xi,) = tensor_parallel.column(x, params["wi"])
+    return tensor_parallel.row(act_fn(act)(xi), params["wo"])
 
 
 def glu_mlp_layout(d: int, f: int) -> Layout:

@@ -48,6 +48,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..core.device import resolve_device
 from ..core.mesh import PartitionSpec as P
+from ..sharding import tensor_parallel
 from .attention import (AttnConfig, attn_layout, gqa_decode, gqa_forward,
                         gqa_init_cache, gqa_prefill_cache, mla_decode,
                         mla_forward, mla_init_cache, mla_prefill_cache)
@@ -230,6 +231,15 @@ def layer_decode(cfg: ModelConfig, lp, x, cache_l):
     return x + _ffn(cfg, lp, rms_norm(x, lp["ln_mlp"]))[0], cache_l
 
 
+def _shape_tree(tree):
+    """A tree's leaves' shapes (a layout table's first entries)."""
+    if isinstance(tree, dict):
+        return {k: _shape_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_shape_tree(v) for v in tree]
+    return tuple(tree[0]) if isinstance(tree, tuple) else tuple(tree.shape)
+
+
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
@@ -333,16 +343,34 @@ class TransformerLM(nn.Module):
 
     def load(self, tree: dict) -> "TransformerLM":
         """Take the weights of `tree`: JAX's parameter names, with
-        ``tree["layers"]`` a list of one nested dict a layer."""
+        ``tree["layers"]`` a list of one nested dict a layer, each shaped as
+        the whole layout or, under `tensor_parallel.model_parallel`, as a
+        rank's blocks (`tensor_parallel.local_config`); ValueError
+        otherwise."""
         if len(tree["layers"]) != self.cfg.num_layers:
             raise ValueError(f"{len(tree['layers'])} layers given, "
                              f"{self.cfg.num_layers} configured")
+        self._check_shapes(tree)
         self.layers = nn.ModuleList(
             TransformerLayer(self.cfg, lt) for lt in tree["layers"])
         for name in ("embed", "ln_out", "head"):
             if name in tree:
                 setattr(self, name, _frozen(tree[name]))
         return self
+
+    def _check_shapes(self, tree: dict) -> None:
+        def shapes(cfg):
+            lay = model_layout(dataclasses.replace(cfg, scan_layers=False))
+            lay["layers"] = list(lay["layers"].values())
+            return _shape_tree(lay)
+        got = _shape_tree(tree)
+        whole = shapes(self.cfg)
+        m = tensor_parallel.parts()
+        if got != whole and (m == 1 or got != shapes(
+                tensor_parallel.local_config(self.cfg, m))):
+            where = f" or a rank's blocks among {m}" if m > 1 else ""
+            raise ValueError(f"the weights' shapes match neither "
+                             f"{self.cfg.name}'s layout{where}")
 
     def tree(self) -> dict:
         """The weights as `load` takes them (the module's own tensors)."""
@@ -373,8 +401,9 @@ class TransformerLM(nn.Module):
     def _rows(self, tokens):
         """The embedding rows of `tokens` (a gather; its backward sums rows
         in a fixed order on the card, where indexing's would use
-        atomics)."""
-        return F.embedding(tokens.to(self.embed.device), self.embed)
+        atomics); vocab-parallel under `tensor_parallel.model_parallel`."""
+        return tensor_parallel.embedding(tokens.to(self.embed.device),
+                                         self.embed)
 
     def _inputs(self, batch):
         """JAX's `_embed_tokens`: the frame embeddings of an encoder, else
@@ -390,6 +419,8 @@ class TransformerLM(nn.Module):
         return self._scaled(x)
 
     def _head(self):
+        """The (d, vocab) head: the embedding's transpose when tied (a
+        rank's columns of it when the weights are its blocks)."""
         if self.cfg.tie_embeddings and self.embed is not None:
             return self.embed.T
         return self.head
@@ -495,7 +526,10 @@ class TransformerLM(nn.Module):
         each layer recomputed in backward under ``cfg.remat_policy``.  S
         must be a multiple of min(loss_chunk, S).  A 0-d float32 tensor.
         `mask_count`: what the cross entropy divides by (default: the
-        mask's sum; `common.chunked_cross_entropy`)."""
+        mask's sum; `common.chunked_cross_entropy`).  Under
+        `tensor_parallel.model_parallel` the model holds a rank's blocks
+        and every layer, the embedding and the cross entropy run
+        tensor-parallel; each rank of the axis returns the same loss."""
         cfg = self.cfg
         x = self._inputs(batch)
         S = x.shape[1]
@@ -506,7 +540,8 @@ class TransformerLM(nn.Module):
                                                                  positions)
             aux = aux + a
         x = rms_norm(x, self.ln_out)
-        ce = chunked_cross_entropy(
+        ce = (tensor_parallel.chunked_cross_entropy
+              if tensor_parallel.active() else chunked_cross_entropy)(
             x, self._head(),
             batch["labels"].to(x.device), batch["mask"].to(x.device).float(),
             chunk=min(cfg.loss_chunk, S), mask_count=mask_count)

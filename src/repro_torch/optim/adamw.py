@@ -23,7 +23,10 @@ carry additional sharding over the data axes (ZeRO-1), the largest
 still-replicated axis that the data size divides.  The sharded train step
 reads them (`sharding.placement`): each rank holds its block of m and v and
 updates that region of each weight with `update_regions`, whose global norm
-comes from the whole gradients summed over the data axes.
+comes from the gradients summed over the data axes: whole ones, or, under
+Megatron compute, the blocks of the leaves sharded over "model" (their
+squares summed over it) and each replicated leaf once (`global_norm`'s
+`sharded`).
 """
 
 from __future__ import annotations
@@ -86,11 +89,25 @@ def _zip(*trees):
         yield trees
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, sharded=None, sum_sharded=None) -> torch.Tensor:
     """sqrt of the sum over the leaves of their float32 sums of squares (a
-    0-d float32 tensor; the leaves summed in the tree's order)."""
-    return torch.stack([torch.linalg.vector_norm(l, dtype=torch.float32)
-                        for l in tree_leaves(tree)]).square().sum().sqrt()
+    0-d float32 tensor; the leaves summed in the tree's order).  With
+    `sharded` (a bool for each of the tree's leaves: whether it is a rank's
+    block of a leaf sharded over "model"), the blocks' squares are summed,
+    then summed over the ranks by `sum_sharded` (a 0-d tensor in, the sum
+    out), and the other leaves', the same on every rank, added once."""
+    norms = [torch.linalg.vector_norm(l, dtype=torch.float32)
+             for l in tree_leaves(tree)]
+    if sharded is None:
+        return torch.stack(norms).square().sum().sqrt()
+
+    def squares(pick):
+        part = [n for n, s in zip(norms, sharded, strict=True) if s == pick]
+        if not part:
+            return torch.zeros((), dtype=torch.float32,
+                               device=norms[0].device)
+        return torch.stack(part).square().sum()
+    return (sum_sharded(squares(True)) + squares(False)).sqrt()
 
 
 def _apply(cfg: AdamWConfig, p, g, m, v, scale, lr, b1c, b2c) -> None:
@@ -117,9 +134,11 @@ def update(cfg: AdamWConfig, grads, state: dict, params):
 
 
 @torch.no_grad()
-def update_regions(cfg: AdamWConfig, grads, regions, step: torch.Tensor):
-    """The AdamW step of `update` over `regions`: the global norm and the
-    clip scale from the whole gradient tree `grads`, then each (weights
+def update_regions(cfg: AdamWConfig, grads, regions, step: torch.Tensor,
+                   gnorm: torch.Tensor | None = None):
+    """The AdamW step of `update` over `regions`: the global norm (`gnorm`,
+    or `global_norm` of the whole gradient tree `grads`) and the clip scale
+    from it, then each (weights
     to update in place, their gradient, their m, their v) that `regions`
     yields: every leaf (`update`), or ZeRO-1's region of each leaf a rank
     holds the moments of, with `grads` summed over the data axes so that
@@ -127,7 +146,8 @@ def update_regions(cfg: AdamWConfig, grads, regions, step: torch.Tensor):
     TrainPlacement.regions`).  Returns (the new step, metrics
     {"grad_norm", "lr"})."""
     step = step + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                         max=1.0)
     lr = schedule(cfg, step)

@@ -11,6 +11,12 @@ scale, the absmax over all of them, so the buffers equal JAX's on its
 stacked leaf (quantizing each layer on its own would be another
 algorithm).  Rounding is half to even in both packages (`torch.round`,
 `jnp.round`).
+
+`ef_accumulate` is `ef_add`, then the scale of the residual's absmax
+(`absmax`, `scale_of`), then `ef_requantize`.  The tensor-parallel train
+step holds a rank's block of a leaf sharded over "model": it runs the
+three apart, so that each leaf's absmax is taken over the model axis
+between them (one scale a JAX leaf, not a block).
 """
 
 from __future__ import annotations
@@ -26,8 +32,13 @@ def _like(x, pieces: list):
     return pieces if isinstance(x, (list, tuple)) else pieces[0]
 
 
-def _scale_of(pieces: list) -> torch.Tensor:
-    amax = torch.stack([p.abs().amax().float() for p in pieces]).amax()
+def absmax(x) -> torch.Tensor:
+    """The largest |value| of a leaf's pieces, a 0-d float32 tensor."""
+    return torch.stack([p.abs().amax().float() for p in _pieces(x)]).amax()
+
+
+def scale_of(amax: torch.Tensor) -> torch.Tensor:
+    """The int8 scale of an absmax."""
     return torch.clamp_min(amax, 1e-12) / 127.0
 
 
@@ -39,9 +50,8 @@ def _round(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def quantize(x):
     """Symmetric int8 quantisation of a leaf with one scale.  Returns (q,
     scale): q in the leaf's form, scale a 0-d float32 tensor."""
-    pieces = _pieces(x)
-    scale = _scale_of(pieces)
-    return _like(x, [_round(p, scale) for p in pieces]), scale
+    scale = scale_of(absmax(x))
+    return _like(x, [_round(p, scale) for p in _pieces(x)]), scale
 
 
 def dequantize(q, scale):
@@ -55,14 +65,27 @@ def ef_accumulate(acc_q, acc_scale, residual, grad):
     own scale and the residual keeps what int8 lost.  `acc_q` and
     `residual` (float32) are updated in place; returns (acc_q, new scale,
     residual)."""
-    qs, res = _pieces(acc_q), _pieces(residual)
-    for q, r, g in zip(qs, res, _pieces(grad)):
+    ef_add(acc_q, acc_scale, residual, grad)
+    scale = scale_of(absmax(residual))
+    ef_requantize(acc_q, residual, scale)
+    return acc_q, scale, residual
+
+
+@torch.no_grad()
+def ef_add(acc_q, acc_scale, residual, grad) -> None:
+    """The residual, in place, becomes ``dequantize(acc) + grad +
+    residual``."""
+    for q, r, g in zip(_pieces(acc_q), _pieces(residual), _pieces(grad)):
         r.add_((q.float() * acc_scale).add_(g))   # (deq + g) + residual
-    scale = _scale_of(res)
-    for q, r in zip(qs, res):
+
+
+@torch.no_grad()
+def ef_requantize(acc_q, residual, scale) -> None:
+    """acc = the residual rounded at `scale`; the residual keeps what int8
+    lost (both in place)."""
+    for q, r in zip(_pieces(acc_q), _pieces(residual)):
         q.copy_(_round(r, scale))
         r.sub_(q.float() * scale)
-    return acc_q, scale, residual
 
 
 def init_ef_state(groups) -> dict:
@@ -79,4 +102,5 @@ def init_ef_state(groups) -> dict:
             "residual": [zeros(x, torch.float32) for x in groups]}
 
 
-__all__ = ["quantize", "dequantize", "ef_accumulate", "init_ef_state"]
+__all__ = ["quantize", "dequantize", "ef_accumulate", "ef_add",
+           "ef_requantize", "absmax", "scale_of", "init_ef_state"]

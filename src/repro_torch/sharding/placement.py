@@ -17,11 +17,16 @@ gives the same blocks in JAX's layout.
 Cutting needs only the mesh's shape and this rank's coordinates (a
 `core.mesh.ShapeMesh` with ``coord`` set will do); gathering and ZeRO-1's
 rebuild run `Mesh.all_gather`.  The sharded train step
-(`train.make_train_step(..., mesh=)`) is the reader: it gathers the weights
-over the axes their specs shard, updates the region of each leaf that the
-rank's moments cover, and rebuilds the weights' blocks over the data axes.
-Compute is replicated over "model" (Megatron compute over it is ROADMAP
-Queue 1 item 11e).
+(`train.make_train_step(..., mesh=)`) is the reader.  For the dense
+transformer family (`tensor_parallel.is_dense`) it computes on the rank's
+blocks (Megatron compute over "model"), so its gradients are blocks too:
+`regions` cuts them over the data axes only, as the weights' blocks, and
+`leaf_roles` says which gradients are blocks, which are whole and which are
+a rank's share of a replicated leaf.  For the other families it gathers
+each weight over the axes its spec shards and computes on whole weights,
+replicated over "model".  Either way it updates the region of each leaf
+that the rank's moments cover and rebuilds the weights' blocks over the
+data axes.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from ..checkpointing.elastic import _block
 from ..core.mesh import axes_of
 from ..models.convert import jax_pieces, port_layout
 from .rules import SINGLE_POD_RULES
+from .tensor_parallel import is_dense
 
 
 def data_axes(rules, mesh) -> tuple[str, ...]:
@@ -84,6 +90,8 @@ class TrainPlacement:
         specs = train_state_specs(model, rules,
                                   mesh.axis_size(self.data_axes))
         self.pspecs, self.mspecs = specs["params"], specs["opt"]["m"]
+        #: whether the step computes on the blocks (Megatron over "model")
+        self.tensor_parallel = is_dense(model) and "model" in mesh.shape
 
     def _is_data(self, ax) -> bool:
         return ax is not None and axes_of(ax) == self.data_axes
@@ -144,21 +152,23 @@ class TrainPlacement:
     # -- ZeRO-1 -------------------------------------------------------------
     def regions(self, blocks: dict, grads: dict, m: dict, v: dict):
         """For each piece of the rank's moments: (the view of its weights'
-        block that it covers, the whole gradient over it, m, v).  `grads`
-        is whole, in the port's layout."""
+        block that it covers, the gradient over it, m, v).  `grads`, in the
+        port's layout, is whole, or the weights' blocks under Megatron
+        compute (`tensor_parallel`)."""
         mesh = self.mesh
         out = []
+        gcut = self._data_only if self.tensor_parallel else tuple
 
         def leaf(path, x, spec):
             p, g, mm, vv = x
             if not isinstance(p, list):
                 out.append((_block(p, mesh, self._data_only(spec)),
-                            _block(g, mesh, spec), mm, vv))
+                            _block(g, mesh, gcut(spec)), mm, vv))
                 return
             rest = spec[1:]
             for i in owned_layers(mesh, spec[0], len(p)):
                 out.append((_block(p[i], mesh, self._data_only(rest)),
-                            _block(g[i], mesh, rest), mm[i], vv[i]))
+                            _block(g[i], mesh, gcut(rest)), mm[i], vv[i]))
 
         trees = [jax_pieces(t, self.model) for t in (blocks, grads, m, v)]
         _walk(leaf, _zip4(*trees), self.mspecs)
@@ -189,6 +199,24 @@ class TrainPlacement:
                     t.copy_(w)
 
         _walk(leaf, jax_pieces(blocks, self.model), self.mspecs)
+
+    def leaf_roles(self) -> dict:
+        """Under Megatron compute, each weight's gradient on a rank, in the
+        port's layout: "block" (the rank's block of a leaf its spec shards
+        over "model"), "partial" (a replicated leaf that the rank's heads
+        alone read, so its gradient is the rank's share: MQA's single kv
+        head's wk and wv) or "whole" (the norms)."""
+        mqa = self.model.cfg.num_kv_heads == 1
+
+        def role(path, x, spec):
+            axes = {a for ax in spec if ax is not None for a in axes_of(ax)}
+            r = ("block" if "model" in axes else
+                 "partial" if mqa and path.endswith(("/attn/wk", "/attn/wv"))
+                 else "whole")
+            return [r] * len(x) if isinstance(x, list) else r
+        abstract = port_layout(self.model.abstract_params(), self.model)
+        return port_layout(_walk(role, jax_pieces(abstract, self.model),
+                                 self.pspecs), self.model)
 
     def layer_leaves(self) -> list[str]:
         """The JAX leaves whose moments shard the layer axis (the rank holds

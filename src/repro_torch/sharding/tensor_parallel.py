@@ -1,0 +1,268 @@
+"""Megatron compute over the "model" axis of a mesh: what XLA's partitioner
+does for JAX's SPMD train step under `sharding.rules` (heads, kv heads, ff
+and vocab over "model"), written out for the dense transformer family.
+
+While `model_parallel(mesh, axis)` is active, each rank computes on the
+blocks its specs give it:
+  * attention and the MLP run their first products column-parallel on the
+    rank's heads or ff columns (`column`: the plain products behind one
+    `core.mesh.Mesh.copy_to`, so the input's gradient is summed over the
+    axis) and their last product row-parallel (`row`: the partial product
+    summed over the axis by `Mesh.reduce_from`, the plain gradients): one
+    pair of sums a block.  Each sum adds float32 partials, rounded once to
+    the operands' dtype: a bf16 partial product, and each product's share
+    of a bf16 input's gradient, is taken in float32 (`torch.mm`'s
+    ``out_dtype`` on the card), so a bf16 row-parallel product is rounded
+    once, as the unsharded product is;
+  * the embedding is vocab-parallel (`embedding`): each rank looks up the
+    tokens in its rows, zeros elsewhere, and the sum over the axis is the
+    unsharded lookup exactly (one rank adds a non-zero);
+  * the cross entropy is vocab-parallel (`chunked_cross_entropy`): each
+    chunk's logits are the rank's head columns, the log-normaliser comes
+    from a max and a sum of exponentials over the axis, the gold logit from
+    a masked local gather summed over it, and backward is the local softmax
+    minus the local one-hot; no full-vocabulary tensor is formed.
+Outside it every function here is the identity or its unsharded
+counterpart, so serving runs the same layer code.
+
+The context is a module global, as `models.moe.global_routing` is, and not
+a context variable: layers recomputed in backward run on autograd's own
+threads.  The ranks of the axis issue their collectives in one order, as
+they run the same graph.  `is_dense` names the configs that run so; the
+others keep the sharded step's gather and replicated compute.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+#: (mesh, axis) of the model-parallel group while `model_parallel` is
+#: active (a module global, not a context variable: see the docstring)
+_GROUP = None
+
+
+@contextlib.contextmanager
+def model_parallel(mesh, axis: str = "model"):
+    """Run every dense layer, embedding and loss inside the block (their
+    recomputation in backward included) on this rank's blocks along
+    `axis` of `mesh`."""
+    global _GROUP
+    saved, _GROUP = _GROUP, (mesh, axis)
+    try:
+        yield
+    finally:
+        _GROUP = saved
+
+
+def active() -> bool:
+    return _GROUP is not None
+
+
+def parts() -> int:
+    """Ranks along the model-parallel axis (1 outside the context)."""
+    return 1 if _GROUP is None else _GROUP[0].axis_size(_GROUP[1])
+
+
+def index() -> int:
+    """This rank's index along the model-parallel axis (0 outside)."""
+    return 0 if _GROUP is None else _GROUP[0].index(_GROUP[1])
+
+
+def is_dense(model) -> bool:
+    """Whether the sharded train step runs `model` tensor-parallel: a
+    transformer-family model without MoE or MLA."""
+    cfg = getattr(model, "cfg", None)
+    return (cfg is not None and cfg.family == "transformer"
+            and cfg.moe is None and cfg.mla is None)
+
+
+def _split(n: int, what: str, m: int) -> int:
+    if n % m:
+        raise ValueError(f"{what} = {n} does not split over {m} "
+                         f"model-parallel ranks")
+    return n // m
+
+
+def local_config(cfg, m: int):
+    """The `models.transformer.ModelConfig` of one rank's blocks among `m`
+    along "model": heads, kv heads (when more than one: MQA's single kv
+    head is replicated), ff and vocab divided, the head dim kept."""
+    if m == 1:
+        return cfg
+    hk = cfg.num_kv_heads
+    return dataclasses.replace(
+        cfg, head_dim=cfg.hd,
+        num_heads=_split(cfg.num_heads, "num_heads", m),
+        num_kv_heads=_split(hk, "num_kv_heads", m) if hk > 1 else 1,
+        d_ff=_split(cfg.d_ff, "d_ff", m),
+        vocab=_split(cfg.vocab, "vocab", m))
+
+
+def local_attn(acfg):
+    """An `AttnConfig` for this rank's heads (itself outside the
+    context)."""
+    m = parts()
+    if m == 1:
+        return acfg
+    hk = acfg.num_kv_heads
+    return dataclasses.replace(
+        acfg, num_heads=_split(acfg.num_heads, "num_heads", m),
+        num_kv_heads=_split(hk, "num_kv_heads", m) if hk > 1 else 1)
+
+
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The 2-D product a @ b accumulated and returned in float32."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1])
+
+
+class _Products(torch.autograd.Function):
+    """``x @ w`` for each w, in the weights' dtype, from a float32 `x`; x's
+    gradient is the products' float32 shares summed, in float32."""
+
+    @staticmethod
+    def forward(ctx, x, *ws):
+        xs = x.to(ws[0].dtype)
+        ctx.save_for_backward(xs, *ws)
+        return tuple(xs @ w for w in ws)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        xs, *ws = ctx.saved_tensors
+        gx, gws = None, []
+        for g, w in zip(grads, ws):
+            g = _flat(g)
+            part = _mm32(g, w.t())
+            gx = part if gx is None else gx.add_(part)
+            gws.append(_flat(xs).t() @ g)
+        return (gx.view(xs.shape), *gws)
+
+
+class _Mm32(torch.autograd.Function):
+    """``x @ w`` accumulated and returned in float32 (a row-parallel
+    partial); the plain gradients in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm32(_flat(x), w).view(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = _flat(g).to(x.dtype)
+        return (g2 @ w.t()).view(x.shape), _flat(x).t() @ g2
+
+
+def column(x: torch.Tensor, *ws: torch.Tensor) -> tuple:
+    """``x @ w`` for each of `ws`: column-parallel products on one input
+    (the rank's columns of each weight) behind one `Mesh.copy_to`, so the
+    input's gradient is summed over the model axis once, in float32, and
+    rounded once; the plain products outside the context."""
+    if _GROUP is None:
+        return tuple(x @ w for w in ws)
+    mesh, axis = _GROUP
+    return _Products.apply(mesh.copy_to(x.float(), axis), *ws)
+
+
+def row(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for the rank's rows of `w`: the float32 partial product
+    summed over the model axis by `Mesh.reduce_from` and rounded once to
+    x's dtype; the plain product outside the context."""
+    if _GROUP is None:
+        return x @ w
+    mesh, axis = _GROUP
+    return mesh.reduce_from(_Mm32.apply(x, w), axis, x.dtype)
+
+
+def embedding(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, whole table)``: outside the context the plain
+    lookup; inside it `table` is this rank's rows index() * V_l ..
+    (index() + 1) * V_l, tokens outside them give zeros, and the sum over
+    the axis equals the unsharded lookup bitwise."""
+    if _GROUP is None:
+        return F.embedding(tokens, table)
+    rows = table.shape[0]
+    local = tokens - index() * rows
+    mine = (local >= 0) & (local < rows)
+    x = F.embedding(torch.where(mine, local, 0), table)
+    mesh, axis = _GROUP
+    return mesh.reduce_from(torch.where(mine[..., None], x, 0), axis)
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Each position's -log softmax(logits)[target] over the whole
+    vocabulary, from this rank's float32 logits (B, c, V_l) of vocabulary
+    entries v0 .. v0 + V_l; the same value on every rank of the axis."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, v0, mesh, axis):
+        m = mesh.all_reduce_max(logits.amax(dim=-1), axis)
+        sumexp = torch.exp(logits - m[..., None]).sum(dim=-1)
+        logz = m + torch.log(mesh.all_reduce_sum(sumexp, axis))
+        local = targets.long() - v0
+        mine = (local >= 0) & (local < logits.shape[-1])
+        idx = torch.where(mine, local, 0)
+        gold = torch.where(mine, logits.gather(-1, idx[..., None])[..., 0],
+                           0.0)
+        gold = mesh.all_reduce_sum(gold.contiguous(), axis)
+        ctx.save_for_backward(logits, logz, idx, mine)
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, logz, idx, mine = ctx.saved_tensors
+        d = torch.exp(logits - logz[..., None])
+        d.scatter_add_(-1, idx[..., None], -mine[..., None].to(d.dtype))
+        return d.mul_(grad[..., None]), None, None, None, None
+
+
+def _chunk_nll(hs, head, ts, ms, v0):
+    """(sum of the chunk's masked NLL, sum of its mask), float32, from this
+    rank's head columns."""
+    mesh, axis = _GROUP
+    nll = _VocabNLL.apply((hs @ head).float(), ts, v0, mesh, axis)
+    return (nll * ms).sum(), ms.sum()
+
+
+def chunked_cross_entropy(hidden, head, targets, mask, chunk: int = 512,
+                          mask_count=None):
+    """`models.common.chunked_cross_entropy` with a vocab-parallel head:
+    `head` (D, V_l) is this rank's columns index() * V_l .. of the whole
+    head, and `hidden` enters through `Mesh.copy_to` once.  Chunks run in order
+    and are recomputed in backward; the sum is divided by max(`mask_count`,
+    1) (default: the mask's sum).  Every rank of the axis returns the same
+    value."""
+    B, S, D = hidden.shape
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the "
+                         f"loss chunk {chunk}")
+    mesh, axis = _GROUP
+    hidden = mesh.copy_to(hidden, axis)
+    v0 = index() * head.shape[1]
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, chunk):
+        nll, m = checkpoint(_chunk_nll, hidden[:, i:i + chunk], head,
+                            targets[:, i:i + chunk], mask[:, i:i + chunk],
+                            v0, use_reentrant=False)
+        tot, cnt = tot + nll, cnt + m
+    if mask_count is not None:
+        cnt = mask_count
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+__all__ = ["model_parallel", "active", "parts", "index", "is_dense",
+           "local_config", "local_attn", "column", "row", "embedding",
+           "chunked_cross_entropy"]

@@ -32,29 +32,39 @@ of ``train_state_specs(model, rules, data size)``
 the batch this rank's rows of it (`data.pipeline.SyntheticTokenPipeline.
 sharded_batch`: in each microbatch the data ranks' rows in global order).
 A step:
-  1. gathers each weight over the axes its spec shards into the model's
-     working tensors (a tied head once);
+  1. dense transformers (`sharding.tensor_parallel.is_dense`): the model
+     takes the rank's blocks as they are, with no gather and no copy; the
+     other families: each weight is gathered over the axes its spec shards
+     into the model's working tensors (a tied head once);
   2. all-reduces the microbatches' mask counts over the data axes and
      runs forward and backward on the rank's rows, the cross entropy
      divided by the global count and MoE routed over the global batch
-     (`models.moe.global_routing`), so a rank's loss is its share;
+     (`models.moe.global_routing`), so a rank's loss is its share.  A
+     dense model runs inside `tensor_parallel.model_parallel`: Megatron
+     compute over "model" (column-, then row-parallel products, one pair
+     of sums a block, the embedding and the cross entropy vocab-parallel),
+     so its gradients are the blocks' and every model rank's loss is the
+     same; the other families compute the whole model on every rank of a
+     data row;
   3. sums the float32 gradients over the data axes (one collective after
      the plain accumulation, one a microbatch before the int8 error
-     feedback);
-  4. takes the global norm and the clip scale from the whole summed
-     gradients, and updates the region of each weight that the rank's
-     moments cover (`optim.adamw.update_regions`);
+     feedback), MQA's replicated wk and wv, whose gradients are a rank's
+     share, over "model" first; the int8 scale of a leaf sharded over
+     "model" is its absmax over "model", one scale a JAX leaf;
+  4. takes the global norm and the clip scale from the summed gradients
+     (the blocks' squares summed over "model", each replicated leaf once),
+     and updates the region of each weight that the rank's moments cover
+     (`optim.adamw.update_regions`);
   5. gathers each weight's block whole again over the data axes, and
      leaves the model holding no weights (meta tensors), so that a rank
      holds only its blocks between steps;
-  6. reports the loss as the sum of the ranks' shares.
-Compute is replicated over "model": every rank of a data row runs the
-whole model on its rows (Megatron compute over "model" is ROADMAP Queue 1
-item 11e).  A rank that fails fails its collectives' peers.
+  6. reports the loss as the sum of the ranks' shares over the data axes.
+A rank that fails fails its collectives' peers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -64,6 +74,7 @@ from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map,
 from ..models.convert import jax_leaf_groups
 from ..models.moe import global_routing
 from ..optim import adamw, compression
+from ..sharding import tensor_parallel
 from ..sharding.placement import TrainPlacement
 from ..sharding.rules import SINGLE_POD_RULES
 
@@ -158,14 +169,15 @@ class _Flat(list):
 
 
 def _accumulated(model, tcfg: TrainConfig, leaves: list, spec,
-                 batches: list, counts=None, reduce=None):
+                 batches: list, counts=None, reduce=None, amax=None):
     """(the microbatches' losses summed / A, the gradients summed / A in
     float32).  Without `reduce`, one process's step.  With it, the sharded
     step's: `counts[i]` is the global batch's mask count of microbatch i,
     and ``reduce(buffers)`` sums a `_Flat` over the data axes in place, once
     after the plain sum (which is linear), or each microbatch's gradient
     before its int8 error feedback (which quantises the global gradient,
-    as JAX's SPMD step does)."""
+    as JAX's SPMD step does).  ``amax(v)`` (tensor-parallel step) takes
+    the JAX leaves' absmaxes over "model" before the int8 scales."""
     A = len(batches)
     device = leaves[0].device
     lsum = torch.zeros((), dtype=torch.float32, device=device)
@@ -205,9 +217,15 @@ def _accumulated(model, tcfg: TrainConfig, leaves: list, spec,
             reduce(summed)
             grads = summed
         grads = jax_leaf_groups(tree_unflatten(grads, spec), model)
-        for j, ((q, r), g) in enumerate(zip(groups, grads)):
-            _, scales[j], _ = compression.ef_accumulate(q, scales[j], r, g)
+        for (q, r), g, s in zip(groups, grads, scales):
+            compression.ef_add(q, s, r, g)
         del grads
+        amaxes = torch.stack([compression.absmax(r) for _, r in groups])
+        if amax:
+            amaxes = amax(amaxes)
+        scales = [compression.scale_of(a) for a in amaxes.unbind()]
+        for (q, r), s in zip(groups, scales):
+            compression.ef_requantize(q, r, s)
         lsum = lsum + loss
     for (q, r), scale in zip(groups, scales):
         for qi, ri in zip(q, r):     # JAX's dequantize(q, s) / A
@@ -243,6 +261,17 @@ def _release(model) -> None:
     model.load(tree_map(lambda t: t.detach().to("meta"), model.tree()))
 
 
+def _aligned(tree, like) -> list:
+    """The leaves of `like` (a tree with `tree`'s keys) in `tree`'s
+    flattening order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _aligned(tree[k], like[k])]
+    if isinstance(tree, list):
+        return [x for a, b in zip(tree, like, strict=True)
+                for x in _aligned(a, b)]
+    return [like]
+
+
 def _sharded_step(model, tcfg: TrainConfig, mesh, rules):
     """The SPMD step of JAX's ``jit(make_train_step(...))`` over a state
     placed by `train_state_specs` (`sharding.placement`); see the module
@@ -250,27 +279,53 @@ def _sharded_step(model, tcfg: TrainConfig, mesh, rules):
     place = TrainPlacement(model, mesh, rules)
     axes = place.data_axes
     mesh.group(axes)       # every rank makes the data group's subgroups now
+    tp = place.tensor_parallel
+    roles = place.leaf_roles() if tp else None
 
-    def reduce(buffers: _Flat) -> None:
-        mesh.all_reduce_sum(buffers.flat, axes)
+    def parallel():
+        """Megatron compute over "model" on the blocks, or none."""
+        return (tensor_parallel.model_parallel(mesh, "model") if tp
+                else contextlib.nullcontext())
 
     def train_step(state: dict, batch: dict):
         blocks, opt = state["params"], state["opt"]
-        model.load(place.gather_params(blocks))
+        with parallel():
+            model.load(blocks if tp else place.gather_params(blocks))
         leaves, spec = tree_flatten(_trainable(model))
         batches = _micro(batch, tcfg.accum_steps)
         counts = mesh.all_reduce_sum(torch.stack([
             mb["mask"].to(leaves[0].device).float().sum()
             for mb in batches]), axes)
-        with global_routing(mesh, axes):
+        kinds = _aligned(model.tree(), roles) if tp else None
+        partial = [i for i, r in enumerate(kinds or ()) if r == "partial"]
+
+        def reduce(buffers: _Flat) -> None:
+            if partial:
+                shares = torch.cat([buffers[i].view(-1) for i in partial])
+                mesh.all_reduce_sum(shares, "model")
+                for i, s in zip(partial, shares.split(
+                        [buffers[i].numel() for i in partial])):
+                    buffers[i].copy_(s.view_as(buffers[i]))
+            mesh.all_reduce_sum(buffers.flat, axes)
+
+        def amax(v):
+            return mesh.all_reduce_max(v, "model")
+
+        with global_routing(mesh, axes), parallel():
             share, grads = _accumulated(model, tcfg, leaves, spec, batches,
-                                        counts, reduce)
+                                        counts, reduce, amax if tp else None)
+        gnorm = None
+        if tp:
+            gnorm = adamw.global_norm(
+                grads, [r == "block" for r in kinds],
+                lambda x: mesh.all_reduce_sum(x, "model"))
         grads = tree_unflatten(grads, spec)
         step, metrics = adamw.update_regions(
             tcfg.opt, grads, place.regions(blocks, grads, opt["m"],
-                                           opt["v"]), opt["step"])
+                                           opt["v"]), opt["step"], gnorm)
         place.rebuild(blocks)
-        _release(model)
+        with parallel():
+            _release(model)
         loss = mesh.all_reduce_sum(share, axes)
         return ({"params": blocks, "opt": {"m": opt["m"], "v": opt["v"],
                                            "step": step}},

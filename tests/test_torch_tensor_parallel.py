@@ -1,0 +1,412 @@
+"""Megatron compute over "model" (`sharding.tensor_parallel`, the pair of
+sums `core.mesh.Mesh.reduce_from` / `copy_to`, and the tensor-parallel
+paths of `models.attention.gqa_forward`, `models.common.glu_mlp` / `mlp`
+and `models.transformer`) against the port's unsharded functions, on the
+CPU.  The sharded train step that runs them is held against the
+single-process step and JAX's SPMD step in tests/test_torch_train_sharded.py.
+
+One gloo world of 2 CPU processes, a (data 1, model 2) mesh, runs every
+case once on numpy inputs drawn from a seed; each rank holds the blocks its
+specs give it.  Tolerances:
+  * exact: `reduce_from` forward (the float32 sum of the two ranks' values;
+    in bf16 that sum rounded once) and backward (the identity), `copy_to`
+    forward (the identity) and backward (the float32 sum); the
+    vocab-parallel embedding and its weight's gradient against
+    `F.embedding`'s, in float32 and bf16; the cross entropy's value the same
+    on both ranks; in bf16, `row`'s product and `column`'s input gradient
+    as the two ranks' float32 partials summed and rounded once, and their
+    other gradients as the plain bf16 products;
+  * the vocab-parallel chunked cross entropy (a 0.8 mask, with and without
+    `mask_count`) against `common.chunked_cross_entropy`: the value within
+    rtol 1e-6 (measured 0), the gradients of the hidden states and of the
+    head's block within 1e-6 x their largest |value| (float32 sums in
+    another order; measured at most 1.4e-7);
+  * one layer, column- then row-parallel, against the unsharded `layer_fwd`
+    for GQA (tinyllama), MQA (gemma) and sliding-window attention (danube):
+    the output and every gradient (the input's, each block's, and the sum
+    of the two ranks' shares of MQA's replicated wk and wv) within 1e-5 x
+    their largest |value| (measured at most 6.5e-7).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from repro_torch.checkpointing.elastic import _block
+from repro_torch.configs import ARCH_IDS, get_arch
+from repro_torch.core.mesh import Mesh, ShapeMesh
+from repro_torch.launch.mesh import run_spmd
+from repro_torch.models import build_model
+from repro_torch.models.common import chunked_cross_entropy, init_params
+from repro_torch.models.transformer import layer_fwd, layer_layout
+from repro_torch.sharding import tensor_parallel as tp
+from repro_torch.sharding.rules import (SINGLE_POD_RULES,
+                                        spec_tree_from_layout)
+
+torch.set_num_threads(1)
+
+#: the layer cases: GQA, MQA, sliding window
+LAYER_ARCHS = ("tinyllama_1_1b", "gemma_2b", "h2o_danube_3_4b")
+V, D = 24, 8                 # the embedding's and the loss's vocab and width
+B, S, CHUNK = 2, 16, 8
+
+
+def _layer_cfg(arch):
+    return dataclasses.replace(get_arch(arch).SMOKE, dtype=torch.float32)
+
+
+def _inputs() -> dict:
+    rng = np.random.default_rng(7)
+    x = {"sum_x": rng.standard_normal((2, 5, 7), dtype=np.float32),
+         "sum_g": rng.standard_normal((2, 5, 7), dtype=np.float32),
+         "table": rng.standard_normal((V, D), dtype=np.float32),
+         "tokens": rng.permutation(np.arange(3 * V) % V).reshape(3, V),
+         "emb_g": rng.standard_normal((3, V, D), dtype=np.float32),
+         "hidden": rng.standard_normal((B, S, D), dtype=np.float32),
+         "head": rng.standard_normal((D, V), dtype=np.float32) / 3,
+         "targets": rng.integers(0, V, (B, S)),
+         "mask": (rng.random((B, S)) < 0.8).astype(np.float32),
+         "mm_x": rng.standard_normal((2, 3, 5, 16), dtype=np.float32),
+         "mm_w": rng.standard_normal((2, 16, 8), dtype=np.float32),
+         "mm_g": rng.standard_normal((3, 5, 8), dtype=np.float32),
+         "mm_h": rng.standard_normal((3, 5, 8), dtype=np.float32),
+         "mm_gc": rng.standard_normal((2, 3, 5, 16), dtype=np.float32)}
+    for arch in LAYER_ARCHS:
+        cfg = _layer_cfg(arch)
+        g = torch.Generator().manual_seed(11)
+        x[f"{arch}/lp"] = init_params(layer_layout(cfg), torch.float32,
+                                      generator=g)
+        x[f"{arch}/x"] = rng.standard_normal((B, S, cfg.d_model),
+                                             dtype=np.float32)
+        x[f"{arch}/g"] = rng.standard_normal((B, S, cfg.d_model),
+                                             dtype=np.float32)
+    return x
+
+
+def _t(a, grad=False):
+    return torch.from_numpy(np.array(a)).requires_grad_(grad)
+
+
+def _specs(cfg):
+    return spec_tree_from_layout(SINGLE_POD_RULES, layer_layout(cfg))
+
+
+def _cut(tree, specs, mesh):
+    """This rank's blocks of a layer's weights, as trainable copies."""
+    if isinstance(tree, dict):
+        return {k: _cut(v, specs[k], mesh) for k, v in tree.items()}
+    return _block(tree, mesh, specs).clone().requires_grad_(True)
+
+
+def _grads(tree):
+    if isinstance(tree, dict):
+        return {k: _grads(v) for k, v in tree.items()}
+    return tree.grad.numpy()
+
+
+def _world(device, x):
+    """One rank of the world of 2: every case; every rank's results."""
+    mesh = Mesh((1, 2), ("data", "model"))
+    r = mesh.coord["model"]
+    out = {"rank": r}
+
+    a = _t(x["sum_x"][r], True)
+    y = mesh.reduce_from(a, "model")
+    y.backward(_t(x["sum_g"][r]))
+    out["reduce_from"] = (y.detach().numpy(), a.grad.numpy())
+    out["reduce_from_bf16"] = mesh.reduce_from(
+        a.detach().bfloat16(), "model").float().numpy()
+    a = _t(x["sum_x"][r], True)
+    y = mesh.copy_to(a, "model")
+    y.backward(_t(x["sum_g"][r]))
+    out["copy_to"] = (y.detach().numpy(), a.grad.numpy())
+
+    rows = V // 2
+    tokens = _t(x["tokens"])
+    with tp.model_parallel(mesh, "model"):
+        h = _t(x["mm_x"][r]).bfloat16().requires_grad_(True)
+        w = _t(x["mm_w"][r]).bfloat16().requires_grad_(True)
+        y = tp.row(h, w)
+        y.backward(_t(x["mm_g"]).bfloat16())
+        out["row_bf16"] = (y.detach().float().numpy(),
+                           h.grad.float().numpy(), w.grad.float().numpy())
+        h = _t(x["mm_h"]).bfloat16().requires_grad_(True)
+        ws = [_t(x["mm_w"][r].T).bfloat16().requires_grad_(True),
+              _t(x["mm_w"][1 - r].T).bfloat16().requires_grad_(True)]
+        ys = tp.column(h, *ws)
+        torch.autograd.backward(ys, [_t(g).bfloat16() for g in x["mm_gc"]])
+        out["column_bf16"] = ([y.detach().float().numpy() for y in ys],
+                              h.grad.float().numpy(),
+                              [w.grad.float().numpy() for w in ws])
+        for dtype in (torch.float32, torch.bfloat16):
+            table = _t(x["table"][r * rows:(r + 1) * rows]).to(dtype)
+            table.requires_grad_(True)
+            e = tp.embedding(tokens, table)
+            e.backward(_t(x["emb_g"]).to(dtype))
+            out[f"embedding/{dtype}"] = (e.detach().float().numpy(),
+                                         table.grad.float().numpy())
+
+        for count in (None, float(x["mask"].sum()) + 3):
+            h = _t(x["hidden"], True)
+            head = _t(x["head"][:, r * rows:(r + 1) * rows], True)
+            loss = tp.chunked_cross_entropy(
+                h, head, _t(x["targets"]), _t(x["mask"]), chunk=CHUNK,
+                mask_count=None if count is None else torch.tensor(count))
+            loss.backward()
+            out[f"ce/{count}"] = (loss.item(), h.grad.numpy(),
+                                  head.grad.numpy())
+
+        for arch in LAYER_ARCHS:
+            cfg = _layer_cfg(arch)
+            blocks = _cut(x[f"{arch}/lp"], _specs(cfg), mesh)
+            h = _t(x[f"{arch}/x"], True)
+            y, _, _ = layer_fwd(cfg, blocks, h, torch.arange(S))
+            y.backward(_t(x[f"{arch}/g"]))
+            out[f"layer/{arch}"] = (y.detach().numpy(), h.grad.numpy(),
+                                    _grads(blocks))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, out)
+    return every
+
+
+@pytest.fixture(scope="module")
+def results():
+    x = _inputs()
+    world = run_spmd(_world, 2, device="cpu", args=(x,), timeout_s=300)
+    return x, sorted(world, key=lambda w: w["rank"])
+
+
+def _close(a, b, tol):
+    """max |a - b| within `tol` x max |b|."""
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    assert np.abs(a - b).max() <= tol * np.abs(b).max(), \
+        np.abs(a - b).max() / np.abs(b).max()
+
+
+# ---------------------------------------------------------------------------
+# the pair of sums
+# ---------------------------------------------------------------------------
+
+def test_reduce_from_sums_forward_and_passes_gradients_through(results):
+    x, world = results
+    total = x["sum_x"][0] + x["sum_x"][1]
+    for r, w in enumerate(world):
+        y, grad = w["reduce_from"]
+        assert np.array_equal(y, total)
+        assert np.array_equal(grad, x["sum_g"][r])
+        want = (torch.from_numpy(x["sum_x"][0]).bfloat16().float()
+                + torch.from_numpy(x["sum_x"][1]).bfloat16().float())
+        assert np.array_equal(w["reduce_from_bf16"],
+                              want.bfloat16().float().numpy())
+
+
+def test_copy_to_passes_forward_and_sums_gradients(results):
+    x, world = results
+    for r, w in enumerate(world):
+        y, grad = w["copy_to"]
+        assert np.array_equal(y, x["sum_x"][r])
+        assert np.array_equal(grad, x["sum_g"][0] + x["sum_g"][1])
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a)).bfloat16()
+
+
+def test_bf16_row_parallel_product_is_rounded_once(results):
+    """`row` on bf16 blocks: the two ranks' float32 products of the bf16
+    operands summed in float32 and rounded once to bf16, bitwise; the
+    gradients are the plain bf16 products of the rank's blocks."""
+    x, world = results
+    want = sum(_bf16(x["mm_x"][r]).float().reshape(-1, 16)
+               @ _bf16(x["mm_w"][r]).float() for r in range(2))
+    g = _bf16(x["mm_g"]).reshape(-1, 8)
+    for r, w in enumerate(world):
+        y, gx, gw = w["row_bf16"]
+        assert np.array_equal(y.reshape(-1, 8),
+                              want.bfloat16().float().numpy())
+        assert np.array_equal(gx.reshape(-1, 16), (g @ _bf16(
+            x["mm_w"][r]).t()).float().numpy())
+        assert np.array_equal(gw, (_bf16(x["mm_x"][r]).reshape(-1, 16).t()
+                                   @ g).float().numpy())
+
+
+def test_bf16_column_parallel_gradient_is_rounded_once(results):
+    """`column` on bf16 blocks: the plain products forward; the input's
+    gradient is every product's float32 share on both ranks summed in
+    float32 and rounded once to bf16, bitwise."""
+    x, world = results
+    h = _bf16(x["mm_h"]).reshape(-1, 8)
+    gs = [_bf16(g).reshape(-1, 16) for g in x["mm_gc"]]
+    shares = [sum(g.float() @ _bf16(x["mm_w"][(r + i) % 2]).float()
+                  for i, g in enumerate(gs)) for r in range(2)]
+    want = (shares[0] + shares[1]).bfloat16().float().numpy()
+    for r, w in enumerate(world):
+        ys, gx, gws = w["column_bf16"]
+        for i, (y, g) in enumerate(zip(ys, gs)):
+            wt = _bf16(x["mm_w"][(r + i) % 2].T)
+            assert np.array_equal(y.reshape(-1, 16), (h @ wt).float().numpy())
+            assert np.array_equal(gws[i], (h.t() @ g).float().numpy())
+        assert np.array_equal(gx.reshape(-1, 8), want)
+
+
+# ---------------------------------------------------------------------------
+# vocab-parallel embedding and cross entropy
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vocab_parallel_embedding_is_the_lookup(results, dtype):
+    """Bitwise `F.embedding` of the whole table, and each rank's weight
+    gradient is its rows of the whole table's."""
+    x, world = results
+    table = torch.from_numpy(x["table"]).to(dtype).requires_grad_(True)
+    e = F.embedding(torch.from_numpy(x["tokens"]), table)
+    e.backward(torch.from_numpy(x["emb_g"]).to(dtype))
+    rows = V // 2
+    for r, w in enumerate(world):
+        got, grad = w[f"embedding/{dtype}"]
+        assert np.array_equal(got, e.detach().float().numpy())
+        assert np.array_equal(
+            grad, table.grad[r * rows:(r + 1) * rows].float().numpy())
+
+
+@pytest.mark.parametrize("count", ["none", "global"])
+def test_vocab_parallel_cross_entropy(results, count):
+    """Value and gradients against `chunked_cross_entropy` on the whole
+    head (module docstring); both ranks report the same value."""
+    x, world = results
+    mc = None if count == "none" else float(x["mask"].sum()) + 3
+    h = torch.from_numpy(x["hidden"]).requires_grad_(True)
+    head = torch.from_numpy(x["head"]).requires_grad_(True)
+    loss = chunked_cross_entropy(
+        h, head, torch.from_numpy(x["targets"]), torch.from_numpy(x["mask"]),
+        chunk=CHUNK, mask_count=None if mc is None else torch.tensor(mc))
+    loss.backward()
+    rows = V // 2
+    values = {w[f"ce/{mc}"][0] for w in world}
+    assert len(values) == 1
+    np.testing.assert_allclose(values.pop(), loss.item(), rtol=1e-6)
+    for r, w in enumerate(world):
+        _, gh, ghead = w[f"ce/{mc}"]
+        _close(gh, h.grad.numpy(), 1e-6)
+        _close(ghead, head.grad[:, r * rows:(r + 1) * rows].numpy(), 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# one layer, column- then row-parallel
+# ---------------------------------------------------------------------------
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("arch", LAYER_ARCHS)
+def test_tensor_parallel_layer_matches_layer_fwd(results, arch):
+    """The output, the input's gradient and each rank's gradient of its
+    blocks against the unsharded layer's (each block of the whole
+    gradient; MQA's replicated wk and wv: the two ranks' shares sum to
+    it), within 1e-5 x the largest |value|."""
+    x, world = results
+    cfg = _layer_cfg(arch)
+    lp = {k: v.clone().requires_grad_(True)
+          for k, v in _leaves(x[f"{arch}/lp"]).items()}
+    tree = {}
+    for k, v in lp.items():
+        node = tree
+        *path, last = k.strip("/").split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = v
+    h = torch.from_numpy(x[f"{arch}/x"]).requires_grad_(True)
+    y, _, _ = layer_fwd(cfg, tree, h, torch.arange(S))
+    y.backward(torch.from_numpy(x[f"{arch}/g"]))
+    specs = _leaves(_specs(cfg))
+    shares = {}
+    for r, w in enumerate(world):
+        out, gx, grads = w[f"layer/{arch}"]
+        _close(out, y.detach().numpy(), 1e-5)
+        _close(gx, h.grad.numpy(), 1e-5)
+        mesh = ShapeMesh((1, 2), ("data", "model"))
+        mesh.coord = {"data": 0, "model": r}
+        for k, g in _leaves(grads).items():
+            whole = lp[k].grad
+            if "model" in tuple(specs[k]):
+                _close(g, _block(whole, mesh, specs[k]).numpy(), 1e-5)
+            elif k.endswith(("/wk", "/wv")):
+                shares[k] = shares.get(k, 0) + g
+            else:
+                _close(g, whole.numpy(), 1e-5)
+    if cfg.num_kv_heads == 1:
+        assert set(shares) == {"/attn/wk", "/attn/wv"}
+        for k, g in shares.items():
+            _close(g, lp[k].grad.numpy(), 1e-5)
+            assert not np.allclose(world[0][f"layer/{arch}"][2]["attn"][
+                k.rsplit("/", 1)[1]], g)
+    else:
+        assert not shares
+
+
+# ---------------------------------------------------------------------------
+# without a world
+# ---------------------------------------------------------------------------
+
+def test_dense_family():
+    """The configs that run Megatron compute in the sharded train step."""
+    dense = {a for a in ARCH_IDS if tp.is_dense(build_model(get_arch(a).SMOKE))}
+    assert dense == {"tinyllama_1_1b", "gemma_2b", "granite_8b",
+                     "h2o_danube_3_4b", "hubert_xlarge", "llava_next_34b"}
+
+
+@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "gemma_2b",
+                                  "hubert_xlarge"])
+def test_local_config_divides_heads_ff_and_vocab(arch):
+    cfg = get_arch(arch).CONFIG
+    local = tp.local_config(cfg, 2)
+    assert local.num_heads * 2 == cfg.num_heads
+    assert local.num_kv_heads == (1 if cfg.num_kv_heads == 1
+                                  else cfg.num_kv_heads // 2)
+    assert (local.d_ff * 2, local.vocab * 2) == (cfg.d_ff, cfg.vocab)
+    assert local.hd == cfg.hd
+    assert tp.local_config(cfg, 1) is cfg
+    with pytest.raises(ValueError, match="does not split"):
+        tp.local_config(cfg, 3)
+
+
+def test_outside_the_context_nothing_changes():
+    x, w = torch.randn(2, 3), torch.randn(3, 4)
+    assert torch.equal(tp.row(x, w), x @ w)
+    assert all(torch.equal(y, x @ w) for y in tp.column(x, w, w))
+    assert (tp.parts(), tp.index(), tp.active()) == (1, 0, False)
+    table = torch.randn(V, D)
+    tokens = torch.arange(V).reshape(2, -1)
+    assert torch.equal(tp.embedding(tokens, table), F.embedding(tokens,
+                                                                 table))
+
+
+def test_load_refuses_shapes_of_neither_layout():
+    """`load` takes the whole layout, and a rank's blocks only under the
+    context (a stand-in mesh of 2 model ranks)."""
+    cfg = _layer_cfg("tinyllama_1_1b")
+    model = build_model(cfg).init(device="cpu")
+    whole = model.tree()
+    mesh = ShapeMesh((1, 2), ("data", "model"))
+    mesh.coord = {"data": 0, "model": 1}
+    half = tp.local_config(cfg, 2)
+    blocks = build_model(half).init(device="cpu").tree()
+    with pytest.raises(ValueError, match="match neither"):
+        model.load(blocks)
+    with tp.model_parallel(mesh, "model"):
+        model.load(blocks)
+        model.load(whole)
+        wrong = dict(whole, head=whole["head"][:, :3])
+        with pytest.raises(ValueError, match="blocks among 2"):
+            model.load(wrong)
