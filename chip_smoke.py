@@ -283,8 +283,9 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      rank mask counts differ), each rank's rows from `shard_rows`, the
      state placed by `shard_train_state` and gathered back, against the
      single-process step on the card from the same weights and batch: the
-     four gaps of 16a within `SHARD_TRAIN_TOL` (the dense family runs
-     Megatron compute over "model", `sharding.tensor_parallel`); (b)
+     four gaps of 16a within `SHARD_TRAIN_TOL` (the transformer family,
+     MoE and MLA included, runs Megatron compute over "model",
+     `sharding.tensor_parallel`); (b)
      tinyllama-1.1b whole (22 layers, bf16, tensor-parallel) on (data 2,
      model 2), 4 ranks sharing the card, at
      S = 2048, a global batch of 4 (one row a data rank a microbatch) at
@@ -299,7 +300,12 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      1.5x the bf16 single-process step's own gaps from it (at least
      2.4e-7; the gaps to the bf16 single-process step printed too), each
      rank's bytes at rest against the specs' share (`SHARD_REST_SLACK`
-     above it fails) and each rank's peak.
+     above it fails) and each rank's peak; (c) the same for
+     moonshot-v1-16b-a3b at full width (64 experts top-6, vocab 163 840,
+     bf16), tensor- and expert-parallel (32 experts a rank) at
+     `SHARD_MOE_LAYERS` of its 48 layers, its block matrices rescaled to
+     std 1/sqrt(d_in): a warm-up step and 2 timed, the plan printed at
+     one layer more too.
 
 The line before the last is a JSON object with one entry per kernel (the
 `resources` object just before it); the last line is {"ok": true,
@@ -3265,8 +3271,9 @@ def free_card() -> None:
 def fan_in_weights(model) -> str:
     """Scale each of the model's block matrices in place from the std JAX's
     init draws a stacked leaf with (1/sqrt(units), or 1/sqrt(layers) for a
-    transformer's stack) to 1/sqrt(its d_in).  Returns a label for the
-    printed line."""
+    transformer's stack) to 1/sqrt(its d_in) (the next-to-last axis: a
+    matrix's rows, or each expert's of MoE's (E, d_in, d_out) stack).
+    Returns a label for the printed line."""
     import math
     if hasattr(model, "blocks"):
         n_stack, blocks = model.n_units, model.blocks
@@ -3276,7 +3283,7 @@ def fan_in_weights(model) -> str:
         for block in blocks:
             for p in block.parameters():
                 if p.dim() >= 2:
-                    p.mul_(math.sqrt(n_stack / p.shape[0]))
+                    p.mul_(math.sqrt(n_stack / p.shape[-2]))
     return "block matrices rescaled to std 1/sqrt(d_in)"
 
 
@@ -4166,6 +4173,21 @@ SHARD_MAIN_CELL = (4096, 256)
 #: first step on, the same after every step (not the training state); a
 #: whole copy of the weights would add 2.05 GiB
 SHARD_REST_SLACK = 512 * 2**20
+#: 17b / 17c: the steps each runs (the first a warm-up, the others timed)
+SHARD_STEPS = {"17b": 4, "17c": 3}
+#: 17c: moonshot-v1-16b-a3b at full width (bf16), tensor- and
+#: expert-parallel on SHARD_MAIN's mesh, rows, accum_steps and S, at this
+#: many of its 48 layers, its block matrices rescaled to std 1/sqrt(d_in)
+#: (`fan_in_weights`: JAX's init draws a 3-layer stack at std 1/sqrt(3),
+#: where a probe at 2 layers (std 1/sqrt(2)) gave grad_norms of 3042 in
+#: float32, 3386 in bf16 and 2222 tensor-parallel, so no yardstick holds).
+#: The cut, by the plan printed in the run: four ranks hold about 6 bytes
+#: a parameter each in a step (blocks, float32 sums, bf16 gradients)
+#: beside their activations and contexts; a probe (NVIDIA H100 80GB HBM3,
+#: 700.00 W) planned 60.00 GiB at 3 layers and 72.75 GiB at 4, of 75.35
+#: GiB free (0.85 of it: 64.05); the float32 single-process reference
+#: (about 22 bytes a parameter) peaked at 50.99 GiB at 3 layers
+SHARD_MOE_LAYERS = 3
 
 
 def card_settings() -> None:
@@ -4261,7 +4283,7 @@ def shard_parity(dev, card: str) -> dict[str, int]:
     test meshes."""
     from repro_torch.launch.mesh import run_spmd
     from repro_torch.models.convert import train_state_to_numpy
-    from repro_torch.sharding.tensor_parallel import is_dense
+    from repro_torch.sharding.tensor_parallel import computes_on_blocks
     from repro_torch.train import make_train_step
 
     t0 = time.perf_counter()
@@ -4272,7 +4294,7 @@ def shard_parity(dev, card: str) -> dict[str, int]:
     refs, dense = {}, set()
     for arch, compress in shard_cases():
         model, state = shard_parity_init(dev, arch)
-        if is_dense(model):
+        if computes_on_blocks(model):
             dense.add(arch)
         state, met = make_train_step(model, shard_parity_tcfg(compress))(
             state, {k: torch.from_numpy(v).to(dev)
@@ -4340,33 +4362,53 @@ def spec_share_bytes(model, mesh, rules) -> int:
     return walk(abstract_train_state(model), specs)
 
 
-def shard_main_world(dev, batches: list) -> list:
-    """17b in one rank of the world of 4: tinyllama-1.1b whole, a warm-up
-    step and 3 timed ones; every rank's readings, gathered."""
+def seeded_shards(dev, model, mesh, rules, rescale: bool) -> dict:
+    """This rank's blocks of the train state `init_train_state` makes from
+    TRAIN_SEED (its block matrices through `fan_in_weights` if `rescale`):
+    the weights drawn whole on the card, the zero moments never made whole
+    (cut from an expanded zero, each block a copy)."""
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.sharding.placement import shard_train_state
+
+    model.init(torch.Generator(device=dev).manual_seed(TRAIN_SEED),
+               device=dev)
+    if rescale:
+        fan_in_weights(model)
+    params = model.tree()
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    moments = [tree_map(lambda p: zero.expand(p.shape), params)
+               for _ in range(2)]
+    state = shard_train_state({"params": params, "opt": {
+        "m": moments[0], "v": moments[1],
+        "step": torch.zeros((), dtype=torch.int32, device=dev)}},
+        model, mesh, rules)
+    model.load(tree_map(lambda t: t.to("meta"), params))
+    return state
+
+
+def shard_main_world(dev, cfg, rescale: bool, batches: list) -> list:
+    """17b / 17c in one rank of the world of 4: the model of `cfg`, a
+    warm-up step and timed ones, one a batch; every rank's readings,
+    gathered."""
     import torch.distributed as dist
 
     from repro_torch import kernels
-    from repro_torch.configs import get_arch
     from repro_torch.core.mesh import Mesh, axes_of
     from repro_torch.data.pipeline import shard_rows
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig
-    from repro_torch.sharding.placement import (data_axes,
-                                                shard_train_state,
-                                                state_bytes)
+    from repro_torch.sharding.placement import data_axes, state_bytes
     from repro_torch.sharding.rules import SINGLE_POD_RULES as rules
-    from repro_torch.train import (TrainConfig, init_train_state,
-                                   make_train_step)
+    from repro_torch.train import TrainConfig, make_train_step
 
     card_settings()
     kernels.reset_launches()
     shape, _, A, _ = SHARD_MAIN
     mesh = Mesh(shape, ("data", "model"))
-    model = build_model(get_arch("tinyllama_1_1b").CONFIG)
+    model = build_model(cfg)
     t0 = time.perf_counter()
-    state = shard_train_state(init_train_state(
-        model, torch.Generator(device=dev).manual_seed(TRAIN_SEED),
-        device=dev), model, mesh, rules)
+    state = seeded_shards(dev, model, mesh, rules, rescale)
     free_card()
     t_init = time.perf_counter() - t0
     rows = shard_rows(len(batches[0]["tokens"]), mesh, A,
@@ -4424,22 +4466,23 @@ def shard_main_world(dev, batches: list) -> list:
     return every
 
 
-def shard_main_refs(dev, cfg, batch: dict, A: int):
-    """17b's single-process steps on the global batch from the seeded
-    weights: (the float32 step's metrics, from the bf16 weights cast to
-    float32; the bf16 step's metrics; the bf16 step's peak bytes)."""
+def shard_main_refs(dev, cfg, rescale: bool, batch: dict, A: int):
+    """17b / 17c's single-process steps on the global batch from the
+    seeded weights (`seeded_shards`'): (the float32 step's metrics, from
+    the bf16 weights cast to float32, and its peak bytes; the bf16 step's
+    metrics and its peak bytes)."""
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, adamw
-    from repro_torch.train import (TrainConfig, init_train_state,
-                                   make_train_step)
+    from repro_torch.train import TrainConfig, make_train_step
 
     tcfg = TrainConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=2,
                                        total_steps=100), accum_steps=A)
     local = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    model = build_model(cfg)
-    state = init_train_state(
-        model, torch.Generator(device=dev).manual_seed(TRAIN_SEED),
-        device=dev)
+    model = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(TRAIN_SEED), device=dev)
+    if rescale:
+        fan_in_weights(model)
+    torch.cuda.reset_peak_memory_stats()
     wide = model.cast(torch.float32)
     for p in wide.parameters():
         p.requires_grad_(True)
@@ -4447,21 +4490,30 @@ def shard_main_refs(dev, cfg, batch: dict, A: int):
         {"params": wide.tree(), "opt": adamw.init_state(wide.tree())},
         local)[1]
     ref32 = {k: float(v) for k, v in met.items()}
+    peak32 = torch.cuda.max_memory_allocated()
     del wide, met
     free_card()
     torch.cuda.reset_peak_memory_stats()
-    state, met = make_train_step(model, tcfg)(state, local)
+    for p in model.parameters():      # init_train_state's state
+        p.requires_grad_(True)
+    params = model.tree()
+    state, met = make_train_step(model, tcfg)(
+        {"params": params, "opt": adamw.init_state(params)}, local)
     ref = {k: float(v) for k, v in met.items()}
     peak = torch.cuda.max_memory_allocated()
-    del model, state, met, local
+    del model, params, state, met, local
     free_card()
-    return ref32, ref, peak
+    return ref32, peak32, ref, peak
 
 
-def shard_main(dev, card: str) -> dict[str, int]:
-    """17b: tinyllama-1.1b whole (bf16), tensor-parallel on (data 2, model
-    2), 4 ranks sharing the card, against single-process steps."""
-    from repro_torch.configs import get_arch
+def shard_main(dev, card: str, cfg, tag: str,
+               rescale: bool = False) -> dict[str, int]:
+    """17b (tinyllama-1.1b whole) and 17c (moonshot-v1-16b-a3b at full
+    width, `SHARD_MOE_LAYERS` layers, rescaled): `cfg` in bf16,
+    tensor-parallel (MoE expert-parallel) on (data 2, model 2), 4 ranks
+    sharing the card, against single-process steps."""
+    import dataclasses
+
     from repro_torch.data.pipeline import (SyntheticTokenPipeline,
                                            TokenPipelineConfig)
     from repro_torch.launch.mesh import run_spmd
@@ -4470,12 +4522,13 @@ def shard_main(dev, card: str) -> dict[str, int]:
     t0 = time.perf_counter()
     (dp, tp), rows, A, S = SHARD_MAIN
     B = dp * rows * A
-    cfg = get_arch("tinyllama_1_1b").CONFIG
+    label = f"{tag} {cfg.name}"
     pipe = SyntheticTokenPipeline(TokenPipelineConfig(
         vocab=cfg.vocab, seq_len=S, global_batch=B, seed=TRAIN_SEED))
-    batches = [pipe.batch(i) for i in range(4)]
+    batches = [pipe.batch(i) for i in range(SHARD_STEPS[tag])]
     n = build_model(cfg).param_count()
-    ref32, ref, ref_peak = shard_main_refs(dev, cfg, batches[0], A)
+    ref32, ref32_peak, ref, ref_peak = shard_main_refs(
+        dev, cfg, rescale, batches[0], A)
     # the plan: a rank holds its blocks (weights / tp, AdamW's m and v
     # / (dp tp)), and in a step the float32 sums of its blocks, a
     # microbatch's bf16 gradients of them and one row's activations, which
@@ -4483,32 +4536,57 @@ def shard_main(dev, card: str) -> dict[str, int]:
     # float32 sums and bf16 gradients) shows; activations grow with S
     held = 2 * n + 8 * n + 4 * n + 2 * n
     act_row = max(ref_peak - held, 0) / (B // A)
-    weights = 2 * n / tp + 8 * n / (dp * tp) + 4 * n / tp + 2 * n / tp
-    plan = weights + rows * act_row
+
+    def rank_plan(n, act):
+        return 2 * n / tp + 8 * n / (dp * tp) + 4 * n / tp + 2 * n / tp + act
+    plan = rank_plan(n, rows * act_row)
     free, total = torch.cuda.mem_get_info()
-    context = total - free          # this process's, as each rank's
+    # each rank's context: what this process holds beside its allocator's
+    # cache (the CUDA context, the libraries); the cache, which `free`
+    # already leaves out, stays with this process alone
+    held_here = torch.cuda.memory_reserved()
+    context = total - free - held_here
     need = dp * tp * (plan + context)
     cell_s, cell_b = SHARD_MAIN_CELL
-    plan_cell = weights + rows * act_row * cell_s / S
-    need_cell = dp * tp * (plan_cell + context)
-    print(f"train sharded 17b plan: train_4k's global batch of {cell_b} cut "
-          f"to {B} ({rows} row a data rank a microbatch, accum_steps {A}), "
-          f"its S of {cell_s} cut to {S}; single-process step on the {B} "
-          f"rows (microbatches of {B // A}): peak {ref_peak / 2**30:.3f} "
-          f"GiB, so one row's activations about {act_row / 2**30:.3f} GiB; a"
-          f" rank's peak with tensor parallelism about {plan / 2**30:.3f} "
-          f"GiB beside a context of {context / 2**30:.3f} GiB, {dp * tp} "
-          f"ranks {need / 2**30:.3f} GiB of the {free / 2**30:.2f} GiB free "
-          f"of the card's {total / 2**30:.2f} GiB; at S = {cell_s} a rank "
-          f"about {plan_cell / 2**30:.3f} GiB, {dp * tp} ranks "
-          f"{need_cell / 2**30:.3f} GiB ({'within' if need_cell <= 0.85 * free else 'over'}"
-          f" 0.85 of the free memory); {card}")
+    need_cell = dp * tp * (rank_plan(n, rows * act_row * cell_s / S)
+                           + context)
+    scaled = (", block matrices rescaled to std 1/sqrt(d_in)" if rescale
+              else "")
+    deeper = ""
+    if tag == "17c":
+        # one layer more: the ranks' plan and the float32 reference's peak
+        # grow by their bytes a parameter of the layer's parameters
+        n1 = build_model(dataclasses.replace(
+            cfg, num_layers=cfg.num_layers + 1)).param_count()
+        need1 = dp * tp * (rank_plan(n1, rows * act_row) + context)
+        deeper = (f"; at {cfg.num_layers + 1} layers ({n1} parameters) "
+                  f"{dp * tp} ranks about {need1 / 2**30:.3f} GiB and the "
+                  f"float32 reference about "
+                  f"{(ref32_peak + 22 * (n1 - n)) / 2**30:.3f} GiB")
+    print(f"train sharded {tag} plan: train_4k's global batch of {cell_b} "
+          f"cut to {B} ({rows} row a data rank a microbatch, accum_steps "
+          f"{A}), its S of {cell_s} cut to {S}; {cfg.name} at "
+          f"{cfg.num_layers} layers, {n} parameters{scaled}; "
+          f"single-process step "
+          f"on the {B} rows (microbatches of {B // A}): peak "
+          f"{ref_peak / 2**30:.3f} GiB (float32 {ref32_peak / 2**30:.3f} "
+          f"GiB), so one row's activations about {act_row / 2**30:.3f} GiB;"
+          f" a rank's peak with tensor parallelism about "
+          f"{plan / 2**30:.3f} GiB beside a context of "
+          f"{context / 2**30:.3f} GiB, {dp * tp} ranks {need / 2**30:.3f} "
+          f"GiB of the {free / 2**30:.2f} GiB free (this process's cache "
+          f"{held_here / 2**30:.3f} GiB, of it allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f}) of the card's "
+          f"{total / 2**30:.2f} GiB; at S = {cell_s} {dp * tp} ranks about "
+          f"{need_cell / 2**30:.3f} GiB ("
+          f"{'within' if need_cell <= 0.85 * free else 'over'} 0.85 of the "
+          f"free memory){deeper}; {card}")
     if need > 0.85 * free:
-        raise SystemExit("FAIL train sharded 17b: the plan does not fit the "
-                         "card; cut S")
+        raise SystemExit(f"FAIL train sharded {tag}: the plan does not fit "
+                         f"the card; cut S")
     t1 = time.perf_counter()
     every = run_spmd(shard_main_world, dp * tp, device=dev.type,
-                     backend="gloo", args=(batches,))
+                     backend="gloo", args=(cfg, rescale, batches))
     t_world = time.perf_counter() - t1
     first = every[0]["readings"][0]
 
@@ -4529,6 +4607,7 @@ def shard_main(dev, card: str) -> dict[str, int]:
     if not all(g <= b for g, b in zip(tp_gaps, bounds)):
         bad.append("the first step departs from the float32 step further "
                    "than the bf16 single-process step does")
+    timed_steps = len(every[0]["readings"]) - 1
     for w in every:
         timed = w["readings"][1:]
         step_ms = [1e3 * r[0] for r in timed]
@@ -4539,15 +4618,15 @@ def shard_main(dev, card: str) -> dict[str, int]:
             for k in sorted(timed[0][1]))
         gathers = sum(r[1].get("all_gather over model", (0, 0, 0))[1]
                       for r in w["readings"])
-        print(f"timing train sharded 17b rank {w['rank']} {w['coord']}: "
+        print(f"timing train sharded {tag} rank {w['rank']} {w['coord']}: "
               f"init and placement {w['init_s']:.1f} s; warm-up "
               f"{1e3 * w['readings'][0][0]:.1f} ms, steps "
               f"{[round(t, 1) for t in step_ms]} ms (host clock, "
               f"synchronised), {np.mean(step_ms):.1f} ms a step, "
               f"{B * S / np.mean(step_ms) * 1e3:.1f} tokens/s over the "
               f"world; in collectives {[round(x, 4) for x in share]} of "
-              f"each step ({kinds} a step; gathers over model in all 4 "
-              f"steps: {gathers}); state at rest "
+              f"each step ({kinds} a step; gathers over model in all "
+              f"{timed_steps + 1} steps: {gathers}); state at rest "
               f"{w['blocks'] / 2**30:.4f} GiB (the specs' share "
               f"{w['share'] / 2**30:.4f} GiB), allocated at rest "
               f"{w['rest'] / 2**30:.4f} GiB (after each step "
@@ -4560,32 +4639,43 @@ def shard_main(dev, card: str) -> dict[str, int]:
             bad.append(f"rank {w['rank']} holds more than its share")
         if gathers:
             bad.append(f"rank {w['rank']} gathered over model")
-    print(f"train sharded 17b tinyllama-1.1b: {cfg.num_layers} layers, bf16,"
+    print(f"train sharded {label}: {cfg.num_layers} layers, bf16,"
           f" {n} parameters, Megatron compute on (data {dp}, model {tp}); "
-          f"losses {[round(x, 4) for x in losses]} (warm-up, 3 timed), every"
-          f" one finite; first step against the float32 single-process step"
-          f" (loss {ref32['loss']:.6f}, grad_norm {ref32['grad_norm']:.4f}):"
-          f" loss {first[2]:.6f} (rel {tp_gaps[0]:.4g}), grad_norm "
-          f"{first[3]:.4f} (rel {tp_gaps[1]:.4g}); the bf16 single-process "
-          f"step's own gaps to it {bf16_gaps[0]:.4g}, {bf16_gaps[1]:.4g}, so"
-          f" bounds ({bounds[0]:.4g}, {bounds[1]:.4g}); against the bf16 "
+          f"losses {[round(x, 4) for x in losses]} (warm-up, {timed_steps} "
+          f"timed), every one finite; first step against the float32 "
+          f"single-process step (loss {ref32['loss']:.6f}, grad_norm "
+          f"{ref32['grad_norm']:.4f}): loss {first[2]:.6f} (rel "
+          f"{tp_gaps[0]:.4g}), grad_norm {first[3]:.4f} (rel "
+          f"{tp_gaps[1]:.4g}); the bf16 single-process step's own gaps to it"
+          f" {bf16_gaps[0]:.4g}, {bf16_gaps[1]:.4g}, so bounds "
+          f"({bounds[0]:.4g}, {bounds[1]:.4g}); against the bf16 "
           f"single-process step (loss {ref['loss']:.6f}, grad_norm "
           f"{ref['grad_norm']:.4f}, not held): rel {old_gaps[0]:.4g}, "
           f"{old_gaps[1]:.4g}; world of {dp * tp} {t_world:.1f} s wall "
-          f"(spawn included), phase {time.perf_counter() - t0:.1f} s; "
+          f"(spawn included), {tag} {time.perf_counter() - t0:.1f} s wall; "
           f"{card}")
     if bad:
-        raise SystemExit(f"FAIL train sharded 17b: {bad}")
+        raise SystemExit(f"FAIL train sharded {tag}: {bad}")
     return every[0]["launches"]
 
 
 def phase_train_sharded(dev, card: str) -> dict[str, int]:
     """17: sharded training; 17a parity on the two test meshes, 17b
-    tinyllama-1.1b whole on 4 ranks.  No Viterbi kernel may launch."""
+    tinyllama-1.1b whole and 17c moonshot-v1-16b-a3b at full width on 4
+    ranks.  No Viterbi kernel may launch."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
     t0 = time.perf_counter()
     launches = shard_parity(dev, card)
-    for name, k in shard_main(dev, card).items():
-        launches[name] += k
+    for tag, cfg, rescale in (
+            ("17b", get_arch("tinyllama_1_1b").CONFIG, False),
+            ("17c", dataclasses.replace(get_arch("moonshot_v1_16b_a3b")
+                                        .CONFIG,
+                                        num_layers=SHARD_MOE_LAYERS), True)):
+        for name, k in shard_main(dev, card, cfg, tag, rescale).items():
+            launches[name] += k
     check_launches("train sharded", launches, {})
     print(f"train sharded phase: {time.perf_counter() - t0:.1f} s wall; no "
           f"Viterbi kernel launched in any rank; {card}")

@@ -325,24 +325,36 @@ def gqa_prefill_cache(cfg: AttnConfig, kv, max_len: int):
 
 def _mla_inputs(params, x, positions, cfg: AttnConfig):
     """(q_nope, q_pe, c_kv, k_pe): the queries split at head_dim, rope on
-    their rope part; the normed kv latent and its roped key part."""
+    their rope part; the normed kv latent and its roped key part.  Under
+    `tensor_parallel.model_parallel` (`cfg` the rank's heads) wq_a and
+    w_dkv are replicated and wq_b the rank's heads, run column-parallel;
+    the normed and roped latent feeds only the rank's heads (through w_uk,
+    w_uv and the roped key they share), so it passes one `copy_in`, where
+    its gradient is summed over "model" (after the norm and the rope, so
+    that w_dkv's and kv_norm's gradients are whole)."""
     B, S, _ = x.shape
     h, dn, kvl = cfg.num_heads, cfg.head_dim, cfg.kv_lora
     ql = rms_norm(x @ params["wq_a"], params["q_norm"])
-    qall = (ql @ params["wq_b"]).reshape(B, S, h, dn + cfg.rope_head_dim)
+    (qall,) = tensor_parallel.column(ql, params["wq_b"])
+    qall = qall.reshape(B, S, h, dn + cfg.rope_head_dim)
     q_nope, q_pe = qall[..., :dn], qall[..., dn:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
     dkv = x @ params["w_dkv"]                       # (B, S, kvl + dr)
     c_kv = rms_norm(dkv[..., :kvl], params["kv_norm"])
     k_pe = apply_rope(dkv[..., None, kvl:], positions, cfg.rope_theta)[:, :, 0]
-    return q_nope, q_pe, c_kv, k_pe
+    lat = tensor_parallel.copy_in(torch.cat([c_kv, k_pe], dim=-1))
+    lat = lat.to(x.dtype)
+    return q_nope, q_pe, lat[..., :kvl], lat[..., kvl:]
 
 
 def mla_forward(params, x, positions, cfg: AttnConfig):
     """Full-sequence MLA (prefill): the latent expanded to keys and values
     a kv block at a time inside `blockwise_attention`.  Returns (out,
-    latent (B, S, kv_lora + rope_head_dim)), the decode cache's content."""
+    latent (B, S, kv_lora + rope_head_dim)), the decode cache's content.
+    Under `tensor_parallel.model_parallel` the weights are this rank's
+    heads (`_mla_inputs`) and wo runs row-parallel."""
     B, S, _ = x.shape
+    cfg = tensor_parallel.local_attn(cfg)
     h, dn = cfg.num_heads, cfg.head_dim
     dr, dv = cfg.rope_head_dim, (cfg.v_head_dim or cfg.head_dim)
     q_nope, q_pe, c_kv, k_pe = _mla_inputs(params, x, positions, cfg)
@@ -358,7 +370,8 @@ def mla_forward(params, x, positions, cfg: AttnConfig):
     out = _full_sequence(torch.cat([q_nope, q_pe], dim=-1), (c_kv, k_pe),
                          expand, positions, cfg, 1.0 / math.sqrt(dn + dr))
     out = out.to(x.dtype).reshape(B, S, h * dv)
-    return out @ params["wo"], torch.cat([c_kv, k_pe], dim=-1)
+    return (tensor_parallel.row(out, params["wo"]),
+            torch.cat([c_kv, k_pe], dim=-1))
 
 
 def mla_decode(params, x, cache, cfg: AttnConfig):

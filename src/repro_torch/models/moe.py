@@ -18,6 +18,13 @@ Every expert runs on its whole capacity buffer, used or not (the dense
 dispatch), so a decode step reads every expert's weights.  Shared experts
 (DeepSeek-V2) run densely beside the routed ones.
 
+Under `sharding.tensor_parallel.model_parallel` (the sharded train step)
+a rank holds its block of E / m experts and its columns of the shared
+experts' ff: every rank routes as above, runs its experts on the slots of
+the assignments routed to them, and sums each assignment's expert output
+over "model" before the combine (one rank adds a non-zero: exact); the
+shared experts run column- then row-parallel.
+
 Inside `global_routing(mesh, axes)` (the sharded train step) each rank
 holds its rows of a global batch, the ranks of `axes` in global row order,
 and a layer routes as JAX's SPMD layer routes the global batch: C from the
@@ -38,6 +45,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..sharding import tensor_parallel
 from .common import Layout, act_fn
 
 #: (mesh, axes) of the data group that routes as one batch, while
@@ -148,7 +156,7 @@ def route(probs, cfg: MoEConfig):
 def _moe_dense(params, x, cfg: MoEConfig, act: str = "silu"):
     B, S, D = x.shape
     N = B * S
-    E, K = cfg.num_experts, cfg.top_k
+    K = cfg.top_k
 
     xt = x.reshape(N, D)
     rdt = getattr(torch, cfg.router_dtype)
@@ -156,31 +164,42 @@ def _moe_dense(params, x, cfg: MoEConfig, act: str = "silu"):
     top_p, top_e, flat_e, rank, C, aux = route(probs, cfg)
     keep = rank < C
 
-    # scatter tokens into (E, C + 1, D); C is the overflow bin, cut off
-    slot = torch.where(keep, rank, C)
-    buf = torch.zeros((E, C + 1, D), dtype=xt.dtype, device=x.device)
+    # this rank's experts lo .. lo + El (all E outside Megatron compute);
+    # each kept assignment to one of them gets its slot, every other one
+    # goes to the overflow bin C, which is cut off
+    lo, El = tensor_parallel.experts(cfg.num_experts)
+    mine = keep & (flat_e >= lo) & (flat_e < lo + El)
+    local = torch.where(mine, flat_e - lo, 0)
+    slot = torch.where(mine, rank, C)
+    buf = torch.zeros((El, C + 1, D), dtype=xt.dtype, device=x.device)
     # each token's row once a slot (backward: K rows summed a token, not
-    # an indexed accumulate, which takes atomics on the card)
-    buf[flat_e, slot] = xt.repeat_interleave(K, dim=0)
+    # an indexed accumulate, which takes atomics on the card); under
+    # Megatron compute the rows come from one float32 copy of xt, whose
+    # gradient (this rank's experts' share) is summed over "model"
+    buf[local, slot] = tensor_parallel.copy_in(xt).repeat_interleave(
+        K, dim=0).to(xt.dtype)
     buf = buf[:, :C]
 
-    # expert FFN, batched over E
+    # expert FFN, batched over the rank's experts
     g = act_fn(act)(torch.bmm(buf, params["wg"]))
     h = g * torch.bmm(buf, params["wi"])
-    y = F.pad(torch.bmm(h, params["wo"]), (0, 0, 0, 1))    # (E, C + 1, D)
+    y = F.pad(torch.bmm(h, params["wo"]), (0, 0, 0, 1))    # (El, C + 1, D)
 
-    # combine: each kept assignment's output weighted by its router prob,
-    # the K slots of a token added in slot order
+    # combine: each assignment's expert output (summed over "model", where
+    # one rank holds its expert and the others add zeros), weighted by its
+    # router prob where kept, the K slots of a token added in slot order
+    ye = tensor_parallel.summed(y[local, slot])             # (N K, D)
     w = torch.where(keep, top_p.reshape(N * K), 0.0)
-    contrib = (y[flat_e, slot].float() * w[:, None]).reshape(N, K, D)
+    contrib = (ye.float() * w[:, None]).reshape(N, K, D)
     out = torch.zeros((N, D), dtype=torch.float32, device=x.device)
     for k in range(K):
         out = out + contrib[:, k]
 
     if cfg.num_shared:
         sp = params["shared"]
-        sg = act_fn(act)(xt @ sp["wg"])
-        out = out + ((sg * (xt @ sp["wi"])) @ sp["wo"]).float()
+        sg, si = tensor_parallel.column(xt, sp["wg"], sp["wi"])
+        out = out + tensor_parallel.row(act_fn(act)(sg) * si,
+                                        sp["wo"]).float()
 
     return out.to(x.dtype).reshape(B, S, D), aux
 

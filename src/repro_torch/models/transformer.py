@@ -345,7 +345,7 @@ class TransformerLM(nn.Module):
         """Take the weights of `tree`: JAX's parameter names, with
         ``tree["layers"]`` a list of one nested dict a layer, each shaped as
         the whole layout or, under `tensor_parallel.model_parallel`, as a
-        rank's blocks (`tensor_parallel.local_config`); ValueError
+        rank's blocks (`tensor_parallel.block_layout`); ValueError
         otherwise."""
         if len(tree["layers"]) != self.cfg.num_layers:
             raise ValueError(f"{len(tree['layers'])} layers given, "
@@ -359,15 +359,12 @@ class TransformerLM(nn.Module):
         return self
 
     def _check_shapes(self, tree: dict) -> None:
-        def shapes(cfg):
-            lay = model_layout(dataclasses.replace(cfg, scan_layers=False))
-            lay["layers"] = list(lay["layers"].values())
-            return _shape_tree(lay)
+        lay = model_layout(dataclasses.replace(self.cfg, scan_layers=False))
+        lay["layers"] = list(lay["layers"].values())
         got = _shape_tree(tree)
-        whole = shapes(self.cfg)
         m = tensor_parallel.parts()
-        if got != whole and (m == 1 or got != shapes(
-                tensor_parallel.local_config(self.cfg, m))):
+        if got != _shape_tree(lay) and (m == 1 or got != _shape_tree(
+                tensor_parallel.block_layout(lay, m))):
             where = f" or a rank's blocks among {m}" if m > 1 else ""
             raise ValueError(f"the weights' shapes match neither "
                              f"{self.cfg.name}'s layout{where}")

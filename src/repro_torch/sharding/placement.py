@@ -17,16 +17,17 @@ gives the same blocks in JAX's layout.
 Cutting needs only the mesh's shape and this rank's coordinates (a
 `core.mesh.ShapeMesh` with ``coord`` set will do); gathering and ZeRO-1's
 rebuild run `Mesh.all_gather`.  The sharded train step
-(`train.make_train_step(..., mesh=)`) is the reader.  For the dense
-transformer family (`tensor_parallel.is_dense`) it computes on the rank's
-blocks (Megatron compute over "model"), so its gradients are blocks too:
+(`train.make_train_step(..., mesh=)`) is the reader.  For the
+transformer family (`tensor_parallel.computes_on_blocks`: dense, MoE and
+MLA) it computes on the rank's blocks (Megatron compute over "model"), so
+its gradients are blocks too:
 `regions` cuts them over the data axes only, as the weights' blocks, and
 `leaf_roles` says which gradients are blocks, which are whole and which are
-a rank's share of a replicated leaf.  For the other families it gathers
-each weight over the axes its spec shards and computes on whole weights,
-replicated over "model".  Either way it updates the region of each leaf
-that the rank's moments cover and rebuilds the weights' blocks over the
-data axes.
+a rank's share of a replicated leaf.  For the other families (Griffin,
+xLSTM) it gathers each weight over the axes its spec shards and computes
+on whole weights, replicated over "model".  Either way it updates the
+region of each leaf that the rank's moments cover and rebuilds the
+weights' blocks over the data axes.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from ..checkpointing.elastic import _block
 from ..core.mesh import axes_of
 from ..models.convert import jax_pieces, port_layout
 from .rules import SINGLE_POD_RULES
-from .tensor_parallel import is_dense
+from .tensor_parallel import computes_on_blocks
 
 
 def data_axes(rules, mesh) -> tuple[str, ...]:
@@ -91,7 +92,8 @@ class TrainPlacement:
                                   mesh.axis_size(self.data_axes))
         self.pspecs, self.mspecs = specs["params"], specs["opt"]["m"]
         #: whether the step computes on the blocks (Megatron over "model")
-        self.tensor_parallel = is_dense(model) and "model" in mesh.shape
+        self.tensor_parallel = (computes_on_blocks(model)
+                                and "model" in mesh.shape)
 
     def _is_data(self, ax) -> bool:
         return ax is not None and axes_of(ax) == self.data_axes
@@ -203,9 +205,12 @@ class TrainPlacement:
     def leaf_roles(self) -> dict:
         """Under Megatron compute, each weight's gradient on a rank, in the
         port's layout: "block" (the rank's block of a leaf its spec shards
-        over "model"), "partial" (a replicated leaf that the rank's heads
-        alone read, so its gradient is the rank's share: MQA's single kv
-        head's wk and wv) or "whole" (the norms)."""
+        over "model": heads, ff, vocab, MoE's experts and shared experts,
+        MLA's wq_b, w_uk, w_uv and wo), "partial" (a replicated leaf that
+        the rank's heads alone read, so its gradient is the rank's share:
+        MQA's single kv head's wk and wv) or "whole" (the norms, MoE's
+        router, MLA's wq_a and w_dkv, whose products' gradients are summed
+        over "model" inside the layer)."""
         mqa = self.model.cfg.num_kv_heads == 1
 
         def role(path, x, spec):

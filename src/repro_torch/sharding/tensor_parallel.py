@@ -1,6 +1,6 @@
 """Megatron compute over the "model" axis of a mesh: what XLA's partitioner
-does for JAX's SPMD train step under `sharding.rules` (heads, kv heads, ff
-and vocab over "model"), written out for the dense transformer family.
+does for JAX's SPMD train step under `sharding.rules` (heads, kv heads, ff,
+vocab and experts over "model"), written out for the transformer family.
 
 While `model_parallel(mesh, axis)` is active, each rank computes on the
 blocks its specs give it:
@@ -21,15 +21,25 @@ blocks its specs give it:
     chunk's logits are the rank's head columns, the log-normaliser comes
     from a max and a sum of exponentials over the axis, the gold logit from
     a masked local gather summed over it, and backward is the local softmax
-    minus the local one-hot; no full-vocabulary tensor is formed.
+    minus the local one-hot; no full-vocabulary tensor is formed;
+  * MoE is expert-parallel (`models.moe`): every rank routes the whole
+    batch to all E experts as one process does, dispatches locally the
+    assignments routed to its own experts (`experts`), and the combine
+    sums each assignment's expert output over the axis (`summed`: one
+    rank adds a non-zero, so the sum is exact) before JAX's weighted
+    combine; no all-to-all, as the batch is split over the data axes
+    only.  MLA runs its heads as GQA does, its normed and roped latent
+    behind one `copy_in`.
 Outside it every function here is the identity or its unsharded
 counterpart, so serving runs the same layer code.
 
 The context is a module global, as `models.moe.global_routing` is, and not
 a context variable: layers recomputed in backward run on autograd's own
 threads.  The ranks of the axis issue their collectives in one order, as
-they run the same graph.  `is_dense` names the configs that run so; the
-others keep the sharded step's gather and replicated compute.
+they run the same graph.  `computes_on_blocks` names the configs that run
+so; the others (Griffin, xLSTM) keep the sharded step's gather and
+replicated compute.  `block_layout` is the one rule for a rank's block
+shapes.
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .rules import SINGLE_POD_RULES
+
 #: (mesh, axis) of the model-parallel group while `model_parallel` is
 #: active (a module global, not a context variable: see the docstring)
 _GROUP = None
@@ -48,8 +60,8 @@ _GROUP = None
 
 @contextlib.contextmanager
 def model_parallel(mesh, axis: str = "model"):
-    """Run every dense layer, embedding and loss inside the block (their
-    recomputation in backward included) on this rank's blocks along
+    """Run every transformer layer, embedding and loss inside the block
+    (their recomputation in backward included) on this rank's blocks along
     `axis` of `mesh`."""
     global _GROUP
     saved, _GROUP = _GROUP, (mesh, axis)
@@ -73,12 +85,11 @@ def index() -> int:
     return 0 if _GROUP is None else _GROUP[0].index(_GROUP[1])
 
 
-def is_dense(model) -> bool:
-    """Whether the sharded train step runs `model` tensor-parallel: a
-    transformer-family model without MoE or MLA."""
+def computes_on_blocks(model) -> bool:
+    """Whether the sharded train step runs `model` on its blocks over
+    "model": the transformer family, with or without MoE and MLA."""
     cfg = getattr(model, "cfg", None)
-    return (cfg is not None and cfg.family == "transformer"
-            and cfg.moe is None and cfg.mla is None)
+    return cfg is not None and cfg.family == "transformer"
 
 
 def _split(n: int, what: str, m: int) -> int:
@@ -88,10 +99,44 @@ def _split(n: int, what: str, m: int) -> int:
     return n // m
 
 
+#: the logical axes that the rules shard over "model" (the same in
+#: SINGLE_POD_RULES and MULTI_POD_RULES)
+MODEL_AXES = frozenset(k for k, v in SINGLE_POD_RULES.rules.items()
+                       if v == "model")
+
+
+def block_layout(layout: dict, m: int) -> dict:
+    """A layout table ({name: (shape, logical axes, init) | nested dict or
+    list}) with each shape one rank's block among `m` along "model": every
+    dimension whose logical axis is in `MODEL_AXES` divided by m (MoE's
+    experts and its shared experts' ff, MLA's heads included); ValueError
+    where one does not split."""
+    def one(name, entry):
+        if isinstance(entry, dict):
+            return {k: one(k, v) for k, v in entry.items()}
+        if isinstance(entry, list):
+            return [one(name, v) for v in entry]
+        shape, axes, init = entry
+        return (tuple(_split(n, f"{name}'s {ax}", m) if ax in MODEL_AXES
+                      else n for n, ax in zip(shape, axes)), axes, init)
+    return {k: one(k, v) for k, v in layout.items()}
+
+
+def experts(num_experts: int) -> tuple[int, int]:
+    """(the first, the count) of this rank's experts among `num_experts`:
+    index() * E / m onwards, as `block_layout` cuts the experts' leading
+    axis; (0, E) outside the context."""
+    n = _split(num_experts, "num_experts", parts())
+    return index() * n, n
+
+
 def local_config(cfg, m: int):
-    """The `models.transformer.ModelConfig` of one rank's blocks among `m`
-    along "model": heads, kv heads (when more than one: MQA's single kv
-    head is replicated), ff and vocab divided, the head dim kept."""
+    """The `models.transformer.ModelConfig` a rank computes with among `m`
+    along "model": heads (MLA's too), kv heads (when more than one: MQA's
+    single kv head is replicated), ff and vocab divided, the head dim kept.
+    MoE's config stays whole: routing runs over all E experts, so E,
+    top_k and the capacity C are the global ones (a rank's experts are
+    `experts`).  A rank's block shapes are `block_layout`'s."""
     if m == 1:
         return cfg
     hk = cfg.num_kv_heads
@@ -126,6 +171,27 @@ def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1])
+
+
+def copy_in(x: torch.Tensor) -> torch.Tensor:
+    """`x` in float32 behind one `Mesh.copy_to` (an input that the rank's
+    blocks alone read, so its gradient is the rank's share): the gradient
+    summed over the model axis in float32 and rounded once to x's dtype;
+    `x` itself outside the context."""
+    if _GROUP is None:
+        return x
+    mesh, axis = _GROUP
+    return mesh.copy_to(x.float(), axis)
+
+
+def summed(x: torch.Tensor) -> torch.Tensor:
+    """`x` summed over the model axis (`Mesh.reduce_from`: in float32,
+    rounded once to x's dtype; backward the identity); `x` itself outside
+    the context."""
+    if _GROUP is None:
+        return x
+    mesh, axis = _GROUP
+    return mesh.reduce_from(x, axis)
 
 
 class _Products(torch.autograd.Function):
@@ -173,8 +239,7 @@ def column(x: torch.Tensor, *ws: torch.Tensor) -> tuple:
     rounded once; the plain products outside the context."""
     if _GROUP is None:
         return tuple(x @ w for w in ws)
-    mesh, axis = _GROUP
-    return _Products.apply(mesh.copy_to(x.float(), axis), *ws)
+    return _Products.apply(copy_in(x), *ws)
 
 
 def row(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -263,6 +328,7 @@ def chunked_cross_entropy(hidden, head, targets, mask, chunk: int = 512,
     return tot / torch.clamp_min(cnt, 1.0)
 
 
-__all__ = ["model_parallel", "active", "parts", "index", "is_dense",
-           "local_config", "local_attn", "column", "row", "embedding",
-           "chunked_cross_entropy"]
+__all__ = ["model_parallel", "active", "parts", "index",
+           "computes_on_blocks", "MODEL_AXES", "block_layout", "experts",
+           "local_config", "local_attn", "copy_in", "summed", "column", "row",
+           "embedding", "chunked_cross_entropy"]

@@ -32,20 +32,21 @@ of ``train_state_specs(model, rules, data size)``
 the batch this rank's rows of it (`data.pipeline.SyntheticTokenPipeline.
 sharded_batch`: in each microbatch the data ranks' rows in global order).
 A step:
-  1. dense transformers (`sharding.tensor_parallel.is_dense`): the model
-     takes the rank's blocks as they are, with no gather and no copy; the
-     other families: each weight is gathered over the axes its spec shards
-     into the model's working tensors (a tied head once);
+  1. transformers, dense, MoE and MLA alike
+     (`sharding.tensor_parallel.computes_on_blocks`): the model takes the
+     rank's blocks as they are, with no gather and no copy; Griffin and
+     xLSTM: each weight is gathered over the axes its spec shards into the
+     model's working tensors (a tied head once);
   2. all-reduces the microbatches' mask counts over the data axes and
      runs forward and backward on the rank's rows, the cross entropy
      divided by the global count and MoE routed over the global batch
      (`models.moe.global_routing`), so a rank's loss is its share.  A
-     dense model runs inside `tensor_parallel.model_parallel`: Megatron
+     transformer runs inside `tensor_parallel.model_parallel`: Megatron
      compute over "model" (column-, then row-parallel products, one pair
-     of sums a block, the embedding and the cross entropy vocab-parallel),
-     so its gradients are the blocks' and every model rank's loss is the
-     same; the other families compute the whole model on every rank of a
-     data row;
+     of sums a block, the embedding and the cross entropy vocab-parallel,
+     MoE's experts and MLA's heads on the rank's blocks), so its gradients
+     are the blocks' and every model rank's loss is the same; Griffin and
+     xLSTM compute the whole model on every rank of a data row;
   3. sums the float32 gradients over the data axes (one collective after
      the plain accumulation, one a microbatch before the int8 error
      feedback), MQA's replicated wk and wv, whose gradients are a rank's

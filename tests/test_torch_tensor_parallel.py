@@ -1,9 +1,10 @@
 """Megatron compute over "model" (`sharding.tensor_parallel`, the pair of
 sums `core.mesh.Mesh.reduce_from` / `copy_to`, and the tensor-parallel
-paths of `models.attention.gqa_forward`, `models.common.glu_mlp` / `mlp`
-and `models.transformer`) against the port's unsharded functions, on the
-CPU.  The sharded train step that runs them is held against the
-single-process step and JAX's SPMD step in tests/test_torch_train_sharded.py.
+paths of `models.attention.gqa_forward` / `mla_forward`,
+`models.common.glu_mlp` / `mlp`, `models.moe` and `models.transformer`)
+against the port's unsharded functions, on the CPU.  The sharded train
+step that runs them is held against the single-process step and JAX's SPMD
+step in tests/test_torch_train_sharded.py.
 
 One gloo world of 2 CPU processes, a (data 1, model 2) mesh, runs every
 case once on numpy inputs drawn from a seed; each rank holds the blocks its
@@ -22,10 +23,15 @@ specs give it.  Tolerances:
     head's block within 1e-6 x their largest |value| (float32 sums in
     another order; measured at most 1.4e-7);
   * one layer, column- then row-parallel, against the unsharded `layer_fwd`
-    for GQA (tinyllama), MQA (gemma) and sliding-window attention (danube):
-    the output and every gradient (the input's, each block's, and the sum
-    of the two ranks' shares of MQA's replicated wk and wv) within 1e-5 x
-    their largest |value| (measured at most 6.5e-7).
+    for GQA (tinyllama), MQA (gemma), sliding-window attention (danube),
+    MoE on the rank's experts (moonshot), MLA on the rank's heads
+    (deepseek's attention before a dense MLP) and MLA with MoE and shared
+    experts (deepseek): the output, MoE's aux loss (which the backward
+    adds) and every gradient (the input's, each block's, each replicated
+    leaf's, and the sum of the two ranks' shares of MQA's replicated wk
+    and wv) within 1e-5 x their largest |value| (measured at most 6.5e-7);
+  * exact: with every assignment routed to rank 0's experts, rank 1's
+    share of the MoE exchange is zeros and the sum is rank 0's share.
 """
 
 import dataclasses
@@ -40,7 +46,7 @@ from repro_torch.checkpointing.elastic import _block
 from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.core.mesh import Mesh, ShapeMesh
 from repro_torch.launch.mesh import run_spmd
-from repro_torch.models import build_model
+from repro_torch.models import build_model, moe
 from repro_torch.models.common import chunked_cross_entropy, init_params
 from repro_torch.models.transformer import layer_fwd, layer_layout
 from repro_torch.sharding import tensor_parallel as tp
@@ -49,14 +55,19 @@ from repro_torch.sharding.rules import (SINGLE_POD_RULES,
 
 torch.set_num_threads(1)
 
-#: the layer cases: GQA, MQA, sliding window
-LAYER_ARCHS = ("tinyllama_1_1b", "gemma_2b", "h2o_danube_3_4b")
+#: the layer cases: GQA, MQA, sliding window, MoE, MLA (deepseek's
+#: attention before a dense MLP), MLA with MoE and shared experts
+LAYER_ARCHS = ("tinyllama_1_1b", "gemma_2b", "h2o_danube_3_4b",
+               "moonshot_v1_16b_a3b", "deepseek_v2_236b/mla",
+               "deepseek_v2_236b")
 V, D = 24, 8                 # the embedding's and the loss's vocab and width
 B, S, CHUNK = 2, 16, 8
 
 
 def _layer_cfg(arch):
-    return dataclasses.replace(get_arch(arch).SMOKE, dtype=torch.float32)
+    name, _, variant = arch.partition("/")
+    cfg = dataclasses.replace(get_arch(name).SMOKE, dtype=torch.float32)
+    return dataclasses.replace(cfg, moe=None) if variant == "mla" else cfg
 
 
 def _inputs() -> dict:
@@ -84,6 +95,17 @@ def _inputs() -> dict:
                                              dtype=np.float32)
         x[f"{arch}/g"] = rng.standard_normal((B, S, cfg.d_model),
                                              dtype=np.float32)
+    # the MoE exchange: every assignment routed to experts 0 .. E/2 - 1
+    # (rank 0's), by router columns that score a positive feature
+    cfg = _layer_cfg("moonshot_v1_16b_a3b")
+    lp = init_params(layer_layout(cfg), torch.float32,
+                     generator=torch.Generator().manual_seed(12))["moe"]
+    half = cfg.moe.num_experts // 2
+    lp["router"][0, :half] += 50.0
+    lp["router"][0, half:] -= 50.0
+    h = rng.standard_normal((B, S, cfg.d_model), dtype=np.float32)
+    h[..., 0] = np.abs(h[..., 0]) + 1.0
+    x["exchange"] = (lp, h)
     return x
 
 
@@ -164,10 +186,28 @@ def _world(device, x):
             cfg = _layer_cfg(arch)
             blocks = _cut(x[f"{arch}/lp"], _specs(cfg), mesh)
             h = _t(x[f"{arch}/x"], True)
-            y, _, _ = layer_fwd(cfg, blocks, h, torch.arange(S))
-            y.backward(_t(x[f"{arch}/g"]))
+            y, _, aux = layer_fwd(cfg, blocks, h, torch.arange(S))
+            ((y * _t(x[f"{arch}/g"])).sum() + aux).backward()
             out[f"layer/{arch}"] = (y.detach().numpy(), h.grad.numpy(),
-                                    _grads(blocks))
+                                    _grads(blocks),
+                                    float(torch.as_tensor(aux).detach()))
+
+        cfg = _layer_cfg("moonshot_v1_16b_a3b")
+        lp, h = x["exchange"]
+        blocks = _cut(lp, _specs(cfg)["moe"], mesh)
+        shares = []
+        reduce_from = mesh.reduce_from
+
+        def recorded(t, *args):
+            total = reduce_from(t, *args)
+            shares.append((t.detach().clone(), total.detach().clone()))
+            return total
+        mesh.reduce_from = recorded
+        with torch.no_grad():
+            y, _ = moe.moe_forward(blocks, _t(h), cfg.moe, act=cfg.act)
+        del mesh.reduce_from
+        ((share, total),) = shares
+        out["exchange"] = (share.numpy(), total.numpy(), y.numpy())
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, out)
     return every
@@ -311,10 +351,11 @@ def _leaves(tree, prefix=""):
 
 @pytest.mark.parametrize("arch", LAYER_ARCHS)
 def test_tensor_parallel_layer_matches_layer_fwd(results, arch):
-    """The output, the input's gradient and each rank's gradient of its
-    blocks against the unsharded layer's (each block of the whole
-    gradient; MQA's replicated wk and wv: the two ranks' shares sum to
-    it), within 1e-5 x the largest |value|."""
+    """The output, MoE's aux loss, the input's gradient and each rank's
+    gradient of its blocks against the unsharded layer's (each block of
+    the whole gradient; the router's, wq_a's and w_dkv's whole on each
+    rank; MQA's replicated wk and wv: the two ranks' shares sum to it),
+    within 1e-5 x the largest |value|."""
     x, world = results
     cfg = _layer_cfg(arch)
     lp = {k: v.clone().requires_grad_(True)
@@ -327,13 +368,14 @@ def test_tensor_parallel_layer_matches_layer_fwd(results, arch):
             node = node.setdefault(p, {})
         node[last] = v
     h = torch.from_numpy(x[f"{arch}/x"]).requires_grad_(True)
-    y, _, _ = layer_fwd(cfg, tree, h, torch.arange(S))
-    y.backward(torch.from_numpy(x[f"{arch}/g"]))
+    y, _, aux = layer_fwd(cfg, tree, h, torch.arange(S))
+    ((y * torch.from_numpy(x[f"{arch}/g"])).sum() + aux).backward()
     specs = _leaves(_specs(cfg))
     shares = {}
     for r, w in enumerate(world):
-        out, gx, grads = w[f"layer/{arch}"]
+        out, gx, grads, aux_r = w[f"layer/{arch}"]
         _close(out, y.detach().numpy(), 1e-5)
+        _close(aux_r, float(torch.as_tensor(aux).detach()), 1e-5)
         _close(gx, h.grad.numpy(), 1e-5)
         mesh = ShapeMesh((1, 2), ("data", "model"))
         mesh.coord = {"data": 0, "model": r}
@@ -355,15 +397,45 @@ def test_tensor_parallel_layer_matches_layer_fwd(results, arch):
         assert not shares
 
 
+def test_moe_exchange_adds_exact_zeros_from_the_other_rank(results):
+    """With every assignment routed to rank 0's experts, rank 1 runs its
+    experts on empty slots and its share of the exchange is zeros,
+    bitwise; the sum each rank gets is rank 0's share, bitwise, and the
+    layer's output is the unsharded layer's."""
+    x, world = results
+    cfg = _layer_cfg("moonshot_v1_16b_a3b")
+    lp, h = x["exchange"]
+    with torch.no_grad():
+        want, _ = moe.moe_forward(lp, torch.from_numpy(h), cfg.moe,
+                                  act=cfg.act)
+        xt = torch.from_numpy(h).reshape(-1, cfg.d_model)
+        _, top_e, _, rank, C, _ = moe.route(
+            torch.softmax(xt @ lp["router"], dim=-1), cfg.moe)
+    assert (top_e < cfg.moe.num_experts // 2).all()
+    kept = (rank < C).numpy()
+    assert kept.any() and not kept.all()
+    mine, theirs = world[0]["exchange"][0], world[1]["exchange"][0]
+    assert mine.shape == (B * S * cfg.moe.top_k, cfg.d_model)
+    assert np.array_equal(np.abs(mine).max(axis=1) > 0, kept)
+    assert np.array_equal(theirs, np.zeros_like(theirs))
+    assert not np.signbit(theirs).any()
+    for w in world:
+        assert np.array_equal(w["exchange"][1], mine)
+        _close(w["exchange"][2], want.numpy(), 1e-5)
+
+
 # ---------------------------------------------------------------------------
 # without a world
 # ---------------------------------------------------------------------------
 
 def test_dense_family():
-    """The configs that run Megatron compute in the sharded train step."""
-    dense = {a for a in ARCH_IDS if tp.is_dense(build_model(get_arch(a).SMOKE))}
+    """The configs that run Megatron compute in the sharded train step:
+    the transformer family, dense, MoE and MLA alike."""
+    dense = {a for a in ARCH_IDS
+             if tp.computes_on_blocks(build_model(get_arch(a).SMOKE))}
     assert dense == {"tinyllama_1_1b", "gemma_2b", "granite_8b",
-                     "h2o_danube_3_4b", "hubert_xlarge", "llava_next_34b"}
+                     "h2o_danube_3_4b", "hubert_xlarge", "llava_next_34b",
+                     "moonshot_v1_16b_a3b", "deepseek_v2_236b"}
 
 
 @pytest.mark.parametrize("arch", ["tinyllama_1_1b", "gemma_2b",
@@ -410,3 +482,94 @@ def test_load_refuses_shapes_of_neither_layout():
         wrong = dict(whole, head=whole["head"][:, :3])
         with pytest.raises(ValueError, match="blocks among 2"):
             model.load(wrong)
+
+
+def _rank_mesh(m: int, i: int) -> ShapeMesh:
+    mesh = ShapeMesh((1, m), ("data", "model"))
+    mesh.coord = {"data": 0, "model": i}
+    return mesh
+
+
+@pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "deepseek_v2_236b"])
+def test_expert_ranges_tile_and_routing_stays_global(arch):
+    """The ranks' expert ranges tile 0 .. E in rank order at m = 1, 2, 4;
+    `local_config` keeps MoE's config whole, so num_experts, top_k and
+    the capacity C that `route` takes are the global ones; E that does
+    not split raises."""
+    cfg = get_arch(arch).CONFIG
+    E = cfg.moe.num_experts
+    for m in (1, 2, 4):
+        covered = []
+        for i in range(m):
+            with tp.model_parallel(_rank_mesh(m, i), "model"):
+                lo, n = tp.experts(E)
+            covered += range(lo, lo + n)
+        assert covered == list(range(E))
+    assert tp.experts(E) == (0, E)
+    local = tp.local_config(cfg, 2)
+    assert (local.moe.num_experts, local.moe.top_k) == (E, cfg.moe.top_k)
+    assert local.num_heads * 2 == cfg.num_heads
+    probs = torch.softmax(torch.randn(96, E, generator=torch.Generator()
+                                      .manual_seed(0)), dim=-1)
+    with tp.model_parallel(_rank_mesh(2, 1), "model"):
+        C = moe.route(probs, local.moe)[4]
+    assert C == moe.route(probs, cfg.moe)[4] == max(1, int(
+        96 * cfg.moe.top_k * cfg.moe.capacity_factor / E))
+    with tp.model_parallel(_rank_mesh(3, 0), "model"):
+        with pytest.raises(ValueError, match="does not split"):
+            tp.experts(E)
+
+
+def test_block_layout_divides_experts_shared_ff_and_mla_heads():
+    """deepseek-v2's block shapes among 2: the experts' leading axis, the
+    shared experts' ff and MLA's head columns halved; the router, wq_a,
+    w_dkv and the norms whole."""
+    cfg = get_arch("deepseek_v2_236b").CONFIG
+    lay = tp.block_layout(layer_layout(cfg), 2)
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    h = cfg.num_heads
+    assert lay["moe"]["wg"][0] == (E // 2, d, f)
+    assert lay["moe"]["wo"][0] == (E // 2, f, d)
+    assert lay["moe"]["router"][0] == (d, E)
+    assert lay["moe"]["shared"]["wi"][0] == (d, f * cfg.moe.num_shared // 2)
+    assert lay["moe"]["shared"]["wo"][0] == (f * cfg.moe.num_shared // 2, d)
+    mla = cfg.mla
+    assert lay["attn"]["wq_b"][0] == (mla["q_lora"], h // 2 * (
+        cfg.hd + mla["rope_head_dim"]))
+    assert lay["attn"]["w_uk"][0] == (mla["kv_lora"], h // 2 * cfg.hd)
+    assert lay["attn"]["wo"][0] == (h // 2 * mla["v_head_dim"], d)
+    for name in ("wq_a", "w_dkv", "q_norm", "kv_norm"):
+        assert lay["attn"][name][0] == layer_layout(cfg)["attn"][name][0]
+    assert lay["ln_attn"][0] == (d,)
+
+
+@pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "deepseek_v2_236b"])
+def test_load_takes_moe_and_mla_blocks(arch):
+    """`load` takes a rank's blocks of a MoE / MLA model (cut by the specs)
+    under the context and refuses them outside it; it refuses the layout
+    of `local_config` (whole experts beside the rank's heads) either way."""
+    cfg = _layer_cfg(arch)
+    model = build_model(cfg).init(device="cpu")
+    mesh = _rank_mesh(2, 1)
+    specs = spec_tree_from_layout(SINGLE_POD_RULES, model.layout())
+    layer_specs = specs["layers"]
+
+    def cut(tree, spec, stacked):
+        if isinstance(tree, dict):
+            return {k: cut(v, spec[k], stacked) for k, v in tree.items()}
+        return _block(tree, mesh, tuple(spec)[1:] if stacked else spec)
+    whole = model.tree()
+    blocks = {k: cut(v, specs[k], False) for k, v in whole.items()
+              if k != "layers"}
+    blocks["layers"] = [cut(lt, layer_specs, True)
+                        for lt in whole["layers"]]
+    local = build_model(tp.local_config(cfg, 2)).init(device="cpu").tree()
+    with pytest.raises(ValueError, match="match neither"):
+        model.load(blocks)
+    with tp.model_parallel(mesh, "model"):
+        model.load(blocks)
+        assert model.layers[0]["moe"]["wg"].shape[0] == \
+            cfg.moe.num_experts // 2
+        with pytest.raises(ValueError, match="blocks among 2"):
+            model.load(local)
+        model.load(whole)
