@@ -249,9 +249,10 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      prefill of all 4096 positions (`REC_TF`); for each of (b)-(d) the
      init's peak memory beside its model from the
      layout, the checks within `REC_BF16_TOL`, the prefill (CUDA events,
-     median of 7) and decode-step times, tokens/s, peak memory and cache
-     bytes beside their bounds, then one decode step and one prefill under
-     `torch.profiler` (device busy and idle share, kernel launches).
+     median of 3, `REC_PREFILL_RUNS`) and decode-step times, tokens/s,
+     peak memory and cache bytes beside their bounds, then one decode
+     step and one prefill under `torch.profiler` (device busy and idle
+     share, kernel launches).
   16. training (`train/`, `optim/`, `data/`, the models' `loss`; no
      Viterbi kernel may launch): (a) every config's SMOKE in float32,
      weights drawn on the card from a seed and copied to the CPU, one
@@ -284,14 +285,14 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      state placed by `shard_train_state` and gathered back, against the
      single-process step on the card from the same weights and batch: the
      four gaps of 16a within `SHARD_TRAIN_TOL` (the transformer family,
-     MoE and MLA included, runs Megatron compute over "model",
-     `sharding.tensor_parallel`); (b)
+     MoE and MLA included, and Griffin run Megatron compute over "model",
+     `sharding.tensor_parallel`; xLSTM computes replicated); (b)
      tinyllama-1.1b whole (22 layers, bf16, tensor-parallel) on (data 2,
      model 2), 4 ranks sharing the card, at
      S = 2048, a global batch of 4 (one row a data rank a microbatch) at
      accum_steps 2 (train_4k cut to the card, `SHARD_MAIN`; the plan of a
      rank's peak printed and checked against the free memory first, and
-     the plan at train_4k's S = 4096): a warm-up step and 3 timed steps
+     the plan at train_4k's S = 4096): a warm-up step and a timed step
      on the host clock, the share of each in collectives (host clock
      around them, after a synchronise), the sums over "model", the sums
      over "data" and the gathers apart (calls, ms, bytes; no gather over
@@ -304,8 +305,13 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      moonshot-v1-16b-a3b at full width (64 experts top-6, vocab 163 840,
      bf16), tensor- and expert-parallel (32 experts a rank) at
      `SHARD_MOE_LAYERS` of its 48 layers, its block matrices rescaled to
-     std 1/sqrt(d_in): a warm-up step and 2 timed, the plan printed at
-     one layer more too.
+     std 1/sqrt(d_in): a warm-up step and a timed one, the plan printed at
+     one layer more too; (d) the same for recurrentgemma-2b at full width
+     (d 2560, d_rnn 2560, 10 heads with MQA, d_ff 7680, vocab 256 000,
+     bf16), tensor-parallel (the RG-LRU on 1280 columns a rank) at
+     `SHARD_GRIFFIN_UNITS` of its 8 (rec, rec, attn) units and none of its
+     2 tail layers, its block matrices rescaled to std 1/sqrt(d_in): a
+     warm-up step and 1 timed, the plan printed at one unit more too.
 
 The line before the last is a JSON object with one entry per kernel (the
 `resources` object just before it); the last line is {"ok": true,
@@ -3638,6 +3644,10 @@ REC_TF = dict(recurrentgemma_2b={"recurrentgemma_2b": (511, 512)},
 #: grown through 12 units, printed, not held)
 REC_BF16_TOL = dict(recurrentgemma_2b=0.0914, xlstm_a=0.0, xlstm_b=0.0,
                     llava_next_34b=0.111)
+#: 15b-d: the timed prefills after one warm-up (median of them): xLSTM's
+#: takes 5.2 s and llava's 1.9 s (NVIDIA H100 80GB HBM3, 700.00 W), and
+#: the smoke's 1 200 s no longer leave room for the 2 + 7 of phase 14's
+REC_PREFILL_RUNS = 3
 
 
 def init_peak_bytes(layout, itemsize: int) -> int:
@@ -3729,7 +3739,8 @@ def recurrent_serve(dev, card: str, arch: str) -> None:
                              f"are outside their bound of the prefill's")
 
     nbytes = lm_decode_bytes(model, cache)
-    pre = median_ms(lambda: model.prefill(batch, max_len=max_len))
+    pre = median_ms(lambda: model.prefill(batch, max_len=max_len),
+                    runs=REC_PREFILL_RUNS, warmup=1)
     mm, f32 = lm_prefill_work(cfg, B, n_img + S)
     t_mm, t_f32 = mm / BF16_OPS_PER_S * 1e3, f32 / F32_OPS_PER_S * 1e3
     dec = float(np.median(step_ms))
@@ -4173,8 +4184,12 @@ SHARD_MAIN_CELL = (4096, 256)
 #: first step on, the same after every step (not the training state); a
 #: whole copy of the weights would add 2.05 GiB
 SHARD_REST_SLACK = 512 * 2**20
-#: 17b / 17c: the steps each runs (the first a warm-up, the others timed)
-SHARD_STEPS = {"17b": 4, "17c": 3}
+#: 17b / 17c / 17d: the steps each runs (the first a warm-up, the other
+#: timed): one timed step each, as a smoke with 17b's 3 and 17c's 2 and
+#: 17d's 20-22 s steps took 1 171.9 s of its 1 200 on a host whose gloo
+#: ran 17b's steps in 12.8 s, not PR 27's 7.5-8.4 (NVIDIA H100 80GB HBM3,
+#: 700.00 W; PERF.md §6)
+SHARD_STEPS = {"17b": 2, "17c": 2, "17d": 2}
 #: 17c: moonshot-v1-16b-a3b at full width (bf16), tensor- and
 #: expert-parallel on SHARD_MAIN's mesh, rows, accum_steps and S, at this
 #: many of its 48 layers, its block matrices rescaled to std 1/sqrt(d_in)
@@ -4188,6 +4203,20 @@ SHARD_STEPS = {"17b": 4, "17c": 3}
 #: GiB free (0.85 of it: 64.05); the float32 single-process reference
 #: (about 22 bytes a parameter) peaked at 50.99 GiB at 3 layers
 SHARD_MOE_LAYERS = 3
+#: 17d: recurrentgemma-2b at full width (bf16), tensor-parallel on
+#: SHARD_MAIN's mesh, rows, accum_steps and S, at this many of its 8
+#: (rec, rec, attn) units and none of its 2 tail layers, its block
+#: matrices rescaled to std 1/sqrt(d_in) (`fan_in_weights`, as 17c's).
+#: The cut, by the plan printed in the run (a rank's blocks, float32
+#: sums and bf16 gradients, about 6 bytes a parameter, beside one row's
+#: activations and a context; NVIDIA H100 80GB HBM3, 700.00 W): alone, 6
+#: units planned 68.876 GiB for four ranks against 0.85 x 78.16 GiB free
+#: = 66.44, 5 units 64.003; after the smoke's earlier phases, whose
+#: allocator cache of 2.648 GiB stays with this process, 5 units planned
+#: 64.329 GiB against 0.85 x 75.71 = 64.354 (two whole smokes alike): a
+#: margin of 0.024 GiB, so 17d runs 4 units.  The float32 single-process
+#: reference peaked at 50.543 GiB at 6 units and 45.212 at 5
+SHARD_GRIFFIN_UNITS = 4
 
 
 def card_settings() -> None:
@@ -4508,8 +4537,9 @@ def shard_main_refs(dev, cfg, rescale: bool, batch: dict, A: int):
 
 def shard_main(dev, card: str, cfg, tag: str,
                rescale: bool = False) -> dict[str, int]:
-    """17b (tinyllama-1.1b whole) and 17c (moonshot-v1-16b-a3b at full
-    width, `SHARD_MOE_LAYERS` layers, rescaled): `cfg` in bf16,
+    """17b (tinyllama-1.1b whole), 17c (moonshot-v1-16b-a3b at full
+    width, `SHARD_MOE_LAYERS` layers, rescaled) and 17d (recurrentgemma-2b
+    at full width, `SHARD_GRIFFIN_UNITS` units, rescaled): `cfg` in bf16,
     tensor-parallel (MoE expert-parallel) on (data 2, model 2), 4 ranks
     sharing the card, against single-process steps."""
     import dataclasses
@@ -4553,13 +4583,16 @@ def shard_main(dev, card: str, cfg, tag: str,
     scaled = (", block matrices rescaled to std 1/sqrt(d_in)" if rescale
               else "")
     deeper = ""
-    if tag == "17c":
-        # one layer more: the ranks' plan and the float32 reference's peak
-        # grow by their bytes a parameter of the layer's parameters
+    if tag in ("17c", "17d"):
+        # one layer (a unit: 3 layers) more: the ranks' plan and the
+        # float32 reference's peak grow by their bytes a parameter of its
+        # parameters, the activations by the share of its layers
+        more = cfg.num_layers + (3 if tag == "17d" else 1)
         n1 = build_model(dataclasses.replace(
-            cfg, num_layers=cfg.num_layers + 1)).param_count()
-        need1 = dp * tp * (rank_plan(n1, rows * act_row) + context)
-        deeper = (f"; at {cfg.num_layers + 1} layers ({n1} parameters) "
+            cfg, num_layers=more)).param_count()
+        act1 = rows * act_row * more / cfg.num_layers
+        need1 = dp * tp * (rank_plan(n1, act1) + context)
+        deeper = (f"; at {more} layers ({n1} parameters) "
                   f"{dp * tp} ranks about {need1 / 2**30:.3f} GiB and the "
                   f"float32 reference about "
                   f"{(ref32_peak + 22 * (n1 - n)) / 2**30:.3f} GiB")
@@ -4661,8 +4694,9 @@ def shard_main(dev, card: str, cfg, tag: str,
 
 def phase_train_sharded(dev, card: str) -> dict[str, int]:
     """17: sharded training; 17a parity on the two test meshes, 17b
-    tinyllama-1.1b whole and 17c moonshot-v1-16b-a3b at full width on 4
-    ranks.  No Viterbi kernel may launch."""
+    tinyllama-1.1b whole, 17c moonshot-v1-16b-a3b and 17d
+    recurrentgemma-2b at full width on 4 ranks.  No Viterbi kernel may
+    launch."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -4673,7 +4707,10 @@ def phase_train_sharded(dev, card: str) -> dict[str, int]:
             ("17b", get_arch("tinyllama_1_1b").CONFIG, False),
             ("17c", dataclasses.replace(get_arch("moonshot_v1_16b_a3b")
                                         .CONFIG,
-                                        num_layers=SHARD_MOE_LAYERS), True)):
+                                        num_layers=SHARD_MOE_LAYERS), True),
+            ("17d", dataclasses.replace(get_arch("recurrentgemma_2b").CONFIG,
+                                        num_layers=3 * SHARD_GRIFFIN_UNITS),
+             True)):
         for name, k in shard_main(dev, card, cfg, tag, rescale).items():
             launches[name] += k
     check_launches("train sharded", launches, {})

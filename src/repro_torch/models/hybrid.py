@@ -19,6 +19,13 @@ under ``cfg.remat_policy``; Griffin's tail layers run outside the remat,
 as outside JAX's scan.  xLSTM's loss skips the mLSTM's final-state loop
 (``need_state=False``), which XLA drops from JAX's loss as dead code.
 Serving runs under `torch.no_grad`.
+
+Under `sharding.tensor_parallel.model_parallel` (the sharded train step)
+Griffin holds a rank's blocks (`load` takes them) and its loss runs
+Megatron compute over "model": the embedding lookup and the cross
+entropy vocab-parallel, attention on the rank's heads, the MLP and the
+RG-LRU block on its ff columns (`models.rglru`).  xLSTM's `load` takes
+whole weights only.
 """
 
 from __future__ import annotations
@@ -27,11 +34,11 @@ import dataclasses
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..core.device import resolve_device
 from ..core.mesh import PartitionSpec as P
+from ..sharding import tensor_parallel
 from . import rglru as rg
 from . import xlstm as xl
 from .attention import (attn_layout, gqa_decode, gqa_forward, gqa_init_cache,
@@ -40,7 +47,7 @@ from .common import (Layout, abstract_params, chunked_cross_entropy,
                      glu_mlp, glu_mlp_layout, init_params, param_count,
                      param_specs, rms_norm)
 from .transformer import (ModelConfig, ParamTree, _frozen, _remat,
-                          _stack_layout)
+                          _shape_tree, _stack_layout, check_shapes)
 
 
 class StateCache(list):
@@ -123,15 +130,25 @@ class _RecurrentLM(nn.Module):
 
     def load(self, tree: dict):
         """Take the weights of `tree`: JAX's parameter names, with
-        ``tree[self.BLOCKS]`` a list of one nested dict a block."""
+        ``tree[self.BLOCKS]`` a list of one nested dict a block, each
+        shaped as the whole layout or, for a config that computes on its
+        blocks (`tensor_parallel.computes_on_blocks`: Griffin) under
+        `tensor_parallel.model_parallel`, as a rank's blocks; ValueError
+        otherwise."""
         blocks = tree[self.BLOCKS]
         if len(blocks) != self.n_blocks:
             raise ValueError(f"{len(blocks)} {self.BLOCKS} given, "
                              f"{self.n_blocks} configured")
+        check_shapes(self.cfg.name, tree, self.layout(), self._load_form,
+                     blocks=tensor_parallel.computes_on_blocks(self))
         self.blocks = nn.ModuleList(ParamTree(t) for t in blocks)
         self.embed = _frozen(tree["embed"])
         self.ln_out = _frozen(tree["ln_out"])
         return self
+
+    def _load_form(self, layout: Layout) -> dict:
+        """The shape tree of a layout in `load`'s form."""
+        return _shape_tree(self.layer_trees(abstract_params(layout)))
 
     def tree(self) -> dict:
         return {self.BLOCKS: [b.tree() for b in self.blocks],
@@ -150,8 +167,9 @@ class _RecurrentLM(nn.Module):
     def _tokens(self, tokens):
         """The embedding rows of `tokens` (a gather; its backward sums rows
         in a fixed order on the card, where indexing's would use
-        atomics)."""
-        return F.embedding(tokens.to(self.embed.device), self.embed)
+        atomics); vocab-parallel under `tensor_parallel.model_parallel`."""
+        return tensor_parallel.embedding(tokens.to(self.embed.device),
+                                         self.embed)
 
     def _logits(self, x):
         return (rms_norm(x, self.ln_out) @ self.embed.T).float()
@@ -159,9 +177,12 @@ class _RecurrentLM(nn.Module):
     def _ce(self, x, batch, mask_count=None):
         """JAX's loss head: the output norm, then the chunked cross entropy
         on the tied embedding (divided by `mask_count`, default the mask's
-        sum)."""
+        sum); vocab-parallel on the rank's rows of the embedding under
+        `tensor_parallel.model_parallel`."""
         S = x.shape[1]
-        return chunked_cross_entropy(
+        ce = (tensor_parallel.chunked_cross_entropy
+              if tensor_parallel.active() else chunked_cross_entropy)
+        return ce(
             rms_norm(x, self.ln_out), self.embed.T,
             batch["labels"].to(x.device), batch["mask"].to(x.device).float(),
             chunk=min(self.cfg.loss_chunk, S), mask_count=mask_count)
@@ -231,17 +252,22 @@ class GriffinLM(_RecurrentLM):
         return x * torch.tensor(math.sqrt(self.cfg.d_model),
                                 dtype=self.cfg.dtype, device=x.device)
 
-    def _block_fwd(self, i: int, x, positions):
-        """Layer `i` over the full sequence: (x', its rec state {h, conv}
-        or its attention kv streams)."""
-        lp = self.blocks[i].tree()
+    def layer_fwd(self, kind: str, lp: dict, x, positions):
+        """A layer of `kind` ("rec" or "attn") with weights `lp` over the
+        full sequence: (x', its rec state {h, conv} or its attention kv
+        streams)."""
         h = rms_norm(x, lp["ln_mix"])
-        if self.kinds[i] == "rec":
+        if kind == "rec":
             y, out = rg.block_forward(lp["mix"], h, self.rcfg, None)
         else:
             y, out = gqa_forward(lp["mix"], h, positions,
                                  self.cfg.attn_config())
         return self._mlp(lp, x + y), out
+
+    def _block_fwd(self, i: int, x, positions):
+        """Layer `i` over the full sequence (`layer_fwd`)."""
+        return self.layer_fwd(self.kinds[i], self.blocks[i].tree(), x,
+                              positions)
 
     def _unit_loss(self, u: int, x, positions):
         for i in range(3 * u, 3 * u + 3):
@@ -252,7 +278,10 @@ class GriffinLM(_RecurrentLM):
     def loss(self, batch, mask_count=None) -> torch.Tensor:
         """JAX's `GriffinLM.loss` on ``batch["tokens"]``, ``["labels"]``
         and ``["mask"]`` (B, S): a 0-d float32 tensor (`mask_count` as
-        `TransformerLM.loss` takes it)."""
+        `TransformerLM.loss` takes it).  Under
+        `tensor_parallel.model_parallel` the model holds a rank's blocks
+        and runs tensor-parallel; each rank of the axis returns the same
+        loss."""
         x = self._embed(batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)
         unit = _remat(self._unit_loss, self.cfg.remat_policy)

@@ -15,6 +15,16 @@ decode step carries (h, conv tail) state, O(1) a step, no KV cache.
 
 Block structure (Griffin recurrent block): two input branches
   y = W_out( GeLU(x W_gate) * RGLRU(conv1d_4(x W_x)) ).
+
+Under `sharding.tensor_parallel.model_parallel` the weights are this rank's
+blocks (`tensor_parallel.block_layout`), and the block is Megatron's, as
+JAX's partitioner runs it: W_gate and W_x column-parallel on one input,
+the conv and the recurrence on the rank's ff columns (elementwise over
+them), W_r and W_i (ff their input axis) through `tensor_parallel.
+row_columns` (partial products summed over "model" in one collective,
+rounded once, cut to the rank's columns), their biases and Lambda as the
+rank's span (`tensor_parallel.own`), and W_out row-parallel.  The widths
+come from the blocks' shapes alone.  Decode runs outside the context.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..sharding import tensor_parallel
 from .common import Layout, act_fn
 
 _C = 8.0
@@ -73,10 +84,13 @@ def _softplus(x):
 
 def _gates(params, u):
     """(a, gated input) in float32; each sigmoid in the activation dtype,
-    then cast, as JAX computes them."""
-    r = torch.sigmoid(u @ params["w_rg"] + params["b_rg"]).float()
-    i = torch.sigmoid(u @ params["w_ig"] + params["b_ig"]).float()
-    log_a = -_C * _softplus(params["lam"]).float() * r
+    then cast, as JAX computes them (on the rank's columns under
+    `tensor_parallel.model_parallel`)."""
+    own = tensor_parallel.own
+    pr, pi = tensor_parallel.row_columns(u, params["w_rg"], params["w_ig"])
+    r = torch.sigmoid(pr + own(params["b_rg"])).float()
+    i = torch.sigmoid(pi + own(params["b_ig"])).float()
+    log_a = -_C * _softplus(own(params["lam"])).float() * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
         * (i * u.float())
@@ -106,9 +120,11 @@ def rglru_step(params, u, h_prev):
 def block_forward(params, x, cfg: RGLRUConfig, state=None):
     """Griffin recurrent block. state: None (a prefill from scratch) or
     {"h": (B, R) float32, "conv": (B, W-1, R)}.  Returns (y, new_state).
-    As in JAX, a state with S > 1 keeps its conv tail and scans from h = 0."""
-    gate = act_fn("gelu")(x @ params["w_gate"])
-    u = x @ params["w_x"]
+    As in JAX, a state with S > 1 keeps its conv tail and scans from h = 0.
+    Tensor-parallel under `tensor_parallel.model_parallel` (module
+    docstring)."""
+    gate, u = tensor_parallel.column(x, params["w_gate"], params["w_x"])
+    gate = act_fn("gelu")(gate)
     conv_state = None if state is None else state["conv"]
     u, conv_tail = _causal_conv1d(u, params["conv_w"], params["conv_b"],
                                   conv_state)
@@ -116,7 +132,7 @@ def block_forward(params, x, cfg: RGLRUConfig, state=None):
         h_seq, h_last = rglru_scan(params, u)
     else:
         h_seq, h_last = rglru_step(params, u, state["h"])
-    y = (gate * h_seq) @ params["w_out"]
+    y = tensor_parallel.row(gate * h_seq, params["w_out"])
     return y, {"h": h_last, "conv": conv_tail}
 
 

@@ -240,6 +240,22 @@ def _shape_tree(tree):
     return tuple(tree[0]) if isinstance(tree, tuple) else tuple(tree.shape)
 
 
+def check_shapes(name: str, tree: dict, layout: Layout, form,
+                 blocks: bool) -> None:
+    """ValueError unless the shapes of `tree` (weights as a model's `load`
+    takes them) are those of `layout` (JAX's table) or, when `blocks` and
+    under `tensor_parallel.model_parallel`, of a rank's blocks of it
+    (`tensor_parallel.block_layout`); `form(layout)` is a layout's shape
+    tree in `load`'s form."""
+    got = _shape_tree(tree)
+    m = tensor_parallel.parts() if blocks else 1
+    if got != form(layout) and (m == 1 or got != form(
+            tensor_parallel.block_layout(layout, m))):
+        where = f" or a rank's blocks among {m}" if m > 1 else ""
+        raise ValueError(f"the weights' shapes match neither "
+                         f"{name}'s layout{where}")
+
+
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
@@ -361,13 +377,7 @@ class TransformerLM(nn.Module):
     def _check_shapes(self, tree: dict) -> None:
         lay = model_layout(dataclasses.replace(self.cfg, scan_layers=False))
         lay["layers"] = list(lay["layers"].values())
-        got = _shape_tree(tree)
-        m = tensor_parallel.parts()
-        if got != _shape_tree(lay) and (m == 1 or got != _shape_tree(
-                tensor_parallel.block_layout(lay, m))):
-            where = f" or a rank's blocks among {m}" if m > 1 else ""
-            raise ValueError(f"the weights' shapes match neither "
-                             f"{self.cfg.name}'s layout{where}")
+        check_shapes(self.cfg.name, tree, lay, _shape_tree, blocks=True)
 
     def tree(self) -> dict:
         """The weights as `load` takes them (the module's own tensors)."""
@@ -547,4 +557,4 @@ class TransformerLM(nn.Module):
 
 __all__ = ["ModelConfig", "TransformerLM", "TransformerLayer", "ParamTree",
            "model_layout", "layer_layout", "layer_trees", "layer_fwd",
-           "layer_decode"]
+           "layer_decode", "check_shapes"]

@@ -17,17 +17,16 @@ gives the same blocks in JAX's layout.
 Cutting needs only the mesh's shape and this rank's coordinates (a
 `core.mesh.ShapeMesh` with ``coord`` set will do); gathering and ZeRO-1's
 rebuild run `Mesh.all_gather`.  The sharded train step
-(`train.make_train_step(..., mesh=)`) is the reader.  For the
-transformer family (`tensor_parallel.computes_on_blocks`: dense, MoE and
-MLA) it computes on the rank's blocks (Megatron compute over "model"), so
-its gradients are blocks too:
-`regions` cuts them over the data axes only, as the weights' blocks, and
-`leaf_roles` says which gradients are blocks, which are whole and which are
-a rank's share of a replicated leaf.  For the other families (Griffin,
-xLSTM) it gathers each weight over the axes its spec shards and computes
-on whole weights, replicated over "model".  Either way it updates the
-region of each leaf that the rank's moments cover and rebuilds the
-weights' blocks over the data axes.
+(`train.make_train_step(..., mesh=)`) is the reader.  For the configs that
+`tensor_parallel.computes_on_blocks` names (the transformer family, dense,
+MoE and MLA, and Griffin) it computes on the rank's blocks (Megatron
+compute over "model"), so its gradients are blocks too: `regions` cuts
+them over the data axes only, as the weights' blocks, and `leaf_roles`
+says which gradients are blocks, which are whole and which are a rank's
+share of a replicated leaf.  For xLSTM it gathers each weight over the
+axes its spec shards and computes on whole weights, replicated over
+"model".  Either way it updates the region of each leaf that the rank's
+moments cover and rebuilds the weights' blocks over the data axes.
 """
 
 from __future__ import annotations
@@ -206,18 +205,21 @@ class TrainPlacement:
         """Under Megatron compute, each weight's gradient on a rank, in the
         port's layout: "block" (the rank's block of a leaf its spec shards
         over "model": heads, ff, vocab, MoE's experts and shared experts,
-        MLA's wq_b, w_uk, w_uv and wo), "partial" (a replicated leaf that
-        the rank's heads alone read, so its gradient is the rank's share:
-        MQA's single kv head's wk and wv) or "whole" (the norms, MoE's
-        router, MLA's wq_a and w_dkv, whose products' gradients are summed
-        over "model" inside the layer)."""
-        mqa = self.model.cfg.num_kv_heads == 1
+        MLA's wq_b, w_uk, w_uv and wo, Griffin's conv), "partial" (a
+        replicated leaf that the rank's heads or columns alone read, so its
+        gradient is the rank's share: MQA's single kv head's wk and wv, the
+        transformer's and Griffin's; the RG-LRU's gate biases b_rg, b_ig and
+        its decay lam, read on the rank's columns) or "whole" (the norms,
+        MoE's router, MLA's wq_a and w_dkv, whose products' gradients are
+        summed over "model" inside the layer)."""
+        partial = _PARTIAL
+        if self.model.cfg.num_kv_heads == 1:
+            partial += _MQA_PARTIAL
 
         def role(path, x, spec):
             axes = {a for ax in spec if ax is not None for a in axes_of(ax)}
             r = ("block" if "model" in axes else
-                 "partial" if mqa and path.endswith(("/attn/wk", "/attn/wv"))
-                 else "whole")
+                 "partial" if path.endswith(partial) else "whole")
             return [r] * len(x) if isinstance(x, list) else r
         abstract = port_layout(self.model.abstract_params(), self.model)
         return port_layout(_walk(role, jax_pieces(abstract, self.model),
@@ -234,6 +236,13 @@ class TrainPlacement:
         abstract = port_layout(self.model.abstract_params(), self.model)
         _walk(leaf, jax_pieces(abstract, self.model), self.mspecs)
         return found
+
+
+#: the replicated leaves that a rank reads on its own columns alone (JAX
+#: path endings): the RG-LRU's gate biases and decay, and MQA's kv
+#: projections (the transformer's, and Griffin's attention layers')
+_PARTIAL = ("/mix/b_rg", "/mix/b_ig", "/mix/lam")
+_MQA_PARTIAL = ("/attn/wk", "/attn/wv", "/attn/mix/wk", "/attn/mix/wv")
 
 
 def _zip4(*trees):

@@ -1,6 +1,7 @@
 """Megatron compute over the "model" axis of a mesh: what XLA's partitioner
 does for JAX's SPMD train step under `sharding.rules` (heads, kv heads, ff,
-vocab and experts over "model"), written out for the transformer family.
+vocab and experts over "model"), written out for the transformer family
+(dense, MoE and MLA) and Griffin.
 
 While `model_parallel(mesh, axis)` is active, each rank computes on the
 blocks its specs give it:
@@ -29,7 +30,15 @@ blocks its specs give it:
     rank adds a non-zero, so the sum is exact) before JAX's weighted
     combine; no all-to-all, as the batch is split over the data axes
     only.  MLA runs its heads as GQA does, its normed and roped latent
-    behind one `copy_in`.
+    behind one `copy_in`;
+  * Griffin's RG-LRU block (`models.rglru`) runs its two input products
+    column-parallel and its output product row-parallel, its conv and
+    recurrence on the rank's ff columns; its gates, whose weights take ff
+    as their input axis, are `row_columns`: the float32 partial products
+    summed over the axis in one collective, rounded once, and cut to the
+    rank's columns (`span`), whose backward gives every rank the gradient
+    of all the columns; the replicated vectors beside them (the gates'
+    biases, the decay) enter as the rank's span (`own`).
 Outside it every function here is the identity or its unsharded
 counterpart, so serving runs the same layer code.
 
@@ -37,9 +46,8 @@ The context is a module global, as `models.moe.global_routing` is, and not
 a context variable: layers recomputed in backward run on autograd's own
 threads.  The ranks of the axis issue their collectives in one order, as
 they run the same graph.  `computes_on_blocks` names the configs that run
-so; the others (Griffin, xLSTM) keep the sharded step's gather and
-replicated compute.  `block_layout` is the one rule for a rank's block
-shapes.
+so; xLSTM keeps the sharded step's gather and replicated compute.
+`block_layout` is the one rule for a rank's block shapes.
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ _GROUP = None
 
 @contextlib.contextmanager
 def model_parallel(mesh, axis: str = "model"):
-    """Run every transformer layer, embedding and loss inside the block
+    """Run every layer, embedding and loss inside the block
     (their recomputation in backward included) on this rank's blocks along
     `axis` of `mesh`."""
     global _GROUP
@@ -87,9 +95,10 @@ def index() -> int:
 
 def computes_on_blocks(model) -> bool:
     """Whether the sharded train step runs `model` on its blocks over
-    "model": the transformer family, with or without MoE and MLA."""
+    "model": the transformer family, with or without MoE and MLA, and
+    Griffin."""
     cfg = getattr(model, "cfg", None)
-    return cfg is not None and cfg.family == "transformer"
+    return cfg is not None and cfg.family in ("transformer", "griffin")
 
 
 def _split(n: int, what: str, m: int) -> int:
@@ -122,12 +131,29 @@ def block_layout(layout: dict, m: int) -> dict:
     return {k: one(k, v) for k, v in layout.items()}
 
 
+def span(n: int, what: str = "ff") -> tuple[int, int]:
+    """(the first, the count) of this rank's entries of an axis of `n`
+    that `block_layout` cuts over "model": index() * n / m onwards; (0, n)
+    outside the context."""
+    k = _split(n, what, parts())
+    return index() * k, k
+
+
 def experts(num_experts: int) -> tuple[int, int]:
-    """(the first, the count) of this rank's experts among `num_experts`:
-    index() * E / m onwards, as `block_layout` cuts the experts' leading
-    axis; (0, E) outside the context."""
-    n = _split(num_experts, "num_experts", parts())
-    return index() * n, n
+    """(the first, the count) of this rank's experts among `num_experts`
+    (`span` of the experts' leading axis)."""
+    return span(num_experts, "num_experts")
+
+
+def own(v: torch.Tensor) -> torch.Tensor:
+    """The rank's `span` of the last axis of a replicated `v` (a view): the
+    entries beside its ff columns; `v` itself outside the context.  Its
+    gradient is zero outside the span, so the sum of the ranks' gradients
+    over the axis is the unsharded gradient exactly."""
+    if _GROUP is None:
+        return v
+    lo, n = span(v.shape[-1])
+    return v.narrow(-1, lo, n)
 
 
 def local_config(cfg, m: int):
@@ -252,6 +278,51 @@ def row(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return mesh.reduce_from(_Mm32.apply(x, w), axis, x.dtype)
 
 
+class _SumColumns(torch.autograd.Function):
+    """The float32 partials of K products (..., n) summed over the model
+    axis in one collective, rounded once to `dtype`, and cut to the rank's
+    columns lo .. lo + k of each.  Backward gives each partial the gradient
+    of all n columns: the ranks' column gradients put in place among zeros
+    and summed over the axis in float32 (one rank adds a non-zero, so the
+    sum is their gather exactly)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, dtype, lo, k, *partials):
+        n = partials[0].shape[-1]
+        ctx.mesh, ctx.axis, ctx.cols = mesh, axis, (n, lo, k)
+        total = mesh.all_reduce_sum(torch.cat(partials, dim=-1), axis)
+        total = total.to(dtype)
+        return tuple(total[..., i * n + lo:i * n + lo + k].contiguous()
+                     for i in range(len(partials)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n, lo, k = ctx.cols
+        full = grads[0].new_zeros(*grads[0].shape[:-1], len(grads) * n,
+                                  dtype=torch.float32)
+        for i, g in enumerate(grads):
+            full[..., i * n + lo:i * n + lo + k] = g
+        ctx.mesh.all_reduce_sum(full, ctx.axis)
+        return (None, None, None, None, None, *full.split(n, dim=-1))
+
+
+def row_columns(x: torch.Tensor, *ws: torch.Tensor) -> tuple:
+    """``x @ w`` for each of `ws`, cut to the rank's columns: `x` is the
+    rank's columns of the input and each w (n_l, n) the rank's rows of a
+    weight whose input axis is sharded; the float32 partial products are
+    summed over the model axis in one collective, rounded once to x's
+    dtype, and each product keeps the rank's `span` of its n columns.  x's
+    gradient is its columns of the unsharded one, and each w's the rank's
+    rows of the unsharded one, with no sum.  The plain products outside
+    the context."""
+    if _GROUP is None:
+        return tuple(x @ w for w in ws)
+    mesh, axis = _GROUP
+    lo, k = span(ws[0].shape[1])
+    return _SumColumns.apply(mesh, axis, x.dtype, lo, k,
+                             *(_Mm32.apply(x, w) for w in ws))
+
+
 def embedding(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """``F.embedding(tokens, whole table)``: outside the context the plain
     lookup; inside it `table` is this rank's rows index() * V_l ..
@@ -329,6 +400,7 @@ def chunked_cross_entropy(hidden, head, targets, mask, chunk: int = 512,
 
 
 __all__ = ["model_parallel", "active", "parts", "index",
-           "computes_on_blocks", "MODEL_AXES", "block_layout", "experts",
-           "local_config", "local_attn", "copy_in", "summed", "column", "row",
-           "embedding", "chunked_cross_entropy"]
+           "computes_on_blocks", "MODEL_AXES", "block_layout", "span",
+           "experts", "own", "local_config", "local_attn", "copy_in",
+           "summed", "column", "row", "row_columns", "embedding",
+           "chunked_cross_entropy"]

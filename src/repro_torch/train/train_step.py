@@ -32,26 +32,29 @@ of ``train_state_specs(model, rules, data size)``
 the batch this rank's rows of it (`data.pipeline.SyntheticTokenPipeline.
 sharded_batch`: in each microbatch the data ranks' rows in global order).
 A step:
-  1. transformers, dense, MoE and MLA alike
+  1. transformers, dense, MoE and MLA alike, and Griffin
      (`sharding.tensor_parallel.computes_on_blocks`): the model takes the
-     rank's blocks as they are, with no gather and no copy; Griffin and
-     xLSTM: each weight is gathered over the axes its spec shards into the
-     model's working tensors (a tied head once);
+     rank's blocks as they are, with no gather and no copy; xLSTM: each
+     weight is gathered over the axes its spec shards into the model's
+     working tensors (a tied head once);
   2. all-reduces the microbatches' mask counts over the data axes and
      runs forward and backward on the rank's rows, the cross entropy
      divided by the global count and MoE routed over the global batch
      (`models.moe.global_routing`), so a rank's loss is its share.  A
-     transformer runs inside `tensor_parallel.model_parallel`: Megatron
-     compute over "model" (column-, then row-parallel products, one pair
-     of sums a block, the embedding and the cross entropy vocab-parallel,
-     MoE's experts and MLA's heads on the rank's blocks), so its gradients
-     are the blocks' and every model rank's loss is the same; Griffin and
-     xLSTM compute the whole model on every rank of a data row;
+     transformer or Griffin runs inside `tensor_parallel.model_parallel`:
+     Megatron compute over "model" (column-, then row-parallel products,
+     one pair of sums a block, the embedding and the cross entropy
+     vocab-parallel, MoE's experts, MLA's heads and the RG-LRU's columns
+     on the rank's blocks), so its gradients are the blocks' and every
+     model rank's loss is the same; xLSTM computes the whole model on
+     every rank of a data row;
   3. sums the float32 gradients over the data axes (one collective after
      the plain accumulation, one a microbatch before the int8 error
-     feedback), MQA's replicated wk and wv, whose gradients are a rank's
-     share, over "model" first; the int8 scale of a leaf sharded over
-     "model" is its absmax over "model", one scale a JAX leaf;
+     feedback), the replicated leaves whose gradients are a rank's share
+     (MQA's wk and wv; the RG-LRU's b_rg, b_ig and lam:
+     `TrainPlacement.leaf_roles`) over "model" first; the int8 scale of a
+     leaf sharded over "model" is its absmax over "model", one scale a JAX
+     leaf;
   4. takes the global norm and the clip scale from the summed gradients
      (the blocks' squares summed over "model", each replicated leaf once),
      and updates the region of each weight that the rank's moments cover

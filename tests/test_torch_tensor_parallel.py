@@ -22,14 +22,23 @@ specs give it.  Tolerances:
     rtol 1e-6 (measured 0), the gradients of the hidden states and of the
     head's block within 1e-6 x their largest |value| (float32 sums in
     another order; measured at most 1.4e-7);
+  * exact: `row_columns` (the RG-LRU's gate products) on two weights, in
+    float32 and bf16: each rank's product is its columns of the two
+    ranks' float32 partials summed and rounded once, its input's gradient
+    the plain products of every column's gradient with its rows, and each
+    weight's gradient its rows of the plain product with every column's
+    gradient;
   * one layer, column- then row-parallel, against the unsharded `layer_fwd`
     for GQA (tinyllama), MQA (gemma), sliding-window attention (danube),
     MoE on the rank's experts (moonshot), MLA on the rank's heads
-    (deepseek's attention before a dense MLP) and MLA with MoE and shared
-    experts (deepseek): the output, MoE's aux loss (which the backward
-    adds) and every gradient (the input's, each block's, each replicated
-    leaf's, and the sum of the two ranks' shares of MQA's replicated wk
-    and wv) within 1e-5 x their largest |value| (measured at most 6.5e-7);
+    (deepseek's attention before a dense MLP), MLA with MoE and shared
+    experts (deepseek), and against `GriffinLM.layer_fwd` for Griffin's
+    recurrent layer and its local MQA attention layer (recurrentgemma):
+    the output, MoE's aux loss (which the backward adds) and every
+    gradient (the input's, each block's, each replicated leaf's, and the
+    sum of the two ranks' shares of MQA's replicated wk and wv and of the
+    RG-LRU's b_rg, b_ig and lam) within 1e-5 x their largest |value|
+    (measured at most 6.5e-7);
   * exact: with every assignment routed to rank 0's experts, rank 1's
     share of the MoE exchange is zeros and the sum is rank 0's share.
 """
@@ -46,8 +55,10 @@ from repro_torch.checkpointing.elastic import _block
 from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.core.mesh import Mesh, ShapeMesh
 from repro_torch.launch.mesh import run_spmd
-from repro_torch.models import build_model, moe
+from repro_torch.models import GriffinLM, build_model, moe
 from repro_torch.models.common import chunked_cross_entropy, init_params
+from repro_torch.models import rglru as rg
+from repro_torch.models.attention import attn_layout
 from repro_torch.models.transformer import layer_fwd, layer_layout
 from repro_torch.sharding import tensor_parallel as tp
 from repro_torch.sharding.rules import (SINGLE_POD_RULES,
@@ -56,18 +67,53 @@ from repro_torch.sharding.rules import (SINGLE_POD_RULES,
 torch.set_num_threads(1)
 
 #: the layer cases: GQA, MQA, sliding window, MoE, MLA (deepseek's
-#: attention before a dense MLP), MLA with MoE and shared experts
+#: attention before a dense MLP), MLA with MoE and shared experts,
+#: Griffin's recurrent layer and its local MQA attention layer
 LAYER_ARCHS = ("tinyllama_1_1b", "gemma_2b", "h2o_danube_3_4b",
                "moonshot_v1_16b_a3b", "deepseek_v2_236b/mla",
-               "deepseek_v2_236b")
+               "deepseek_v2_236b", "recurrentgemma_2b/rec",
+               "recurrentgemma_2b/attn")
+#: the replicated leaves whose gradient on a rank is its share, by case
+SHARED_LEAVES = {"gemma_2b": {"/attn/wk", "/attn/wv"},
+                 "recurrentgemma_2b/rec": {"/mix/b_rg", "/mix/b_ig",
+                                           "/mix/lam"},
+                 "recurrentgemma_2b/attn": {"/mix/wk", "/mix/wv"}}
 V, D = 24, 8                 # the embedding's and the loss's vocab and width
 B, S, CHUNK = 2, 16, 8
+#: `row_columns`' case: input columns (B, S, 2 N), two (2 N, 2 N) weights
+N = 6
 
 
 def _layer_cfg(arch):
     name, _, variant = arch.partition("/")
     cfg = dataclasses.replace(get_arch(name).SMOKE, dtype=torch.float32)
     return dataclasses.replace(cfg, moe=None) if variant == "mla" else cfg
+
+
+def _griffin_kind(arch) -> str | None:
+    """"rec" or "attn" for a Griffin layer case, else None."""
+    name, _, variant = arch.partition("/")
+    return variant if name == "recurrentgemma_2b" else None
+
+
+def _layer_layout(arch):
+    cfg = _layer_cfg(arch)
+    kind = _griffin_kind(arch)
+    if kind is None:
+        return layer_layout(cfg)
+    model = GriffinLM(cfg)
+    return model._layer(rg.rglru_layout(model.rcfg) if kind == "rec" else
+                        attn_layout(cfg.attn_config()))
+
+
+def _layer_run(arch, lp, h):
+    """(the layer's output, MoE's aux loss or 0.0) over positions 0 .. S."""
+    cfg = _layer_cfg(arch)
+    kind = _griffin_kind(arch)
+    if kind is None:
+        y, _, aux = layer_fwd(cfg, lp, h, torch.arange(S))
+        return y, aux
+    return GriffinLM(cfg).layer_fwd(kind, lp, h, torch.arange(S))[0], 0.0
 
 
 def _inputs() -> dict:
@@ -85,12 +131,19 @@ def _inputs() -> dict:
          "mm_w": rng.standard_normal((2, 16, 8), dtype=np.float32),
          "mm_g": rng.standard_normal((3, 5, 8), dtype=np.float32),
          "mm_h": rng.standard_normal((3, 5, 8), dtype=np.float32),
-         "mm_gc": rng.standard_normal((2, 3, 5, 16), dtype=np.float32)}
+         "mm_gc": rng.standard_normal((2, 3, 5, 16), dtype=np.float32),
+         "rc_x": rng.standard_normal((B, 5, 2 * N), dtype=np.float32),
+         "rc_w": rng.standard_normal((2, 2 * N, 2 * N), dtype=np.float32),
+         "rc_g": rng.standard_normal((2, B, 5, 2 * N), dtype=np.float32)}
     for arch in LAYER_ARCHS:
         cfg = _layer_cfg(arch)
         g = torch.Generator().manual_seed(11)
-        x[f"{arch}/lp"] = init_params(layer_layout(cfg), torch.float32,
+        x[f"{arch}/lp"] = init_params(_layer_layout(arch), torch.float32,
                                       generator=g)
+        if _griffin_kind(arch) == "rec":     # biases away from their zeros
+            for name in ("b_rg", "b_ig"):
+                x[f"{arch}/lp"]["mix"][name] = torch.from_numpy(
+                    rng.standard_normal(cfg.d_rnn, dtype=np.float32))
         x[f"{arch}/x"] = rng.standard_normal((B, S, cfg.d_model),
                                              dtype=np.float32)
         x[f"{arch}/g"] = rng.standard_normal((B, S, cfg.d_model),
@@ -113,8 +166,8 @@ def _t(a, grad=False):
     return torch.from_numpy(np.array(a)).requires_grad_(grad)
 
 
-def _specs(cfg):
-    return spec_tree_from_layout(SINGLE_POD_RULES, layer_layout(cfg))
+def _specs(arch):
+    return spec_tree_from_layout(SINGLE_POD_RULES, _layer_layout(arch))
 
 
 def _cut(tree, specs, mesh):
@@ -182,11 +235,22 @@ def _world(device, x):
             out[f"ce/{count}"] = (loss.item(), h.grad.numpy(),
                                   head.grad.numpy())
 
+        for dtype in (torch.float32, torch.bfloat16):
+            cols = slice(r * N, (r + 1) * N)
+            h = _t(x["rc_x"][..., cols]).to(dtype).requires_grad_(True)
+            ws = [_t(w[cols]).to(dtype).requires_grad_(True)
+                  for w in x["rc_w"]]
+            ys = tp.row_columns(h, *ws)
+            torch.autograd.backward(
+                ys, [_t(g[..., cols]).to(dtype) for g in x["rc_g"]])
+            out[f"row_columns/{dtype}"] = (
+                [y.detach().float().numpy() for y in ys],
+                h.grad.float().numpy(), [w.grad.float().numpy() for w in ws])
+
         for arch in LAYER_ARCHS:
-            cfg = _layer_cfg(arch)
-            blocks = _cut(x[f"{arch}/lp"], _specs(cfg), mesh)
+            blocks = _cut(x[f"{arch}/lp"], _specs(arch), mesh)
             h = _t(x[f"{arch}/x"], True)
-            y, _, aux = layer_fwd(cfg, blocks, h, torch.arange(S))
+            y, aux = _layer_run(arch, blocks, h)
             ((y * _t(x[f"{arch}/g"])).sum() + aux).backward()
             out[f"layer/{arch}"] = (y.detach().numpy(), h.grad.numpy(),
                                     _grads(blocks),
@@ -194,7 +258,7 @@ def _world(device, x):
 
         cfg = _layer_cfg("moonshot_v1_16b_a3b")
         lp, h = x["exchange"]
-        blocks = _cut(lp, _specs(cfg)["moe"], mesh)
+        blocks = _cut(lp, _specs("moonshot_v1_16b_a3b")["moe"], mesh)
         shares = []
         reduce_from = mesh.reduce_from
 
@@ -294,6 +358,38 @@ def test_bf16_column_parallel_gradient_is_rounded_once(results):
         assert np.array_equal(gx.reshape(-1, 8), want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_columns_sum_then_slice(results, dtype):
+    """`row_columns` on two weights whose input axis is split: each rank's
+    products are its columns of the two ranks' float32 partial products
+    summed and rounded once; backward gathers every column's gradient, so
+    the input's gradient is the plain products of all of them with the
+    rank's rows and each weight's gradient the rank's rows of the plain
+    product with all of them, bitwise (an identity backward would leave
+    each rank its own columns' gradients alone)."""
+    x, world = results
+
+    def rows(a, r):
+        return torch.from_numpy(np.ascontiguousarray(a[..., r * N:(r + 1) * N,
+                                                       :])).to(dtype)
+    hs = [torch.from_numpy(np.ascontiguousarray(
+        x["rc_x"][..., r * N:(r + 1) * N])).to(dtype) for r in range(2)]
+    gs = [torch.from_numpy(g).to(dtype).reshape(-1, 2 * N)
+          for g in x["rc_g"]]
+    for r, w in enumerate(world):
+        ys, gx, gws = w[f"row_columns/{dtype}"]
+        gx_want = 0
+        for i, wt in enumerate(x["rc_w"]):
+            total = sum(hs[q].float().reshape(-1, N) @ rows(wt, q).float()
+                        for q in range(2))
+            want = total.to(dtype)[:, r * N:(r + 1) * N].float()
+            assert np.array_equal(ys[i].reshape(-1, N), want.numpy())
+            gx_want = gx_want + gs[i] @ rows(wt, r).t()
+            assert np.array_equal(gws[i], (hs[r].reshape(-1, N).t()
+                                           @ gs[i]).float().numpy())
+        assert np.array_equal(gx.reshape(-1, N), gx_want.float().numpy())
+
+
 # ---------------------------------------------------------------------------
 # vocab-parallel embedding and cross entropy
 # ---------------------------------------------------------------------------
@@ -354,10 +450,9 @@ def test_tensor_parallel_layer_matches_layer_fwd(results, arch):
     """The output, MoE's aux loss, the input's gradient and each rank's
     gradient of its blocks against the unsharded layer's (each block of
     the whole gradient; the router's, wq_a's and w_dkv's whole on each
-    rank; MQA's replicated wk and wv: the two ranks' shares sum to it),
-    within 1e-5 x the largest |value|."""
+    rank; MQA's replicated wk and wv and the RG-LRU's b_rg, b_ig and lam:
+    the two ranks' shares sum to it), within 1e-5 x the largest |value|."""
     x, world = results
-    cfg = _layer_cfg(arch)
     lp = {k: v.clone().requires_grad_(True)
           for k, v in _leaves(x[f"{arch}/lp"]).items()}
     tree = {}
@@ -368,9 +463,10 @@ def test_tensor_parallel_layer_matches_layer_fwd(results, arch):
             node = node.setdefault(p, {})
         node[last] = v
     h = torch.from_numpy(x[f"{arch}/x"]).requires_grad_(True)
-    y, _, aux = layer_fwd(cfg, tree, h, torch.arange(S))
+    y, aux = _layer_run(arch, tree, h)
     ((y * torch.from_numpy(x[f"{arch}/g"])).sum() + aux).backward()
-    specs = _leaves(_specs(cfg))
+    specs = _leaves(_specs(arch))
+    shared = SHARED_LEAVES.get(arch, set())
     shares = {}
     for r, w in enumerate(world):
         out, gx, grads, aux_r = w[f"layer/{arch}"]
@@ -383,18 +479,14 @@ def test_tensor_parallel_layer_matches_layer_fwd(results, arch):
             whole = lp[k].grad
             if "model" in tuple(specs[k]):
                 _close(g, _block(whole, mesh, specs[k]).numpy(), 1e-5)
-            elif k.endswith(("/wk", "/wv")):
+            elif k in shared:
                 shares[k] = shares.get(k, 0) + g
             else:
                 _close(g, whole.numpy(), 1e-5)
-    if cfg.num_kv_heads == 1:
-        assert set(shares) == {"/attn/wk", "/attn/wv"}
-        for k, g in shares.items():
-            _close(g, lp[k].grad.numpy(), 1e-5)
-            assert not np.allclose(world[0][f"layer/{arch}"][2]["attn"][
-                k.rsplit("/", 1)[1]], g)
-    else:
-        assert not shares
+    assert set(shares) == shared
+    for k, g in shares.items():
+        _close(g, lp[k].grad.numpy(), 1e-5)
+        assert not np.allclose(_leaves(world[0][f"layer/{arch}"][2])[k], g)
 
 
 def test_moe_exchange_adds_exact_zeros_from_the_other_rank(results):
@@ -430,12 +522,13 @@ def test_moe_exchange_adds_exact_zeros_from_the_other_rank(results):
 
 def test_dense_family():
     """The configs that run Megatron compute in the sharded train step:
-    the transformer family, dense, MoE and MLA alike."""
+    the transformer family, dense, MoE and MLA alike, and Griffin."""
     dense = {a for a in ARCH_IDS
              if tp.computes_on_blocks(build_model(get_arch(a).SMOKE))}
     assert dense == {"tinyllama_1_1b", "gemma_2b", "granite_8b",
                      "h2o_danube_3_4b", "hubert_xlarge", "llava_next_34b",
-                     "moonshot_v1_16b_a3b", "deepseek_v2_236b"}
+                     "moonshot_v1_16b_a3b", "deepseek_v2_236b",
+                     "recurrentgemma_2b"}
 
 
 @pytest.mark.parametrize("arch", ["tinyllama_1_1b", "gemma_2b",
@@ -573,3 +666,65 @@ def test_load_takes_moe_and_mla_blocks(arch):
         with pytest.raises(ValueError, match="blocks among 2"):
             model.load(local)
         model.load(whole)
+
+
+def _rank_blocks(model, mesh) -> dict:
+    """A rank's blocks of a Griffin or xLSTM model's weights, cut by the
+    specs of JAX's stacked layout, in `load`'s form."""
+    specs = spec_tree_from_layout(SINGLE_POD_RULES, model.layout())
+
+    def cut(tree, spec, stacked):
+        if isinstance(tree, dict):
+            return {k: cut(v, spec[k], stacked) for k, v in tree.items()}
+        return _block(tree, mesh, tuple(spec)[1:] if stacked else spec)
+    whole = model.tree()
+    out = {k: cut(v, specs[k], False) for k, v in whole.items()
+           if k != model.BLOCKS}
+    stacked = specs["units"]
+    if model.BLOCKS == "layers":          # Griffin: one tree a layer
+        names = [n for _ in range(model.n_units)
+                 for n in ("rec1", "rec2", "attn")]
+        names += [f"tail{i}" for i in range(model.n_tail)]
+        out["layers"] = [cut(lt, stacked[n], True) if n in stacked else
+                         cut(lt, specs[n], False)
+                         for lt, n in zip(whole["layers"], names)]
+    else:
+        out["units"] = [cut(u, stacked, True) for u in whole["units"]]
+    return out
+
+
+def test_load_takes_griffin_blocks_and_xlstm_refuses_them():
+    """`GriffinLM.load` takes a rank's blocks (cut by the specs) under the
+    context only, and refuses other shapes (the blocks among 4, a wrong
+    tail layer) in and out of it; `XLSTMLM.load` refuses a rank's blocks
+    under the context too, and takes the whole layout."""
+    cfg = _layer_cfg("recurrentgemma_2b")
+    model = build_model(cfg).init(device="cpu")
+    whole = model.tree()
+    blocks = _rank_blocks(model, _rank_mesh(2, 1))
+    assert blocks["layers"][0]["mix"]["w_rg"].shape == (cfg.d_rnn // 2,
+                                                        cfg.d_rnn)
+    assert blocks["layers"][-1]["mix"]["conv_b"].shape == (cfg.d_rnn // 2,)
+    with pytest.raises(ValueError, match="match neither"):
+        model.load(blocks)
+    with tp.model_parallel(_rank_mesh(2, 1), "model"):
+        model.load(blocks)
+        assert model.blocks[0]["mix"]["w_x"].shape[1] == cfg.d_rnn // 2
+        model.load(whole)
+        wrong = dict(blocks, layers=blocks["layers"][:-1]
+                     + [whole["layers"][-1]])
+        with pytest.raises(ValueError, match="blocks among 2"):
+            model.load(wrong)
+        quarter = _rank_blocks(build_model(cfg).init(device="cpu"),
+                               _rank_mesh(4, 1))
+        with pytest.raises(ValueError, match="blocks among 2"):
+            model.load(quarter)
+    xcfg = _layer_cfg("xlstm_350m")
+    xmodel = build_model(xcfg).init(device="cpu")
+    xwhole = xmodel.tree()
+    xblocks = _rank_blocks(xmodel, _rank_mesh(2, 1))
+    assert xblocks["embed"].shape[0] * 2 == xcfg.vocab
+    with tp.model_parallel(_rank_mesh(2, 1), "model"):
+        with pytest.raises(ValueError, match="match neither"):
+            xmodel.load(xblocks)
+        xmodel.load(xwhole)
