@@ -284,9 +284,9 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      rank mask counts differ), each rank's rows from `shard_rows`, the
      state placed by `shard_train_state` and gathered back, against the
      single-process step on the card from the same weights and batch: the
-     four gaps of 16a within `SHARD_TRAIN_TOL` (the transformer family,
-     MoE and MLA included, and Griffin run Megatron compute over "model",
-     `sharding.tensor_parallel`; xLSTM computes replicated); (b)
+     four gaps of 16a within `SHARD_TRAIN_TOL` (every family, the
+     transformer family with MoE and MLA, Griffin and xLSTM, runs Megatron
+     compute over "model", `sharding.tensor_parallel`); (b)
      tinyllama-1.1b whole (22 layers, bf16, tensor-parallel) on (data 2,
      model 2), 4 ranks sharing the card, at
      S = 2048, a global batch of 4 (one row a data rank a microbatch) at
@@ -295,8 +295,8 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      the plan at train_4k's S = 4096): a warm-up step and a timed step
      on the host clock, the share of each in collectives (host clock
      around them, after a synchronise), the sums over "model", the sums
-     over "data" and the gathers apart (calls, ms, bytes; no gather over
-     "model"), the first step's loss and grad_norm against a float32
+     over "data" and the gathers over each axis apart (calls, ms, bytes;
+     no gather over "model" but 17e's), the first step's loss and grad_norm against a float32
      single-process step on the same global batch and weights, within
      1.5x the bf16 single-process step's own gaps from it (at least
      2.4e-7; the gaps to the bf16 single-process step printed too), each
@@ -311,7 +311,16 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      bf16), tensor-parallel (the RG-LRU on 1280 columns a rank) at
      `SHARD_GRIFFIN_UNITS` of its 8 (rec, rec, attn) units and none of its
      2 tail layers, its block matrices rescaled to std 1/sqrt(d_in): a
-     warm-up step and 1 timed, the plan printed at one unit more too.
+     warm-up step and 1 timed, the plan printed at one unit more too;
+     (e) the same for xlstm-350m at full width (d 1024, 4 heads, mLSTM
+     width 2048, sLSTM MLP width 1408, vocab 50 304, bf16),
+     tensor-parallel (the mLSTM on 2 heads a rank, the sLSTM's recurrence
+     whole on every rank beside its tensor-parallel MLP) at
+     `SHARD_XLSTM_UNITS` of its 12 (mLSTM, sLSTM) units and S =
+     `SHARD_XLSTM_S`, its block matrices rescaled to std 1/sqrt(d_in): a
+     warm-up step and 1 timed, its gathers over "model" (the sLSTM's gate
+     weights, the fused w_up products' exchange) counted against their
+     8 a unit a microbatch, the plan printed at one unit more too.
 
 The line before the last is a JSON object with one entry per kernel (the
 `resources` object just before it); the last line is {"ok": true,
@@ -4154,7 +4163,9 @@ SHARD_PARITY = (8, 16)
 #: 1.11e-4, tests/test_torch_train_sharded.py; the card measured 1.307e-6
 #: and 1.427e-5), and tinyllama/compress's weights from 2.4e-4 to 3.22e-3
 #: lr (1.5x the card's 2.146e-3: JAX's gap there, 0.999 lr, is one int8
-#: quantum and would hold nothing)
+#: quantum and would hold nothing).  xLSTM, tensor-parallel since 17e
+#: joined, kept its bounds on the card (first moment 2.273e-6 x max |m|,
+#: weights 5.96e-5 lr; PERF.md §6)
 SHARD_TRAIN_TOL = {
     "recurrentgemma_2b": (2.4e-7, 3.71e-4, 9.14e-4, 0.027),
     "deepseek_v2_236b": (2.4e-7, 1.16e-5, 5.96e-5, 3.8e-4),
@@ -4189,7 +4200,7 @@ SHARD_REST_SLACK = 512 * 2**20
 #: 17d's 20-22 s steps took 1 171.9 s of its 1 200 on a host whose gloo
 #: ran 17b's steps in 12.8 s, not PR 27's 7.5-8.4 (NVIDIA H100 80GB HBM3,
 #: 700.00 W; PERF.md §6)
-SHARD_STEPS = {"17b": 2, "17c": 2, "17d": 2}
+SHARD_STEPS = {"17b": 2, "17c": 2, "17d": 2, "17e": 2}
 #: 17c: moonshot-v1-16b-a3b at full width (bf16), tensor- and
 #: expert-parallel on SHARD_MAIN's mesh, rows, accum_steps and S, at this
 #: many of its 48 layers, its block matrices rescaled to std 1/sqrt(d_in)
@@ -4201,8 +4212,12 @@ SHARD_STEPS = {"17b": 2, "17c": 2, "17d": 2}
 #: beside their activations and contexts; a probe (NVIDIA H100 80GB HBM3,
 #: 700.00 W) planned 60.00 GiB at 3 layers and 72.75 GiB at 4, of 75.35
 #: GiB free (0.85 of it: 64.05); the float32 single-process reference
-#: (about 22 bytes a parameter) peaked at 50.99 GiB at 3 layers
-SHARD_MOE_LAYERS = 3
+#: (about 22 bytes a parameter) peaked at 50.99 GiB at 3 layers.  Since
+#: 17e joined the smoke it runs 2 layers, for time: without 17e the whole
+#: smoke took 1 099.2 s of its 1 200 on a host with slow gloo, 17e adds
+#: about 45-61 s and 17c's 3 layers took 91.8 s (NVIDIA H100 80GB HBM3,
+#: 700.00 W; PERF.md §6)
+SHARD_MOE_LAYERS = 2
 #: 17d: recurrentgemma-2b at full width (bf16), tensor-parallel on
 #: SHARD_MAIN's mesh, rows, accum_steps and S, at this many of its 8
 #: (rec, rec, attn) units and none of its 2 tail layers, its block
@@ -4214,9 +4229,23 @@ SHARD_MOE_LAYERS = 3
 #: = 66.44, 5 units 64.003; after the smoke's earlier phases, whose
 #: allocator cache of 2.648 GiB stays with this process, 5 units planned
 #: 64.329 GiB against 0.85 x 75.71 = 64.354 (two whole smokes alike): a
-#: margin of 0.024 GiB, so 17d runs 4 units.  The float32 single-process
-#: reference peaked at 50.543 GiB at 6 units and 45.212 at 5
-SHARD_GRIFFIN_UNITS = 4
+#: margin of 0.024 GiB, so 17d ran 4 units (101.4 s of that 1 099.2 s
+#: smoke).  The float32 single-process reference peaked at 50.543 GiB at 6
+#: units and 45.212 at 5.  Since 17e joined the smoke, 17d runs 2 units,
+#: for time (`SHARD_MOE_LAYERS`)
+SHARD_GRIFFIN_UNITS = 2
+#: 17e: xlstm-350m at full width (bf16), tensor-parallel on SHARD_MAIN's
+#: mesh, rows and accum_steps, at this many of its 12 (mLSTM, sLSTM)
+#: units and this S, its block matrices rescaled to std 1/sqrt(d_in)
+#: (`fan_in_weights`: JAX's init is chaotic for xLSTM, 17a's docstring).
+#: The cut is time, not memory: the sLSTM's scan and its backward launch
+#: their ops once a position (PERF.md §5: 309 073 launches for one
+#: (8, 512) prefill of 12 units), and four ranks share the card.  S = 512
+#: is a multiple of the loss chunk (512) that takes two mLSTM chunks of
+#: 256; at it a row's 512 positions are fewer than d = 1024, so the fused
+#: w_up leaves move their products, not their weights (PERF.md §6)
+SHARD_XLSTM_UNITS = 2
+SHARD_XLSTM_S = 512
 
 
 def card_settings() -> None:
@@ -4535,13 +4564,23 @@ def shard_main_refs(dev, cfg, rescale: bool, batch: dict, A: int):
     return ref32, peak32, ref, peak
 
 
-def shard_main(dev, card: str, cfg, tag: str,
-               rescale: bool = False) -> dict[str, int]:
+def xlstm_model_gathers(cfg) -> int:
+    """17e's gathers over "model" a step: a unit's sLSTM gate weights in
+    forward and the remat's recomputation, and its two fused w_up products'
+    exchange in forward, the remat and backward, each microbatch."""
+    A = SHARD_MAIN[2]
+    return cfg.num_layers // 2 * A * (2 + 2 * 3)
+
+
+def shard_main(dev, card: str, cfg, tag: str, rescale: bool = False,
+               S: int = SHARD_MAIN[3]) -> dict[str, int]:
     """17b (tinyllama-1.1b whole), 17c (moonshot-v1-16b-a3b at full
-    width, `SHARD_MOE_LAYERS` layers, rescaled) and 17d (recurrentgemma-2b
-    at full width, `SHARD_GRIFFIN_UNITS` units, rescaled): `cfg` in bf16,
-    tensor-parallel (MoE expert-parallel) on (data 2, model 2), 4 ranks
-    sharing the card, against single-process steps."""
+    width, `SHARD_MOE_LAYERS` layers, rescaled), 17d (recurrentgemma-2b
+    at full width, `SHARD_GRIFFIN_UNITS` units, rescaled) and 17e
+    (xlstm-350m at full width, `SHARD_XLSTM_UNITS` units at S =
+    `SHARD_XLSTM_S`, rescaled): `cfg` in bf16, tensor-parallel (MoE
+    expert-parallel) on (data 2, model 2), 4 ranks sharing the card,
+    against single-process steps."""
     import dataclasses
 
     from repro_torch.data.pipeline import (SyntheticTokenPipeline,
@@ -4550,7 +4589,7 @@ def shard_main(dev, card: str, cfg, tag: str,
     from repro_torch.models import build_model
 
     t0 = time.perf_counter()
-    (dp, tp), rows, A, S = SHARD_MAIN
+    (dp, tp), rows, A, _ = SHARD_MAIN
     B = dp * rows * A
     label = f"{tag} {cfg.name}"
     pipe = SyntheticTokenPipeline(TokenPipelineConfig(
@@ -4583,11 +4622,11 @@ def shard_main(dev, card: str, cfg, tag: str,
     scaled = (", block matrices rescaled to std 1/sqrt(d_in)" if rescale
               else "")
     deeper = ""
-    if tag in ("17c", "17d"):
-        # one layer (a unit: 3 layers) more: the ranks' plan and the
-        # float32 reference's peak grow by their bytes a parameter of its
-        # parameters, the activations by the share of its layers
-        more = cfg.num_layers + (3 if tag == "17d" else 1)
+    if tag in ("17c", "17d", "17e"):
+        # one layer (a unit: 3 layers, xLSTM's 2) more: the ranks' plan
+        # and the float32 reference's peak grow by their bytes a parameter
+        # of its parameters, the activations by the share of its layers
+        more = cfg.num_layers + {"17d": 3, "17e": 2}.get(tag, 1)
         n1 = build_model(dataclasses.replace(
             cfg, num_layers=more)).param_count()
         act1 = rows * act_row * more / cfg.num_layers
@@ -4617,6 +4656,7 @@ def shard_main(dev, card: str, cfg, tag: str,
     if need > 0.85 * free:
         raise SystemExit(f"FAIL train sharded {tag}: the plan does not fit "
                          f"the card; cut S")
+    want_gathers = xlstm_model_gathers(cfg) if tag == "17e" else 0
     t1 = time.perf_counter()
     every = run_spmd(shard_main_world, dp * tp, device=dev.type,
                      backend="gloo", args=(cfg, rescale, batches))
@@ -4649,8 +4689,8 @@ def shard_main(dev, card: str, cfg, tag: str,
             f"{k} {np.mean([1e3 * r[1][k][0] for r in timed]):.1f} ms in "
             f"{timed[0][1][k][1]} calls, {timed[0][1][k][2] / 1e9:.3f} GB"
             for k in sorted(timed[0][1]))
-        gathers = sum(r[1].get("all_gather over model", (0, 0, 0))[1]
-                      for r in w["readings"])
+        gathers = [r[1].get("all_gather over model", (0, 0, 0))[1]
+                   for r in w["readings"]]
         print(f"timing train sharded {tag} rank {w['rank']} {w['coord']}: "
               f"init and placement {w['init_s']:.1f} s; warm-up "
               f"{1e3 * w['readings'][0][0]:.1f} ms, steps "
@@ -4658,8 +4698,9 @@ def shard_main(dev, card: str, cfg, tag: str,
               f"synchronised), {np.mean(step_ms):.1f} ms a step, "
               f"{B * S / np.mean(step_ms) * 1e3:.1f} tokens/s over the "
               f"world; in collectives {[round(x, 4) for x in share]} of "
-              f"each step ({kinds} a step; gathers over model in all "
-              f"{timed_steps + 1} steps: {gathers}); state at rest "
+              f"each step ({kinds} a step; gathers over model in each of "
+              f"the {timed_steps + 1} steps: {gathers}, {want_gathers} "
+              f"expected); state at rest "
               f"{w['blocks'] / 2**30:.4f} GiB (the specs' share "
               f"{w['share'] / 2**30:.4f} GiB), allocated at rest "
               f"{w['rest'] / 2**30:.4f} GiB (after each step "
@@ -4670,8 +4711,9 @@ def shard_main(dev, card: str, cfg, tag: str,
         if w["blocks"] != w["share"] or \
                 w["rest"] > w["share"] + SHARD_REST_SLACK or not w["meta"]:
             bad.append(f"rank {w['rank']} holds more than its share")
-        if gathers:
-            bad.append(f"rank {w['rank']} gathered over model")
+        if any(n != want_gathers for n in gathers):
+            bad.append(f"rank {w['rank']} gathered over model {gathers} "
+                       f"times, not {want_gathers} a step")
     print(f"train sharded {label}: {cfg.num_layers} layers, bf16,"
           f" {n} parameters, Megatron compute on (data {dp}, model {tp}); "
           f"losses {[round(x, 4) for x in losses]} (warm-up, {timed_steps} "
@@ -4694,8 +4736,8 @@ def shard_main(dev, card: str, cfg, tag: str,
 
 def phase_train_sharded(dev, card: str) -> dict[str, int]:
     """17: sharded training; 17a parity on the two test meshes, 17b
-    tinyllama-1.1b whole, 17c moonshot-v1-16b-a3b and 17d
-    recurrentgemma-2b at full width on 4 ranks.  No Viterbi kernel may
+    tinyllama-1.1b whole, 17c moonshot-v1-16b-a3b, 17d recurrentgemma-2b
+    and 17e xlstm-350m at full width on 4 ranks.  No Viterbi kernel may
     launch."""
     import dataclasses
 
@@ -4703,15 +4745,20 @@ def phase_train_sharded(dev, card: str) -> dict[str, int]:
 
     t0 = time.perf_counter()
     launches = shard_parity(dev, card)
-    for tag, cfg, rescale in (
-            ("17b", get_arch("tinyllama_1_1b").CONFIG, False),
+    for tag, cfg, rescale, S in (
+            ("17b", get_arch("tinyllama_1_1b").CONFIG, False, SHARD_MAIN[3]),
             ("17c", dataclasses.replace(get_arch("moonshot_v1_16b_a3b")
                                         .CONFIG,
-                                        num_layers=SHARD_MOE_LAYERS), True),
+                                        num_layers=SHARD_MOE_LAYERS), True,
+             SHARD_MAIN[3]),
             ("17d", dataclasses.replace(get_arch("recurrentgemma_2b").CONFIG,
                                         num_layers=3 * SHARD_GRIFFIN_UNITS),
-             True)):
-        for name, k in shard_main(dev, card, cfg, tag, rescale).items():
+             True, SHARD_MAIN[3]),
+            ("17e", dataclasses.replace(get_arch("xlstm_350m").CONFIG,
+                                        num_layers=2 * SHARD_XLSTM_UNITS),
+             True, SHARD_XLSTM_S)):
+        for name, k in shard_main(dev, card, cfg, tag, rescale,
+                                  S).items():
             launches[name] += k
     check_launches("train sharded", launches, {})
     print(f"train sharded phase: {time.perf_counter() - t0:.1f} s wall; no "

@@ -21,11 +21,12 @@ as outside JAX's scan.  xLSTM's loss skips the mLSTM's final-state loop
 Serving runs under `torch.no_grad`.
 
 Under `sharding.tensor_parallel.model_parallel` (the sharded train step)
-Griffin holds a rank's blocks (`load` takes them) and its loss runs
-Megatron compute over "model": the embedding lookup and the cross
-entropy vocab-parallel, attention on the rank's heads, the MLP and the
-RG-LRU block on its ff columns (`models.rglru`).  xLSTM's `load` takes
-whole weights only.
+both families hold a rank's blocks (`load` takes them) and their losses
+run Megatron compute over "model": the embedding lookup and the cross
+entropy vocab-parallel; Griffin's attention on the rank's heads, its MLP
+and RG-LRU block on its ff columns (`models.rglru`); xLSTM's mLSTM on the
+rank's heads, its sLSTM's recurrence whole on every rank beside a
+tensor-parallel MLP (`models.xlstm`).
 """
 
 from __future__ import annotations
@@ -131,16 +132,14 @@ class _RecurrentLM(nn.Module):
     def load(self, tree: dict):
         """Take the weights of `tree`: JAX's parameter names, with
         ``tree[self.BLOCKS]`` a list of one nested dict a block, each
-        shaped as the whole layout or, for a config that computes on its
-        blocks (`tensor_parallel.computes_on_blocks`: Griffin) under
+        shaped as the whole layout or, under
         `tensor_parallel.model_parallel`, as a rank's blocks; ValueError
         otherwise."""
         blocks = tree[self.BLOCKS]
         if len(blocks) != self.n_blocks:
             raise ValueError(f"{len(blocks)} {self.BLOCKS} given, "
                              f"{self.n_blocks} configured")
-        check_shapes(self.cfg.name, tree, self.layout(), self._load_form,
-                     blocks=tensor_parallel.computes_on_blocks(self))
+        check_shapes(self.cfg.name, tree, self.layout(), self._load_form)
         self.blocks = nn.ModuleList(ParamTree(t) for t in blocks)
         self.embed = _frozen(tree["embed"])
         self.ln_out = _frozen(tree["ln_out"])
@@ -402,15 +401,26 @@ class XLSTMLM(_RecurrentLM):
                           for u in range(self.n_units)],
                 "embed": tree["embed"], "ln_out": tree["ln_out"]}
 
+    def block_fwd(self, kind: str, up: dict, x, state=None,
+                  need_state: bool = True):
+        """x plus the unit's mLSTM (`kind` "m") or sLSTM ("s") block on
+        its pre-norm ``up["ln_" + kind]`` and weights ``up[kind]`` (a unit's
+        tree, or the two entries of it): (x', the block's state)."""
+        h = rms_norm(x, up["ln_" + kind])
+        if kind == "m":
+            y, st = xl.mlstm_block(up["m"], h, self.xcfg, state,
+                                   need_state=need_state)
+        else:
+            y, st = xl.slstm_block(up["s"], h, self.xcfg, state)
+        return x + y, st
+
     def _unit(self, up, x, state, need_state: bool = True):
-        m_state = None if state is None else state["m"]
-        s_state = None if state is None else state["s"]
-        y, m_new = xl.mlstm_block(up["m"], rms_norm(x, up["ln_m"]),
-                                  self.xcfg, m_state, need_state=need_state)
-        x = x + y
-        y, s_new = xl.slstm_block(up["s"], rms_norm(x, up["ln_s"]),
-                                  self.xcfg, s_state)
-        return x + y, {"m": m_new, "s": s_new}
+        x, m_new = self.block_fwd("m", up, x,
+                                  None if state is None else state["m"],
+                                  need_state)
+        x, s_new = self.block_fwd("s", up, x,
+                                  None if state is None else state["s"])
+        return x, {"m": m_new, "s": s_new}
 
     def _fresh_state(self, batch: int, device) -> dict:
         cfg, W = self.cfg, self.xcfg.conv_width
@@ -435,7 +445,10 @@ class XLSTMLM(_RecurrentLM):
         """JAX's `XLSTMLM.loss` on ``batch["tokens"]``, ``["labels"]`` and
         ``["mask"]`` (B, S): a 0-d float32 tensor (`mask_count` as
         `TransformerLM.loss` takes it).  No mLSTM final state is computed
-        (`xlstm.mlstm_block`'s ``need_state``)."""
+        (`xlstm.mlstm_block`'s ``need_state``).  Under
+        `tensor_parallel.model_parallel` the model holds a rank's blocks
+        and runs tensor-parallel; each rank of the axis returns the same
+        loss."""
         x = self._tokens(batch["tokens"])
         unit = _remat(self._unit_loss, self.cfg.remat_policy)
         for u in range(self.n_units):

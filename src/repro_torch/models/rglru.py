@@ -21,7 +21,7 @@ blocks (`tensor_parallel.block_layout`), and the block is Megatron's, as
 JAX's partitioner runs it: W_gate and W_x column-parallel on one input,
 the conv and the recurrence on the rank's ff columns (elementwise over
 them), W_r and W_i (ff their input axis) through `tensor_parallel.
-row_columns` (partial products summed over "model" in one collective,
+row_products` (partial products summed over "model" in one collective,
 rounded once, cut to the rank's columns), their biases and Lambda as the
 rank's span (`tensor_parallel.own`), and W_out row-parallel.  The widths
 come from the blocks' shapes alone.  Decode runs outside the context.
@@ -87,7 +87,8 @@ def _gates(params, u):
     then cast, as JAX computes them (on the rank's columns under
     `tensor_parallel.model_parallel`)."""
     own = tensor_parallel.own
-    pr, pi = tensor_parallel.row_columns(u, params["w_rg"], params["w_ig"])
+    pr, pi = tensor_parallel.row_products((u, params["w_rg"]),
+                                          (u, params["w_ig"]))
     r = torch.sigmoid(pr + own(params["b_rg"])).float()
     i = torch.sigmoid(pi + own(params["b_ig"])).float()
     log_a = -_C * _softplus(own(params["lam"])).float() * r

@@ -240,15 +240,14 @@ def _shape_tree(tree):
     return tuple(tree[0]) if isinstance(tree, tuple) else tuple(tree.shape)
 
 
-def check_shapes(name: str, tree: dict, layout: Layout, form,
-                 blocks: bool) -> None:
+def check_shapes(name: str, tree: dict, layout: Layout, form) -> None:
     """ValueError unless the shapes of `tree` (weights as a model's `load`
-    takes them) are those of `layout` (JAX's table) or, when `blocks` and
-    under `tensor_parallel.model_parallel`, of a rank's blocks of it
+    takes them) are those of `layout` (JAX's table) or, under
+    `tensor_parallel.model_parallel`, of a rank's blocks of it
     (`tensor_parallel.block_layout`); `form(layout)` is a layout's shape
     tree in `load`'s form."""
     got = _shape_tree(tree)
-    m = tensor_parallel.parts() if blocks else 1
+    m = tensor_parallel.parts()
     if got != form(layout) and (m == 1 or got != form(
             tensor_parallel.block_layout(layout, m))):
         where = f" or a rank's blocks among {m}" if m > 1 else ""
@@ -377,7 +376,7 @@ class TransformerLM(nn.Module):
     def _check_shapes(self, tree: dict) -> None:
         lay = model_layout(dataclasses.replace(self.cfg, scan_layers=False))
         lay["layers"] = list(lay["layers"].values())
-        check_shapes(self.cfg.name, tree, lay, _shape_tree, blocks=True)
+        check_shapes(self.cfg.name, tree, lay, _shape_tree)
 
     def tree(self) -> dict:
         """The weights as `load` takes them (the module's own tensors)."""

@@ -16,6 +16,23 @@ sequence before its loop.
 As in JAX: block-diagonal projections and GroupNorm are replaced by per-head
 RMS normalisation; causal conv1d front-ends kept; xlstm-350m alternates
 mLSTM and sLSTM blocks 1:1.
+
+Under `sharding.tensor_parallel.model_parallel` the weights are this rank's
+blocks (`tensor_parallel.block_layout`), and each block runs as JAX's
+partitioner runs it on the rank's share:
+  * the mLSTM on the rank's heads (ValueError unless they split): w_up's
+    block product exchanged so that the rank holds its span of u and of z
+    (`tensor_parallel.fused`), the conv on those columns, q, k (from the
+    conv's output) and v (from u) and the two gates (w_if's halves, i and
+    f) as the float32 partials of the rank's rows summed in one collective
+    and cut to the rank's heads (`tensor_parallel.row_products`), b_if's
+    entries of those heads, the chunked parallel form on them, the norm's
+    sum of squares over the whole width (`tensor_parallel.all_sum`) and
+    w_down row-parallel;
+  * the sLSTM's conv, scan and norm whole on every rank, its gate weights
+    gathered whole (`tensor_parallel.whole`), its MLP tensor-parallel
+    (`fused`, then `row`).
+The widths come from the blocks' shapes.  Decode runs outside the context.
 """
 
 from __future__ import annotations
@@ -26,6 +43,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..sharding import tensor_parallel
 from .common import Layout, act_fn, rms_norm
 from .rglru import _causal_conv1d
 
@@ -145,24 +163,37 @@ def _mlstm_final_state(q, k, v, log_i, log_f):
     return st
 
 
+def _norm(x, scale, eps: float = 1e-6):
+    """`common.rms_norm` over the whole width: under the context `x` holds
+    the rank's columns, and each row's sum of squares is summed over
+    "model" (forward and backward)."""
+    if not tensor_parallel.active():
+        return rms_norm(x, scale, eps)
+    xf = x.float()
+    ss = tensor_parallel.all_sum(xf.square().sum(dim=-1, keepdim=True))
+    var = ss / (x.shape[-1] * tensor_parallel.parts())
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
 def mlstm_block(params, x, cfg: XLSTMConfig, state=None,
                 need_state: bool = True):
     """Pre-up-projected mLSTM block. Returns (y, new_state).  Over a
     sequence, ``need_state=False`` skips the recurrence that gives the
     final state (`_mlstm_final_state`, S eager steps) and returns None as
-    the recurrent state: the training loss reads no state."""
+    the recurrent state: the training loss reads no state.  On the rank's
+    heads under `tensor_parallel.model_parallel` (module docstring)."""
     B, S, _ = x.shape
-    H = cfg.num_heads
-    up = x @ params["w_up"]
-    u, z = torch.chunk(up, 2, dim=-1)                     # branch + gate
+    H = tensor_parallel.span(cfg.num_heads, "num_heads")[1]
+    u, z = tensor_parallel.fused(x, params["w_up"], 2)    # branch + gate
     conv_state = None if state is None else state["conv"]
     uc, conv_tail = _causal_conv1d(u, params["conv_w"], params["conv_b"],
                                    conv_state)
     uc = F.silu(uc)
-    q = _heads(uc @ params["wq"], H)
-    k = _heads(uc @ params["wk"], H)
-    v = _heads(u @ params["wv"], H)
-    gates = (uc @ params["w_if"] + params["b_if"]).float()
+    q, k, v, g = tensor_parallel.row_products(
+        (uc, params["wq"]), (uc, params["wk"]), (u, params["wv"]),
+        (uc, params["w_if"], 2))
+    q, k, v = _heads(q, H), _heads(k, H), _heads(v, H)
+    gates = (g + tensor_parallel.own(params["b_if"], 2)).float()
     log_i, log_f = gates[..., :H], F.logsigmoid(gates[..., H:])
 
     if state is None or S > 1:
@@ -172,8 +203,8 @@ def mlstm_block(params, x, cfg: XLSTMConfig, state=None,
     else:
         h, mst = mlstm_step(q, k, v, log_i, log_f, state["rec"])
     hp = h.reshape(B, S, -1).to(x.dtype)
-    hn = rms_norm(hp, params["norm"]) * F.silu(z)
-    y = hn @ params["w_down"]
+    hn = _norm(hp, params["norm"]) * F.silu(z)
+    y = tensor_parallel.row(hn, params["w_down"])
     return y, {"rec": mst, "conv": conv_tail}
 
 
@@ -226,6 +257,9 @@ def slstm_scan(params, x, state):
 
 
 def slstm_block(params, x, cfg: XLSTMConfig, state=None):
+    """The sLSTM block. Returns (y, new_state).  Under
+    `tensor_parallel.model_parallel` the recurrence runs whole on every
+    rank and the MLP on the rank's columns (module docstring)."""
     B, S, D = x.shape
     conv_state = None if state is None else state["conv"]
     xc, conv_tail = _causal_conv1d(x, params["conv_w"], params["conv_b"],
@@ -233,10 +267,12 @@ def slstm_block(params, x, cfg: XLSTMConfig, state=None):
     xc = F.silu(xc)
     rec = (init_slstm_state(B, D, device=x.device) if state is None
            else state["rec"])
-    h, rec = slstm_scan(params, xc, rec)
+    gates = dict(zip(("w_gates", "r_gates", "b_gates"), tensor_parallel.whole(
+        params["w_gates"], params["r_gates"], params["b_gates"])))
+    h, rec = slstm_scan(dict(params, **gates), xc, rec)
     h = rms_norm(h, params["norm"])
-    a, b = torch.chunk(h @ params["w_up"], 2, dim=-1)
-    y = (act_fn("gelu")(a) * b) @ params["w_down"]
+    a, b = tensor_parallel.fused(h, params["w_up"], 2)
+    y = tensor_parallel.row(act_fn("gelu")(a) * b, params["w_down"])
     return y, {"rec": rec, "conv": conv_tail}
 
 

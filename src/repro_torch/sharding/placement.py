@@ -17,16 +17,14 @@ gives the same blocks in JAX's layout.
 Cutting needs only the mesh's shape and this rank's coordinates (a
 `core.mesh.ShapeMesh` with ``coord`` set will do); gathering and ZeRO-1's
 rebuild run `Mesh.all_gather`.  The sharded train step
-(`train.make_train_step(..., mesh=)`) is the reader.  For the configs that
-`tensor_parallel.computes_on_blocks` names (the transformer family, dense,
-MoE and MLA, and Griffin) it computes on the rank's blocks (Megatron
-compute over "model"), so its gradients are blocks too: `regions` cuts
-them over the data axes only, as the weights' blocks, and `leaf_roles`
-says which gradients are blocks, which are whole and which are a rank's
-share of a replicated leaf.  For xLSTM it gathers each weight over the
-axes its spec shards and computes on whole weights, replicated over
-"model".  Either way it updates the region of each leaf that the rank's
-moments cover and rebuilds the weights' blocks over the data axes.
+(`train.make_train_step(..., mesh=)`) is the reader.  Every family
+computes on the rank's blocks (Megatron compute over "model",
+`tensor_parallel.computes_on_blocks`), so its gradients are blocks too:
+`regions` cuts them over the data axes only, as the weights' blocks, and
+`leaf_roles` says which gradients are blocks, which are whole and which
+are a rank's share of a replicated leaf.  The step updates the region of
+each leaf that the rank's moments cover and rebuilds the weights' blocks
+over the data axes.
 """
 
 from __future__ import annotations
@@ -38,7 +36,6 @@ from ..checkpointing.elastic import _block
 from ..core.mesh import axes_of
 from ..models.convert import jax_pieces, port_layout
 from .rules import SINGLE_POD_RULES
-from .tensor_parallel import computes_on_blocks
 
 
 def data_axes(rules, mesh) -> tuple[str, ...]:
@@ -90,9 +87,6 @@ class TrainPlacement:
         specs = train_state_specs(model, rules,
                                   mesh.axis_size(self.data_axes))
         self.pspecs, self.mspecs = specs["params"], specs["opt"]["m"]
-        #: whether the step computes on the blocks (Megatron over "model")
-        self.tensor_parallel = (computes_on_blocks(model)
-                                and "model" in mesh.shape)
 
     def _is_data(self, ax) -> bool:
         return ax is not None and axes_of(ax) == self.data_axes
@@ -154,22 +148,21 @@ class TrainPlacement:
     def regions(self, blocks: dict, grads: dict, m: dict, v: dict):
         """For each piece of the rank's moments: (the view of its weights'
         block that it covers, the gradient over it, m, v).  `grads`, in the
-        port's layout, is whole, or the weights' blocks under Megatron
-        compute (`tensor_parallel`)."""
+        port's layout, are the weights' blocks (Megatron compute,
+        `tensor_parallel`), cut as the weights over the data axes."""
         mesh = self.mesh
         out = []
-        gcut = self._data_only if self.tensor_parallel else tuple
 
         def leaf(path, x, spec):
             p, g, mm, vv = x
             if not isinstance(p, list):
-                out.append((_block(p, mesh, self._data_only(spec)),
-                            _block(g, mesh, gcut(spec)), mm, vv))
+                z = self._data_only(spec)
+                out.append((_block(p, mesh, z), _block(g, mesh, z), mm, vv))
                 return
-            rest = spec[1:]
+            z = self._data_only(spec[1:])
             for i in owned_layers(mesh, spec[0], len(p)):
-                out.append((_block(p[i], mesh, self._data_only(rest)),
-                            _block(g[i], mesh, gcut(rest)), mm[i], vv[i]))
+                out.append((_block(p[i], mesh, z), _block(g[i], mesh, z),
+                            mm[i], vv[i]))
 
         trees = [jax_pieces(t, self.model) for t in (blocks, grads, m, v)]
         _walk(leaf, _zip4(*trees), self.mspecs)
@@ -205,13 +198,16 @@ class TrainPlacement:
         """Under Megatron compute, each weight's gradient on a rank, in the
         port's layout: "block" (the rank's block of a leaf its spec shards
         over "model": heads, ff, vocab, MoE's experts and shared experts,
-        MLA's wq_b, w_uk, w_uv and wo, Griffin's conv), "partial" (a
-        replicated leaf that the rank's heads or columns alone read, so its
-        gradient is the rank's share: MQA's single kv head's wk and wv, the
-        transformer's and Griffin's; the RG-LRU's gate biases b_rg, b_ig and
-        its decay lam, read on the rank's columns) or "whole" (the norms,
-        MoE's router, MLA's wq_a and w_dkv, whose products' gradients are
-        summed over "model" inside the layer)."""
+        MLA's wq_b, w_uk, w_uv and wo, Griffin's conv, xLSTM's fused
+        w_up and the sLSTM's gate weights, whose gradients the layer cuts to
+        the block), "partial" (a replicated leaf that the rank's heads or
+        columns alone read, so its gradient is the rank's share: MQA's
+        single kv head's wk and wv, the transformer's and Griffin's; the
+        RG-LRU's gate biases b_rg, b_ig and its decay lam, read on the
+        rank's columns; the mLSTM's gate bias b_if, read on the rank's
+        heads) or "whole" (the norms, MoE's router, MLA's wq_a and w_dkv,
+        whose products' gradients are summed over "model" inside the layer;
+        the sLSTM's conv and norm, computed whole on every rank)."""
         partial = _PARTIAL
         if self.model.cfg.num_kv_heads == 1:
             partial += _MQA_PARTIAL
@@ -238,10 +234,11 @@ class TrainPlacement:
         return found
 
 
-#: the replicated leaves that a rank reads on its own columns alone (JAX
-#: path endings): the RG-LRU's gate biases and decay, and MQA's kv
-#: projections (the transformer's, and Griffin's attention layers')
-_PARTIAL = ("/mix/b_rg", "/mix/b_ig", "/mix/lam")
+#: the replicated leaves that a rank reads on its own columns or heads
+#: alone (JAX path endings): the RG-LRU's gate biases and decay, the
+#: mLSTM's gate bias, and MQA's kv projections (the transformer's, and
+#: Griffin's attention layers')
+_PARTIAL = ("/mix/b_rg", "/mix/b_ig", "/mix/lam", "/m/b_if")
 _MQA_PARTIAL = ("/attn/wk", "/attn/wv", "/attn/mix/wk", "/attn/mix/wv")
 
 

@@ -15,12 +15,10 @@ Conventions (MaxText-style megatron sharding):
 
 The sharded train step reads these specs (`sharding.placement`): each
 weight is stored sharded as its spec says, AdamW's moments also over the
-batch axes (ZeRO-1), and the batch is split over the batch axes.  The
-transformer family (dense, MoE and MLA) and Griffin compute on those
-blocks, tensor- and expert-parallel over "model"
-(`sharding.tensor_parallel`); only xLSTM gathers the weights over "model"
-and computes the whole model on every rank of a data row (its Megatron
-compute is ROADMAP Queue 1 item 11e, part 4).
+batch axes (ZeRO-1), and the batch is split over the batch axes.  Every
+family (the transformer family, dense, MoE and MLA, Griffin and xLSTM)
+computes on those blocks, tensor- and expert-parallel over "model"
+(`sharding.tensor_parallel`).
 """
 
 from __future__ import annotations

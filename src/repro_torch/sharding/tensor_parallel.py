@@ -1,7 +1,7 @@
 """Megatron compute over the "model" axis of a mesh: what XLA's partitioner
 does for JAX's SPMD train step under `sharding.rules` (heads, kv heads, ff,
 vocab and experts over "model"), written out for the transformer family
-(dense, MoE and MLA) and Griffin.
+(dense, MoE and MLA), Griffin and xLSTM.
 
 While `model_parallel(mesh, axis)` is active, each rank computes on the
 blocks its specs give it:
@@ -34,20 +34,42 @@ blocks its specs give it:
   * Griffin's RG-LRU block (`models.rglru`) runs its two input products
     column-parallel and its output product row-parallel, its conv and
     recurrence on the rank's ff columns; its gates, whose weights take ff
-    as their input axis, are `row_columns`: the float32 partial products
+    as their input axis, are `row_products`: the float32 partial products
     summed over the axis in one collective, rounded once, and cut to the
     rank's columns (`span`), whose backward gives every rank the gradient
     of all the columns; the replicated vectors beside them (the gates'
-    biases, the decay) enter as the rank's span (`own`).
+    biases, the decay) enter as the rank's span (`own`);
+  * xLSTM (`models.xlstm`): a fused leaf, whose columns are pieces side
+    by side (the mLSTM's w_up u | z, the sLSTM's w_up a | b), is cut
+    contiguously as JAX cuts it, so a rank's block is not its span of
+    each piece: `fused` runs the block's product column-parallel and
+    exchanges the products over the axis (one gather), so that each rank
+    keeps its span of every piece; backward gathers every rank's span
+    gradients and keeps the block's.  The mLSTM runs on the rank's heads:
+    its conv on the rank's columns, q, k, v and the two gates through
+    `row_products` (one sum), the gates' bias as the rank's heads' entries
+    of each half (`own` with pieces), the norm's sum of squares summed
+    over the axis (`all_sum`, whose backward sums too) and w_down
+    row-parallel.  The sLSTM's recurrence reads the whole previous h at
+    every position, so its conv, scan and norm run whole on every rank,
+    their gate weights brought whole over the axis (`whole`: one gather;
+    backward keeps the rank's columns of the gradient, which every rank
+    computes the same), and its MLP is tensor-parallel (`fused`, `row`).
 Outside it every function here is the identity or its unsharded
 counterpart, so serving runs the same layer code.
+
+Wherever each rank consumes a collective's output on its own columns, the
+collective's backward sums over the axis (`row_products`, `all_sum`,
+`fused`); `Mesh.reduce_from`'s identity backward is right only where every
+rank consumes the output whole and alike, and a replicated weight brought
+whole is sliced in backward, not summed.
 
 The context is a module global, as `models.moe.global_routing` is, and not
 a context variable: layers recomputed in backward run on autograd's own
 threads.  The ranks of the axis issue their collectives in one order, as
 they run the same graph.  `computes_on_blocks` names the configs that run
-so; xLSTM keeps the sharded step's gather and replicated compute.
-`block_layout` is the one rule for a rank's block shapes.
+so: every family.  `block_layout` is the one rule for a rank's block
+shapes.
 """
 
 from __future__ import annotations
@@ -95,10 +117,11 @@ def index() -> int:
 
 def computes_on_blocks(model) -> bool:
     """Whether the sharded train step runs `model` on its blocks over
-    "model": the transformer family, with or without MoE and MLA, and
-    Griffin."""
+    "model": the transformer family, with or without MoE and MLA, Griffin
+    and xLSTM."""
     cfg = getattr(model, "cfg", None)
-    return cfg is not None and cfg.family in ("transformer", "griffin")
+    return cfg is not None and cfg.family in ("transformer", "griffin",
+                                              "xlstm")
 
 
 def _split(n: int, what: str, m: int) -> int:
@@ -145,15 +168,19 @@ def experts(num_experts: int) -> tuple[int, int]:
     return span(num_experts, "num_experts")
 
 
-def own(v: torch.Tensor) -> torch.Tensor:
-    """The rank's `span` of the last axis of a replicated `v` (a view): the
-    entries beside its ff columns; `v` itself outside the context.  Its
-    gradient is zero outside the span, so the sum of the ranks' gradients
+def own(v: torch.Tensor, pieces: int = 1) -> torch.Tensor:
+    """The rank's `span` of each of the `pieces` equal pieces of the last
+    axis of a replicated `v`, side by side (one piece: a view): the entries
+    beside its ff columns or heads; `v` itself outside the context.  Its
+    gradient is zero outside the spans, so the sum of the ranks' gradients
     over the axis is the unsharded gradient exactly."""
     if _GROUP is None:
         return v
-    lo, n = span(v.shape[-1])
-    return v.narrow(-1, lo, n)
+    n = v.shape[-1] // pieces
+    lo, k = span(n)
+    if pieces == 1:
+        return v.narrow(-1, lo, k)
+    return v.unflatten(-1, (pieces, n)).narrow(-1, lo, k).flatten(-2)
 
 
 def local_config(cfg, m: int):
@@ -279,48 +306,173 @@ def row(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 class _SumColumns(torch.autograd.Function):
-    """The float32 partials of K products (..., n) summed over the model
-    axis in one collective, rounded once to `dtype`, and cut to the rank's
-    columns lo .. lo + k of each.  Backward gives each partial the gradient
-    of all n columns: the ranks' column gradients put in place among zeros
+    """The float32 partials (..., n_i) summed over the model axis in one
+    collective, rounded once to `dtype`, and each cut to its column ranges
+    `cuts[i]` (side by side).  Backward gives each partial the gradient of
+    all its columns: the ranks' column gradients put in place among zeros
     and summed over the axis in float32 (one rank adds a non-zero, so the
     sum is their gather exactly)."""
 
     @staticmethod
-    def forward(ctx, mesh, axis, dtype, lo, k, *partials):
-        n = partials[0].shape[-1]
-        ctx.mesh, ctx.axis, ctx.cols = mesh, axis, (n, lo, k)
+    def forward(ctx, mesh, axis, dtype, cuts, *partials):
+        widths = [p.shape[-1] for p in partials]
+        ctx.mesh, ctx.axis, ctx.cuts, ctx.widths = mesh, axis, cuts, widths
         total = mesh.all_reduce_sum(torch.cat(partials, dim=-1), axis)
         total = total.to(dtype)
-        return tuple(total[..., i * n + lo:i * n + lo + k].contiguous()
-                     for i in range(len(partials)))
+        out, off = [], 0
+        for w, cut in zip(widths, cuts):
+            parts = [total[..., off + a:off + b] for a, b in cut]
+            out.append(parts[0].contiguous() if len(parts) == 1
+                       else torch.cat(parts, dim=-1))
+            off += w
+        return tuple(out)
 
     @staticmethod
     def backward(ctx, *grads):
-        n, lo, k = ctx.cols
-        full = grads[0].new_zeros(*grads[0].shape[:-1], len(grads) * n,
-                                  dtype=torch.float32)
-        for i, g in enumerate(grads):
-            full[..., i * n + lo:i * n + lo + k] = g
+        ref = next(g for g in grads if g is not None)
+        full = ref.new_zeros(*ref.shape[:-1], sum(ctx.widths),
+                             dtype=torch.float32)
+        off = 0
+        for w, cut, g in zip(ctx.widths, ctx.cuts, grads):
+            at = 0
+            for a, b in cut:
+                if g is not None:
+                    full[..., off + a:off + b] = g[..., at:at + b - a]
+                at += b - a
+            off += w
         ctx.mesh.all_reduce_sum(full, ctx.axis)
-        return (None, None, None, None, None, *full.split(n, dim=-1))
+        return (None, None, None, None, *full.split(ctx.widths, dim=-1))
 
 
-def row_columns(x: torch.Tensor, *ws: torch.Tensor) -> tuple:
-    """``x @ w`` for each of `ws`, cut to the rank's columns: `x` is the
-    rank's columns of the input and each w (n_l, n) the rank's rows of a
-    weight whose input axis is sharded; the float32 partial products are
-    summed over the model axis in one collective, rounded once to x's
-    dtype, and each product keeps the rank's `span` of its n columns.  x's
-    gradient is its columns of the unsharded one, and each w's the rank's
-    rows of the unsharded one, with no sum.  The plain products outside
-    the context."""
+def row_products(*pairs) -> tuple:
+    """``x @ w`` for each pair ``(x, w)`` or ``(x, w, pieces)``, cut to the
+    rank's columns: each x is the rank's columns of an input and each w
+    (n_l, n) the rank's rows of a weight whose input axis is sharded; the
+    float32 partial products are summed over the model axis in one
+    collective, rounded once to the first x's dtype, and each product keeps
+    the rank's `span` of each of its `pieces` (default 1) equal pieces,
+    side by side.  Each x's gradient is its columns of the unsharded one,
+    and each w's the rank's rows of the unsharded one, with no sum.  The
+    plain products outside the context."""
     if _GROUP is None:
-        return tuple(x @ w for w in ws)
+        return tuple(p[0] @ p[1] for p in pairs)
     mesh, axis = _GROUP
-    lo, k = span(ws[0].shape[1])
-    return _SumColumns.apply(mesh, axis, x.dtype, lo, k,
-                             *(_Mm32.apply(x, w) for w in ws))
+    cuts = []
+    for p in pairs:
+        pieces = p[2] if len(p) > 2 else 1
+        n = p[1].shape[1] // pieces
+        lo, k = span(n)
+        cuts.append(tuple((j * n + lo, j * n + lo + k)
+                          for j in range(pieces)))
+    return _SumColumns.apply(mesh, axis, pairs[0][0].dtype, tuple(cuts),
+                             *(_Mm32.apply(p[0], p[1]) for p in pairs))
+
+
+class _AllSum(torch.autograd.Function):
+    """`x` summed over the model axis, forward and backward: every rank
+    reads the sum on its own columns, so each rank's part gets the sum of
+    their gradients."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, x):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh.all_reduce_sum(
+            x.clone(memory_format=torch.contiguous_format), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, ctx.mesh.all_reduce_sum(
+            g.clone(memory_format=torch.contiguous_format), ctx.axis)
+
+
+def all_sum(x: torch.Tensor) -> torch.Tensor:
+    """`x` summed over the model axis, its gradient summed too (a
+    statistic of rows whose columns the ranks share: the mLSTM norm's sum
+    of squares); `x` itself outside the context."""
+    if _GROUP is None:
+        return x
+    mesh, axis = _GROUP
+    return _AllSum.apply(mesh, axis, x)
+
+
+class _Exchange(torch.autograd.Function):
+    """The ranks' blocks of a fused product (..., P n / m) gathered over
+    the model axis into the whole (..., P n), each of its P pieces cut to
+    the rank's span lo .. lo + k; backward gathers every rank's span
+    gradients and keeps the rank's block of the whole gradient (each
+    column's gradient comes from the one rank whose span holds it, so
+    both ways are exact)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, pieces, blk):
+        full = mesh.all_gather(blk, axis, blk.dim() - 1)
+        n = full.shape[-1] // pieces
+        lo, k = span(n)
+        ctx.mesh, ctx.axis, ctx.dims = mesh, axis, (pieces, n // k, k, lo)
+        return tuple(full[..., j * n + lo:j * n + lo + k].contiguous()
+                     for j in range(pieces))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        pieces, m, k, lo = ctx.dims
+        ref = next(g for g in grads if g is not None)
+        mine = torch.cat([torch.zeros_like(ref) if g is None else g
+                          for g in grads], dim=-1)
+        every = ctx.mesh.all_gather(mine, ctx.axis, mine.dim() - 1)
+        # rank q's gradient of piece j's span sits at (q, j); the whole
+        # gradient's column j n + q k + i at (j, q, i)
+        grad = every.unflatten(-1, (m, pieces, k)).transpose(-3, -2)
+        first = lo // k * pieces * k
+        return (None, None, None,
+                grad.flatten(-3)[..., first:first + pieces * k].contiguous())
+
+
+def fused(x: torch.Tensor, w: torch.Tensor, pieces: int) -> tuple:
+    """The `pieces` products of ``x @ w`` for a fused weight whose columns
+    are equal pieces side by side (``torch.chunk(x @ w, pieces)`` outside
+    the context).  Inside it `w` is the rank's contiguous block of the
+    columns (JAX's cut, not the rank's span of each piece): its product is
+    column-parallel on `x` (`column`), and the products are exchanged over
+    the model axis (`_Exchange`: one gather forward, one backward), so
+    that each product is the rank's span of its piece."""
+    if _GROUP is None:
+        return torch.chunk(x @ w, pieces, dim=-1)
+    mesh, axis = _GROUP
+    (blk,) = column(x, w)
+    return _Exchange.apply(mesh, axis, pieces, blk)
+
+
+class _Whole(torch.autograd.Function):
+    """The ranks' column blocks of a weight gathered over the model axis;
+    backward keeps the rank's columns of the gradient, with no sum (the
+    computation that reads it is replicated, so every rank's gradient of
+    the whole is the same)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, blk):
+        ctx.cols = (blk.shape[-1] * mesh.index(axis), blk.shape[-1])
+        return mesh.all_gather(blk, axis, blk.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, k = ctx.cols
+        return None, None, g[..., lo:lo + k].contiguous()
+
+
+def whole(*ws: torch.Tensor) -> tuple:
+    """Each of `ws` whole: inside the context each is the rank's block of
+    the last axis of a weight that a computation replicated over the model
+    axis reads whole (the sLSTM's gates), all of one block width; they are
+    gathered in one collective, and each one's gradient is the rank's block
+    of the whole gradient.  `ws` themselves outside the context."""
+    if _GROUP is None:
+        return ws
+    mesh, axis = _GROUP
+    c = ws[0].shape[-1]
+    flat = torch.cat([w.reshape(-1, c) for w in ws], dim=0)
+    full = _Whole.apply(mesh, axis, flat)
+    return tuple(part.reshape(*w.shape[:-1], full.shape[-1]) for part, w in
+                 zip(full.split([w.numel() // c for w in ws], dim=0), ws))
 
 
 def embedding(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -402,5 +554,6 @@ def chunked_cross_entropy(hidden, head, targets, mask, chunk: int = 512,
 __all__ = ["model_parallel", "active", "parts", "index",
            "computes_on_blocks", "MODEL_AXES", "block_layout", "span",
            "experts", "own", "local_config", "local_attn", "copy_in",
-           "summed", "column", "row", "row_columns", "embedding",
+           "summed", "column", "row", "row_products",
+           "all_sum", "fused", "whole", "embedding",
            "chunked_cross_entropy"]

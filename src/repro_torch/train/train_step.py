@@ -31,27 +31,24 @@ of ``train_state_specs(model, rules, data size)``
 (`sharding.placement.shard_train_state`; the moments ZeRO-1's blocks), and
 the batch this rank's rows of it (`data.pipeline.SyntheticTokenPipeline.
 sharded_batch`: in each microbatch the data ranks' rows in global order).
-A step:
-  1. transformers, dense, MoE and MLA alike, and Griffin
-     (`sharding.tensor_parallel.computes_on_blocks`): the model takes the
-     rank's blocks as they are, with no gather and no copy; xLSTM: each
-     weight is gathered over the axes its spec shards into the model's
-     working tensors (a tied head once);
+The mesh has a "model" axis (ValueError otherwise).  A step:
+  1. the model takes the rank's blocks as they are, with no gather and no
+     copy (every family computes on them:
+     `sharding.tensor_parallel.computes_on_blocks`);
   2. all-reduces the microbatches' mask counts over the data axes and
      runs forward and backward on the rank's rows, the cross entropy
      divided by the global count and MoE routed over the global batch
-     (`models.moe.global_routing`), so a rank's loss is its share.  A
-     transformer or Griffin runs inside `tensor_parallel.model_parallel`:
-     Megatron compute over "model" (column-, then row-parallel products,
-     one pair of sums a block, the embedding and the cross entropy
-     vocab-parallel, MoE's experts, MLA's heads and the RG-LRU's columns
-     on the rank's blocks), so its gradients are the blocks' and every
-     model rank's loss is the same; xLSTM computes the whole model on
-     every rank of a data row;
+     (`models.moe.global_routing`), so a rank's loss is its share, inside
+     `tensor_parallel.model_parallel`: Megatron compute over "model"
+     (column-, then row-parallel products, one pair of sums a block, the
+     embedding and the cross entropy vocab-parallel, MoE's experts, MLA's
+     heads, the RG-LRU's columns and the mLSTM's heads on the rank's
+     blocks; the sLSTM's recurrence whole on every rank), so its gradients
+     are the blocks' and every model rank's loss is the same;
   3. sums the float32 gradients over the data axes (one collective after
      the plain accumulation, one a microbatch before the int8 error
      feedback), the replicated leaves whose gradients are a rank's share
-     (MQA's wk and wv; the RG-LRU's b_rg, b_ig and lam:
+     (MQA's wk and wv; the RG-LRU's b_rg, b_ig and lam; the mLSTM's b_if:
      `TrainPlacement.leaf_roles`) over "model" first; the int8 scale of a
      leaf sharded over "model" is its absmax over "model", one scale a JAX
      leaf;
@@ -68,7 +65,6 @@ A rank that fails fails its collectives' peers.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import torch
@@ -280,28 +276,28 @@ def _sharded_step(model, tcfg: TrainConfig, mesh, rules):
     """The SPMD step of JAX's ``jit(make_train_step(...))`` over a state
     placed by `train_state_specs` (`sharding.placement`); see the module
     docstring."""
+    if "model" not in mesh.shape or \
+            not tensor_parallel.computes_on_blocks(model):
+        raise ValueError(f"the sharded step computes on the blocks over "
+                         f"\"model\": {mesh} needs that axis and "
+                         f"{model.cfg.name} a family that runs on its "
+                         f"blocks")
     place = TrainPlacement(model, mesh, rules)
     axes = place.data_axes
     mesh.group(axes)       # every rank makes the data group's subgroups now
-    tp = place.tensor_parallel
-    roles = place.leaf_roles() if tp else None
-
-    def parallel():
-        """Megatron compute over "model" on the blocks, or none."""
-        return (tensor_parallel.model_parallel(mesh, "model") if tp
-                else contextlib.nullcontext())
+    roles = place.leaf_roles()
 
     def train_step(state: dict, batch: dict):
         blocks, opt = state["params"], state["opt"]
-        with parallel():
-            model.load(blocks if tp else place.gather_params(blocks))
+        with tensor_parallel.model_parallel(mesh, "model"):
+            model.load(blocks)
         leaves, spec = tree_flatten(_trainable(model))
         batches = _micro(batch, tcfg.accum_steps)
         counts = mesh.all_reduce_sum(torch.stack([
             mb["mask"].to(leaves[0].device).float().sum()
             for mb in batches]), axes)
-        kinds = _aligned(model.tree(), roles) if tp else None
-        partial = [i for i, r in enumerate(kinds or ()) if r == "partial"]
+        kinds = _aligned(model.tree(), roles)
+        partial = [i for i, r in enumerate(kinds) if r == "partial"]
 
         def reduce(buffers: _Flat) -> None:
             if partial:
@@ -315,20 +311,19 @@ def _sharded_step(model, tcfg: TrainConfig, mesh, rules):
         def amax(v):
             return mesh.all_reduce_max(v, "model")
 
-        with global_routing(mesh, axes), parallel():
+        with global_routing(mesh, axes), \
+                tensor_parallel.model_parallel(mesh, "model"):
             share, grads = _accumulated(model, tcfg, leaves, spec, batches,
-                                        counts, reduce, amax if tp else None)
-        gnorm = None
-        if tp:
-            gnorm = adamw.global_norm(
-                grads, [r == "block" for r in kinds],
-                lambda x: mesh.all_reduce_sum(x, "model"))
+                                        counts, reduce, amax)
+        gnorm = adamw.global_norm(
+            grads, [r == "block" for r in kinds],
+            lambda x: mesh.all_reduce_sum(x, "model"))
         grads = tree_unflatten(grads, spec)
         step, metrics = adamw.update_regions(
             tcfg.opt, grads, place.regions(blocks, grads, opt["m"],
                                            opt["v"]), opt["step"], gnorm)
         place.rebuild(blocks)
-        with parallel():
+        with tensor_parallel.model_parallel(mesh, "model"):
             _release(model)
         loss = mesh.all_reduce_sum(share, axes)
         return ({"params": blocks, "opt": {"m": opt["m"], "v": opt["v"],

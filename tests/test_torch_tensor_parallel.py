@@ -1,8 +1,9 @@
 """Megatron compute over "model" (`sharding.tensor_parallel`, the pair of
 sums `core.mesh.Mesh.reduce_from` / `copy_to`, and the tensor-parallel
 paths of `models.attention.gqa_forward` / `mla_forward`,
-`models.common.glu_mlp` / `mlp`, `models.moe` and `models.transformer`)
-against the port's unsharded functions, on the CPU.  The sharded train
+`models.common.glu_mlp` / `mlp`, `models.moe`, `models.transformer`,
+`models.rglru` and `models.xlstm`) against the port's unsharded functions,
+on the CPU.  The sharded train
 step that runs them is held against the single-process step and JAX's SPMD
 step in tests/test_torch_train_sharded.py.
 
@@ -22,23 +23,31 @@ specs give it.  Tolerances:
     rtol 1e-6 (measured 0), the gradients of the hidden states and of the
     head's block within 1e-6 x their largest |value| (float32 sums in
     another order; measured at most 1.4e-7);
-  * exact: `row_columns` (the RG-LRU's gate products) on two weights, in
+  * exact: `row_products` (the RG-LRU's gate products) on two weights, in
     float32 and bf16: each rank's product is its columns of the two
     ranks' float32 partials summed and rounded once, its input's gradient
     the plain products of every column's gradient with its rows, and each
     weight's gradient its rows of the plain product with every column's
     gradient;
+  * exact: `fused` (xLSTM's fused w_up) on integer inputs, in float32 and
+    bf16: each rank's products are its span of each piece of the whole
+    product, its input's gradient the whole gradient's product with the
+    whole weight, its block's gradient its columns of the whole one;
+    `whole` gives every rank the whole weight and, in backward, its
+    columns of the gradient;
   * one layer, column- then row-parallel, against the unsharded `layer_fwd`
     for GQA (tinyllama), MQA (gemma), sliding-window attention (danube),
     MoE on the rank's experts (moonshot), MLA on the rank's heads
     (deepseek's attention before a dense MLP), MLA with MoE and shared
-    experts (deepseek), and against `GriffinLM.layer_fwd` for Griffin's
-    recurrent layer and its local MQA attention layer (recurrentgemma):
-    the output, MoE's aux loss (which the backward adds) and every
-    gradient (the input's, each block's, each replicated leaf's, and the
-    sum of the two ranks' shares of MQA's replicated wk and wv and of the
-    RG-LRU's b_rg, b_ig and lam) within 1e-5 x their largest |value|
-    (measured at most 6.5e-7);
+    experts (deepseek), against `GriffinLM.layer_fwd` for Griffin's
+    recurrent layer and its local MQA attention layer (recurrentgemma),
+    and against `XLSTMLM.block_fwd` for the mLSTM block on the rank's
+    heads and the sLSTM block (xlstm): the output, MoE's aux loss (which
+    the backward adds) and every gradient (the input's, each block's, each
+    replicated leaf's, and the sum of the two ranks' shares of MQA's
+    replicated wk and wv, of the RG-LRU's b_rg, b_ig and lam and of the
+    mLSTM's b_if) within 1e-5 x their largest |value| (measured at most
+    1.3e-6, the mLSTM's b_if);
   * exact: with every assignment routed to rank 0's experts, rank 1's
     share of the MoE exchange is zeros and the sum is rank 0's share.
 """
@@ -55,9 +64,10 @@ from repro_torch.checkpointing.elastic import _block
 from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.core.mesh import Mesh, ShapeMesh
 from repro_torch.launch.mesh import run_spmd
-from repro_torch.models import GriffinLM, build_model, moe
+from repro_torch.models import GriffinLM, XLSTMLM, build_model, moe
 from repro_torch.models.common import chunked_cross_entropy, init_params
 from repro_torch.models import rglru as rg
+from repro_torch.models import xlstm as xl
 from repro_torch.models.attention import attn_layout
 from repro_torch.models.transformer import layer_fwd, layer_layout
 from repro_torch.sharding import tensor_parallel as tp
@@ -68,20 +78,25 @@ torch.set_num_threads(1)
 
 #: the layer cases: GQA, MQA, sliding window, MoE, MLA (deepseek's
 #: attention before a dense MLP), MLA with MoE and shared experts,
-#: Griffin's recurrent layer and its local MQA attention layer
+#: Griffin's recurrent layer and its local MQA attention layer, xLSTM's
+#: mLSTM and sLSTM blocks
 LAYER_ARCHS = ("tinyllama_1_1b", "gemma_2b", "h2o_danube_3_4b",
                "moonshot_v1_16b_a3b", "deepseek_v2_236b/mla",
                "deepseek_v2_236b", "recurrentgemma_2b/rec",
-               "recurrentgemma_2b/attn")
+               "recurrentgemma_2b/attn", "xlstm_350m/m", "xlstm_350m/s")
 #: the replicated leaves whose gradient on a rank is its share, by case
 SHARED_LEAVES = {"gemma_2b": {"/attn/wk", "/attn/wv"},
                  "recurrentgemma_2b/rec": {"/mix/b_rg", "/mix/b_ig",
                                            "/mix/lam"},
-                 "recurrentgemma_2b/attn": {"/mix/wk", "/mix/wv"}}
+                 "recurrentgemma_2b/attn": {"/mix/wk", "/mix/wv"},
+                 "xlstm_350m/m": {"/m/b_if"}}
 V, D = 24, 8                 # the embedding's and the loss's vocab and width
 B, S, CHUNK = 2, 16, 8
-#: `row_columns`' case: input columns (B, S, 2 N), two (2 N, 2 N) weights
+#: `row_products`' case: input columns (B, S, 2 N), two (2 N, 2 N) weights
 N = 6
+#: `fused`'s case: an input (B, 5, FD), a weight (FD, 2 pieces x 2 FK)
+#: whose block a rank holds (FD, 2 FK); `whole`'s: blocks (FD, 2 FK)
+FD, FK = 8, 3
 
 
 def _layer_cfg(arch):
@@ -96,9 +111,21 @@ def _griffin_kind(arch) -> str | None:
     return variant if name == "recurrentgemma_2b" else None
 
 
+def _xlstm_kind(arch) -> str | None:
+    """"m" or "s" for an xLSTM block case, else None."""
+    name, _, variant = arch.partition("/")
+    return variant if name == "xlstm_350m" else None
+
+
 def _layer_layout(arch):
     cfg = _layer_cfg(arch)
     kind = _griffin_kind(arch)
+    if _xlstm_kind(arch) == "m":
+        return {"ln_m": ((cfg.d_model,), (None,), "zeros"),
+                "m": xl.mlstm_layout(XLSTMLM(cfg).xcfg)}
+    if _xlstm_kind(arch) == "s":
+        return {"ln_s": ((cfg.d_model,), (None,), "zeros"),
+                "s": xl.slstm_layout(XLSTMLM(cfg).xcfg)}
     if kind is None:
         return layer_layout(cfg)
     model = GriffinLM(cfg)
@@ -110,6 +137,9 @@ def _layer_run(arch, lp, h):
     """(the layer's output, MoE's aux loss or 0.0) over positions 0 .. S."""
     cfg = _layer_cfg(arch)
     kind = _griffin_kind(arch)
+    if _xlstm_kind(arch):
+        return XLSTMLM(cfg).block_fwd(_xlstm_kind(arch), lp, h,
+                                      need_state=False)[0], 0.0
     if kind is None:
         y, _, aux = layer_fwd(cfg, lp, h, torch.arange(S))
         return y, aux
@@ -134,7 +164,12 @@ def _inputs() -> dict:
          "mm_gc": rng.standard_normal((2, 3, 5, 16), dtype=np.float32),
          "rc_x": rng.standard_normal((B, 5, 2 * N), dtype=np.float32),
          "rc_w": rng.standard_normal((2, 2 * N, 2 * N), dtype=np.float32),
-         "rc_g": rng.standard_normal((2, B, 5, 2 * N), dtype=np.float32)}
+         "rc_g": rng.standard_normal((2, B, 5, 2 * N), dtype=np.float32),
+         "fu_x": rng.integers(-3, 4, (B, 5, FD)).astype(np.float32),
+         "fu_w": rng.integers(-3, 4, (FD, 4 * FK)).astype(np.float32),
+         "fu_g": rng.integers(-3, 4, (B, 5, 4 * FK)).astype(np.float32),
+         "wh_w": rng.integers(-3, 4, (3, FD, 4 * FK)).astype(np.float32),
+         "wh_g": rng.integers(-3, 4, (3, FD, 4 * FK)).astype(np.float32)}
     for arch in LAYER_ARCHS:
         cfg = _layer_cfg(arch)
         g = torch.Generator().manual_seed(11)
@@ -144,6 +179,15 @@ def _inputs() -> dict:
             for name in ("b_rg", "b_ig"):
                 x[f"{arch}/lp"]["mix"][name] = torch.from_numpy(
                     rng.standard_normal(cfg.d_rnn, dtype=np.float32))
+        kind = _xlstm_kind(arch)
+        if kind:            # biases, norms and pre-norm away from zeros
+            lp = x[f"{arch}/lp"]
+            for name in ("b_if", "norm", "b_gates", "conv_b"):
+                if name in lp[kind]:
+                    lp[kind][name] = torch.from_numpy(rng.standard_normal(
+                        lp[kind][name].shape, dtype=np.float32) / 2)
+            lp[f"ln_{kind}"] = torch.from_numpy(rng.standard_normal(
+                cfg.d_model, dtype=np.float32) / 4)
         x[f"{arch}/x"] = rng.standard_normal((B, S, cfg.d_model),
                                              dtype=np.float32)
         x[f"{arch}/g"] = rng.standard_normal((B, S, cfg.d_model),
@@ -240,12 +284,33 @@ def _world(device, x):
             h = _t(x["rc_x"][..., cols]).to(dtype).requires_grad_(True)
             ws = [_t(w[cols]).to(dtype).requires_grad_(True)
                   for w in x["rc_w"]]
-            ys = tp.row_columns(h, *ws)
+            ys = tp.row_products(*((h, w) for w in ws))
             torch.autograd.backward(
                 ys, [_t(g[..., cols]).to(dtype) for g in x["rc_g"]])
             out[f"row_columns/{dtype}"] = (
                 [y.detach().float().numpy() for y in ys],
                 h.grad.float().numpy(), [w.grad.float().numpy() for w in ws])
+
+        for dtype in (torch.float32, torch.bfloat16):
+            h = _t(x["fu_x"]).to(dtype).requires_grad_(True)
+            w = _t(x["fu_w"][:, r * 2 * FK:(r + 1) * 2 * FK]).to(dtype)
+            w.requires_grad_(True)
+            ys = tp.fused(h, w, 2)
+            g = x["fu_g"]
+            torch.autograd.backward(ys, [_t(g[..., j * 2 * FK + r * FK:
+                                              j * 2 * FK + (r + 1) * FK]
+                                            ).to(dtype) for j in range(2)])
+            out[f"fused/{dtype}"] = ([y.detach().float().numpy() for y in ys],
+                                     h.grad.float().numpy(),
+                                     w.grad.float().numpy())
+        ws = [_t(v[:, r * 2 * FK:(r + 1) * 2 * FK], True)
+              for v in x["wh_w"]]
+        ws[2] = _t(x["wh_w"][2, 0, r * 2 * FK:(r + 1) * 2 * FK], True)
+        wholes = tp.whole(*ws)
+        torch.autograd.backward(wholes, [_t(x["wh_g"][0]), _t(x["wh_g"][1]),
+                                         _t(x["wh_g"][2, 0])])
+        out["whole"] = ([t.detach().numpy() for t in wholes],
+                        [t.grad.numpy() for t in ws])
 
         for arch in LAYER_ARCHS:
             blocks = _cut(x[f"{arch}/lp"], _specs(arch), mesh)
@@ -360,7 +425,7 @@ def test_bf16_column_parallel_gradient_is_rounded_once(results):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_row_columns_sum_then_slice(results, dtype):
-    """`row_columns` on two weights whose input axis is split: each rank's
+    """`row_products` on two weights whose input axis is split: each rank's
     products are its columns of the two ranks' float32 partial products
     summed and rounded once; backward gathers every column's gradient, so
     the input's gradient is the plain products of all of them with the
@@ -388,6 +453,48 @@ def test_row_columns_sum_then_slice(results, dtype):
             assert np.array_equal(gws[i], (hs[r].reshape(-1, N).t()
                                            @ gs[i]).float().numpy())
         assert np.array_equal(gx.reshape(-1, N), gx_want.float().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_exchange_is_exact_both_ways(results, dtype):
+    """`fused` on a fused weight of two pieces whose contiguous blocks the
+    two ranks hold (rank 0 all of the first piece, rank 1 all of the
+    second): each rank's products are its span of each piece of the whole
+    product, its input's gradient the whole gradient (every rank's spans)
+    times the whole weight, and its block's gradient its columns of the
+    input times the whole gradient, bitwise (integer inputs, so every
+    order of the sums gives the same values).  An exchange that kept the
+    rank's own spans' gradients alone would miss each block's other half."""
+    x, world = results
+    h = torch.from_numpy(x["fu_x"]).to(dtype).float()
+    w = torch.from_numpy(x["fu_w"]).to(dtype).float()
+    g = torch.from_numpy(x["fu_g"]).to(dtype).float()
+    prod = h @ w
+    for r, got in enumerate(world):
+        ys, gx, gw = got[f"fused/{dtype}"]
+        for j in range(2):
+            lo = j * 2 * FK + r * FK
+            assert np.array_equal(ys[j], prod[..., lo:lo + FK].numpy())
+        assert np.array_equal(gx, (g @ w.t()).numpy())
+        cols = slice(r * 2 * FK, (r + 1) * 2 * FK)
+        assert np.array_equal(gw, (h.reshape(-1, FD).t()
+                                   @ g[..., cols].reshape(-1, 2 * FK)).numpy())
+
+
+def test_whole_gathers_forward_and_slices_backward(results):
+    """`whole` on three blocks of one width (two matrices and a vector, as
+    the sLSTM's w_gates, r_gates and b_gates): every rank gets the whole
+    weights, and each block's gradient is its columns of the whole
+    gradient, not their sum over the ranks, bitwise."""
+    x, world = results
+    wants = [x["wh_w"][0], x["wh_w"][1], x["wh_w"][2, 0]]
+    grads = [x["wh_g"][0], x["wh_g"][1], x["wh_g"][2, 0]]
+    for r, got in enumerate(world):
+        wholes, gs = got["whole"]
+        cols = slice(r * 2 * FK, (r + 1) * 2 * FK)
+        for t, want, gt, g in zip(wholes, wants, gs, grads):
+            assert np.array_equal(t, want)
+            assert np.array_equal(gt, g[..., cols])
 
 
 # ---------------------------------------------------------------------------
@@ -522,13 +629,13 @@ def test_moe_exchange_adds_exact_zeros_from_the_other_rank(results):
 
 def test_dense_family():
     """The configs that run Megatron compute in the sharded train step:
-    the transformer family, dense, MoE and MLA alike, and Griffin."""
+    the transformer family, dense, MoE and MLA alike, Griffin and xLSTM."""
     dense = {a for a in ARCH_IDS
              if tp.computes_on_blocks(build_model(get_arch(a).SMOKE))}
     assert dense == {"tinyllama_1_1b", "gemma_2b", "granite_8b",
                      "h2o_danube_3_4b", "hubert_xlarge", "llava_next_34b",
                      "moonshot_v1_16b_a3b", "deepseek_v2_236b",
-                     "recurrentgemma_2b"}
+                     "recurrentgemma_2b", "xlstm_350m"}
 
 
 @pytest.mark.parametrize("arch", ["tinyllama_1_1b", "gemma_2b",
@@ -693,11 +800,11 @@ def _rank_blocks(model, mesh) -> dict:
     return out
 
 
-def test_load_takes_griffin_blocks_and_xlstm_refuses_them():
-    """`GriffinLM.load` takes a rank's blocks (cut by the specs) under the
-    context only, and refuses other shapes (the blocks among 4, a wrong
-    tail layer) in and out of it; `XLSTMLM.load` refuses a rank's blocks
-    under the context too, and takes the whole layout."""
+def test_load_takes_griffin_and_xlstm_blocks():
+    """`GriffinLM.load` and `XLSTMLM.load` take a rank's blocks (cut by the
+    specs) under the context only, and refuse other shapes (Griffin: the
+    blocks among 4, a wrong tail layer) in and out of it; both take the
+    whole layout under the context too."""
     cfg = _layer_cfg("recurrentgemma_2b")
     model = build_model(cfg).init(device="cpu")
     whole = model.tree()
@@ -724,7 +831,31 @@ def test_load_takes_griffin_blocks_and_xlstm_refuses_them():
     xwhole = xmodel.tree()
     xblocks = _rank_blocks(xmodel, _rank_mesh(2, 1))
     assert xblocks["embed"].shape[0] * 2 == xcfg.vocab
+    with pytest.raises(ValueError, match="match neither"):
+        xmodel.load(xblocks)
     with tp.model_parallel(_rank_mesh(2, 1), "model"):
-        with pytest.raises(ValueError, match="match neither"):
-            xmodel.load(xblocks)
+        xmodel.load(xblocks)
+        unit = xmodel.blocks[0]
+        d = xcfg.d_model
+        assert unit["m"]["w_up"].shape == (d, 2 * d)      # 2 dp / 2
+        assert unit["m"]["wq"].shape == (d, 2 * d)        # dp / 2 rows
+        assert unit["s"]["r_gates"].shape == (d, 2 * d)   # 4 d / 2
+        assert unit["s"]["conv_w"].shape == xwhole["units"][0]["s"][
+            "conv_w"].shape
         xmodel.load(xwhole)
+
+
+def test_mlstm_heads_that_do_not_split_raise():
+    """The mLSTM computes on the rank's heads: its 4 heads over 8 model
+    ranks raise ValueError (before any collective: the stand-in mesh has
+    none), though every leaf's blocks among 8 exist."""
+    cfg = _layer_cfg("xlstm_350m")
+    model = build_model(cfg).init(device="cpu")
+    mesh = _rank_mesh(8, 3)
+    blocks = _rank_blocks(model, mesh)
+    with tp.model_parallel(mesh, "model"):
+        model.load(blocks)
+        h = torch.zeros(1, 4, cfg.d_model)
+        with pytest.raises(ValueError, match="num_heads = 4 does not split"):
+            model.block_fwd("m", model.blocks[0].tree(), h,
+                            need_state=False)
