@@ -34,6 +34,7 @@ import torch
 from ..kernels.ops import (viterbi_decode_fused_batch,
                            viterbi_decode_fused_batch_masked)
 from .constraints import compiled_penalties, constrain_inputs
+from .device import host_metadata, host_tensor
 from .flash import _flash_padded, pad_time, plan_padding
 from .flash_bs import flash_bs_batch
 from .vanilla import viterbi_vanilla_masked
@@ -43,8 +44,9 @@ BATCH_METHODS = ("vanilla", "flash", "flash_bs", "fused")
 
 def _validate_lengths(lengths: torch.Tensor, T: int) -> None:
     """Eagerly reject lengths outside [1, T] instead of silently clipping."""
-    # flashlint: disable=FL002(eager validation of host-side lengths metadata)
-    conc = lengths.cpu().numpy()
+    with host_metadata(lengths):
+        # flashlint: disable=FL002(eager validation of host-side lengths metadata)
+        conc = lengths.cpu().numpy()
     if conc.size and (conc.min() < 1 or conc.max() > T):
         raise ValueError(
             f"lengths must lie in [1, T={T}]; got range "
@@ -133,7 +135,7 @@ def viterbi_decode_batch(
     B, T, K = emissions.shape
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32)
-    lengths = torch.as_tensor(lengths, dtype=torch.int32)
+    lengths = host_tensor(lengths, torch.int32)
     _validate_lengths(lengths, T)
 
     if constraint is not None:
@@ -199,8 +201,15 @@ def _sharded_batch(emissions, log_pi, log_A, lengths, method, *, mesh,
         raise ValueError(f"this rank is not in {mesh}")
     n = B // dp
     mine = slice(mesh.coord[data_axis] * n, (mesh.coord[data_axis] + 1) * n)
+    # host lengths are host metadata (validated there): cut on the host,
+    # so they stay a host tensor under the dry run's fake tensors too
+    if lengths.is_cuda:
+        sub = lengths[mine]
+    else:
+        with host_metadata(lengths):
+            sub = lengths[mine]
     paths, scores = viterbi_decode_batch(emissions[mine], log_pi, log_A,
-                                         lengths[mine], method=method, **kw)
+                                         sub, method=method, **kw)
     # one gather of both: the scores' float32 bits ride as an int32 column
     packed = torch.cat([paths, scores.contiguous().view(torch.int32)[:, None]],
                        dim=1)

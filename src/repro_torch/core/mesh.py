@@ -14,7 +14,12 @@ A collective runs over one axis or a tuple of axes (the sharded train step
 reduces over ("pod", "data")): a tuple's ranks are ordered row-major over
 its axes, as `checkpointing.elastic` cuts a dimension sharded over them.
 The subgroups of a tuple are made at its first use, which every rank of the
-world must reach in the same order (as it reaches the collectives).
+world must reach in the same order (as it reaches the collectives).  A *run*
+is r consecutive ranks along one axis (``run=r``: the axis's ranks cut into
+runs of r, in order): tensor parallelism over heads that do not split over
+the axis replicates each head group on a run (`sharding.tensor_parallel`).
+A run's subgroups are made at its first use too (`Mesh.group` makes them
+ahead of time).
 
 Ranks that share one card use the gloo backend (NCCL refuses two ranks on one
 device); gloo runs `all_reduce` (MAX, SUM) and the list form of `all_gather`
@@ -122,42 +127,48 @@ class Mesh(ShapeMesh):
             where = np.unravel_index(self.ranks.index(me), sizes)
             self.coord = dict(zip(self.axis_names, (int(i) for i in where)))
         self._grid = np.asarray(self.ranks).reshape(sizes)
-        #: axes -> (this rank's subgroup, its members row-major over axes)
+        #: (axes, run) -> (this rank's subgroup, its members row-major
+        #: over axes)
         self._groups = {}
         self._made = set()
         for name in self.axis_names:
-            self._make_groups((name,))
+            self._make_groups((name,), None)
 
-    def _make_groups(self, axes: tuple[str, ...]) -> None:
-        """Every subgroup along `axes` (each rank calls `dist.new_group`
-        for each of them, in the same order)."""
+    def _make_groups(self, axes: tuple[str, ...], run) -> None:
+        """Every subgroup along `axes`, or every run of `run` consecutive
+        ranks of them (each rank calls `dist.new_group` for each of them,
+        in the same order)."""
         unknown = set(axes) - set(self.axis_names)
         if unknown or len(set(axes)) != len(axes):
             raise ValueError(f"axes {axes} are not distinct axes of {self}")
         pos = [self.axis_names.index(a) for a in axes]
         n = math.prod(self.shape[a] for a in axes)
+        if run is not None and (run < 1 or n % run):
+            raise ValueError(f"runs of {run} do not tile the {n} ranks "
+                             f"along {axes}")
         timeout = datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)
         me = dist.get_rank()
         rows = np.moveaxis(self._grid, pos, list(range(-len(axes), 0)))
-        for members in rows.reshape(-1, n):
+        for members in rows.reshape(-1, run or n):
             members = [int(r) for r in members]
             group = dist.new_group(members, timeout=timeout)
             if me in members:
-                self._groups[axes] = (group, members)
-        self._made.add(axes)
+                self._groups[axes, run] = (group, members)
+        self._made.add((axes, run))
 
-    def _group(self, axes):
-        axes = axes_of(axes)
-        if axes not in self._made:
-            self._make_groups(axes)
+    def _group(self, axes, run=None):
+        key = (axes_of(axes), run)
+        if key not in self._made:
+            self._make_groups(*key)
         if self.coord is None:
             raise ValueError(f"rank {dist.get_rank()} is not in {self}")
-        return self._groups[axes]
+        return self._groups[key]
 
-    def group(self, axes):
+    def group(self, axes, run=None):
         """This rank's process subgroup along `axes` (an axis name or a
-        tuple of them)."""
-        return self._group(axes)[0]
+        tuple of them), or its run of `run` consecutive ranks along
+        them."""
+        return self._group(axes, run)[0]
 
     def all_reduce_max(self, x: torch.Tensor, axis) -> torch.Tensor:
         """Elementwise maximum of `x` over `axis` (a new tensor)."""
@@ -165,12 +176,14 @@ class Mesh(ShapeMesh):
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group(axis))
         return out
 
-    def all_reduce_sum(self, x: torch.Tensor, axes) -> torch.Tensor:
-        """`x` (contiguous) summed elementwise over `axes`, in place, in
-        pieces of `REDUCE_PIECE` elements; returns `x`."""
+    def all_reduce_sum(self, x: torch.Tensor, axes, run=None
+                       ) -> torch.Tensor:
+        """`x` (contiguous) summed elementwise over `axes` (or this rank's
+        run of `run` ranks along them), in place, in pieces of
+        `REDUCE_PIECE` elements; returns `x`."""
         if not x.is_contiguous():
             raise ValueError("all_reduce_sum needs a contiguous tensor")
-        group = self.group(axes)
+        group = self.group(axes, run)
         flat = x.view(-1)
         for i in range(0, flat.numel(), REDUCE_PIECE):
             dist.all_reduce(flat[i:i + REDUCE_PIECE], op=dist.ReduceOp.SUM,
@@ -192,11 +205,12 @@ class Mesh(ShapeMesh):
         product), in float32 and rounded once to the gradient's dtype."""
         return _CopyTo.apply(x, self, axes)
 
-    def all_gather(self, x: torch.Tensor, axes, dim: int = 0
+    def all_gather(self, x: torch.Tensor, axes, dim: int = 0, run=None
                    ) -> torch.Tensor:
-        """The `x` of every rank along `axes`, concatenated on `dim` in
-        the axes' order (row-major over a tuple)."""
-        group, members = self._group(axes)
+        """The `x` of every rank along `axes` (or of this rank's run of
+        `run` ranks along them), concatenated on `dim` in the axes' order
+        (row-major over a tuple)."""
+        group, members = self._group(axes, run)
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in members]
         dist.all_gather(parts, x, group=group)

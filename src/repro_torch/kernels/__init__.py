@@ -2,10 +2,11 @@
 
 Layout: ``csrc/<name>.cu`` CUDA sources with a plain C interface,
 `build.py` (nvcc for sm_90a, ctypes loading), ``<name>.py`` wrappers with
-launch counters, `ops.py` public wrappers, `ref.py` plain PyTorch versions.
+launch counters, `ops.py` public wrappers, `ref.py` plain PyTorch versions,
+`work.py` each entry's bytes and operations.
 """
 
-from . import beam_stream, ops, ref, tropical, viterbi_dp
+from . import beam_stream, ops, ref, tropical, viterbi_dp, work
 
 _WRAPPERS = (viterbi_dp, beam_stream, tropical)
 
@@ -21,5 +22,5 @@ def reset_launches() -> None:
         m.reset_launches()
 
 
-__all__ = ["beam_stream", "ops", "ref", "tropical", "viterbi_dp",
+__all__ = ["beam_stream", "ops", "ref", "tropical", "viterbi_dp", "work",
            "launch_counts", "reset_launches"]

@@ -21,7 +21,9 @@ Each beam is owned by a thread-block cluster; the source comment in the .cu
 file says what bounds the kernel on the card and what its design does about
 it.  For tensors on the CPU a wrapper runs its plain version in `ref.py`;
 for CUDA tensors it launches the kernel (building it at first use) or
-raises.  `launches` counts kernel launches, and only those.
+raises; for fake tensors (the dry run's) it returns empty outputs and
+charges the launch (`work.charge`).  `launches` counts kernel launches, and
+only those.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from . import build
 from . import ref as _ref
+from . import work as _work
 from .viterbi_dp import SMEM_BYTES, _check_cuda, _on_cuda, _require, _stream
 
 #: kernel launches since the last `reset_launches()`
@@ -118,10 +121,17 @@ def bs_initial_pass_batch(log_pi: torch.Tensor, log_A: torch.Tensor,
       bit-identical to `ref.bs_initial_pass_ref`.
     """
     bnd = np.asarray(boundaries, dtype=np.int64).reshape(-1)
-    if not _pass_args(log_pi, log_A, em, pad, B, "em"):
-        return _ref.bs_initial_pass_ref(log_pi, log_A, em, pad, bnd, B)
+    on_cuda = _pass_args(log_pi, log_A, em, pad, B, "em")
     N, T, K = em.shape
     nb = len(bnd)
+    if _work.fake(log_pi, log_A, em, pad):
+        return _work.fake_outputs(
+            em, "bs_initial_pass_batch",
+            _work.pass_work(N, T, K, B, out_words=N * (nb + 2)),
+            ((N, nb), torch.int32), ((N,), torch.int32),
+            ((N,), torch.float32), launched=N > 0)
+    if not on_cuda:
+        return _ref.bs_initial_pass_ref(log_pi, log_A, em, pad, bnd, B)
     resident = pass_instance(K, B, nb) == "resident"
     dev = em.device
     q_bounds = torch.empty((N, nb), dtype=torch.int32, device=dev)
@@ -165,6 +175,12 @@ def bs_segment_decode_batch(log_pi: torch.Tensor, log_A: torch.Tensor,
     _require(entry.dtype == exit_state.dtype == torch.int64,
              "entry and exit_state must be int64")
     _require(is_first.dtype == torch.bool, "is_first must be bool")
+    if _work.fake(log_pi, log_A, em_seg, pad_seg, entry, exit_state,
+                  is_first):
+        return _work.fake_outputs(
+            em_seg, "bs_segment_decode_batch",
+            _work.pass_work(M, s, K, B, out_words=M, extra_bytes=17 * M),
+            ((M,), torch.int32), launched=M > 0)[0]
     if not on_cuda:
         return _ref.bs_segment_decode_ref(log_pi, log_A, em_seg, pad_seg,
                                           entry, exit_state, is_first, B)
@@ -213,6 +229,11 @@ def beam_step_batch(log_A: torch.Tensor, em: torch.Tensor,
     _require(all(t.dtype == torch.float32 for t in (log_A, em, scores)),
              "log_A, em and scores must be float32")
     _require(states.dtype == torch.int32, "states must be int32")
+    if _work.fake(log_A, em, scores, states):
+        return _work.fake_outputs(
+            em, "beam_step_batch", _work.beam_work(N, K, B, chunk),
+            ((N, B), torch.float32), ((N, B), torch.int32),
+            ((N, B), torch.int32), launched=N > 0)
     if not _on_cuda(log_A, em, scores, states):
         return _ref.beam_transition_ref(log_A, em, scores, states, chunk)
 
@@ -271,6 +292,12 @@ def bs_chunk_batch(log_pi: torch.Tensor, log_A: torch.Tensor,
              "log_pi, log_A, em and scores must be float32")
     _require(states.dtype == torch.int32, "states must be int32")
     _require(is_first.dtype == torch.bool, "is_first must be bool")
+    if _work.fake(log_pi, log_A, em, scores, states, is_first):
+        return _work.fake_outputs(
+            em, "bs_chunk_batch", _work.chunk_work(N, C, K, B, 0),
+            ((N, B), torch.float32), ((N, B), torch.int32),
+            ((N, C, B), torch.int32), ((N, C, B), torch.int32),
+            launched=N > 0)
     if not _on_cuda(log_pi, log_A, em, scores, states, is_first):
         return _ref.beam_chunk_ref(log_pi, log_A, em, scores, states,
                                    is_first, B, chunk)

@@ -14,8 +14,9 @@ that.
 
 For tensors on the CPU the wrapper runs the plain version
 `ref.tropical_matmul_ref`; for CUDA tensors it launches the kernel
-(building it at first use) or raises.  `launches` counts kernel launches,
-and only those.
+(building it at first use) or raises; for fake tensors (the dry run's) it
+returns empty outputs and charges the launch (`work.charge`).  `launches`
+counts kernel launches, and only those.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from . import build
 from . import ref as _ref
+from . import work as _work
 from .viterbi_dp import _check_cuda, _on_cuda, _require, _stream
 
 #: kernel launches since the last `reset_launches()`
@@ -58,6 +60,14 @@ def tropical_matmul_batch(a: torch.Tensor, b: torch.Tensor,
     _require(K >= 1, "K must be >= 1")
     _require(a.dtype == b.dtype and a.dtype in DTYPES,
              "a and b must both be float32 or both bfloat16")
+    if _work.fake(a, b):
+        shapes = [((N, I, J), a.dtype)] + (
+            [((N, I, J), torch.int32)] if with_args else [])
+        outs = _work.fake_outputs(
+            a, "tropical_matmul_batch",
+            _work.tropical_work(N, I, K, J, a.element_size(), with_args),
+            *shapes, launched=N * I * J > 0)
+        return outs[0], outs[1] if with_args else None
     if not _on_cuda(a, b):
         vals, args = _ref.tropical_matmul_ref(a, b)
         return vals, args if with_args else None

@@ -38,7 +38,10 @@ first; else ("global") they are read from L2.
 Each wrapper checks device, dtype, shape and strides and raises on what the
 kernel does not take.  For tensors on the CPU it runs the plain version in
 `ref.py`; for CUDA tensors it launches its kernel (building it at first use)
-or raises.  `launches` counts kernel launches, and only those.
+or raises.  `launches` counts kernel launches, and only those.  Given a
+fake tensor (the dry run's, `work.fake`), it returns empty outputs of the
+kernel's shapes and dtypes and charges the launch and its work
+(`work.charge`) instead; `launches` does not count it.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import torch
 
 from . import build
 from . import ref as _ref
+from . import work as _work
 
 #: kernel launches per kernel since the last `reset_launches()`
 launches = {"viterbi_fwd_batch": 0, "viterbi_fwd_batch_masked": 0,
@@ -156,6 +160,13 @@ def _launch_forward(name: str, em: torch.Tensor, *args):
     return psi, delta_T
 
 
+def _fake_forward(name: str, em: torch.Tensor, work):
+    """(psi, delta_T) empty, for a fake `em`; the launch charged."""
+    B, T, K = em.shape
+    return _work.fake_outputs(em, name, work, ((B, T, K), torch.int32),
+                              ((B, K), torch.float32), launched=B > 0)
+
+
 def _ptr(x: torch.Tensor | None):
     return None if x is None else x.data_ptr()
 
@@ -175,6 +186,9 @@ def viterbi_forward_batch(log_A: torch.Tensor, em: torch.Tensor,
     Returns:
       (psi (B, T, K) int32, delta_T (B, K) float32).
     """
+    if _work.fake(log_A, em, delta0, *([] if pad is None else [pad])):
+        return _fake_forward("viterbi_fwd_batch", em, _work.fwd_work(
+            *em.shape, em.shape[0] * em.shape[1]))
     if not _forward_args(log_A, em, delta0, pad):
         if pad is None:
             return _ref.viterbi_forward_ref(log_A, em, delta0)
@@ -212,6 +226,11 @@ def viterbi_forward_batch_masked(log_A: torch.Tensor, em: torch.Tensor,
       (psi (B, T, K) int32, delta_T (B, K) float32), bit-identical to
       `viterbi_forward_batch(log_A + tmask, em + smask, delta0, pad)`.
     """
+    if _work.fake(*(x for x in (log_A, em, delta0, pad, tmask, smask)
+                    if x is not None)):
+        return _fake_forward("viterbi_fwd_batch_masked", em, _work.masked_work(
+            *em.shape, tmask is not None, smask is not None,
+            em.shape[0] * em.shape[1]))
     if not _forward_args(log_A, em, delta0, pad, tmask, smask):
         mask = (torch.zeros(em.shape[:2], dtype=torch.bool) if pad is None
                 else pad > 0.5)
@@ -255,6 +274,10 @@ def viterbi_banded_forward(log_A: torch.Tensor, log_pi: torch.Tensor,
              "log_A, log_pi and em must be float32")
     _require(centers.dtype == torch.int32 and starts.dtype == torch.int32,
              "centers and starts must be int32")
+    if _work.fake(log_A, log_pi, em, centers, starts):
+        return _work.fake_outputs(
+            em, "viterbi_banded_fwd", _work.banded_work(K, T, Kb),
+            ((T - 1, Kb), torch.int32), ((Kb,), torch.float32))
     if not _on_cuda(log_A, log_pi, em, centers, starts):
         return _ref.viterbi_banded_forward_ref(log_A, log_pi, em, centers,
                                                starts, width)
@@ -292,6 +315,11 @@ def viterbi_backtrack_batch(psi: torch.Tensor, delta_T: torch.Tensor):
     _require(delta_T.shape == (B, K), f"delta_T must be ({B}, {K})")
     _require(psi.dtype == torch.int32 and delta_T.dtype == torch.float32,
              "psi must be int32 and delta_T float32")
+    if _work.fake(psi, delta_T):
+        return _work.fake_outputs(
+            psi, "viterbi_backtrack_batch", _work.backtrack_work(B, T, K),
+            ((B, T + 1), torch.int32), ((B,), torch.float32),
+            launched=B > 0)
     if not _on_cuda(psi, delta_T):
         return _ref.viterbi_backtrack_ref(psi, delta_T)
 

@@ -2,7 +2,8 @@
 
 The mesh type itself (`core.mesh.Mesh`, its shape-only `ShapeMesh`) lives in
 `core.mesh`; this module makes the test and production meshes and the worlds
-of ranks they span.
+of ranks they span: spawned processes (`run_spmd`), or this process alone as
+rank 0 of a fake world of any size (`fake_world`, the dry run's).
 
 `run_spmd(fn, world)` spawns `world` ranks, rendezvous through a file under a
 fresh temporary directory (never a fixed port), runs ``fn(device, *args)`` in
@@ -45,6 +46,40 @@ def make_test_mesh(*, multi_pod: bool = False) -> Mesh:
     shape = (2, 2, 2) if multi_pod else (4, 2)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return Mesh(shape, axes)
+
+
+def fake_world(n: int, *, multi_pod: bool = False, shape=None,
+               axes=None) -> Mesh:
+    """This process as rank 0 of a world of `n` ranks on torch's fake
+    process-group backend (``fake``: every collective returns at once and
+    moves nothing), and the mesh over it: `shape` / `axes` if given, else
+    the production mesh (`make_production_mesh`) where n is its size, else
+    the test mesh.  The dry run's world (`launch.dryrun`): rank 0's step
+    runs on fake tensors, each collective at the shapes the real world
+    would move.  A process holds one default group, so the dry run is a
+    process of its own; a fake world of another size replaces this one
+    (a real world is never replaced: RuntimeError)."""
+    if dist.is_initialized():
+        if dist.get_world_size() == n:
+            pass
+        elif dist.get_backend() == "fake":
+            dist.destroy_process_group()
+        else:
+            raise RuntimeError(f"this process already holds a world of "
+                               f"{dist.get_world_size()} ranks")
+    if not dist.is_initialized():
+        # torch's private test backend, imported here only: importing it
+        # registers the "fake" backend
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+    if shape is None:
+        prod = make_production_mesh(multi_pod=multi_pod)
+        if prod.size == n:
+            shape, axes = tuple(prod.shape.values()), prod.axis_names
+        else:
+            return make_test_mesh(multi_pod=multi_pod)
+    return Mesh(shape, axes or ("data", "model"))
 
 
 def world_size() -> int:
@@ -190,6 +225,7 @@ def run_spmd(fn, world: int, *, device=None, backend: str = "gloo",
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-__all__ = ["make_production_mesh", "make_test_mesh", "data_axis_size",
+__all__ = ["make_production_mesh", "make_test_mesh", "fake_world",
+           "data_axis_size",
            "world_size", "world_rank", "COLLECTIVES", "Calls",
            "count_collectives", "run_spmd"]

@@ -202,14 +202,18 @@ def gqa_forward(params, x, positions, cfg: AttnConfig):
     """Full-sequence GQA attention (encoder / prefill).  Returns (out,
     {"k", "v"}), the (B, S, Hkv*hd) key and value streams (what a causal
     prefill stores in its cache).  Under `tensor_parallel.model_parallel`
-    the weights are this rank's heads: wq / wk / wv run column-parallel
-    on one input (MQA's single kv head replicated) and wo row-parallel,
-    one sum over "model" each way."""
+    the weights are this rank's blocks: wq / wk / wv run column-parallel
+    on one input (MQA's single kv head replicated) for the rank's heads, or
+    its head group's where they do not split over "model"
+    (`tensor_parallel.head_columns`), and wo row-parallel on the rank's
+    own columns of their output (`own_heads`), one sum over "model" each
+    way."""
     B, S, _ = x.shape
+    H, Hk = cfg.num_heads, cfg.num_kv_heads
     cfg = tensor_parallel.local_attn(cfg)
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = tensor_parallel.column(x, params["wq"], params["wk"],
-                                     params["wv"])
+    q, k, v = tensor_parallel.head_columns(
+        x, (params["wq"], H), (params["wk"], Hk), (params["wv"], Hk))
     q, k, v = (_split_heads(t, n, hd) for t, n in ((q, h), (k, hk), (v, hk)))
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -228,7 +232,8 @@ def gqa_forward(params, x, positions, cfg: AttnConfig):
 
     out = _full_sequence(q, (k_flat, v_flat), expand, positions, cfg,
                          1.0 / math.sqrt(hd))
-    out = out.to(x.dtype).reshape(B, S, h * hd)
+    out = tensor_parallel.own_heads(out.to(x.dtype).reshape(B, S, h * hd),
+                                    H)
     return (tensor_parallel.row(out, params["wo"]),
             {"k": k_flat, "v": v_flat})
 

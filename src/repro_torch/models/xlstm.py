@@ -20,15 +20,17 @@ mLSTM and sLSTM blocks 1:1.
 Under `sharding.tensor_parallel.model_parallel` the weights are this rank's
 blocks (`tensor_parallel.block_layout`), and each block runs as JAX's
 partitioner runs it on the rank's share:
-  * the mLSTM on the rank's heads (ValueError unless they split): w_up's
-    block product exchanged so that the rank holds its span of u and of z
-    (`tensor_parallel.fused`), the conv on those columns, q, k (from the
-    conv's output) and v (from u) and the two gates (w_if's halves, i and
-    f) as the float32 partials of the rank's rows summed in one collective
-    and cut to the rank's heads (`tensor_parallel.row_products`), b_if's
-    entries of those heads, the chunked parallel form on them, the norm's
-    sum of squares over the whole width (`tensor_parallel.all_sum`) and
-    w_down row-parallel;
+  * the mLSTM on the rank's heads (`tensor_parallel.heads`: its head
+    group's where they do not split over "model", replicated on the
+    group's ranks): w_up's block product exchanged so that the rank holds
+    its span of u and of z (`tensor_parallel.fused`), the conv on those
+    columns, q, k (from the conv's output) and v (from u) and the two gates
+    (w_if's halves, i and f) as the float32 partials of the rank's rows
+    summed in one collective and cut to the rank's heads
+    (`tensor_parallel.row_products`), b_if's entries of those heads, the
+    chunked parallel form on them, the rank's own columns of its output
+    (`own_heads`), the norm's sum of squares over the whole width
+    (`tensor_parallel.all_sum`) and w_down row-parallel;
   * the sLSTM's conv, scan and norm whole on every rank, its gate weights
     gathered whole (`tensor_parallel.whole`), its MLP tensor-parallel
     (`fused`, then `row`).
@@ -183,7 +185,8 @@ def mlstm_block(params, x, cfg: XLSTMConfig, state=None,
     the recurrent state: the training loss reads no state.  On the rank's
     heads under `tensor_parallel.model_parallel` (module docstring)."""
     B, S, _ = x.shape
-    H = tensor_parallel.span(cfg.num_heads, "num_heads")[1]
+    nh = cfg.num_heads
+    H = tensor_parallel.heads(nh)[1]
     u, z = tensor_parallel.fused(x, params["w_up"], 2)    # branch + gate
     conv_state = None if state is None else state["conv"]
     uc, conv_tail = _causal_conv1d(u, params["conv_w"], params["conv_b"],
@@ -191,9 +194,9 @@ def mlstm_block(params, x, cfg: XLSTMConfig, state=None,
     uc = F.silu(uc)
     q, k, v, g = tensor_parallel.row_products(
         (uc, params["wq"]), (uc, params["wk"]), (u, params["wv"]),
-        (uc, params["w_if"], 2))
+        (uc, params["w_if"], 2), nheads=nh)
     q, k, v = _heads(q, H), _heads(k, H), _heads(v, H)
-    gates = (g + tensor_parallel.own(params["b_if"], 2)).float()
+    gates = (g + tensor_parallel.own(params["b_if"], 2, nh)).float()
     log_i, log_f = gates[..., :H], F.logsigmoid(gates[..., H:])
 
     if state is None or S > 1:
@@ -202,7 +205,7 @@ def mlstm_block(params, x, cfg: XLSTMConfig, state=None,
                else None)
     else:
         h, mst = mlstm_step(q, k, v, log_i, log_f, state["rec"])
-    hp = h.reshape(B, S, -1).to(x.dtype)
+    hp = tensor_parallel.own_heads(h.reshape(B, S, -1).to(x.dtype), nh)
     hn = _norm(hp, params["norm"]) * F.silu(z)
     y = tensor_parallel.row(hn, params["w_down"])
     return y, {"rec": mst, "conv": conv_tail}

@@ -58,6 +58,21 @@ blocks its specs give it:
 Outside it every function here is the identity or its unsharded
 counterpart, so serving runs the same layer code.
 
+Heads that do not split over the axis (tinyllama's 4 kv heads, gemma's 8
+heads, recurrentgemma's 10 local-attention heads, whose RG-LRU's 2560
+columns do split, or xLSTM's 4 over 16 ranks) keep JAX's even
+column cut at rest (`block_layout`), and the rank computes on a head group
+(`heads`): the m ranks form g = gcd(H, m) groups of r = m / g consecutive
+ranks (a run, `core.mesh.Mesh.group(axis, run=r)`), and each group computes
+its H / g whole heads, replicated on its r ranks.  GQA's q, k and v take
+the group's columns (`head_columns`): the r ranks' blocks of the weight
+gathered over the run (`_RunGather`); backward
+sums the r replicas' gradients of the gathered columns over the run in
+float32 and keeps the rank's block.  The mLSTM cuts its summed partials to
+the group's heads (`row_products(..., nheads=H)`).  Each rank then keeps its
+own (H hd) / m columns of the heads' output (`own_heads`), the rows of its
+`wo` block, so the row-parallel product and its sum are unchanged.
+
 Wherever each rank consumes a collective's output on its own columns, the
 collective's backward sums over the axis (`row_products`, `all_sum`,
 `fused`); `Mesh.reduce_from`'s identity backward is right only where every
@@ -76,11 +91,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..core.device import on_card
 from .rules import SINGLE_POD_RULES
 
 #: (mesh, axis) of the model-parallel group while `model_parallel` is
@@ -168,56 +185,128 @@ def experts(num_experts: int) -> tuple[int, int]:
     return span(num_experts, "num_experts")
 
 
-def own(v: torch.Tensor, pieces: int = 1) -> torch.Tensor:
-    """The rank's `span` of each of the `pieces` equal pieces of the last
-    axis of a replicated `v`, side by side (one piece: a view): the entries
+def _cut(n: int, nheads) -> tuple[int, int]:
+    """(the first, the count) of this rank's columns among `n`: its `span`,
+    or with `nheads` the columns of its head group among that many heads
+    (`heads`)."""
+    if nheads is None:
+        return span(n)
+    lo, k, _ = heads(nheads)
+    per = n // nheads
+    return lo * per, k * per
+
+
+def own(v: torch.Tensor, pieces: int = 1, nheads=None) -> torch.Tensor:
+    """The rank's `span` (with `nheads`: its head group's columns among
+    that many heads) of each of the `pieces` equal pieces of the last axis
+    of a replicated `v`, side by side (one piece: a view): the entries
     beside its ff columns or heads; `v` itself outside the context.  Its
     gradient is zero outside the spans, so the sum of the ranks' gradients
     over the axis is the unsharded gradient exactly."""
     if _GROUP is None:
         return v
     n = v.shape[-1] // pieces
-    lo, k = span(n)
+    lo, k = _cut(n, nheads)
     if pieces == 1:
         return v.narrow(-1, lo, k)
     return v.unflatten(-1, (pieces, n)).narrow(-1, lo, k).flatten(-2)
 
 
-def local_config(cfg, m: int):
-    """The `models.transformer.ModelConfig` a rank computes with among `m`
-    along "model": heads (MLA's too), kv heads (when more than one: MQA's
-    single kv head is replicated), ff and vocab divided, the head dim kept.
-    MoE's config stays whole: routing runs over all E experts, so E,
-    top_k and the capacity C are the global ones (a rank's experts are
-    `experts`).  A rank's block shapes are `block_layout`'s."""
+def own_heads(out: torch.Tensor, nheads: int) -> torch.Tensor:
+    """This rank's own columns of `out`, a product over its head group's
+    heads among `nheads` (`heads`): of the group's columns, its share in
+    run order, (nheads hd) / m of them, the rows of its block of the
+    output product; `out` itself where the heads split (or outside the
+    context).  Backward gives the other columns zeros, and the run's
+    gathers sum the replicas' gradients (`head_columns`,
+    `row_products`)."""
+    r = heads(nheads)[2]
+    if r == 1:
+        return out
+    k = out.shape[-1] // r
+    return out.narrow(-1, index() % r * k, k)
+
+
+def _head_group(n: int, m: int, i: int) -> tuple[int, int, int]:
+    g = math.gcd(n, m)
+    r = m // g
+    return i // r * (n // g), n // g, r
+
+
+def heads(n: int) -> tuple[int, int, int]:
+    """(the first, the count, r) of the heads among `n` that this rank
+    computes: where n splits over the m ranks of the axis, its own n / m
+    (r = 1); elsewhere its group's: the ranks form g = gcd(n, m) groups of
+    r = m / g consecutive ranks, and each group computes its n / g heads,
+    replicated on its r ranks.  (0, n, 1) outside the context."""
+    return _head_group(n, parts(), index())
+
+
+def head_runs(cfg, m: int) -> set[int]:
+    """The runs (r > 1) over which a config's heads and kv heads are
+    replicated among `m` ranks (`heads`)."""
+    counts = [cfg.num_heads] + ([cfg.num_kv_heads]
+                                if cfg.num_kv_heads > 1 else [])
+    return {r for n in counts if (r := _head_group(n, m, 0)[2]) > 1}
+
+
+def _kv_heads_of(H: int, hk: int, m: int, i: int) -> int:
+    """Rank i's count of kv heads among `hk` (MQA's one kv head
+    replicated), ValueError unless they are the kv heads that its q heads
+    among `H` read (GQA reads kv head h // (H / hk) at q head h)."""
+    lo, k, _ = _head_group(H, m, i)
+    if hk == 1:
+        return 1
+    klo, kk, _ = _head_group(hk, m, i)
+    per = H // hk
+    if (lo // per, (lo + k - 1) // per + 1 - lo // per) != (klo, kk):
+        raise ValueError(f"rank {i}'s q heads {lo}..{lo + k - 1} of {H} "
+                         f"read kv heads other than its {kk} of {hk} from "
+                         f"{klo} over {m} model-parallel ranks")
+    return kk
+
+
+def local_config(cfg, m: int, i: int = 0):
+    """The `models.transformer.ModelConfig` rank `i` computes with among
+    `m` along "model": its heads (`heads`: its own, or its group's where
+    they do not split; MLA's must split), its kv heads (MQA's single kv
+    head is replicated), ff and vocab divided (ValueError where they do
+    not split), the head dim kept.  MoE's config stays whole: routing
+    runs over all E experts, so E, top_k and the capacity C are the
+    global ones (a rank's experts are `experts`).  A rank's block shapes
+    are `block_layout`'s."""
     if m == 1:
         return cfg
-    hk = cfg.num_kv_heads
+    H, hk = cfg.num_heads, cfg.num_kv_heads
+    if cfg.mla is not None:
+        _split(H, "MLA's num_heads", m)
     return dataclasses.replace(
         cfg, head_dim=cfg.hd,
-        num_heads=_split(cfg.num_heads, "num_heads", m),
-        num_kv_heads=_split(hk, "num_kv_heads", m) if hk > 1 else 1,
+        num_heads=_head_group(H, m, i)[1],
+        num_kv_heads=_kv_heads_of(H, hk, m, i),
         d_ff=_split(cfg.d_ff, "d_ff", m),
         vocab=_split(cfg.vocab, "vocab", m))
 
 
 def local_attn(acfg):
-    """An `AttnConfig` for this rank's heads (itself outside the
-    context)."""
+    """An `AttnConfig` for this rank's heads (`heads`; MLA's must split
+    over the axis; itself outside the context)."""
     m = parts()
     if m == 1:
         return acfg
-    hk = acfg.num_kv_heads
+    H = acfg.num_heads
+    if acfg.kv_lora is not None:
+        _split(H, "MLA's num_heads", m)
     return dataclasses.replace(
-        acfg, num_heads=_split(acfg.num_heads, "num_heads", m),
-        num_kv_heads=_split(hk, "num_kv_heads", m) if hk > 1 else 1)
+        acfg, num_heads=heads(H)[1],
+        num_kv_heads=_kv_heads_of(H, acfg.num_kv_heads, m, index()))
 
 
 def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The 2-D product a @ b accumulated and returned in float32."""
     if a.dtype == torch.float32:
         return a @ b
-    if a.is_cuda:
+    if on_card(a):
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 
@@ -295,6 +384,49 @@ def column(x: torch.Tensor, *ws: torch.Tensor) -> tuple:
     return _Products.apply(copy_in(x), *ws)
 
 
+class _RunGather(torch.autograd.Function):
+    """The blocks (..., c) of the r ranks of this rank's run along the
+    axis, gathered on the last axis into its group's (..., r c); backward
+    sums the r replicas' gradients of the whole over the run in float32,
+    rounds once to the block's dtype, and keeps the rank's block (a
+    reduce-scatter: each replica reads the group's columns on its own
+    share alone)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, r, blk):
+        ctx.mesh, ctx.axis, ctx.r = mesh, axis, r
+        ctx.dtype, ctx.k = blk.dtype, blk.shape[-1]
+        return mesh.all_gather(blk, axis, blk.dim() - 1, run=r)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = ctx.mesh.all_reduce_sum(
+            g.float().contiguous() if g.dtype != torch.float32 else
+            g.clone(memory_format=torch.contiguous_format), ctx.axis,
+            run=ctx.r)
+        i = ctx.mesh.index(ctx.axis) % ctx.r
+        return (None, None, None,
+                total[..., i * ctx.k:(i + 1) * ctx.k].to(ctx.dtype))
+
+
+def head_columns(x: torch.Tensor, *pairs) -> tuple:
+    """``x @ w`` for each pair ``(w, nheads)`` (a weight whose columns are
+    `nheads` heads side by side): inside the context `w` is the rank's
+    block of JAX's even column cut, and each product is the columns of
+    the rank's heads (`heads`), column-parallel on one input as `column`'s;
+    where the heads do not split, the r ranks of the group's run gather
+    their blocks of the weight through `_RunGather`.  A replicated weight
+    (MQA's kv, ``nheads`` 1) is taken whole.  The plain products outside
+    the context."""
+    if _GROUP is None:
+        return tuple(x @ w for w, _ in pairs)
+    mesh, axis = _GROUP
+    runs = [heads(n)[2] if n > 1 else 1 for _, n in pairs]
+    ws = [_RunGather.apply(mesh, axis, r, w) if r > 1 else w
+          for (w, _), r in zip(pairs, runs)]
+    return _Products.apply(copy_in(x), *ws)
+
+
 def row(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for the rank's rows of `w`: the float32 partial product
     summed over the model axis by `Mesh.reduce_from` and rounded once to
@@ -344,16 +476,19 @@ class _SumColumns(torch.autograd.Function):
         return (None, None, None, None, *full.split(ctx.widths, dim=-1))
 
 
-def row_products(*pairs) -> tuple:
+def row_products(*pairs, nheads=None) -> tuple:
     """``x @ w`` for each pair ``(x, w)`` or ``(x, w, pieces)``, cut to the
     rank's columns: each x is the rank's columns of an input and each w
     (n_l, n) the rank's rows of a weight whose input axis is sharded; the
     float32 partial products are summed over the model axis in one
     collective, rounded once to the first x's dtype, and each product keeps
     the rank's `span` of each of its `pieces` (default 1) equal pieces,
-    side by side.  Each x's gradient is its columns of the unsharded one,
-    and each w's the rank's rows of the unsharded one, with no sum.  The
-    plain products outside the context."""
+    side by side (with `nheads`: the columns of its head group among that
+    many heads in each piece, `heads`).  Each x's gradient is its columns
+    of the unsharded one, and each w's the rank's rows of the unsharded
+    one, with no sum (a head group's replicas each give their share, and
+    the backward's sum adds them).  The plain products outside the
+    context."""
     if _GROUP is None:
         return tuple(p[0] @ p[1] for p in pairs)
     mesh, axis = _GROUP
@@ -361,7 +496,7 @@ def row_products(*pairs) -> tuple:
     for p in pairs:
         pieces = p[2] if len(p) > 2 else 1
         n = p[1].shape[1] // pieces
-        lo, k = span(n)
+        lo, k = _cut(n, nheads)
         cuts.append(tuple((j * n + lo, j * n + lo + k)
                           for j in range(pieces)))
     return _SumColumns.apply(mesh, axis, pairs[0][0].dtype, tuple(cuts),
@@ -553,7 +688,8 @@ def chunked_cross_entropy(hidden, head, targets, mask, chunk: int = 512,
 
 __all__ = ["model_parallel", "active", "parts", "index",
            "computes_on_blocks", "MODEL_AXES", "block_layout", "span",
-           "experts", "own", "local_config", "local_attn", "copy_in",
-           "summed", "column", "row", "row_products",
+           "heads", "head_runs", "experts", "own", "own_heads",
+           "local_config", "local_attn", "copy_in", "summed", "column",
+           "head_columns", "row", "row_products",
            "all_sum", "fused", "whole", "embedding",
            "chunked_cross_entropy"]

@@ -43,7 +43,8 @@ The mesh has a "model" axis (ValueError otherwise).  A step:
      (column-, then row-parallel products, one pair of sums a block, the
      embedding and the cross entropy vocab-parallel, MoE's experts, MLA's
      heads, the RG-LRU's columns and the mLSTM's heads on the rank's
-     blocks; the sLSTM's recurrence whole on every rank), so its gradients
+     blocks, heads that do not split over "model" on the rank's head
+     group; the sLSTM's recurrence whole on every rank), so its gradients
      are the blocks' and every model rank's loss is the same;
   3. sums the float32 gradients over the data axes (one collective after
      the plain accumulation, one a microbatch before the int8 error
@@ -285,6 +286,9 @@ def _sharded_step(model, tcfg: TrainConfig, mesh, rules):
     place = TrainPlacement(model, mesh, rules)
     axes = place.data_axes
     mesh.group(axes)       # every rank makes the data group's subgroups now
+    for r in sorted(tensor_parallel.head_runs(model.cfg,
+                                              mesh.axis_size("model"))):
+        mesh.group("model", run=r)     # and the head groups' runs
     roles = place.leaf_roles()
 
     def train_step(state: dict, batch: dict):

@@ -845,17 +845,167 @@ def test_load_takes_griffin_and_xlstm_blocks():
         xmodel.load(xwhole)
 
 
-def test_mlstm_heads_that_do_not_split_raise():
-    """The mLSTM computes on the rank's heads: its 4 heads over 8 model
-    ranks raise ValueError (before any collective: the stand-in mesh has
-    none), though every leaf's blocks among 8 exist."""
+def test_mlstm_heads_that_do_not_split_raise(results8):
+    """The mLSTM's 4 heads over 8 model ranks no longer raise: the ranks
+    form 4 head groups of 2, each computing its head (`tp.heads`), and
+    every rank's block of the mLSTM matches the single-process block
+    (`test_head_groups_match_the_unsharded_layer`'s tolerance) where it
+    raised ValueError before; every leaf's blocks among 8 load."""
     cfg = _layer_cfg("xlstm_350m")
     model = build_model(cfg).init(device="cpu")
     mesh = _rank_mesh(8, 3)
-    blocks = _rank_blocks(model, mesh)
     with tp.model_parallel(mesh, "model"):
-        model.load(blocks)
-        h = torch.zeros(1, 4, cfg.d_model)
-        with pytest.raises(ValueError, match="num_heads = 4 does not split"):
-            model.block_fwd("m", model.blocks[0].tree(), h,
-                            need_state=False)
+        model.load(_rank_blocks(model, mesh))
+        assert tp.heads(cfg.num_heads) == (1, 1, 2)
+    _check_layer_world(results8, "xlstm_350m/m", 8)
+
+
+#: the head-group cases on (data 1, model 8): GQA's 4 heads and 2 kv heads
+#: (tinyllama), MQA's 4 heads (gemma), Griffin's local MQA attention
+#: (recurrentgemma) and the mLSTM's 4 heads (xlstm), none of which split
+#: over 8 ranks
+HEAD_GROUP_ARCHS = ("tinyllama_1_1b", "gemma_2b", "recurrentgemma_2b/attn",
+                    "xlstm_350m/m")
+#: `head_columns`' case: an input (HB, 5, D) and a weight (D, 4 x 8) of 4
+#: heads, which each rank of 8 holds 4 columns of; HB 4 gives 20 rows of
+#: input (>= D), HB 1 gives 5 (< D)
+HC_D = 8
+
+
+def _world8(device, x):
+    """One rank of the world of 8 on (data 1, model 8): the head-group
+    layer cases and `head_columns` at two input sizes; every rank's
+    results."""
+    mesh = Mesh((1, 8), ("data", "model"))
+    r = mesh.coord["model"]
+    out = {"rank": r}
+    with tp.model_parallel(mesh, "model"):
+        for arch in HEAD_GROUP_ARCHS:
+            blocks = _cut(x[f"{arch}/lp"], _specs(arch), mesh)
+            h = _t(x[f"{arch}/x"], True)
+            y, aux = _layer_run(arch, blocks, h)
+            ((y * _t(x[f"{arch}/g"])).sum() + aux).backward()
+            out[f"layer/{arch}"] = (y.detach().numpy(), h.grad.numpy(),
+                                    _grads(blocks), 0.0)
+        for rows in (4, 1):
+            h = _t(x["hc_x"][:rows], True)
+            w = _t(x["hc_w"][:, r * 4:(r + 1) * 4], True)
+            (y,) = tp.head_columns(h, (w, 4))
+            # the gradient of the rank's own columns alone, as `own_heads`
+            # gives it
+            g = np.zeros((rows, 5, 8), np.float32)
+            g[..., r % 2 * 4:(r % 2 + 1) * 4] = \
+                x["hc_g"][:rows, :, r * 4:(r + 1) * 4]
+            y.backward(_t(g))
+            out[f"head_columns/{rows}"] = (
+                y.detach().numpy(), h.grad.numpy(), w.grad.numpy())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, out)
+    return every
+
+
+@pytest.fixture(scope="module")
+def results8():
+    x = _inputs()
+    rng = np.random.default_rng(8)
+    x["hc_x"] = rng.integers(-3, 4, (4, 5, HC_D)).astype(np.float32)
+    x["hc_w"] = rng.integers(-3, 4, (HC_D, 32)).astype(np.float32)
+    x["hc_g"] = rng.integers(-3, 4, (4, 5, 32)).astype(np.float32)
+    world = run_spmd(_world8, 8, device="cpu", args=(x,), timeout_s=300)
+    return x, sorted(world, key=lambda w: w["rank"])
+
+
+def _check_layer_world(results, arch, m):
+    """A layer case of a world of `m` model ranks against the unsharded
+    layer (`test_tensor_parallel_layer_matches_layer_fwd`'s checks)."""
+    x, world = results
+    lp = {k: v.clone().requires_grad_(True)
+          for k, v in _leaves(x[f"{arch}/lp"]).items()}
+    tree = {}
+    for k, v in lp.items():
+        node = tree
+        *path, last = k.strip("/").split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = v
+    h = torch.from_numpy(x[f"{arch}/x"]).requires_grad_(True)
+    y, aux = _layer_run(arch, tree, h)
+    ((y * torch.from_numpy(x[f"{arch}/g"])).sum() + aux).backward()
+    specs = _leaves(_specs(arch))
+    shared = SHARED_LEAVES.get(arch, set())
+    shares = {}
+    for r, w in enumerate(world):
+        out, gx, grads, _ = w[f"layer/{arch}"]
+        _close(out, y.detach().numpy(), 1e-5)
+        _close(gx, h.grad.numpy(), 1e-5)
+        mesh = _rank_mesh(m, r)
+        for k, g in _leaves(grads).items():
+            whole = lp[k].grad
+            if "model" in tuple(specs[k]):
+                _close(g, _block(whole, mesh, specs[k]).numpy(), 1e-5)
+            elif k in shared:
+                shares[k] = shares.get(k, 0) + g
+            else:
+                _close(g, whole.numpy(), 1e-5)
+    assert set(shares) == shared
+    for k, g in shares.items():
+        _close(g, lp[k].grad.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("arch", HEAD_GROUP_ARCHS)
+def test_head_groups_match_the_unsharded_layer(results8, arch):
+    """On (data 1, model 8), where the heads (and GQA's kv heads) do not
+    split, each rank computes its head group's heads (replicated on the
+    group's ranks) and keeps its own columns of their output: the output,
+    the input's gradient and every rank's gradient of its blocks (the
+    replicated leaves' shares summed over the 8 ranks) against the
+    unsharded layer's, within 1e-5 x the largest |value|.  An identity
+    backward of the run's gather would leave each block's gradient half
+    of it."""
+    _check_layer_world(results8, arch, 8)
+
+
+@pytest.mark.parametrize("rows", [4, 1])
+def test_head_columns_gather_the_runs_weight_blocks(results8, rows):
+    """`head_columns` on a weight of 4 heads over 8 ranks (runs of 2), on
+    integer inputs with 20 rows and with 5 (fewer than the weight's 8):
+    the run's blocks of the weight are gathered, each rank's product is
+    its head's columns of the whole product, bitwise; given
+    the gradient of its own columns alone (as `own_heads` gives it), its
+    input's gradient is the whole gradient's product with the whole
+    weight (summed over the 8 ranks) and its block's gradient its columns
+    of the whole one: the run's two replicas' gradients summed."""
+    x, world = results8
+    h = torch.from_numpy(x["hc_x"][:rows])
+    w = torch.from_numpy(x["hc_w"])
+    g = torch.from_numpy(x["hc_g"][:rows])
+    gw_whole = (h.reshape(-1, HC_D).t() @ g.reshape(-1, 32)).numpy()
+    for r, got in enumerate(world):
+        y, gx, gw = got[f"head_columns/{rows}"]
+        head = slice(r // 2 * 8, (r // 2 + 1) * 8)
+        assert np.array_equal(y, (h @ w)[..., head].numpy())
+        assert np.array_equal(gx, (g @ w.t()).numpy())
+        assert np.array_equal(gw, gw_whole[:, r * 4:(r + 1) * 4])
+
+
+def test_local_config_groups_heads_that_do_not_split():
+    """At the production mesh's 16 model ranks: tinyllama's 32 heads
+    split (2 a rank) and its 4 kv heads form groups of 4 ranks (1 kv
+    head a rank); gemma's 8 heads groups of 2; llava's 56 heads and 8 kv
+    heads groups of 2 (7 heads, 1 kv head); the q heads of every rank
+    read only its kv heads; a kv layout whose q heads would read another
+    group's kv heads raises."""
+    def at(arch, i):
+        return tp.local_config(get_arch(arch).CONFIG, 16, i)
+    for i in range(16):
+        tl = at("tinyllama_1_1b", i)
+        assert (tl.num_heads, tl.num_kv_heads) == (2, 1)
+        assert at("gemma_2b", i).num_heads == 1
+        ll = at("llava_next_34b", i)
+        assert (ll.num_heads, ll.num_kv_heads) == (7, 1)
+    assert tp._head_group(56, 16, 5) == (14, 7, 2)
+    assert tp.head_runs(get_arch("llava_next_34b").CONFIG, 16) == {2}
+    assert tp.head_runs(get_arch("tinyllama_1_1b").CONFIG, 16) == {4}
+    assert tp.head_runs(get_arch("moonshot_v1_16b_a3b").CONFIG, 16) == set()
+    with pytest.raises(ValueError, match="read kv heads other than"):
+        tp._kv_heads_of(6, 3, 4, 1)
