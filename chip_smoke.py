@@ -249,7 +249,7 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      prefill of all 4096 positions (`REC_TF`); for each of (b)-(d) the
      init's peak memory beside its model from the
      layout, the checks within `REC_BF16_TOL`, the prefill (CUDA events,
-     median of 3, `REC_PREFILL_RUNS`) and decode-step times, tokens/s,
+     `REC_PREFILL_RUNS`) and decode-step times, tokens/s,
      peak memory and cache bytes beside their bounds, then one decode
      step and one prefill under `torch.profiler` (device busy and idle
      share, kernel launches).
@@ -289,7 +289,7 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      compute over "model", `sharding.tensor_parallel`); (b)
      tinyllama-1.1b whole (22 layers, bf16, tensor-parallel) on (data 2,
      model 2), 4 ranks sharing the card, at
-     S = 2048, a global batch of 4 (one row a data rank a microbatch) at
+     S = 1024, a global batch of 4 (one row a data rank a microbatch) at
      accum_steps 2 (train_4k cut to the card, `SHARD_MAIN`; the plan of a
      rank's peak printed and checked against the free memory first, and
      the plan at train_4k's S = 4096): a warm-up step and a timed step
@@ -322,16 +322,49 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      weights, the fused w_up products' exchange) counted against their
      8 a unit a microbatch, the plan printed at one unit more too.
   18. the dry run against the card (`repro_torch.launch.dryrun`, no card
-     work): a host process of its own, started before the kernels' build
-     and collected before phase 2 (no phase beside it reads a clock),
-     runs 17b's cell as rank 0 of a fake world of 4 on fake tensors under
-     `launch.op_cost`, and 11a's 2-D decode at `TP_MESH`; after 17b it
+     work): two host processes of their own, started before the kernels'
+     build and collected before phase 2 (no phase beside them reads a
+     clock), run 17b's cell as rank 0 of a fake world of 4 on fake
+     tensors under `launch.op_cost`, 11a's 2-D decode at `TP_MESH`, and
+     19b's decode step and 19b-c's prefills (`dryrun_predict_serve`); it
      holds (a) per (collective, axis) the calls and bytes against rank 0's
      timed 17b step, exactly, (b) rank 0's predicted peak within
      `DRYRUN_PEAK_TOL` of 17b's ``max_memory_allocated``, (c) the
      predicted launches a rank, times the ranks, against 11a's counted
-     launches of that decode; it prints the predicted flops beside 17b's
-     step time as a share of 989 TFLOP/s.
+     launches of that decode, (d) per (collective, axis) the calls and
+     bytes of 19b's first decode step on rank 0, exactly, and its
+     predicted decode peak within `DRYRUN_PEAK_TOL` (the serve cell of
+     19b's shapes, `dryrun.serve_cell`); it prints the predicted flops
+     beside 17b's step time as a share of 989 TFLOP/s.  It runs last,
+     after 19.
+  19. sharded serving of the transformer family
+     (`launch.steps.make_serve_step`, `sharding.placement.ServePlacement`;
+     no Viterbi kernel may launch): (a) a world of 8 ranks sharing the
+     card (gloo) on the two test meshes of 17a: every transformer-family
+     SMOKE in float32 (tinyllama, gemma, granite, danube, hubert, llava,
+     moonshot, deepseek-v2), a prefill of (8, 16) with room for 36
+     positions and 4 decode steps fed the single-process steps' greedy
+     tokens (hubert: the prefill), against the single-process steps on
+     the card from the same weights: the logits and the gathered caches
+     within `SERVE_PARITY_TOL` (the CPU tests' bounds), the greedy tokens
+     equal; (b) granite-8b whole (36 layers, bf16) on (data 2, model 2),
+     4 ranks sharing the card, each drawing its blocks leaf by leaf, one
+     rank at a time (`ServePlacement.draw`): a prefill of a global batch
+     of 4 prompts of 2048 tokens with room for 2056 and 8 greedy decode
+     steps (`SERVE_MAIN`; the plan printed and checked against 0.85 of
+     the free memory first) against the single-process bf16 steps and
+     the float32 steps on those weights (fed the bf16 steps' tokens): the
+     sharded steps' largest logit gap to the float32 steps within
+     `SERVE_BF16_MARGIN` x the bf16 single-process steps' own, the greedy
+     tokens equal wherever the single-process top-2 margin exceeds twice
+     that bound; prefill ms and decode ms a step (host clock,
+     synchronised), each one's share in collectives, the collectives by
+     kind and axis (calls, bytes), each rank's bytes at rest (blocks and
+     cache, equal to the specs' share) and its peak, and one more step
+     under `torch.profiler` on rank 0 (device busy and idle share);
+     (c) the same for deepseek-v2 at full width (MLA's latent split over
+     its slots, 80 of 160 experts a rank) at `SERVE_MLA_LAYERS` of its 60
+     layers.
 
 The line before the last is a JSON object with one entry per kernel (the
 `resources` object just before it); the last line is {"ok": true,
@@ -3655,8 +3688,10 @@ REC_BF16_TOL = dict(recurrentgemma_2b=0.0914, xlstm_a=0.0, xlstm_b=0.0,
                     llava_next_34b=0.111)
 #: 15b-d: the timed prefills after one warm-up (median of them): xLSTM's
 #: takes 5.2 s and llava's 1.9 s (NVIDIA H100 80GB HBM3, 700.00 W), and
-#: the smoke's 1 200 s no longer leave room for the 2 + 7 of phase 14's
-REC_PREFILL_RUNS = 3
+#: the smoke's 1 200 s no longer leave room for the 2 + 7 of phase 14's;
+#: one since phase 19 joined (3 until then; 6.6 s each on a slow host,
+#: measured on one H100 80GB HBM3, 700.00 W)
+REC_PREFILL_RUNS = 1
 
 
 def init_peak_bytes(layout, itemsize: int) -> int:
@@ -3842,6 +3877,10 @@ TRAIN_PARITY = (4, 16)
 TRAIN_WIDTH = (2, 512)
 #: 16c: microbatch, accum_steps, sequence length
 TRAIN_MAIN = (2, 2, 4096)
+#: 16c: the timed steps after the warm-up, plain and with compress_accum:
+#: one each since phase 19 joined the smoke (3 and 2 until then, about
+#: 5.0 s a step on an H100), for the smoke's 1 200 s (PERF.md §4)
+TRAIN_TIMED = (1, 1)
 #: 16d: tests/test_system.py's tinyllama SMOKE runs
 TRAIN_LOOP = ["--arch", "tinyllama-1.1b", "--smoke", "--device", "cuda"]
 TRAIN_RESUME_TOL = (2e-4, 2e-5)
@@ -3996,7 +4035,8 @@ def train_main(dev, card: str) -> None:
     pipe = SyntheticTokenPipeline(TokenPipelineConfig(
         vocab=cfg.vocab, seq_len=S, global_batch=B, seed=TRAIN_SEED))
     batches = [{k: torch.from_numpy(v).to(dev)
-                for k, v in pipe.batch(i).items()} for i in range(7)]
+                for k, v in pipe.batch(i).items()}
+               for i in range(2 + sum(TRAIN_TIMED))]
     opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
     steps = {c: make_train_step(model, TrainConfig(
         opt=opt, accum_steps=A, compress_accum=c)) for c in (False, True)}
@@ -4009,7 +4049,8 @@ def train_main(dev, card: str) -> None:
 
     torch.cuda.reset_peak_memory_stats()
     times, metrics = {False: [], True: []}, []
-    plan = [False] + [False] * 3 + [True] * 2
+    plain_n, compress_n = TRAIN_TIMED
+    plan = [False] + [False] * plain_n + [True] * compress_n
     for i, compress in enumerate(plan):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -4034,8 +4075,9 @@ def train_main(dev, card: str) -> None:
     bytes_w = n_params * 2
     print(f"train 16c {cfg.name} losses "
           f"{[round(v['loss'], 4) for v in vals]}, grad_norm "
-          f"{[round(v['grad_norm'], 4) for v in vals]} (warm-up, 3 plain, "
-          f"2 compress_accum), every one finite; {card}")
+          f"{[round(v['grad_norm'], 4) for v in vals]} (warm-up, "
+          f"{plain_n} plain, {compress_n} compress_accum), every one "
+          f"finite; {card}")
     print(f"timing train 16c {cfg.name} step (B, S) = ({B}, {S}) as "
           f"{A} microbatches of {mb}: {ms:.2f} ms a step (steps "
           f"{[round(t, 2) for t in plain]} ms), {B * S / ms * 1e3:.1f} "
@@ -4186,8 +4228,11 @@ SHARD_FAN_IN = ("xlstm_350m",)
 #: and its S of 4096 to 2048: at 4096 a rank's plan is 16.9 GiB, 69 GiB
 #: for four with their contexts, too close to the card's 79.18 GiB for
 #: four allocators' slack (NVIDIA H100 80GB HBM3, 700.00 W; a probe at
-#: 4096 ran out; PERF.md §6)
-SHARD_MAIN = ((2, 2), 1, 2, 2048)
+#: 4096 ran out; PERF.md §6).  Since phase 19 joined the smoke, S = 1024
+#: (17c and 17d take it too), for time: with 2048 the whole smoke took
+#: 1 195.5 s of its 1 200 on a host whose gloo ran 17b's step in 14.6 s
+#: and its warm-up in 37.8 s (measured on one H100, PERF.md §4)
+SHARD_MAIN = ((2, 2), 1, 2, 1024)
 #: 17b: the train_4k cell's S and global batch that SHARD_MAIN cuts
 SHARD_MAIN_CELL = (4096, 256)
 #: 17b: bytes at rest a rank may hold beside its blocks: a probe (NVIDIA
@@ -4216,8 +4261,11 @@ SHARD_STEPS = {"17b": 2, "17c": 2, "17d": 2, "17e": 2}
 #: 17e joined the smoke it runs 2 layers, for time: without 17e the whole
 #: smoke took 1 099.2 s of its 1 200 on a host with slow gloo, 17e adds
 #: about 45-61 s and 17c's 3 layers took 91.8 s (NVIDIA H100 80GB HBM3,
-#: 700.00 W; PERF.md §6)
-SHARD_MOE_LAYERS = 2
+#: 700.00 W; PERF.md §6).  Since phase 19 joined the smoke, 1 layer, for
+#: time: a smoke with 2 (and 17d's and 17e's 2 units) took over 1 500 s
+#: on a host whose gloo ran 17c's step in 11.0 s, its warm-up in 28.8 s
+#: and phase 17 in 450.4 s (measured on one H100, PERF.md §4)
+SHARD_MOE_LAYERS = 1
 #: 17d: recurrentgemma-2b at full width (bf16), tensor-parallel on
 #: SHARD_MAIN's mesh, rows, accum_steps and S, at this many of its 8
 #: (rec, rec, attn) units and none of its 2 tail layers, its block
@@ -4232,8 +4280,8 @@ SHARD_MOE_LAYERS = 2
 #: margin of 0.024 GiB, so 17d ran 4 units (101.4 s of that 1 099.2 s
 #: smoke).  The float32 single-process reference peaked at 50.543 GiB at 6
 #: units and 45.212 at 5.  Since 17e joined the smoke, 17d runs 2 units,
-#: for time (`SHARD_MOE_LAYERS`)
-SHARD_GRIFFIN_UNITS = 2
+#: for time (`SHARD_MOE_LAYERS`), and since phase 19 joined, 1
+SHARD_GRIFFIN_UNITS = 1
 #: 17e: xlstm-350m at full width (bf16), tensor-parallel on SHARD_MAIN's
 #: mesh, rows and accum_steps, at this many of its 12 (mLSTM, sLSTM)
 #: units and this S, its block matrices rescaled to std 1/sqrt(d_in)
@@ -4243,8 +4291,9 @@ SHARD_GRIFFIN_UNITS = 2
 #: (8, 512) prefill of 12 units), and four ranks share the card.  S = 512
 #: is a multiple of the loss chunk (512) that takes two mLSTM chunks of
 #: 256; at it a row's 512 positions are fewer than d = 1024, so the fused
-#: w_up leaves move their products, not their weights (PERF.md §6)
-SHARD_XLSTM_UNITS = 2
+#: w_up leaves move their products, not their weights (PERF.md §6).  1
+#: unit since phase 19 joined the smoke, for time (`SHARD_MOE_LAYERS`)
+SHARD_XLSTM_UNITS = 1
 SHARD_XLSTM_S = 512
 
 
@@ -4300,10 +4349,11 @@ def summed_launches(total: dict) -> dict:
     return dict(zip(names, summed.tolist()))
 
 
-def shard_parity_world(dev, batches: dict) -> dict:
+def shard_parity_world(dev, batches: dict, serve_inputs: dict) -> dict:
     """17a in one rank of the world of 8: each case's sharded step on both
-    meshes; rank 0 returns the gathered states, metrics and the launches
-    summed over the ranks."""
+    meshes, then 19a's serving cases (`serve_parity_ranks`); rank 0
+    returns the gathered states, metrics, every rank's serving readings
+    and the launches summed over the ranks."""
     from repro_torch import kernels
     from repro_torch.core.mesh import Mesh
     from repro_torch.data.pipeline import shard_rows
@@ -4331,6 +4381,7 @@ def shard_parity_world(dev, batches: dict) -> dict:
                 train_state_to_numpy(state, model, mesh, rules),
                 {k: float(v) for k, v in met.items()})
             del model, state
+    out["serve"] = serve_parity_ranks(dev, serve_inputs)
     out["launches"] = summed_launches(kernels.launch_counts())
     return out
 
@@ -4362,8 +4413,11 @@ def shard_parity(dev, card: str) -> dict[str, int]:
     del model, state
     free_card()
     t_ref = time.perf_counter() - t0
+    serve_refs, serve_inputs = serve_parity_refs(dev)
+    t_serve = time.perf_counter() - t0 - t_ref
     world = run_spmd(shard_parity_world, 8, device=dev.type,
-                     backend="gloo", args=(batches,))
+                     backend="gloo", args=(batches, serve_inputs))
+    SEEN["19a"] = (serve_refs, world["serve"], t_serve)
     bad = []
     for axes, shape, rules_name in SHARD_MESHES:
         for arch, compress in shard_cases():
@@ -4390,9 +4444,10 @@ def shard_parity(dev, card: str) -> dict[str, int]:
                   f"{tuple(float(f'{t:.3g}') for t in tol)}; {card}")
             if not ok:
                 bad.append(f"{key} on {rules_name}")
-    print(f"train sharded 17a: references {t_ref:.1f} s, world of 8 "
-          f"{time.perf_counter() - t0 - t_ref:.1f} s wall (spawn "
-          f"included); launches summed over ranks "
+    print(f"train sharded 17a: references {t_ref:.1f} s (19a's "
+          f"{t_serve:.1f} s), world of 8 "
+          f"{time.perf_counter() - t0 - t_ref - t_serve:.1f} s wall (spawn "
+          f"and 19a's serving cases included); launches summed over ranks "
           f"{ {k: v for k, v in world['launches'].items() if v} }; {card}")
     if bad:
         raise SystemExit(f"FAIL train sharded 17a: the sharded step != the "
@@ -4400,24 +4455,26 @@ def shard_parity(dev, card: str) -> dict[str, int]:
     return world["launches"]
 
 
-def spec_share_bytes(model, mesh, rules) -> int:
-    """A rank's bytes of the training state under `train_state_specs`:
+def share_bytes(tree, specs, mesh) -> int:
+    """A rank's bytes of a tree of (meta) tensors placed by a spec tree:
     each leaf's bytes over the ranks its spec shards it over."""
+    if isinstance(tree, dict):
+        return sum(share_bytes(tree[k], specs[k], mesh) for k in tree)
+    n = tree.numel() * tree.element_size()
+    for ax in specs:
+        if ax is not None:
+            n //= mesh.axis_size(ax)
+    return n
+
+
+def spec_share_bytes(model, mesh, rules) -> int:
+    """A rank's bytes of the training state under `train_state_specs`."""
     from repro_torch.sharding.placement import data_axes
     from repro_torch.train import abstract_train_state, train_state_specs
 
     specs = train_state_specs(model, rules,
                               mesh.axis_size(data_axes(rules, mesh)))
-
-    def walk(t, spec):
-        if isinstance(t, dict):
-            return sum(walk(t[k], spec[k]) for k in t)
-        n = t.numel() * t.element_size()
-        for ax in spec:
-            if ax is not None:
-                n //= mesh.axis_size(ax)
-        return n
-    return walk(abstract_train_state(model), specs)
+    return share_bytes(abstract_train_state(model), specs, mesh)
 
 
 def seeded_shards(dev, model, mesh, rules, rescale: bool) -> dict:
@@ -4445,9 +4502,10 @@ def seeded_shards(dev, model, mesh, rules, rescale: bool) -> dict:
     return state
 
 
-def shard_main_world(dev, cfg, rescale: bool, batches: list) -> list:
-    """17b / 17c in one rank of the world of 4: the model of `cfg`, a
-    warm-up step and timed ones, one a batch; every rank's readings,
+def shard_main_world(dev, cases: list) -> list:
+    """17b-e in one rank of the world of 4, one case after another: for
+    each (cfg, rescale, batches), the model of `cfg`, a warm-up step and
+    timed ones, one a batch; for each case every rank's readings,
     gathered."""
     import torch.distributed as dist
 
@@ -4461,67 +4519,74 @@ def shard_main_world(dev, cfg, rescale: bool, batches: list) -> list:
     from repro_torch.train import TrainConfig, make_train_step
 
     card_settings()
-    kernels.reset_launches()
-    shape, _, A, _ = SHARD_MAIN
-    mesh = Mesh(shape, ("data", "model"))
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    state = seeded_shards(dev, model, mesh, rules, rescale)
-    free_card()
-    t_init = time.perf_counter() - t0
-    rows = shard_rows(len(batches[0]["tokens"]), mesh, A,
-                      data_axes(rules, mesh))
-    step = make_train_step(model, TrainConfig(
-        opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100),
-        accum_steps=A), mesh=mesh, rules=rules)
-    #: "<collective> over <model | data>" -> [host seconds, calls, bytes]
-    seen: dict[str, list] = {}
+    out = []
+    for cfg, rescale, batches in cases:
+        kernels.reset_launches()
+        shape, _, A, _ = SHARD_MAIN
+        mesh = Mesh(shape, ("data", "model"))
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        state = seeded_shards(dev, model, mesh, rules, rescale)
+        free_card()
+        t_init = time.perf_counter() - t0
+        rows = shard_rows(len(batches[0]["tokens"]), mesh, A,
+                          data_axes(rules, mesh))
+        step = make_train_step(model, TrainConfig(
+            opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100),
+            accum_steps=A), mesh=mesh, rules=rules)
+        #: "<collective> over <model | data>" -> [host seconds, calls, bytes]
+        seen: dict[str, list] = {}
 
-    def timed(name, fn):
-        def call(x, axes, *args, **kwargs):
+        def timed(name, fn):
+            def call(x, axes, *args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(x, axes, *args, **kwargs)
+                torch.cuda.synchronize()
+                kind = "model" if "model" in axes_of(axes) else "data"
+                s = seen.setdefault(f"{name} over {kind}", [0.0, 0, 0])
+                s[0] += time.perf_counter() - t
+                s[1] += 1
+                s[2] += x.numel() * x.element_size()
+                return out
+            return call
+        for name in ("all_reduce_sum", "all_reduce_max", "all_gather"):
+            setattr(mesh, name, timed(name, getattr(mesh, name)))
+        torch.cuda.reset_peak_memory_stats()
+        readings, rest = [], []
+        for batch in batches:
+            local = {k: torch.from_numpy(v[rows]).to(dev)
+                     for k, v in batch.items()}
             torch.cuda.synchronize()
+            c0 = {k: list(v) for k, v in seen.items()}
             t = time.perf_counter()
-            out = fn(x, axes, *args, **kwargs)
+            state, met = step(state, local)
             torch.cuda.synchronize()
-            kind = "model" if "model" in axes_of(axes) else "data"
-            s = seen.setdefault(f"{name} over {kind}", [0.0, 0, 0])
-            s[0] += time.perf_counter() - t
-            s[1] += 1
-            s[2] += x.numel() * x.element_size()
-            return out
-        return call
-    for name in ("all_reduce_sum", "all_reduce_max", "all_gather"):
-        setattr(mesh, name, timed(name, getattr(mesh, name)))
-    torch.cuda.reset_peak_memory_stats()
-    readings, rest = [], []
-    for batch in batches:
-        local = {k: torch.from_numpy(v[rows]).to(dev)
-                 for k, v in batch.items()}
-        torch.cuda.synchronize()
-        c0 = {k: list(v) for k, v in seen.items()}
-        t = time.perf_counter()
-        state, met = step(state, local)
-        torch.cuda.synchronize()
-        readings.append((time.perf_counter() - t, {
-            k: tuple(a - b for a, b in zip(v, c0.get(k, (0.0, 0, 0))))
-            for k, v in seen.items()},
-            float(met["loss"]), float(met["grad_norm"])))
-        del local, met
-        rest.append(torch.cuda.memory_allocated())
-    peak = torch.cuda.max_memory_allocated()
-    reserved = torch.cuda.max_memory_reserved()
-    free_card()
-    mine = {"rank": dist.get_rank(), "coord": mesh.coord,
-            "readings": readings, "peak": peak, "reserved": reserved,
-            "init_s": t_init,
-            "rest": torch.cuda.memory_allocated(), "rest_steps": rest,
-            "blocks": state_bytes(state),
-            "share": spec_share_bytes(model, mesh, rules),
-            "meta": all(p.is_meta for p in model.parameters()),
-            "launches": summed_launches(kernels.launch_counts())}
-    every = [None] * dist.get_world_size()
-    dist.all_gather_object(every, mine)
-    return every
+            readings.append((time.perf_counter() - t, {
+                k: tuple(a - b for a, b in zip(v, c0.get(k, (0.0, 0, 0))))
+                for k, v in seen.items()},
+                float(met["loss"]), float(met["grad_norm"])))
+            del local, met
+            rest.append(torch.cuda.memory_allocated())
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
+        free_card()
+        mine = {"rank": dist.get_rank(), "coord": mesh.coord,
+                "readings": readings, "peak": peak, "reserved": reserved,
+                "init_s": t_init,
+                "rest": torch.cuda.memory_allocated(), "rest_steps": rest,
+                "blocks": state_bytes(state),
+                "share": spec_share_bytes(model, mesh, rules),
+                "meta": all(p.is_meta for p in model.parameters()),
+                "launches": summed_launches(kernels.launch_counts())}
+        # the next case starts from a free card: this one's state and
+        # model go first
+        del state, step, model
+        free_card()
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        out.append(every)
+    return out
 
 
 def shard_main_refs(dev, cfg, rescale: bool, batch: dict, A: int):
@@ -4573,19 +4638,21 @@ def xlstm_model_gathers(cfg) -> int:
 
 
 def shard_main(dev, card: str, cfg, tag: str, rescale: bool = False,
-               S: int = SHARD_MAIN[3]) -> dict[str, int]:
+               S: int = SHARD_MAIN[3]):
     """17b (tinyllama-1.1b whole), 17c (moonshot-v1-16b-a3b at full
     width, `SHARD_MOE_LAYERS` layers, rescaled), 17d (recurrentgemma-2b
     at full width, `SHARD_GRIFFIN_UNITS` units, rescaled) and 17e
     (xlstm-350m at full width, `SHARD_XLSTM_UNITS` units at S =
     `SHARD_XLSTM_S`, rescaled): `cfg` in bf16, tensor-parallel (MoE
     expert-parallel) on (data 2, model 2), 4 ranks sharing the card,
-    against single-process steps."""
+    against single-process steps.  Runs the single-process steps and the
+    plan, and returns the world's case (`shard_main_world`) and
+    ``report(every, t_world)``, which holds and prints the case's
+    readings and returns its launches."""
     import dataclasses
 
     from repro_torch.data.pipeline import (SyntheticTokenPipeline,
                                            TokenPipelineConfig)
-    from repro_torch.launch.mesh import run_spmd
     from repro_torch.models import build_model
 
     t0 = time.perf_counter()
@@ -4657,112 +4724,738 @@ def shard_main(dev, card: str, cfg, tag: str, rescale: bool = False,
         raise SystemExit(f"FAIL train sharded {tag}: the plan does not fit "
                          f"the card; cut S")
     want_gathers = xlstm_model_gathers(cfg) if tag == "17e" else 0
-    t1 = time.perf_counter()
-    every = run_spmd(shard_main_world, dp * tp, device=dev.type,
-                     backend="gloo", args=(cfg, rescale, batches))
-    t_world = time.perf_counter() - t1
-    first = every[0]["readings"][0]
-    SEEN[tag] = {"timed": every[0]["readings"][1], "peak": every[0]["peak"]}
+    t_prep = time.perf_counter() - t0
 
-    def gaps(loss, gn, to):
-        return (abs(loss - to["loss"]) / abs(to["loss"]),
-                abs(gn - to["grad_norm"]) / to["grad_norm"])
-    tp_gaps = gaps(first[2], first[3], ref32)
-    bf16_gaps = gaps(ref["loss"], ref["grad_norm"], ref32)
-    bounds = tuple(max(1.5 * g, 2.4e-7) for g in bf16_gaps)
-    old_gaps = gaps(first[2], first[3], ref)
-    losses = [r[2] for r in every[0]["readings"]]
-    bad = []
-    metrics = [[r[2:] for r in w["readings"]] for w in every]
-    if any(m != metrics[0] for m in metrics):
-        bad.append("the ranks report different losses or grad_norms")
-    if not np.isfinite(losses).all():
-        bad.append("a loss is not finite")
-    if not all(g <= b for g, b in zip(tp_gaps, bounds)):
-        bad.append("the first step departs from the float32 step further "
-                   "than the bf16 single-process step does")
-    timed_steps = len(every[0]["readings"]) - 1
-    for w in every:
-        timed = w["readings"][1:]
-        step_ms = [1e3 * r[0] for r in timed]
-        share = [sum(v[0] for v in r[1].values()) / r[0] for r in timed]
-        kinds = "; ".join(
-            f"{k} {np.mean([1e3 * r[1][k][0] for r in timed]):.1f} ms in "
-            f"{timed[0][1][k][1]} calls, {timed[0][1][k][2] / 1e9:.3f} GB"
-            for k in sorted(timed[0][1]))
-        gathers = [r[1].get("all_gather over model", (0, 0, 0))[1]
-                   for r in w["readings"]]
-        print(f"timing train sharded {tag} rank {w['rank']} {w['coord']}: "
-              f"init and placement {w['init_s']:.1f} s; warm-up "
-              f"{1e3 * w['readings'][0][0]:.1f} ms, steps "
-              f"{[round(t, 1) for t in step_ms]} ms (host clock, "
-              f"synchronised), {np.mean(step_ms):.1f} ms a step, "
-              f"{B * S / np.mean(step_ms) * 1e3:.1f} tokens/s over the "
-              f"world; in collectives {[round(x, 4) for x in share]} of "
-              f"each step ({kinds} a step; gathers over model in each of "
-              f"the {timed_steps + 1} steps: {gathers}, {want_gathers} "
-              f"expected); state at rest "
-              f"{w['blocks'] / 2**30:.4f} GiB (the specs' share "
-              f"{w['share'] / 2**30:.4f} GiB), allocated at rest "
-              f"{w['rest'] / 2**30:.4f} GiB (after each step "
-              f"{[round(x / 2**30, 4) for x in w['rest_steps']]}), peak "
-              f"{w['peak'] / 2**30:.3f} GiB (reserved "
-              f"{w['reserved'] / 2**30:.3f} GiB); model weights released "
-              f"{w['meta']}; {card}")
-        if w["blocks"] != w["share"] or \
-                w["rest"] > w["share"] + SHARD_REST_SLACK or not w["meta"]:
-            bad.append(f"rank {w['rank']} holds more than its share")
-        if any(n != want_gathers for n in gathers):
-            bad.append(f"rank {w['rank']} gathered over model {gathers} "
-                       f"times, not {want_gathers} a step")
-    print(f"train sharded {label}: {cfg.num_layers} layers, bf16,"
-          f" {n} parameters, Megatron compute on (data {dp}, model {tp}); "
-          f"losses {[round(x, 4) for x in losses]} (warm-up, {timed_steps} "
-          f"timed), every one finite; first step against the float32 "
-          f"single-process step (loss {ref32['loss']:.6f}, grad_norm "
-          f"{ref32['grad_norm']:.4f}): loss {first[2]:.6f} (rel "
-          f"{tp_gaps[0]:.4g}), grad_norm {first[3]:.4f} (rel "
-          f"{tp_gaps[1]:.4g}); the bf16 single-process step's own gaps to it"
-          f" {bf16_gaps[0]:.4g}, {bf16_gaps[1]:.4g}, so bounds "
-          f"({bounds[0]:.4g}, {bounds[1]:.4g}); against the bf16 "
-          f"single-process step (loss {ref['loss']:.6f}, grad_norm "
-          f"{ref['grad_norm']:.4f}, not held): rel {old_gaps[0]:.4g}, "
-          f"{old_gaps[1]:.4g}; world of {dp * tp} {t_world:.1f} s wall "
-          f"(spawn included), {tag} {time.perf_counter() - t0:.1f} s wall; "
-          f"{card}")
-    if bad:
-        raise SystemExit(f"FAIL train sharded {tag}: {bad}")
-    return every[0]["launches"]
+    def report(every: list, t_world: float) -> dict[str, int]:
+        first = every[0]["readings"][0]
+        SEEN[tag] = {"timed": every[0]["readings"][1],
+                     "peak": every[0]["peak"]}
+
+        def gaps(loss, gn, to):
+            return (abs(loss - to["loss"]) / abs(to["loss"]),
+                    abs(gn - to["grad_norm"]) / to["grad_norm"])
+        tp_gaps = gaps(first[2], first[3], ref32)
+        bf16_gaps = gaps(ref["loss"], ref["grad_norm"], ref32)
+        bounds = tuple(max(1.5 * g, 2.4e-7) for g in bf16_gaps)
+        old_gaps = gaps(first[2], first[3], ref)
+        losses = [r[2] for r in every[0]["readings"]]
+        bad = []
+        metrics = [[r[2:] for r in w["readings"]] for w in every]
+        if any(m != metrics[0] for m in metrics):
+            bad.append("the ranks report different losses or grad_norms")
+        if not np.isfinite(losses).all():
+            bad.append("a loss is not finite")
+        if not all(g <= b for g, b in zip(tp_gaps, bounds)):
+            bad.append("the first step departs from the float32 step further "
+                       "than the bf16 single-process step does")
+        timed_steps = len(every[0]["readings"]) - 1
+        for w in every:
+            timed = w["readings"][1:]
+            step_ms = [1e3 * r[0] for r in timed]
+            share = [sum(v[0] for v in r[1].values()) / r[0] for r in timed]
+            kinds = "; ".join(
+                f"{k} {np.mean([1e3 * r[1][k][0] for r in timed]):.1f} ms in "
+                f"{timed[0][1][k][1]} calls, {timed[0][1][k][2] / 1e9:.3f} GB"
+                for k in sorted(timed[0][1]))
+            gathers = [r[1].get("all_gather over model", (0, 0, 0))[1]
+                       for r in w["readings"]]
+            print(f"timing train sharded {tag} rank {w['rank']} {w['coord']}: "
+                  f"init and placement {w['init_s']:.1f} s; warm-up "
+                  f"{1e3 * w['readings'][0][0]:.1f} ms, steps "
+                  f"{[round(t, 1) for t in step_ms]} ms (host clock, "
+                  f"synchronised), {np.mean(step_ms):.1f} ms a step, "
+                  f"{B * S / np.mean(step_ms) * 1e3:.1f} tokens/s over the "
+                  f"world; in collectives {[round(x, 4) for x in share]} of "
+                  f"each step ({kinds} a step; gathers over model in each of "
+                  f"the {timed_steps + 1} steps: {gathers}, {want_gathers} "
+                  f"expected); state at rest "
+                  f"{w['blocks'] / 2**30:.4f} GiB (the specs' share "
+                  f"{w['share'] / 2**30:.4f} GiB), allocated at rest "
+                  f"{w['rest'] / 2**30:.4f} GiB (after each step "
+                  f"{[round(x / 2**30, 4) for x in w['rest_steps']]}), peak "
+                  f"{w['peak'] / 2**30:.3f} GiB (reserved "
+                  f"{w['reserved'] / 2**30:.3f} GiB); model weights released "
+                  f"{w['meta']}; {card}")
+            if w["blocks"] != w["share"] or \
+                    w["rest"] > w["share"] + SHARD_REST_SLACK or not w["meta"]:
+                bad.append(f"rank {w['rank']} holds more than its share")
+            if any(n != want_gathers for n in gathers):
+                bad.append(f"rank {w['rank']} gathered over model {gathers} "
+                           f"times, not {want_gathers} a step")
+        print(f"train sharded {label}: {cfg.num_layers} layers, bf16,"
+              f" {n} parameters, Megatron compute on (data {dp}, model {tp}); "
+              f"losses {[round(x, 4) for x in losses]} (warm-up, "
+              f"{timed_steps} "
+              f"timed), every one finite; first step against the float32 "
+              f"single-process step (loss {ref32['loss']:.6f}, grad_norm "
+              f"{ref32['grad_norm']:.4f}): loss {first[2]:.6f} (rel "
+              f"{tp_gaps[0]:.4g}), grad_norm {first[3]:.4f} (rel "
+              f"{tp_gaps[1]:.4g}); the bf16 single-process step's own gaps "
+              f"to it"
+              f" {bf16_gaps[0]:.4g}, {bf16_gaps[1]:.4g}, so bounds "
+              f"({bounds[0]:.4g}, {bounds[1]:.4g}); against the bf16 "
+              f"single-process step (loss {ref['loss']:.6f}, grad_norm "
+              f"{ref['grad_norm']:.4f}, not held): rel {old_gaps[0]:.4g}, "
+              f"{old_gaps[1]:.4g}; the world of {dp * tp} for 17b-e "
+              f"{t_world:.1f} s wall (spawn included), {tag}'s "
+              f"single-process steps and plan {t_prep:.1f} s; {card}")
+        if bad:
+            raise SystemExit(f"FAIL train sharded {tag}: {bad}")
+        return every[0]["launches"]
+
+    return (cfg, rescale, batches), report
 
 
-def phase_train_sharded(dev, card: str) -> dict[str, int]:
-    """17: sharded training; 17a parity on the two test meshes, 17b
-    tinyllama-1.1b whole, 17c moonshot-v1-16b-a3b, 17d recurrentgemma-2b
-    and 17e xlstm-350m at full width on 4 ranks.  No Viterbi kernel may
-    launch."""
+def shard_main_cfgs() -> list[tuple]:
+    """17b-e: (tag, config, rescaled, S)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
+    return [("17b", get_arch("tinyllama_1_1b").CONFIG, False,
+             SHARD_MAIN[3]),
+            ("17c", dataclasses.replace(
+                get_arch("moonshot_v1_16b_a3b").CONFIG,
+                num_layers=SHARD_MOE_LAYERS), True, SHARD_MAIN[3]),
+            ("17d", dataclasses.replace(
+                get_arch("recurrentgemma_2b").CONFIG,
+                num_layers=3 * SHARD_GRIFFIN_UNITS), True, SHARD_MAIN[3]),
+            ("17e", dataclasses.replace(
+                get_arch("xlstm_350m").CONFIG,
+                num_layers=2 * SHARD_XLSTM_UNITS), True, SHARD_XLSTM_S)]
+
+
+def phase_train_sharded(dev, card: str) -> dict[str, int]:
+    """17: sharded training; 17a parity on the two test meshes (19a's
+    serving cases run in its world), 17b tinyllama-1.1b whole, 17c
+    moonshot-v1-16b-a3b, 17d recurrentgemma-2b and 17e xlstm-350m at full
+    width on 4 ranks, one world for the four (each spawned world costs
+    its ranks' start).  No Viterbi kernel may launch."""
+    from repro_torch.launch.mesh import run_spmd
 
     t0 = time.perf_counter()
     launches = shard_parity(dev, card)
-    for tag, cfg, rescale, S in (
-            ("17b", get_arch("tinyllama_1_1b").CONFIG, False, SHARD_MAIN[3]),
-            ("17c", dataclasses.replace(get_arch("moonshot_v1_16b_a3b")
-                                        .CONFIG,
-                                        num_layers=SHARD_MOE_LAYERS), True,
-             SHARD_MAIN[3]),
-            ("17d", dataclasses.replace(get_arch("recurrentgemma_2b").CONFIG,
-                                        num_layers=3 * SHARD_GRIFFIN_UNITS),
-             True, SHARD_MAIN[3]),
-            ("17e", dataclasses.replace(get_arch("xlstm_350m").CONFIG,
-                                        num_layers=2 * SHARD_XLSTM_UNITS),
-             True, SHARD_XLSTM_S)):
-        for name, k in shard_main(dev, card, cfg, tag, rescale,
-                                  S).items():
+    cases = [shard_main(dev, card, cfg, tag, rescale, S)
+             for tag, cfg, rescale, S in shard_main_cfgs()]
+    t1 = time.perf_counter()
+    worlds = run_spmd(shard_main_world, SHARD_MAIN[0][0] * SHARD_MAIN[0][1],
+                      device=dev.type, backend="gloo",
+                      args=([case for case, _ in cases],))
+    t_world = time.perf_counter() - t1
+    for (_, report), every in zip(cases, worlds):
+        for name, k in report(every, t_world).items():
             launches[name] += k
     check_launches("train sharded", launches, {})
     print(f"train sharded phase: {time.perf_counter() - t0:.1f} s wall; no "
+          f"Viterbi kernel launched in any rank; {card}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 19: sharded serving of the transformer family
+# ---------------------------------------------------------------------------
+
+#: 19a: the transformer family's SMOKE configs
+SERVE_SHARD_IDS = ("tinyllama_1_1b", "gemma_2b", "granite_8b",
+                   "h2o_danube_3_4b", "hubert_xlarge", "llava_next_34b",
+                   "moonshot_v1_16b_a3b", "deepseek_v2_236b")
+#: 19a: the global batch, the prompt, max_len and the greedy decode steps
+#: (tests/test_torch_serve_sharded.py's: MLA's 36 slots split 18 / 18, so
+#: that the last two steps land on the second model rank's slots)
+SERVE_PARITY = (8, 16, 36, 4)
+#: 19a: bounds of the sharded steps against the single-process steps on
+#: the card, float32 (TF32 off), by (rules, arch): (max |logits' gap| /
+#: max |logit| over the prefill and every step, max |gathered cache's gap|
+#: / max |cache| after the prefill and the last step).  19a runs the CPU
+#: test's cases (tests/test_torch_serve_sharded.py: its weights, drawn on
+#: the host from seed 1, and its batch of each case), so these are that
+#: test's bounds: 1.5x JAX's own SPMD-vs-unsharded gap of each case,
+#: rounded up at the third digit (my CPU run, PERF.md §6).  On other
+#: weights and batches the gaps differ: moonshot's SMOKE on the card's
+#: seeded weights measured 1.7e-5 on the CPU, beyond its bound here
+SERVE_PARITY_TOL = {
+    ("SINGLE_POD_RULES", "tinyllama_1_1b"): (1.03e-5, 4.26e-6),
+    ("SINGLE_POD_RULES", "gemma_2b"): (1.23e-5, 4.08e-6),
+    ("SINGLE_POD_RULES", "granite_8b"): (8.58e-6, 6.27e-6),
+    ("SINGLE_POD_RULES", "h2o_danube_3_4b"): (1.21e-5, 4.5e-6),
+    ("SINGLE_POD_RULES", "hubert_xlarge"): (4.1e-6, 0.0),
+    ("SINGLE_POD_RULES", "llava_next_34b"): (8.61e-6, 6.77e-6),
+    ("SINGLE_POD_RULES", "moonshot_v1_16b_a3b"): (1.38e-5, 1.83e-6),
+    ("SINGLE_POD_RULES", "deepseek_v2_236b"): (8.87e-6, 6.87e-6),
+    ("MULTI_POD_RULES", "tinyllama_1_1b"): (6.62e-6, 6.48e-6),
+    ("MULTI_POD_RULES", "gemma_2b"): (5.69e-6, 4.11e-6),
+    ("MULTI_POD_RULES", "granite_8b"): (1.01e-5, 4.77e-6),
+    ("MULTI_POD_RULES", "h2o_danube_3_4b"): (7.88e-6, 3.05e-6),
+    ("MULTI_POD_RULES", "hubert_xlarge"): (3.98e-6, 0.0),
+    ("MULTI_POD_RULES", "llava_next_34b"): (8.36e-6, 3.96e-6),
+    ("MULTI_POD_RULES", "moonshot_v1_16b_a3b"): (1.09e-5, 1.26e-6),
+    ("MULTI_POD_RULES", "deepseek_v2_236b"): (1.55e-5, 9.48e-6),
+}
+#: 19a: the CPU test's seeds: its weights', and its first case's batch
+#: (its cases in order: the 8 configs on the single-pod mesh, then on the
+#: multi-pod one, each the next seed)
+SERVE_PARITY_SEEDS = (1, 10)
+#: 19b / 19c: (data, model) ranks, the global batch (two rows a data
+#: rank), the prompt, max_len and the greedy decode steps
+SERVE_MAIN = ((2, 2), 4, 2048, 2056, 8)
+#: 19c: deepseek-v2 at full width at this many of its 60 layers, as phase
+#: 14 runs it (`LM_DEPTH`: the whole model is 479 GB in bf16)
+SERVE_MLA_LAYERS = 2
+#: 19b / 19c: the weights' seed
+SERVE_SEED = 0
+#: 19b / 19c: the bf16 yardstick's margin over the single-process bf16
+#: steps' own gap to the float32 steps (PERF.md §6, written before the
+#: first run on the card)
+SERVE_BF16_MARGIN = 1.5
+
+
+def serve_parity_cfg(arch: str):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch).SMOKE, dtype=torch.float32)
+
+
+def serve_parity_batch(cfg, seed: int) -> dict:
+    """A numpy batch of SERVE_PARITY's rows: tokens (after a VLM's image
+    embeddings) or an encoder's frames."""
+    B, S, _, _ = SERVE_PARITY
+    rng = np.random.default_rng(seed)
+    if not cfg.embed_inputs and not cfg.num_image_tokens:
+        return {"embeds": rng.standard_normal((B, S, cfg.d_model),
+                                              dtype=np.float32)}
+    k = cfg.num_image_tokens
+    b = {"tokens": rng.integers(0, cfg.vocab, (B, S - k), dtype=np.int32)}
+    if k:
+        b["image_embeds"] = rng.standard_normal((B, k, cfg.d_model),
+                                                dtype=np.float32)
+    return b
+
+
+def serve_parity_model(dev, arch: str):
+    """The CPU test's model of `arch`: drawn on the host, copied to
+    `dev`."""
+    from repro_torch.models import build_model
+    return copy_to(build_model(serve_parity_cfg(arch)).init(
+        torch.Generator().manual_seed(SERVE_PARITY_SEEDS[0]),
+        device="cpu"), dev)
+
+
+def serve_parity_cases() -> list[tuple]:
+    """(rules, arch, the batch's seed) of each 19a case, in the CPU
+    test's order."""
+    return [(rules, arch, SERVE_PARITY_SEEDS[1] + i * len(SERVE_SHARD_IDS)
+             + j) for i, (_, _, rules) in enumerate(SHARD_MESHES)
+            for j, arch in enumerate(SERVE_SHARD_IDS)]
+
+
+def _np_cache(cache) -> dict:
+    return {f"{i}/{k}": v.cpu().numpy().copy() for i, c in enumerate(cache)
+            for k, v in c.items()}
+
+
+def serve_parity_ranks(dev, inputs: dict) -> list:
+    """19a in one rank of 17a's world of 8: every SMOKE's sharded prefill
+    and decode steps (fed the single-process steps' tokens) on both test
+    meshes; every rank's logits and gathered caches, gathered."""
+    import torch.distributed as dist
+
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.sharding import rules as rule_tables
+    from repro_torch.sharding.placement import ServePlacement
+
+    _, _, max_len, _ = SERVE_PARITY
+    out = {}
+    meshes = {rules: Mesh(shape, axes) for axes, shape, rules in
+              SHARD_MESHES}
+    for rules_name, arch, _ in serve_parity_cases():
+        mesh = meshes[rules_name]
+        rules = getattr(rule_tables, rules_name)
+        batch, tokens = inputs[(rules_name, arch)]
+        model = serve_parity_model(dev, arch)
+        enc = model.cfg.encoder_only
+        place = ServePlacement(model, mesh, rules)
+        blocks = place.shard(model.tree())
+        rows = place.rows(len(next(iter(batch.values()))))
+        mine = {k: torch.from_numpy(v[rows]).to(dev)
+                for k, v in batch.items()}
+        logits, cache = make_serve_step(model, "prefill", mesh, rules)(
+            blocks, mine, None if enc else max_len)
+        got = {"rows": (rows.start, rows.stop),
+               "logits": [logits.cpu().numpy()]}
+        if not enc:
+            got["cache0"] = _np_cache(place.gather_cache(cache))
+            decode = make_serve_step(model, "decode", mesh, rules)
+            for tok in tokens:
+                logits, cache = decode(
+                    blocks, torch.from_numpy(tok[rows]).to(dev), cache)
+                got["logits"].append(logits.cpu().numpy())
+            got["cache"] = _np_cache(place.gather_cache(cache))
+        out[(rules_name, arch)] = got
+        del model, blocks, cache
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, out)
+    return every
+
+
+def rel_gap(ours: dict, theirs: dict) -> float:
+    """max |ours - theirs| / max |theirs| over like dicts of arrays, inf
+    where an integer leaf differs."""
+    num = den = 0.0
+    for k, t in theirs.items():
+        if not np.issubdtype(t.dtype, np.floating):
+            if not np.array_equal(ours[k], t):
+                return float("inf")
+            continue
+        num = max(num, float(np.abs(ours[k] - t).max()))
+        den = max(den, float(np.abs(t).max()))
+    return num / max(den, 1e-30)
+
+
+def serve_parity_refs(dev) -> tuple[dict, dict]:
+    """19a's single-process steps on the card, each case's prefill and
+    greedy `SERVE_PARITY` decode steps: (their logits and caches, the
+    inputs of the sharded steps (batch, tokens)), by (rules, arch)."""
+    _, _, max_len, steps = SERVE_PARITY
+    refs, inputs = {}, {}
+    for rules_name, arch, seed in serve_parity_cases():
+        model = serve_parity_model(dev, arch)
+        batch = serve_parity_batch(model.cfg, seed)
+        logits, cache = model.prefill(
+            {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+            None if model.cfg.encoder_only else max_len)
+        ref = {"logits": [logits.cpu().numpy()]}
+        tokens = []
+        if not model.cfg.encoder_only:
+            ref["cache0"] = _np_cache(cache)
+            for _ in range(steps):
+                tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                tokens.append(tok.cpu().numpy())
+                logits, cache = model.decode_step(tok, cache)
+                ref["logits"].append(logits.cpu().numpy())
+            ref["cache"] = _np_cache(cache)
+        key = (rules_name, arch)
+        refs[key], inputs[key] = ref, (batch, tokens)
+        del model, cache
+    free_card()
+    return refs, inputs
+
+
+def serve_parity_check(card: str) -> None:
+    """19a: every transformer-family SMOKE's sharded prefill and
+    `SERVE_PARITY` decode steps on 8 ranks sharing the card (run in 17a's
+    world, `serve_parity_ranks`), on the two test meshes, against the
+    single-process steps on the card (`serve_parity_refs`): the logits and
+    the gathered caches within `SERVE_PARITY_TOL`, every greedy token
+    equal."""
+    refs, every, t_ref = SEEN["19a"]
+    bad = []
+    shapes = {rules: shape for _, shape, rules in SHARD_MESHES}
+    for rules_name, arch, _ in serve_parity_cases():
+        shape = shapes[rules_name]
+        ref = refs[(rules_name, arch)]
+        lg = cg = 0.0
+        tokens_equal = True
+        for w in every:
+            got = w[(rules_name, arch)]
+            lo, hi = got["rows"]
+            for ours, theirs in zip(got["logits"], ref["logits"]):
+                lg = max(lg, float(np.abs(ours - theirs[lo:hi]).max()
+                                   / np.abs(theirs).max()))
+                tokens_equal &= bool(np.array_equal(
+                    ours[:, -1].argmax(-1),
+                    theirs[lo:hi, -1].argmax(-1)))
+            for when in ("cache0", "cache"):
+                if when in ref:
+                    cg = max(cg, rel_gap(got[when], ref[when]))
+        tol = SERVE_PARITY_TOL[(rules_name, arch)]
+        ok = (tokens_equal and lg <= max(tol[0], 2.4e-7)
+              and cg <= max(tol[1], 2.4e-7))
+        print(f"serve sharded 19a {arch} on {shape} ({rules_name}), "
+              f"float32: prefill and {len(ref['logits']) - 1} decode "
+              f"steps; logits gap {lg:.4g} x max |logit| (bound "
+              f"{tol[0]:.3g}), gathered cache gap {cg:.4g} x max "
+              f"|cache| (bound {tol[1]:.3g}), greedy tokens "
+              f"{'equal' if tokens_equal else 'DIFFER'}; {card}")
+        if not ok:
+            bad.append(f"{arch} on {rules_name}")
+    print(f"serve sharded 19a: references {t_ref:.1f} s; the cases ran in "
+          f"17a's world of 8 (its launches are 17a's); {card}")
+    if bad:
+        raise SystemExit(f"FAIL serve sharded 19a: the sharded steps != the "
+                         f"single-process steps: {bad}")
+
+
+def serve_main_cfgs() -> list[tuple]:
+    """19b's and 19c's configs, by tag."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    return [("19b", get_arch("granite_8b").CONFIG),
+            ("19c", dataclasses.replace(get_arch("deepseek_v2_236b").CONFIG,
+                                        num_layers=SERVE_MLA_LAYERS))]
+
+
+def fan_in_blocks(model, blocks: dict) -> None:
+    """`fan_in_weights` on a rank's blocks of `model`'s weights
+    (`ServePlacement`): each layer's block of a matrix scaled by its whole
+    matrix's factor, sqrt(layers / the whole matrix's d_in), in place."""
+    import math
+
+    from repro_torch.models.convert import port_layout
+    whole = port_layout(model.abstract_params(), model)["layers"]
+    n = model.cfg.num_layers
+
+    def walk(blk, like):
+        for k, t in blk.items():
+            if isinstance(t, dict):
+                walk(t, like[k])
+            elif t.dim() >= 2:
+                t.mul_(math.sqrt(n / like[k].shape[-2]))
+    with torch.no_grad():
+        for blk, like in zip(blocks["layers"], whole):
+            walk(blk, like)
+
+
+def serve_tokens(cfg) -> np.ndarray:
+    _, B, S, _, _ = SERVE_MAIN
+    return np.random.default_rng(LM_SEED).integers(0, cfg.vocab, (B, S),
+                                                   dtype=np.int32)
+
+
+def serve_main_refs(dev, cfg, prompt: np.ndarray):
+    """19b / 19c's single-process steps on the card from the seeded bf16
+    weights: the greedy bf16 prefill and steps (their logits, tokens,
+    prefill and step ms on the host clock, synchronised, and peak), then
+    the float32 steps on those weights cast, fed the same tokens (their
+    logits and peak)."""
+    from repro_torch.models import build_model
+
+    _, _, _, max_len, steps = SERVE_MAIN
+    model = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(SERVE_SEED), device=dev)
+    fan_in_weights(model)
+    tokens = torch.from_numpy(prompt).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = model.prefill({"tokens": tokens}, max_len)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t)
+    outs, toks, step_ms = [logits.float().cpu()], [], []
+    for _ in range(steps):
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(tok)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = model.decode_step(tok, cache)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        outs.append(logits.float().cpu())
+    peak = torch.cuda.max_memory_allocated()
+    del cache, logits
+    wide = model.cast(torch.float32)
+    del model
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache = wide.prefill({"tokens": tokens}, max_len)
+    outs32 = [logits.cpu()]
+    for tok in toks:
+        logits, cache = wide.decode_step(tok, cache)
+        outs32.append(logits.cpu())
+    peak32 = torch.cuda.max_memory_allocated()
+    del wide, cache, logits
+    free_card()
+    return {"logits": torch.cat(outs, 1).numpy(),
+            "logits32": torch.cat(outs32, 1).numpy(),
+            "tokens": torch.cat(toks, 1).cpu().numpy(),
+            "prefill_ms": prefill_ms, "step_ms": step_ms, "peak": peak,
+            "peak32": peak32}
+
+
+def serve_share_bytes(model, mesh, rules, B: int, max_len: int) -> int:
+    """A rank's bytes of the weights and a decode cache under JAX's
+    ``param_specs`` and ``cache_specs`` (the cache in JAX's stacked
+    layout)."""
+    cache = model.init_cache(B, max_len, device="meta")
+    stacked = {k: torch.empty((len(cache), *cache[0][k].shape),
+                              dtype=cache[0][k].dtype, device="meta")
+               for k in cache[0]}
+    return (share_bytes(model.abstract_params(), model.param_specs(rules),
+                        mesh)
+            + share_bytes(stacked, model.cache_specs(rules), mesh))
+
+
+def serve_main_world(dev, cases: list, card: str) -> list:
+    """19b and 19c in one rank of the world of 4, one case after another:
+    for each (cfg, prompt, tokens), the rank's blocks drawn leaf by leaf
+    (`ServePlacement.draw`), one rank at a time; the sharded prefill and
+    the decode steps fed the single-process steps' tokens, each timed on
+    the host clock (synchronised) with the collectives timed by kind and
+    axis; one more step under `torch.profiler` on rank 0; for each case
+    every rank's readings, gathered."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core.mesh import Mesh, axes_of
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.sharding.placement import ServePlacement, state_bytes
+    from repro_torch.sharding.rules import SINGLE_POD_RULES as rules
+
+    card_settings()
+    out = []
+    for cfg, prompt, tokens in cases:
+        kernels.reset_launches()
+        shape, B, _, max_len, _ = SERVE_MAIN
+        mesh = Mesh(shape, ("data", "model"))
+        model = build_model(cfg)
+        place = ServePlacement(model, mesh, rules)
+        t0 = time.perf_counter()
+        for r in range(dist.get_world_size()):
+            if dist.get_rank() == r:
+                blocks = place.draw(
+                    torch.Generator(device=dev).manual_seed(SERVE_SEED), dev)
+                fan_in_blocks(model, blocks)
+                free_card()
+            dist.barrier()
+        t_init = time.perf_counter() - t0
+        prefill = make_serve_step(model, "prefill", mesh, rules)
+        decode = make_serve_step(model, "decode", mesh, rules)
+        rows = place.rows(B)
+        #: "<collective> over <model | data>" -> [host seconds, calls, bytes]
+        seen: dict[str, list] = {}
+
+        def timed(name, fn):
+            def call(x, axes, *args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(x, axes, *args, **kwargs)
+                torch.cuda.synchronize()
+                kind = "model" if "model" in axes_of(axes) else "data"
+                s = seen.setdefault(f"{name} over {kind}", [0.0, 0, 0])
+                s[0] += time.perf_counter() - t
+                s[1] += 1
+                s[2] += x.numel() * x.element_size()
+                return out
+            return call
+        for name in ("all_reduce_sum", "all_reduce_max", "all_gather"):
+            setattr(mesh, name, timed(name, getattr(mesh, name)))
+
+        def run(fn, *args):
+            c0 = {k: list(v) for k, v in seen.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            return out, (dt, {k: tuple(a - b for a, b in zip(
+                v, c0.get(k, (0.0, 0, 0)))) for k, v in seen.items()})
+
+        torch.cuda.reset_peak_memory_stats()
+        (logits, cache), pre = run(prefill, blocks, {
+            "tokens": torch.from_numpy(prompt[rows]).to(dev)}, max_len)
+        prefill_peak = torch.cuda.max_memory_allocated()
+        outs = [logits.cpu()]
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for j in range(tokens.shape[1]):
+            tok = torch.from_numpy(tokens[rows, j:j + 1]).to(dev)
+            (logits, cache), reading = run(decode, blocks, tok, cache)
+            steps.append(reading)
+            outs.append(logits.cpu())
+        decode_peak = torch.cuda.max_memory_allocated()
+        rest = state_bytes(blocks) + state_bytes(cache)
+        allocated = torch.cuda.memory_allocated()
+        tok = torch.from_numpy(tokens[rows, -1:]).to(dev)
+        if dist.get_rank() == 0:
+            drain_device_share(lambda: (lambda: decode(blocks, tok, cache)),
+                               f"serve sharded {cfg.name} rank 0's decode "
+                               f"step",
+                               card)
+        else:
+            decode(blocks, tok, cache)
+        mine = {"rank": dist.get_rank(), "coord": mesh.coord,
+                "rows": (rows.start, rows.stop), "init_s": t_init,
+                "prefill": pre, "steps": steps,
+                "logits": torch.cat(outs, 1).numpy(),
+                "rest": rest, "blocks": state_bytes(blocks),
+                "cache": state_bytes(cache), "allocated": allocated,
+                "share": serve_share_bytes(model, mesh, rules, B, max_len),
+                "prefill_peak": prefill_peak, "decode_peak": decode_peak,
+                "launches": summed_launches(kernels.launch_counts())}
+        # the next case starts from a free card: the model and the steps
+        # hold this one's blocks
+        del blocks, cache, logits, model, place, prefill, decode
+        free_card()
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        out.append(every)
+    return out
+
+
+def serve_main(dev, card: str, cfg, tag: str, plans: dict):
+    """19b (granite-8b whole) and 19c (deepseek-v2 at full width,
+    `SERVE_MLA_LAYERS` layers): `cfg` in bf16, tensor-parallel (MoE
+    expert-parallel, MLA's latent split over its slots) on (data 2, model
+    2), 4 ranks sharing the card, a prefill of `SERVE_MAIN`'s prompts and
+    its greedy decode steps against the single-process steps: the
+    sharded steps' largest logit gap to the float32 single-process steps
+    within `SERVE_BF16_MARGIN` x the bf16 single-process steps' own, and
+    the greedy tokens equal wherever the single-process step's top-2
+    margin exceeds twice that bound.  `plans`: rank 0's predicted prefill
+    peak by tag (`dryrun_predict`).  Runs the single-process steps and
+    the plan, and returns the world's case (`serve_main_world`) and
+    ``report(every, t_world)``, which holds and prints the case's
+    readings and returns its launches."""
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    (dp, tp), B, S, max_len, steps = SERVE_MAIN
+    prompt = serve_tokens(cfg)
+    n = build_model(cfg).param_count()
+    ref = serve_main_refs(dev, cfg, prompt)
+    t_ref = time.perf_counter() - t0
+    # the plan: rank 0's peak in the sharded prefill as the dry run
+    # counts it (`dryrun.serve_cell` in `dryrun_predict`), beside each
+    # rank's context
+    plan = plans[tag]
+    free, total = torch.cuda.mem_get_info()
+    context = total - free - torch.cuda.memory_reserved()
+    need = dp * tp * (plan + context)
+    print(f"serve sharded {tag} plan: {cfg.name} at {cfg.num_layers} "
+          f"layers, {n} parameters, bf16, block matrices rescaled to std "
+          f"1/sqrt(d_in); prompts (B, S) = ({B}, {S}), max_len {max_len}, "
+          f"{steps} greedy steps; single-process bf16 peak "
+          f"{ref['peak'] / 2**30:.3f} GiB (float32 "
+          f"{ref['peak32'] / 2**30:.3f}); a rank's prefill peak as the dry "
+          f"run counts it {plan / 2**30:.3f} GiB beside a context of "
+          f"{context / 2**30:.3f} GiB, {dp * tp} ranks {need / 2**30:.3f} "
+          f"GiB of the {free / 2**30:.2f} GiB free ("
+          f"{'within' if need <= 0.85 * free else 'over'} 0.85 of it); "
+          f"{card}")
+    if need > 0.85 * free:
+        raise SystemExit(f"FAIL serve sharded {tag}: the plan does not fit "
+                         f"the card; cut the depth")
+    t_prep = time.perf_counter() - t0
+
+    def report(every: list, t_world: float) -> dict[str, int]:
+        SEEN[tag] = {"decode": every[0]["steps"][0][1],
+                     "peak": every[0]["decode_peak"]}
+        # the logits of the global batch: each data rank's rows, from every
+        # model rank of it (they must agree)
+        logits = np.zeros_like(ref["logits"])
+        bad = []
+        for w in every:
+            lo, hi = w["rows"]
+            if w["coord"]["model"] == 0:
+                logits[lo:hi] = w["logits"]
+        for w in every:
+            lo, hi = w["rows"]
+            if not np.array_equal(w["logits"], logits[lo:hi]):
+                bad.append(f"rank {w['rank']}'s logits differ from its model "
+                           f"group's")
+        f32 = ref["logits32"]
+        scale = float(np.abs(f32).max())
+        gap_bf16 = float(np.abs(ref["logits"] - f32).max())
+        gap = float(np.abs(logits - f32).max())
+        bound = SERVE_BF16_MARGIN * gap_bf16
+        gap_single = float(np.abs(logits - ref["logits"]).max())
+        top2 = np.sort(ref["logits"], axis=-1)[..., -2:]
+        margin = top2[..., 1] - top2[..., 0]
+        sure = margin > 2 * bound
+        same = logits.argmax(-1) == ref["logits"].argmax(-1)
+        if gap > bound:
+            bad.append(f"the logits' gap to float32 {gap:.4g} exceeds "
+                       f"{SERVE_BF16_MARGIN} x the bf16 step's {gap_bf16:.4g}")
+        if not same[sure].all():
+            bad.append("a greedy token differs where the top-2 margin exceeds "
+                       "twice the bound")
+        if not np.isfinite(logits).all():
+            bad.append("a logit is not finite")
+        print(f"serve sharded {tag} {cfg.name}: {cfg.num_layers} layers, "
+              f"bf16, "
+              f"on (data {dp}, model {tp}); logits of the prefill and {steps} "
+              f"steps against the float32 single-process steps (max |logit| "
+              f"{scale:.4g}): sharded {gap:.4g} ({gap / scale:.4g} x), the "
+              f"bf16 "
+              f"single-process steps' own {gap_bf16:.4g} "
+              f"({gap_bf16 / scale:.4g} x), bound {bound:.4g}; sharded "
+              f"against "
+              f"the bf16 single-process steps {gap_single:.4g} (not held); "
+              f"greedy tokens equal at {int(same.sum())} of {same.size} "
+              f"positions, at {int(same[sure].sum())} of the "
+              f"{int(sure.sum())} "
+              f"whose top-2 margin exceeds {2 * bound:.4g}; single-process "
+              f"bf16: prefill {ref['prefill_ms']:.1f} ms, decode "
+              f"{np.median(ref['step_ms']):.2f} ms a step (median, host "
+              f"clock, "
+              f"synchronised); {card}")
+        for w in every:
+            pre_s, pre_c = w["prefill"]
+            step_s = [r[0] for r in w["steps"]]
+            share = [sum(v[0] for v in r[1].values()) / r[0]
+                     for r in w["steps"]]
+            first = w["steps"][0][1]
+            kinds = "; ".join(f"{k} {v[1]} calls, {v[2]} bytes"
+                              for k, v in sorted(first.items()) if v[1])
+            pkinds = "; ".join(f"{k} {v[1]} calls, {v[2] / 1e9:.4f} GB, "
+                               f"{1e3 * v[0]:.1f} ms"
+                               for k, v in sorted(pre_c.items()) if v[1])
+            print(f"timing serve sharded {tag} rank {w['rank']} {w['coord']}: "
+                  f"blocks drawn in {w['init_s']:.1f} s (one rank at a time); "
+                  f"prefill {1e3 * pre_s:.1f} ms (host clock, synchronised), "
+                  f"{sum(v[0] for v in pre_c.values()) / pre_s:.4f} of it in "
+                  f"collectives ({pkinds}); decode "
+                  f"{1e3 * np.median(step_s):.2f} ms a step (median of "
+                  f"{len(step_s)}: {[round(1e3 * x, 2) for x in step_s]}), in "
+                  f"collectives {np.median(share):.4f} of a step (median), a "
+                  f"step's collectives: {kinds}; at rest {w['rest']} bytes "
+                  f"(blocks {w['blocks']}, cache {w['cache']}; the specs' "
+                  f"share {w['share']}), allocated {w['allocated']}; peak "
+                  f"{w['prefill_peak'] / 2**30:.3f} GiB in the prefill, "
+                  f"{w['decode_peak'] / 2**30:.3f} GiB in the steps; {card}")
+            if w["rest"] != w["share"]:
+                bad.append(f"rank {w['rank']} holds {w['rest']} bytes at "
+                           f"rest, "
+                           f"not the specs' share {w['share']}")
+        print(f"serve sharded {tag}: rank 0's prefill peak "
+              f"{every[0]['prefill_peak']} bytes against the plan {plan} "
+              f"({every[0]['prefill_peak'] / plan - 1:+.4f} of it); "
+              f"references "
+              f"{t_ref:.1f} s, {tag}'s single-process steps and plan "
+              f"{t_prep:.1f} s, the world of {dp * tp} for 19b-c "
+              f"{t_world:.1f} s wall (spawn included); {card}")
+        if bad:
+            raise SystemExit(f"FAIL serve sharded {tag}: {bad}")
+        return every[0]["launches"]
+
+    return (cfg, prompt, ref["tokens"]), report
+
+
+def phase_serve_sharded(dev, card: str, pred: dict) -> dict[str, int]:
+    """19: sharded serving of the transformer family; 19a parity on the
+    two test meshes (run in 17a's world: `serve_parity_check`), 19b
+    granite-8b whole and 19c deepseek-v2 at full width on 4 ranks in one
+    world, each planned by the dry run's prefill peak (`pred`,
+    `dryrun_predict`'s).  No Viterbi kernel may launch."""
+    from repro_torch.launch.mesh import run_spmd
+
+    t0 = time.perf_counter()
+    serve_parity_check(card)
+    launches: dict[str, int] = {}
+    cases = [serve_main(dev, card, cfg, tag, pred["serve"]["plans"])
+             for tag, cfg in serve_main_cfgs()]
+    t1 = time.perf_counter()
+    (dp, tp), _, _, _, _ = SERVE_MAIN
+    worlds = run_spmd(serve_main_world, dp * tp, device=dev.type,
+                      backend="gloo", args=([c for c, _ in cases], card))
+    t_world = time.perf_counter() - t1
+    for (_, report), every in zip(cases, worlds):
+        for name, k in report(every, t_world).items():
+            launches[name] = launches.get(name, 0) + k
+    check_launches("serve sharded", launches, {})
+    print(f"serve sharded phase: {time.perf_counter() - t0:.1f} s wall; no "
           f"Viterbi kernel launched in any rank; {card}")
     return launches
 
@@ -4779,9 +5472,9 @@ def dryrun_predict() -> dict:
     """18, in a host process of its own (it does no card work): the dry
     run's counts (`repro_torch.launch.dryrun.train_cell`, `launch.op_cost`)
     of 17b's cell (tinyllama-1.1b, `SHARD_MAIN`, its optimiser settings)
-    and of 11a's 2-D FLASH decode at `TP_MESH`, `TP_T` and `SERVE_K`
-    (`dryrun_viterbi.flash_2d_cell`, shard "row"), each as rank 0 of a fake
-    world of 4 on fake tensors."""
+    and of 11a's 2-D FLASH decode at
+    `TP_MESH`, `TP_T` and `SERVE_K` (`dryrun_viterbi.flash_2d_cell`, shard
+    "row"), each as rank 0 of a fake world of 4 on fake tensors."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import dryrun, dryrun_viterbi
     from repro_torch.launch.mesh import fake_world
@@ -4814,6 +5507,35 @@ def dryrun_predict() -> dict:
             "train_s": t1 - t0, "viterbi_s": time.perf_counter() - t1}
 
 
+def dryrun_predict_serve() -> dict:
+    """18(d) and 19's plans, in a host process of its own beside
+    `dryrun_predict`: the dry run's counts (`dryrun.serve_cell`) of 19b's
+    decode step (granite-8b, `SERVE_MAIN`'s mesh, batch and max_len) and
+    of 19b's and 19c's prefills (their plans: rank 0's peak), as rank 0 of
+    a fake world of 4 on fake tensors."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import SINGLE_POD_RULES
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    (dp, tp), B, S, max_len, _ = SERVE_MAIN
+    mesh = fake_world(dp * tp, shape=(dp, tp), axes=("data", "model"))
+    cost, blocks_b, cache_b, tok_b = dryrun.serve_cell(
+        build_model(get_arch("granite_8b").CONFIG), mesh, SINGLE_POD_RULES,
+        "decode", None, max_len, B)
+    prompt = {"tokens": torch.empty((B, S), dtype=torch.int32,
+                                    device="meta")}
+    plans = {tag: dryrun.serve_cell(
+        build_model(cfg), mesh, SINGLE_POD_RULES, "prefill", prompt, S, B,
+        max_len)[0].peak for tag, cfg in serve_main_cfgs()}
+    return {"coll": cost.collective_rows(), "peak": cost.peak,
+            "args": blocks_b + cache_b + tok_b, "cache": cache_b,
+            "s": time.perf_counter() - t0, "plans": plans}
+
+
 def phase_dryrun(card: str, pred: dict) -> None:
     """18: the dry run's prediction `pred` (`dryrun_predict`, computed
     beside the kernels' build and the bitwise kernel checks, which read no
@@ -4821,8 +5543,12 @@ def phase_dryrun(card: str, pred: dict) -> None:
     calls and bytes of 17b's timed step on rank 0, exactly; (b) rank 0's
     peak within `DRYRUN_PEAK_TOL` of 17b's ``max_memory_allocated``; (c)
     each kernel entry's predicted launches of one 2-D decode, times the
-    ranks, 11a's counted launches of that decode.  Prints the predicted
-    flops beside 17b's step time as a share of the bf16 peak."""
+    ranks, 11a's counted launches of that decode; (d) per (collective,
+    axis) the calls and bytes of 19b's first decode step on rank 0,
+    exactly, and rank 0's predicted decode peak within `DRYRUN_PEAK_TOL`
+    of 19b's ``max_memory_allocated`` over its steps.  Prints the
+    predicted flops beside 17b's step time as a share of the bf16
+    peak."""
     t0 = time.perf_counter()
     timed = SEEN["17b"]["timed"]
     measured = {k: (v[1], v[2]) for k, v in timed[1].items() if v[1]}
@@ -4844,6 +5570,26 @@ def phase_dryrun(card: str, pred: dict) -> None:
           f"+-{DRYRUN_PEAK_TOL}); {card}")
     if abs(off) > DRYRUN_PEAK_TOL:
         bad.append("18b peak")
+    serve = pred["serve"]
+    measured = {k: (v[1], v[2]) for k, v in SEEN["19b"]["decode"].items()
+                if v[1]}
+    for k in sorted(set(measured) | set(serve["coll"])):
+        m, p = measured.get(k, (0, 0)), tuple(serve["coll"].get(k, (0, 0)))
+        print(f"dryrun 18d {k}: predicted {p[0]} calls, {p[1]} bytes a "
+              f"decode step; 19b rank 0's first step {m[0]} calls, {m[1]} "
+              f"bytes{'' if m == p else ' (DIFFER)'}")
+        if m != p:
+            bad.append(f"18d {k}")
+    peak = SEEN["19b"]["peak"]
+    off = serve["peak"] / peak - 1.0
+    print(f"dryrun 18d rank 0's peak in a decode step: predicted "
+          f"{serve['peak']} bytes ({serve['peak'] / 2**30:.4f} GiB; "
+          f"arguments {serve['args']} bytes, of them the cache "
+          f"{serve['cache']}), 19b's max_memory_allocated over its steps "
+          f"{peak} bytes ({peak / 2**30:.4f} GiB): {off:+.4f} of it (bound "
+          f"+-{DRYRUN_PEAK_TOL}); predicted in {serve['s']:.1f} s; {card}")
+    if abs(off) > DRYRUN_PEAK_TOL:
+        bad.append("18d peak")
     want = {k: v for k, v in SEEN["11a decode_2d"].items() if v}
     got = {k: n * SHARD_RANKS for k, n in pred["launches"].items()}
     print(f"dryrun 18c one 2-D decode (T,K)=({TP_T},{SERVE_K}) on "
@@ -4881,12 +5627,13 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # 18's prediction runs in a host process of its own beside the build
+    # 18's prediction runs in two host processes beside the build
     # and the bitwise kernel checks, which time nothing, and is done before
     # the first phase that reads a clock
-    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
             "spawn")) as pool:
         pending = pool.submit(dryrun_predict)
+        pending_serve = pool.submit(dryrun_predict_serve)
         for name, log in build.build_all().items():
             print(f"built {name} "
                   f"({build.library_path(build.CSRC / (name + '.cu'))})")
@@ -4901,7 +5648,8 @@ def main() -> int:
         for name, e in phase_stream_kernels(dev).items():
             errs[name] = max(errs.get(name, 0.0), e)
         t_wait = time.perf_counter()
-        predicted = pending.result(timeout=900)
+        predicted = {**pending.result(timeout=900),
+                     "serve": pending_serve.result(timeout=900)}
         print(f"dryrun 18 prediction ready, "
               f"{time.perf_counter() - t_wait:.1f} s waited for it")
     launches = phase_serve(dev)
@@ -4925,6 +5673,8 @@ def main() -> int:
     for phase in (phase_train, phase_train_sharded):
         for name, n in phase(dev, card).items():
             launches[name] += n
+    for name, n in phase_serve_sharded(dev, card, predicted).items():
+        launches[name] += n
     phase_dryrun(card, predicted)
 
     csrc = "src/repro_torch/kernels/csrc/"

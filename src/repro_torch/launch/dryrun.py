@@ -19,11 +19,20 @@ flops (`launch.model_flops`).  The fake tensors name the CPU (`FAKE_DEVICE`);
 the step takes the card's path on them (`core.device.on_card`), so a run on
 the card's host and one on a CPU-only host count the same.
 
+A prefill or decode cell builds rank 0's blocks of the weights
+(`sharding.placement.ServePlacement`), its rows of the global batch
+(tokens, a VLM's image embeddings or an encoder's frames; all of them for
+one sequence, whose batch the rules replicate) and, for a decode cell, its
+block of the cache, and runs the sharded serving step
+(`launch.steps.make_serve_step`) under `OpCost` (`serve_cell`); its row
+also reports ``cache_bytes_per_device``, and ``arg_bytes_per_device`` is
+blocks + cache + inputs.  The Griffin and xLSTM families have no sharded
+serving step yet: their prefill and decode cells fail with the reason
+`SERVE_REASON`, so ``--all`` exits 1 until they do.
+
 A host read of a fake tensor fails the row with the op's name and line
-(`op_cost.HostRead`): a sync on the card's path.  Prefill and decode cells
-fail with the reason `SERVE_REASON`: the port has no sharded serving step
-(JAX's comes from ``jit`` with in / out shardings), so ``--all`` exits 1
-until it does; ``skip`` is kept for the arch's own `SKIPS`.
+(`op_cost.HostRead`): a sync on the card's path.  ``skip`` is kept for the
+arch's own `SKIPS`.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama_1_1b \\
         --shape train_4k [--multi-pod | --both-meshes] [--json out.jsonl]
@@ -52,16 +61,19 @@ from ..configs.base import SHAPES
 from ..data.pipeline import shard_rows
 from ..models import build_model
 from ..models.convert import port_layout
-from ..sharding.placement import data_axes, shard_train_state, state_bytes
+from ..sharding.placement import (ServePlacement, data_axes, serve_rules,
+                                  shard_train_state, state_bytes)
 from ..sharding.rules import MULTI_POD_RULES, SINGLE_POD_RULES
 from ..train import TrainConfig, abstract_train_state, make_train_step
 from . import roofline as rl
 from .mesh import fake_world, make_production_mesh
 from .model_flops import useful_flops
 from .op_cost import OpCost
+from .steps import make_serve_step
 
-#: why a prefill or decode cell fails
-SERVE_REASON = "no sharded serving step in the port"
+#: why a prefill or decode cell of the recurrent families fails
+SERVE_REASON = ("no sharded serving step for the griffin / xlstm family in "
+                "the port")
 
 
 #: the device the fake tensors name: the CPU, whose autograd runs on the
@@ -116,6 +128,40 @@ def train_cell(model, mesh, rules, batch: dict, tcfg: TrainConfig):
     return cost, state_bytes(state), state_bytes(mine)
 
 
+def serve_cell(model, mesh, rules, kind: str, inputs: dict, S: int,
+               B: int, max_len: int | None = None):
+    """Rank 0's sharded prefill or decode step of `model` on `mesh` (over a
+    fake world) under `rules` (`serve_rules`'s for one sequence), all on
+    fake tensors: a prefill of the global `inputs` (meta tensors: tokens,
+    image embeddings or frames; its cache has room for `max_len`
+    positions, None: their S, as JAX's), or one decode step of B tokens
+    against a cache of S slots.
+    Returns (the `OpCost` of the step, the rank's weight bytes, its cache
+    bytes (0 for a prefill), its input bytes).  Raises what the step
+    raises (`op_cost.HostRead` at a host read)."""
+    dev = FAKE_DEVICE
+    rules = serve_rules(rules, B)
+    place = ServePlacement(model, mesh, rules)
+    n = len(range(B)[place.rows(B)])
+    with fake_mode():
+        blocks = place.shard(port_layout(
+            _fakes(model.abstract_params(), dev), model))
+        step = make_serve_step(model, kind, mesh, rules)
+        if kind == "prefill":
+            mine = {k: torch.empty((n, *v.shape[1:]), dtype=v.dtype,
+                                   device=dev) for k, v in inputs.items()}
+            cache, call = [], (blocks, mine, max_len)
+        else:
+            mine = torch.empty((n, 1), dtype=torch.int32, device=dev)
+            cache = place.init_cache(B, S, dev)
+            call = (blocks, mine, cache)
+        cost = OpCost(mesh)
+        cost.track(blocks, mine, cache)
+        with cost:
+            step(*call)
+    return cost, state_bytes(blocks), state_bytes(cache), state_bytes(mine)
+
+
 def _mesh_name(multi_pod: bool) -> str:
     return "2x16x16" if multi_pod else "16x16"
 
@@ -158,7 +204,8 @@ def run_cell(arch_id: str, shape: str, multi_pod: bool,
         if verbose:
             print(f"SKIP  {arch_id:24s} {shape:12s} {mesh_name}: {reason}")
         return {**base, "status": "skip", "reason": reason}
-    if kind != "train":
+    model = build_model(arch_mod.CONFIG)
+    if kind != "train" and model.cfg.family != "transformer":
         if verbose:
             print(f"FAIL  {arch_id:24s} {shape:12s} {mesh_name}: "
                   f"{SERVE_REASON}")
@@ -166,20 +213,28 @@ def run_cell(arch_id: str, shape: str, multi_pod: bool,
     shape_mesh = make_production_mesh(multi_pod=multi_pod)
     mesh = fake_world(shape_mesh.size, multi_pod=multi_pod)
     rules = MULTI_POD_RULES if multi_pod else SINGLE_POD_RULES
-    model = build_model(arch_mod.CONFIG)
     t0 = time.perf_counter()
-    cost, state_b, batch_b = train_cell(model, mesh, rules,
-                                        spec.args["batch"], TrainConfig())
+    if kind == "train":
+        cost, state_b, batch_b = train_cell(model, mesh, rules,
+                                            spec.args["batch"], TrainConfig())
+        cache_b = 0
+    else:
+        cost, state_b, cache_b, batch_b = serve_cell(
+            model, mesh, rules, kind, spec.args.get("batch"), S, B)
     dt = time.perf_counter() - t0
-    args = state_b + batch_b
+    args = state_b + cache_b + batch_b
     row = cost_row(cost, mesh, arch_id, shape, kind,
                    useful_flops(model, kind, S, B), args, dt)
     row["state_bytes_per_device"] = state_b
+    if kind != "train":
+        row["cache_bytes_per_device"] = cache_b
     if verbose:
         print(f"OK    {arch_id:24s} {shape:12s} {mesh_name} kind={kind:7s} "
               f"trace={dt:6.1f}s "
               f"peak/dev={cost.peak / 2**30:6.2f}GiB "
               f"arg/dev={args / 2**30:6.2f}GiB "
+              + (f"cache/dev={cache_b / 1e9:6.3f}GB " if kind != "train"
+                 else "") +
               f"temp/dev={row['temp_bytes_per_device'] / 2**30:6.2f}GiB "
               f"fits={'yes' if row['fits'] else 'NO'} "
               f"dominant={row['dominant']:10s} "

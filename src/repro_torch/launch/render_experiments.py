@@ -115,6 +115,8 @@ def _note(r) -> str:
         if r["arch"].startswith("flash-viterbi-2d"):
             return "each DP step reads the rank's log_A rows (tropical kernel)"
         return "exact FLASH's plain loops over (M, K, K) scores (Queue 2 F)"
+    if r.get("kind") == "decode" and r["dominant"] == "memory":
+        return "a step reads the rank's weights and its cache block once"
     if r["dominant"] == "compute" and r["useful_ratio"] < 0.6:
         return ("compute waste: causal-masked full blocks / remat — skip "
                 "masked KV blocks")

@@ -244,26 +244,53 @@ def _write_slot(cache, name: str, new, slot):
     return cache[name].index_copy_(1, slot, new.to(cache[name].dtype))
 
 
-def _softmax_attend(s, kpos, positions, window: int | None):
-    """Mask a decode step's float32 scores (..., S, C) and softmax them:
-    JAX's ``kpos >= 0``, causality and the window."""
+def _masked(s, kpos, positions, window: int | None):
+    """A decode step's float32 scores (..., S, C) masked as JAX masks them:
+    ``kpos >= 0``, causality and the window."""
     valid = (kpos[None, :] >= 0) & (positions[:, None] >= kpos[None, :])
     if window is not None:
         valid = valid & ((positions[:, None] - kpos[None, :]) < window)
-    return torch.softmax(torch.where(valid, s, _MASK_VALUE), dim=-1)
+    return torch.where(valid, s, _MASK_VALUE)
+
+
+def _softmax_attend(s, kpos, positions, window: int | None):
+    """Mask a decode step's float32 scores (..., S, C) and softmax them."""
+    return torch.softmax(_masked(s, kpos, positions, window), dim=-1)
+
+
+def _split_attend(s, kpos, positions, v):
+    """The softmax-weighted sum of `v` over slots that the model-parallel
+    ranks split: `s` (B, H, S, c) the float32 scores of this rank's c
+    slots (positions `kpos`), `v` (B, c, L) float32.  The max over all
+    slots comes from one max over the axis, the exponentials' sum and the
+    weighted sum of `v` (B, S, H, L) from one sum of their partials; the
+    result is the ratio, (B, S, H, L)."""
+    s = _masked(s, kpos, positions, None)
+    p = torch.exp(s - tensor_parallel.all_max(s.amax(dim=-1, keepdim=True)))
+    part = torch.cat([torch.einsum("bhsc,bck->bshk", p, v),
+                      p.sum(dim=-1).transpose(1, 2)[..., None]], dim=-1)
+    part = tensor_parallel.all_sum(part)
+    return part[..., :-1] / part[..., -1:]
 
 
 def gqa_decode(params, x, cache, cfg: AttnConfig):
     """One position against a ring-buffer cache (JAX's `gqa_decode`): the
     new key and value go to slot ``next % C``, which the cache's tensors
-    take in place.  Returns (out, cache)."""
+    take in place.  Returns (out, cache).  Under
+    `tensor_parallel.model_parallel` the weights are the rank's blocks and
+    the cache holds the columns of the rank's kv heads (its head group's
+    where they do not split; MQA's one kv head whole), as `gqa_forward`
+    computes them: q, k and v on the rank's heads (`head_columns`), wo
+    row-parallel on its own columns (`own_heads`)."""
     B, S, _ = x.shape   # S == 1
+    H, Hk = cfg.num_heads, cfg.num_kv_heads
+    cfg = tensor_parallel.local_attn(cfg)
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     positions = cache["next"].reshape(1) + torch.arange(S, device=x.device)
 
-    q = _split_heads(x @ params["wq"], h, hd)
-    k = _split_heads(x @ params["wk"], hk, hd)
-    v = _split_heads(x @ params["wv"], hk, hd)
+    q, k, v = tensor_parallel.head_columns(
+        x, (params["wq"], H), (params["wk"], Hk), (params["wv"], Hk))
+    q, k, v = (_split_heads(t, n, hd) for t, n in ((q, h), (k, hk), (v, hk)))
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -282,8 +309,9 @@ def gqa_decode(params, x, cache, cfg: AttnConfig):
     p = _softmax_attend(s, kpos, positions, cfg.window)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p,
                        qf(v_all.reshape(B, C, hk, hd)))
-    out = out.to(x.dtype).reshape(B, S, h * hd)
-    return out @ params["wo"], cache
+    out = tensor_parallel.own_heads(out.to(x.dtype).reshape(B, S, h * hd),
+                                    H)
+    return tensor_parallel.row(out, params["wo"]), cache
 
 
 def _ring_slots(cfg: AttnConfig, max_len: int) -> int:
@@ -379,60 +407,107 @@ def mla_forward(params, x, positions, cfg: AttnConfig):
             torch.cat([c_kv, k_pe], dim=-1))
 
 
+def _write_owned(cache, name: str, new, local):
+    """Write `new` ((B, 1, L) for the latent, (1,) for the positions) at
+    this rank's slot `local` (a (1,) tensor; outside 0 .. n - 1 the slot
+    is another rank's) of ``cache[name]``'s n slots in place, with no host
+    sync: a slot that is not the rank's keeps its value (slot 0 is
+    rewritten with its own)."""
+    t = cache[name]
+    dim = 0 if t.dim() == 1 else 1
+    mine = (local >= 0) & (local < t.shape[dim])
+    at = torch.where(mine, local, 0)
+    keep = mine.view(*([1] * dim), -1, *([1] * (t.dim() - dim - 1)))
+    return t.index_copy_(dim, at, torch.where(keep, new.to(t.dtype),
+                                              t.index_select(dim, at)))
+
+
 def mla_decode(params, x, cache, cfg: AttnConfig):
     """Absorbed-form MLA decode (JAX's `mla_decode`): attention in the
     latent space, every product in float32; the new latent goes to slot
-    ``next % C`` of the cache in place.  Returns (out, cache)."""
-    B, S, _ = x.shape
+    ``next % C`` of the cache in place.  Returns (out, cache).
+
+    Under `tensor_parallel.model_parallel` the weights are the rank's heads
+    and the cache its contiguous share of the C slots (JAX shards the
+    latent's sequence over "model"): only the rank that owns slot
+    ``next % C`` writes the new latent; the absorbed queries of all heads
+    (B, 1, H, kvl + dr) are gathered over the axis and scored against the
+    rank's slots, the softmax's max and sums and the context's partials
+    taken over the axis (`_split_attend`), and the rank keeps its heads'
+    context for w_uv and a row-parallel wo."""
+    B, S, _ = x.shape   # S == 1
+    cfg = tensor_parallel.local_attn(cfg)
     h, dn = cfg.num_heads, cfg.head_dim
     dr, dv = cfg.rope_head_dim, (cfg.v_head_dim or cfg.head_dim)
     kvl = cfg.kv_lora
     positions = cache["next"].reshape(1) + torch.arange(S, device=x.device)
     q_nope, q_pe, c_kv, k_pe = _mla_inputs(params, x, positions, cfg)
 
-    C = cache["latent"].shape[1]
+    n = cache["latent"].shape[1]
+    C = n * tensor_parallel.parts()
     slot = positions % C
-    lat = _write_slot(cache, "latent", torch.cat([c_kv, k_pe], dim=-1), slot)
-    kpos = cache["pos"].index_copy_(0, slot, positions.to(torch.int32))
+    new = torch.cat([c_kv, k_pe], dim=-1)
+    if n == C:
+        lat = _write_slot(cache, "latent", new, slot)
+        kpos = cache["pos"].index_copy_(0, slot, positions.to(torch.int32))
+    else:
+        local = slot - tensor_parallel.span(C, "MLA's cache slots")[0]
+        lat = _write_owned(cache, "latent", new, local)
+        kpos = _write_owned(cache, "pos", positions.to(torch.int32), local)
     cache["next"] = cache["next"] + S
 
     # absorb W_uk into q: q_eff[b,s,h,kvl] = q_nope . W_uk_h^T
     w_uk = params["w_uk"].reshape(kvl, h, dn)
     q_eff = torch.einsum("bshd,khd->bshk", qf(q_nope), qf(w_uk))
+    q_pe = qf(q_pe)
+    if tensor_parallel.active():
+        q_all = tensor_parallel.gathered(torch.cat([q_eff, q_pe], dim=-1),
+                                         dim=2)
+        q_eff, q_pe = q_all[..., :kvl], q_all[..., kvl:]
     s_lat = torch.einsum("bshk,bck->bhsc", q_eff, qf(lat[..., :kvl]))
-    s_pe = torch.einsum("bshd,bcd->bhsc", qf(q_pe), qf(lat[..., kvl:]))
-    p = _softmax_attend((s_lat + s_pe) / math.sqrt(dn + dr), kpos,
-                        positions, None)
-    ctx = torch.einsum("bhsc,bck->bshk", p, qf(lat[..., :kvl]))
+    s_pe = torch.einsum("bshd,bcd->bhsc", q_pe, qf(lat[..., kvl:]))
+    s = (s_lat + s_pe) / math.sqrt(dn + dr)
+    if tensor_parallel.active():
+        lo = tensor_parallel.heads(q_all.shape[2])[0]
+        ctx = _split_attend(s, kpos, positions,
+                            qf(lat[..., :kvl]))[:, :, lo:lo + h]
+    else:
+        p = _softmax_attend(s, kpos, positions, None)
+        ctx = torch.einsum("bhsc,bck->bshk", p, qf(lat[..., :kvl]))
     w_uv = params["w_uv"].reshape(kvl, h, dv)
     out = torch.einsum("bshk,khd->bshd", ctx, qf(w_uv))
     out = out.to(x.dtype).reshape(B, S, h * dv)
-    return out @ params["wo"], cache
+    return tensor_parallel.row(out, params["wo"]), cache
 
 
 def mla_init_cache(cfg: AttnConfig, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16, device=None):
-    """An empty MLA cache of `max_len` latent slots (MLA has no window)."""
+    """An empty MLA cache of `max_len` latent slots (MLA has no window);
+    under `tensor_parallel.model_parallel` the rank's share of them."""
+    n = tensor_parallel.span(max_len, "MLA's cache slots")[1]
     return {"latent": torch.zeros(
-                (batch, max_len, cfg.kv_lora + cfg.rope_head_dim),
+                (batch, n, cfg.kv_lora + cfg.rope_head_dim),
                 dtype=dtype, device=device),
-            "pos": torch.full((max_len,), -1, dtype=torch.int32,
-                              device=device),
+            "pos": torch.full((n,), -1, dtype=torch.int32, device=device),
             "next": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def mla_prefill_cache(latent, max_len: int):
     """The MLA decode cache of a prefill over positions 0..S-1: the latent
     padded to `max_len` slots (JAX's prefill pads it; S > max_len is an
-    error there too)."""
+    error there too); under `tensor_parallel.model_parallel` the rank's
+    contiguous share of the slots (`tensor_parallel.span`)."""
     B, S, _ = latent.shape
     if S > max_len:
         raise ValueError(f"prefill of {S} positions exceeds max_len "
                          f"{max_len}: the MLA cache keeps every position")
     dev = latent.device
-    return {"latent": F.pad(latent, (0, 0, 0, max_len - S)),
-            "pos": torch.cat([torch.arange(S, dtype=torch.int32, device=dev),
-                              torch.full((max_len - S,), -1,
+    first, n = tensor_parallel.span(max_len, "MLA's cache slots")
+    lo, hi = min(first, S), min(first + n, S)
+    return {"latent": F.pad(latent[:, lo:hi], (0, 0, 0, n - (hi - lo))),
+            "pos": torch.cat([torch.arange(lo, hi, dtype=torch.int32,
+                                           device=dev),
+                              torch.full((n - (hi - lo),), -1,
                                          dtype=torch.int32, device=dev)]),
             "next": torch.tensor(S, dtype=torch.int32, device=dev)}
 

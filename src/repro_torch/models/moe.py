@@ -115,6 +115,12 @@ def moe_forward(params, x, cfg: MoEConfig, act: str = "silu"):
     return torch.cat(outs).reshape(B, S, D), torch.stack(auxs).mean()
 
 
+def _one_hot(idx, n: int):
+    """``F.one_hot(idx, n)`` (int64) without its check of the indices'
+    range, which reads them on the host: a sync on the card."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def route(probs, cfg: MoEConfig):
     """The routing of N tokens' router probabilities (N, E): (top_p, top_e
     (N, K), flat_e (N K,), each (token, slot) assignment's rank within its
@@ -128,10 +134,10 @@ def route(probs, cfg: MoEConfig):
     top_p, top_e = top_p[:, :K], top_e[:, :K]              # (N, K)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)        # renormalise
     flat_e = top_e.reshape(N * K)
-    onehot = F.one_hot(flat_e, E).to(torch.int32)          # (N K, E)
+    onehot = _one_hot(flat_e, E).to(torch.int32)           # (N K, E)
     # rank within expert: position of each (token, slot) among its expert's
     ranks = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
-    first = F.one_hot(top_e[:, 0], E)
+    first = _one_hot(top_e[:, 0], E)
     if _DATA_GROUP is None:
         C = max(1, int(N * K * cfg.capacity_factor / E))
         # load-balance aux loss (Switch-style)

@@ -18,6 +18,11 @@ Serving is JAX's Model API:
     model.init_cache(batch, max_len)   -> cache
 
 (the encoder-only prefill returns every position's logits and no cache).
+Under `sharding.tensor_parallel.model_parallel` the model holds a rank's
+blocks (`launch.steps.make_serve_step` loads them), the cache the rank's
+block (`sharding.placement.ServePlacement`), and the logits are gathered
+over "model" once a step (`tensor_parallel.gather_vocab`), so every rank
+returns them whole.
 The cache is a list of one dict a layer, where JAX stacks the layers'
 caches on axis 0 (`models.convert.cache_from_jax` carries one across); a
 decode step updates it in place and returns it.  A VLM config (llava,
@@ -460,8 +465,10 @@ class TransformerLM(nn.Module):
         x, kvs = self._stack(self._inputs(batch),
                              keep_kv=not cfg.encoder_only)
         if cfg.encoder_only:
-            return (x @ self._head()).float(), None
-        logits = (x[:, -1:] @ self._head()).float()
+            return tensor_parallel.gather_vocab(
+                (x @ self._head()).float()), None
+        logits = tensor_parallel.gather_vocab(
+            (x[:, -1:] @ self._head()).float())
         max_len = max_len or x.shape[1]
         acfg = cfg.attn_config()
         if acfg.kv_lora is not None:
@@ -485,17 +492,19 @@ class TransformerLM(nn.Module):
         for layer, cache_l in zip(self.layers, cache):
             x, _ = layer.decode(x, cache_l)
         x = rms_norm(x, self.ln_out)
-        return (x @ self._head()).float(), cache
+        return tensor_parallel.gather_vocab((x @ self._head()).float()), cache
 
     def init_cache(self, batch: int, max_len: int, device=None) -> list:
         """An empty cache on `device` (None: ``cuda``; ``"meta"`` gives its
         shapes without memory): one dict a layer, a window-sized ring for
-        sliding-window layers."""
+        sliding-window layers.  Under `tensor_parallel.model_parallel` a
+        rank's block of it for its `batch` rows: the kv columns of its kv
+        heads, MLA's share of the slots."""
         cfg = self.cfg
         if cfg.encoder_only:
             raise ValueError(f"{cfg.name} is encoder-only: no cache")
         dev = resolve_device(device)
-        acfg = cfg.attn_config()
+        acfg = tensor_parallel.local_attn(cfg.attn_config())
         mk = mla_init_cache if acfg.kv_lora is not None else gqa_init_cache
         return [mk(acfg, batch, max_len, cfg.dtype, dev)
                 for _ in range(cfg.num_layers)]

@@ -1,6 +1,8 @@
 """The training state on a mesh: each rank's block of every leaf under
 `train.train_state_specs`, as JAX places a state with ``device_put(state,
-NamedSharding(mesh, specs))``, the gathers back, and ZeRO-1's regions.
+NamedSharding(mesh, specs))``, the gathers back, and ZeRO-1's regions; and
+the serving placement (`ServePlacement`): the weights' blocks, a batch's
+rows and a decode cache's block for the sharded prefill and decode steps.
 
 The specs are in JAX's layout, whose stacked leaves carry a leading layer
 axis; the port holds one tensor a layer (`models.convert.jax_pieces` lists
@@ -29,12 +31,16 @@ over the data axes.
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import numpy as np
 import torch
 
 from ..checkpointing.elastic import _block
 from ..core.mesh import axes_of
 from ..models.convert import jax_pieces, port_layout
+from . import tensor_parallel
 from .rules import SINGLE_POD_RULES
 
 
@@ -74,29 +80,12 @@ def _gather_block(mesh, x, spec):
     return x
 
 
-class TrainPlacement:
-    """Where each leaf of `model`'s training state lies on `mesh` under
-    `rules`: weights by ``model.param_specs(rules)``, AdamW's moments by
-    ZeRO-1 over the data axes (`train_state_specs`)."""
+class _Blocks:
+    """Cutting a tree in the port's layout into this rank's blocks by a
+    spec tree in JAX's layout, and gathering the blocks back."""
 
-    def __init__(self, model, mesh, rules=SINGLE_POD_RULES):
-        from ..train.train_step import train_state_specs
+    model = mesh = None
 
-        self.model, self.mesh = model, mesh
-        self.data_axes = data_axes(rules, mesh)
-        specs = train_state_specs(model, rules,
-                                  mesh.axis_size(self.data_axes))
-        self.pspecs, self.mspecs = specs["params"], specs["opt"]["m"]
-
-    def _is_data(self, ax) -> bool:
-        return ax is not None and axes_of(ax) == self.data_axes
-
-    def _data_only(self, spec) -> tuple:
-        """`spec` with the entries that do not name the data axes cleared:
-        a moment's region within its weight's block."""
-        return tuple(ax if self._is_data(ax) else None for ax in spec)
-
-    # -- cutting and gathering ---------------------------------------------
     def _cut(self, x, spec):
         def one(t, s):
             return _block(t, self.mesh, s).detach().clone()
@@ -121,6 +110,33 @@ class TrainPlacement:
                                  jax_pieces(tree, self.model), specs),
                            self.model)
 
+    def gather_params(self, blocks: dict) -> dict:
+        """The whole weights of the ranks' blocks, in the port's layout."""
+        return self._map(self._gather, blocks, self.pspecs)
+
+
+class TrainPlacement(_Blocks):
+    """Where each leaf of `model`'s training state lies on `mesh` under
+    `rules`: weights by ``model.param_specs(rules)``, AdamW's moments by
+    ZeRO-1 over the data axes (`train_state_specs`)."""
+
+    def __init__(self, model, mesh, rules=SINGLE_POD_RULES):
+        from ..train.train_step import train_state_specs
+
+        self.model, self.mesh = model, mesh
+        self.data_axes = data_axes(rules, mesh)
+        specs = train_state_specs(model, rules,
+                                  mesh.axis_size(self.data_axes))
+        self.pspecs, self.mspecs = specs["params"], specs["opt"]["m"]
+
+    def _is_data(self, ax) -> bool:
+        return ax is not None and axes_of(ax) == self.data_axes
+
+    def _data_only(self, spec) -> tuple:
+        """`spec` with the entries that do not name the data axes cleared:
+        a moment's region within its weight's block."""
+        return tuple(ax if self._is_data(ax) else None for ax in spec)
+
     def shard(self, state: dict) -> dict:
         """This rank's blocks (copies) of a whole state in the port's layout
         (`train.init_train_state`, `convert.train_state_from_jax`); the
@@ -139,10 +155,6 @@ class TrainPlacement:
                 "opt": {"m": self._map(self._gather, opt["m"], self.mspecs),
                         "v": self._map(self._gather, opt["v"], self.mspecs),
                         "step": opt["step"]}}
-
-    def gather_params(self, blocks: dict) -> dict:
-        """The whole weights of the ranks' blocks, in the port's layout."""
-        return self._map(self._gather, blocks, self.pspecs)
 
     # -- ZeRO-1 -------------------------------------------------------------
     def regions(self, blocks: dict, grads: dict, m: dict, v: dict):
@@ -242,6 +254,155 @@ _PARTIAL = ("/mix/b_rg", "/mix/b_ig", "/mix/lam", "/m/b_if")
 _MQA_PARTIAL = ("/attn/wk", "/attn/wv", "/attn/mix/wk", "/attn/mix/wv")
 
 
+class ServePlacement(_Blocks):
+    """Where `model`'s weights, a batch and a decode cache lie on `mesh`
+    under `rules` for the sharded prefill and decode steps
+    (`launch.steps.make_serve_step`): the weights by
+    ``model.param_specs(rules)`` (the train step's blocks, no optimizer
+    moments); the rows of a batch over the data axes, or every row where
+    the rules replicate the batch (``"batch": None``, JAX's rule for the
+    one-sequence cells, `serve_rules`); and the rank's block of the cache,
+    the layer list of `models.transformer.TransformerLM.init_cache`:
+      * its rows, as the batch's;
+      * the kv columns of the kv heads the rank computes on
+        (`tensor_parallel.heads`: its own, or its head group's whole heads
+        where they do not split over "model", not JAX's even column cut);
+        MQA's single kv head whole, as JAX's ``kv_axis = None``;
+      * MLA's latent and its ``pos`` as the rank's contiguous share of the
+        slots (JAX's ``"pos": spec("heads")``);
+      * ``pos`` of a GQA cache and ``next`` whole.
+    Cutting needs only the mesh's shape and this rank's coordinates;
+    `gather_cache` runs `Mesh.all_gather`."""
+
+    def __init__(self, model, mesh, rules=SINGLE_POD_RULES):
+        self.model, self.mesh = model, mesh
+        self.pspecs = model.param_specs(rules)
+        #: the batch's axes, None where the rules replicate it
+        self.data_axes = (None if rules.axis("batch") is None
+                          else data_axes(rules, mesh))
+
+    def shard(self, params: dict) -> dict:
+        """This rank's blocks (copies) of whole weights in the port's
+        layout (`model.tree()`)."""
+        return self._map(self._cut, params, self.pspecs)
+
+    def draw(self, generator: torch.Generator, device) -> dict:
+        """This rank's blocks of the weights ``model.init(generator,
+        device=device)`` draws: the layout's leaves drawn in its order, as
+        `models.common.init_params` draws them, each leaf whole only while
+        its block is cut (so a rank never holds the whole weights)."""
+        from ..models.common import _init_tensor
+
+        dtype = self.model.cfg.dtype
+
+        def walk(lay, spec):
+            out = {}
+            for name, v in lay.items():
+                if isinstance(v, dict):
+                    out[name] = walk(v, spec[name])
+                    continue
+                whole = _init_tensor(v[0], v[2], dtype, generator, device)
+                out[name] = _block(whole, self.mesh, spec[name]).clone()
+                del whole
+            return out
+        return port_layout(walk(self.model.layout(), self.pspecs),
+                           self.model)
+
+    def rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of `n`: its contiguous share
+        along the data axes, in their row-major order (all of them where
+        the batch is replicated); ValueError where n does not split."""
+        if self.data_axes is None:
+            return slice(0, n)
+        d = self.mesh.axis_size(self.data_axes)
+        if n % d:
+            raise ValueError(f"a batch of {n} rows does not split over the "
+                             f"{d} data-parallel ranks")
+        i = self.mesh.index(self.data_axes)
+        return slice(i * n // d, (i + 1) * n // d)
+
+    def _kv_columns(self) -> slice:
+        """This rank's kv columns of a GQA cache (all of them for MQA)."""
+        cfg = self.model.cfg
+        n = cfg.num_kv_heads * cfg.hd
+        if cfg.num_kv_heads == 1:
+            return slice(0, n)
+        with tensor_parallel.model_parallel(self.mesh):
+            lo, k, _ = tensor_parallel.heads(cfg.num_kv_heads)
+        return slice(lo * cfg.hd, (lo + k) * cfg.hd)
+
+    def _slots(self, n: int) -> slice:
+        with tensor_parallel.model_parallel(self.mesh):
+            lo, k = tensor_parallel.span(n, "MLA's cache slots")
+        return slice(lo, lo + k)
+
+    def shard_cache(self, cache: list) -> list:
+        """This rank's block (copies) of a whole decode cache."""
+        out = []
+        for c in cache:
+            rows = self.rows(len(c["latent" if "latent" in c else "k"]))
+            if "latent" in c:
+                at = self._slots(c["latent"].shape[1])
+                one = {"latent": c["latent"][rows, at], "pos": c["pos"][at]}
+            else:
+                cols = self._kv_columns()
+                one = {"k": c["k"][rows, :, cols], "v": c["v"][rows, :, cols],
+                       "pos": c["pos"]}
+            one["next"] = c["next"]
+            out.append({k: v.clone() for k, v in one.items()})
+        return out
+
+    def gather_cache(self, cache: list) -> list:
+        """The whole decode cache of the ranks' blocks (each rank of the
+        mesh calls this and gets all of it)."""
+        mesh = self.mesh
+        m = mesh.axis_size("model")
+        cfg = self.model.cfg
+        run = (1 if cfg.num_kv_heads == 1 else
+               m // math.gcd(cfg.num_kv_heads, m))
+
+        def rows(t):
+            if self.data_axes is None:
+                return t
+            return mesh.all_gather(t, self.data_axes, 0)
+        out = []
+        for c in cache:
+            if "latent" in c:
+                one = {"latent": rows(mesh.all_gather(c["latent"], "model",
+                                                      1)),
+                       "pos": mesh.all_gather(c["pos"], "model", 0)}
+            else:
+                one = {"pos": c["pos"]}
+                for k in ("k", "v"):
+                    t = c[k]
+                    if cfg.num_kv_heads > 1:
+                        # one rank of each head group's run, in order
+                        every = mesh.all_gather(t, "model", 2)
+                        w = t.shape[2]
+                        t = torch.cat([every[..., j * w:(j + 1) * w]
+                                       for j in range(0, m, run)], dim=2)
+                    one[k] = rows(t)
+            one["next"] = c["next"]
+            out.append(one)
+        return out
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> list:
+        """This rank's block of an empty cache for a global `batch` of
+        rows (`TransformerLM.init_cache` under the context)."""
+        n = len(range(batch)[self.rows(batch)])
+        with tensor_parallel.model_parallel(self.mesh):
+            return self.model.init_cache(n, max_len, device)
+
+
+def serve_rules(rules, batch: int):
+    """`rules` for a serving cell of a global `batch`: JAX's, with the batch
+    replicated (``"batch": None``) for one sequence (long_500k), as
+    `repro.launch.steps.build_cell` rebuilds them."""
+    if batch != 1:
+        return rules
+    return dataclasses.replace(rules, rules={**rules.rules, "batch": None})
+
+
 def _zip4(*trees):
     """Like trees of JAX's layout zipped into one whose leaves are tuples
     (a stacked leaf a tuple of lists)."""
@@ -274,5 +435,6 @@ def state_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-__all__ = ["TrainPlacement", "data_axes", "owned_layers",
+__all__ = ["TrainPlacement", "ServePlacement", "serve_rules", "data_axes",
+           "owned_layers",
            "shard_train_state", "gather_train_state", "state_bytes"]

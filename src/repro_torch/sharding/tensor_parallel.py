@@ -55,8 +55,14 @@ blocks its specs give it:
     their gate weights brought whole over the axis (`whole`: one gather;
     backward keeps the rank's columns of the gradient, which every rank
     computes the same), and its MLP is tensor-parallel (`fused`, `row`).
+Serving (`launch.steps.make_serve_step`) runs the same layers under the
+context, forward only: the decode step's attention on the rank's heads and
+its cache columns, MLA's over the rank's slots of the latent (the queries
+of all heads brought by `gathered`, the softmax's max and sums over the
+axis by `all_max` and `all_sum`), and the head's vocab-parallel logits
+brought whole by `gather_vocab`.
 Outside it every function here is the identity or its unsharded
-counterpart, so serving runs the same layer code.
+counterpart, so one process runs the same layer code.
 
 Heads that do not split over the axis (tinyllama's 4 kv heads, gemma's 8
 heads, recurrentgemma's 10 local-attention heads, whose RG-LRU's 2560
@@ -610,6 +616,34 @@ def whole(*ws: torch.Tensor) -> tuple:
                  zip(full.split([w.numel() // c for w in ws], dim=0), ws))
 
 
+def gathered(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The `x` of every rank of the model axis concatenated on `dim` in
+    rank order (one all-gather, forward only: serving runs under
+    `torch.no_grad`); `x` itself outside the context."""
+    if _GROUP is None:
+        return x
+    mesh, axis = _GROUP
+    return mesh.all_gather(x, axis, dim % x.dim())
+
+
+def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """The logits over the whole vocabulary from the rank's vocab columns
+    (..., V / m) of them: one gather over the model axis, so that every
+    rank holds JAX's ``P(batch, None, None)`` logits; `logits` itself
+    outside the context."""
+    return gathered(logits, -1)
+
+
+def all_max(x: torch.Tensor) -> torch.Tensor:
+    """`x`'s elementwise maximum over the model axis (a new tensor; forward
+    only): a softmax's max over positions that the ranks split; `x` itself
+    outside the context."""
+    if _GROUP is None:
+        return x
+    mesh, axis = _GROUP
+    return mesh.all_reduce_max(x.contiguous(), axis)
+
+
 def embedding(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """``F.embedding(tokens, whole table)``: outside the context the plain
     lookup; inside it `table` is this rank's rows index() * V_l ..
@@ -691,5 +725,6 @@ __all__ = ["model_parallel", "active", "parts", "index",
            "heads", "head_runs", "experts", "own", "own_heads",
            "local_config", "local_attn", "copy_in", "summed", "column",
            "head_columns", "row", "row_products",
-           "all_sum", "fused", "whole", "embedding",
+           "all_sum", "all_max", "gathered", "gather_vocab", "fused",
+           "whole", "embedding",
            "chunked_cross_entropy"]

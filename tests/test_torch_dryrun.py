@@ -21,7 +21,18 @@ Tolerances:
   * every kernel entry's fake branch: its outputs' shapes and dtypes those
     of the plain version on the CPU, one launch charged with
     `kernels.work`'s counts;
-  * a decode cell reads ``fail`` with the reason, a `SKIPS` cell ``skip``;
+  * exact: a SMOKE decode cell (deepseek-v2: MLA's slot-split latent, the
+    expert-parallel MoE routed over "data"; float32, the (data 4, model 2)
+    test mesh) on a fake world of 8 against rank 0 of a real 8-rank gloo
+    decode step of the same cell (`launch.steps.make_serve_step`): the
+    collectives, the kernel launches (none), the flops, the fused and
+    eager bytes;
+  * serving rows: tinyllama-1.1b's decode_32k on 16 x 16 ``ok``, fitting,
+    its cache bytes a rank those reckoned by hand (8 rows, 32 768 slots,
+    the 64 columns of one of its 4 kv heads, 22 layers, keys and values in
+    bf16: 1.48 GB); recurrentgemma's decode_32k ``fail`` with
+    `SERVE_REASON` (no sharded serving step for Griffin / xLSTM yet);
+    tinyllama's long_500k ``skip`` with its `SKIPS` reason;
     `render` of a two-row JSONL gives both rows.
 """
 
@@ -39,10 +50,12 @@ from repro_torch.configs import get_arch
 from repro_torch.kernels import beam_stream, ref, tropical, viterbi_dp, work
 from repro_torch.launch import dryrun, dryrun_viterbi, render_experiments
 from repro_torch.launch.mesh import make_test_mesh, run_spmd
+from repro_torch.launch.steps import make_serve_step
 from repro_torch.launch.op_cost import ALLOC_ROUND, OpCost
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig
-from repro_torch.sharding.placement import data_axes, shard_train_state
+from repro_torch.sharding.placement import (ServePlacement, data_axes,
+                                            shard_train_state)
 from repro_torch.sharding.rules import SINGLE_POD_RULES
 from repro_torch.train import (TrainConfig, abstract_train_state,
                                init_train_state, train_state_specs)
@@ -61,6 +74,16 @@ def _smoke_cfg():
                                dtype=torch.float32)
 
 
+#: the SMOKE decode cell: deepseek-v2 in float32, a global batch of B
+#: rows against a cache of SERVE_LEN slots, on the (data 4, model 2) mesh
+SERVE_ARCH, SERVE_LEN = "deepseek_v2_236b", 24
+
+
+def _serve_cfg():
+    return dataclasses.replace(get_arch(SERVE_ARCH).SMOKE,
+                               dtype=torch.float32)
+
+
 def _smoke_batch_meta() -> dict:
     meta = {"tokens": torch.int32, "labels": torch.int32,
             "mask": torch.float32}
@@ -70,7 +93,8 @@ def _smoke_batch_meta() -> dict:
 
 def _counts(cost) -> dict:
     return {"flops": cost.flops, "fused": cost.fused_bytes,
-            "eager": cost.eager_bytes, "coll": cost.collective_rows()}
+            "eager": cost.eager_bytes, "coll": cost.collective_rows(),
+            "launches": dict(cost.launches)}
 
 
 def _fake_side() -> dict:
@@ -83,8 +107,14 @@ def _fake_side() -> dict:
         build_model(_smoke_cfg()), mesh, SINGLE_POD_RULES,
         _smoke_batch_meta(), TCFG)
     out["smoke"] = _counts(cost)
+    cost = dryrun.serve_cell(build_model(_serve_cfg()), mesh,
+                             SINGLE_POD_RULES, "decode", None, SERVE_LEN,
+                             B)[0]
+    out["serve_smoke"] = _counts(cost)
     out["train_4k"] = dryrun.run_cell("tinyllama_1_1b", "train_4k", False,
                                       verbose=False)
+    out["decode_32k"] = dryrun.run_cell("tinyllama_1_1b", "decode_32k",
+                                        False, verbose=False)
     mesh = fake_world(256)
     K, T = dryrun_viterbi.FLASH_2D
     cost = dryrun_viterbi.flash_2d_cell(mesh, K, T, "row")
@@ -94,7 +124,8 @@ def _fake_side() -> dict:
 
 
 def _real_world(device):
-    """Rank 0's `OpCost` of the SMOKE cell's real sharded step."""
+    """Rank 0's `OpCost` counts of the SMOKE cell's real sharded train
+    step and of the SMOKE decode cell's real sharded decode step."""
     from repro_torch.data.pipeline import shard_rows
     from repro_torch.train import make_train_step
     mesh = make_test_mesh()
@@ -113,7 +144,19 @@ def _real_world(device):
     cost = OpCost(mesh)
     with cost:
         step(state, mine)
-    return _counts(cost)
+    out = {"train": _counts(cost)}
+    model = build_model(_serve_cfg()).init(torch.Generator().manual_seed(1),
+                                           device="cpu")
+    place = ServePlacement(model, mesh, SINGLE_POD_RULES)
+    blocks = place.shard(model.tree())
+    cache = place.init_cache(B, SERVE_LEN, "cpu")
+    tokens = torch.zeros((B // 4, 1), dtype=torch.int32)
+    step = make_serve_step(model, "decode", mesh, SINGLE_POD_RULES)
+    cost = OpCost(mesh)
+    with cost:
+        step(blocks, tokens, cache)
+    out["serve"] = _counts(cost)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -216,10 +259,27 @@ def test_fake_cell_counts_equal_a_real_ranks(sides):
     of 8 running the same step: the same collectives (calls and bytes by
     kind and axis), flops and bytes, exactly."""
     fake, real = sides
+    real = real["train"]
     assert fake["smoke"]["coll"] == real["coll"]
     assert any("over model" in k for k in real["coll"])
     for k in ("flops", "fused", "eager"):
         assert fake["smoke"][k] == real[k], k
+
+
+def test_fake_serve_cell_counts_equal_a_real_ranks(sides):
+    """The SMOKE decode cell (deepseek-v2) on a fake world of 8 and rank 0
+    of a real gloo world of 8 running the same decode step: the same
+    collectives (calls and bytes by kind and axis: the logits' and MLA's
+    query gathers, the softmax's max and sums over "model", MoE's counts
+    over "data"), kernel launches (none), flops and bytes, exactly."""
+    fake, real = sides
+    real = real["serve"]
+    assert fake["serve_smoke"] == real
+    assert real["launches"] == {}
+    kinds = {k.split(" over ")[0] + " over " + k.split(" over ")[1]
+             for k in real["coll"]}
+    assert {"all_gather over model", "all_reduce_max over model",
+            "all_reduce_sum over model", "all_gather over data"} <= kinds
 
 
 def test_tinyllama_train_4k_places_and_fits(sides):
@@ -368,16 +428,44 @@ def test_work_counts_match_the_smokes_shapes():
 # rows without a world, and the tables
 # ---------------------------------------------------------------------------
 
-def test_serving_cells_fail_and_skips_skip():
-    """A decode cell reads ``fail`` for want of a sharded serving step, not
-    ``skip``; an arch's `SKIPS` cell reads ``skip`` with its reason."""
-    row = dryrun.run_cell("tinyllama_1_1b", "decode_32k", False,
-                          verbose=False)
-    assert (row["status"], row["error"]) == ("fail", dryrun.SERVE_REASON)
-    row = dryrun.run_cell("tinyllama_1_1b", "long_500k", True,
-                          verbose=False)
-    assert row["status"] == "skip"
-    assert row["reason"] == get_arch("tinyllama_1_1b").SKIPS["long_500k"]
+def _reckoned_cache_bytes(arch: str, rows: int, slots: int) -> int:
+    """A rank's cache bytes at decode on 16 x 16, by hand: each layer's
+    keys and values, `rows` x `slots` x the columns of the one kv head
+    the rank computes on, in bf16, and its int32 slot positions and
+    ``next``."""
+    cfg = get_arch(arch).CONFIG
+    return cfg.num_layers * (2 * rows * slots * cfg.hd * 2 + 4 * slots + 4)
+
+
+@pytest.mark.parametrize("case", ["tinyllama-decode_32k-ok",
+                                  "recurrentgemma-decode_32k-fail",
+                                  "tinyllama-long_500k-skip"])
+def test_serving_cells_fail_and_skips_skip(sides, case):
+    """The serving rows: tinyllama-1.1b's decode_32k on 16 x 16 runs the
+    sharded decode step (``ok``), fits, and holds a rank's cache of the
+    bytes reckoned by hand (1.48 GB: 8 of the 128 rows, the 64 columns of
+    one of its 4 kv heads, and the slots' positions); recurrentgemma's decode_32k reads ``fail``
+    with `SERVE_REASON` (no sharded serving step for Griffin / xLSTM),
+    not ``skip``; an arch's `SKIPS` cell reads ``skip`` with its
+    reason."""
+    if case.endswith("-ok"):
+        row = sides[0]["decode_32k"]
+        assert row["status"] == "ok", row
+        want = _reckoned_cache_bytes("tinyllama_1_1b", 8, 32_768)
+        assert row["cache_bytes_per_device"] == want == 1_479_278_680
+        assert row["fits"] and row["arg_bytes_per_device"] == (
+            row["state_bytes_per_device"] + want + 8 * 4)
+        assert row["collectives"]["all_gather over model"][0] == 1
+    elif case.endswith("-fail"):
+        row = dryrun.run_cell("recurrentgemma_2b", "decode_32k", False,
+                              verbose=False)
+        assert (row["status"], row["error"]) == ("fail", dryrun.SERVE_REASON)
+        assert "griffin / xlstm" in row["error"]
+    else:
+        row = dryrun.run_cell("tinyllama_1_1b", "long_500k", True,
+                              verbose=False)
+        assert row["status"] == "skip"
+        assert row["reason"] == get_arch("tinyllama_1_1b").SKIPS["long_500k"]
 
 
 def test_render_two_rows(sides, tmp_path):
