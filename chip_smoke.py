@@ -251,8 +251,8 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      layout, the checks within `REC_BF16_TOL`, the prefill (CUDA events,
      `REC_PREFILL_RUNS`) and decode-step times, tokens/s,
      peak memory and cache bytes beside their bounds, then one decode
-     step and one prefill under `torch.profiler` (device busy and idle
-     share, kernel launches).
+     step and (`REC_PROFILED_PREFILL`) one prefill under `torch.profiler`
+     (device busy and idle share, kernel launches).
   16. training (`train/`, `optim/`, `data/`, the models' `loss`; no
      Viterbi kernel may launch): (a) every config's SMOKE in float32,
      weights drawn on the card from a seed and copied to the CPU, one
@@ -322,11 +322,13 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      weights, the fused w_up products' exchange) counted against their
      8 a unit a microbatch, the plan printed at one unit more too.
   18. the dry run against the card (`repro_torch.launch.dryrun`, no card
-     work): two host processes of their own, started before the kernels'
-     build and collected before phase 2 (no phase beside them reads a
-     clock), run 17b's cell as rank 0 of a fake world of 4 on fake
+     work): three host processes of their own, started before the kernels'
+     build and collected before phase 3's timings (phases 2 and 4-13 run
+     beside them, each process on a core of its own),
+     run 17b's cell as rank 0 of a fake world of 4 on fake
      tensors under `launch.op_cost`, 11a's 2-D decode at `TP_MESH`, and
-     19b's decode step and 19b-c's prefills (`dryrun_predict_serve`); it
+     19b's, 19d's and 19e's decode steps and 19b-e's prefills
+     (`dryrun_predict_serve`); it
      holds (a) per (collective, axis) the calls and bytes against rank 0's
      timed 17b step, exactly, (b) rank 0's predicted peak within
      `DRYRUN_PEAK_TOL` of 17b's ``max_memory_allocated``, (c) the
@@ -334,15 +336,17 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      launches of that decode, (d) per (collective, axis) the calls and
      bytes of 19b's first decode step on rank 0, exactly, and its
      predicted decode peak within `DRYRUN_PEAK_TOL` (the serve cell of
-     19b's shapes, `dryrun.serve_cell`); it prints the predicted flops
+     19b's shapes, `dryrun.serve_cell`), (e) the same for 19d's and 19e's
+     decode steps (recurrentgemma-2b, xlstm-350m); it prints the predicted flops
      beside 17b's step time as a share of 989 TFLOP/s.  It runs last,
      after 19.
-  19. sharded serving of the transformer family
+  19. sharded serving of every family
      (`launch.steps.make_serve_step`, `sharding.placement.ServePlacement`;
      no Viterbi kernel may launch): (a) a world of 8 ranks sharing the
-     card (gloo) on the two test meshes of 17a: every transformer-family
-     SMOKE in float32 (tinyllama, gemma, granite, danube, hubert, llava,
-     moonshot, deepseek-v2), a prefill of (8, 16) with room for 36
+     card (gloo) on the two test meshes of 17a: every SMOKE in float32
+     (tinyllama, gemma, granite, danube, hubert, llava, moonshot,
+     deepseek-v2, recurrentgemma and xLSTM on the CPU test's stacked
+     block matrices rescaled to std 1/sqrt(d_in)), a prefill of (8, 16) with room for 36
      positions and 4 decode steps fed the single-process steps' greedy
      tokens (hubert: the prefill), against the single-process steps on
      the card from the same weights: the logits and the gathered caches
@@ -364,7 +368,13 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
      under `torch.profiler` on rank 0 (device busy and idle share);
      (c) the same for deepseek-v2 at full width (MLA's latent split over
      its slots, 80 of 160 experts a rank) at `SERVE_MLA_LAYERS` of its 60
-     layers.
+     layers; (d) the same for recurrentgemma-2b whole (26 layers: the
+     RG-LRU states on 1 280 of the 2 560 d_rnn columns a rank, the
+     2 048-slot MQA rings whole, wrapped at every step), each rank's bytes
+     at rest equal to the weights' specs' share and the cache block the
+     placement reckons; (e) the same for xlstm-350m whole (12 units: 2
+     mLSTM heads a rank, the sLSTM state whole) at a prompt of
+     `SERVE_XLSTM_S`.
 
 The line before the last is a JSON object with one entry per kernel (the
 `resources` object just before it); the last line is {"ok": true,
@@ -3138,9 +3148,12 @@ LM_SERVE_DEFAULT = (4, 16)
 #: 0.917 + 1.703 L GB at L layers: 72.22 GiB at 45 layers, as measured on
 #: an H100 (PERF.md §4).  At 47 (75.4 GiB modeled) the init ran out of the
 #: card's 79.18 GiB, 3.21 GiB of it cached by the allocator in blocks too
-#: small for the last 12.85 GiB cast; 45 leaves about 3 GiB beside that
+#: small for the last 12.85 GiB cast; 45 left about 3 GiB beside that.
+#: Since phase 19 serves Griffin and xLSTM, llava runs 15, for time: at 45
+#: its 1 024 teacher-forced steps took 148.6 s and its part of phase 15
+#: 157.1 s of a smoke of 1 444.4 s (NVIDIA H100 80GB HBM3, 700.00 W)
 LM_DEPTH = dict(moonshot_v1_16b_a3b=16, deepseek_v2_236b=2,
-                llava_next_34b=45)
+                llava_next_34b=15)
 #: 14b / 14c: max |first decode step's logits - the last-position logits
 #: of a prefill over all 512 tokens| / max |logit|, bf16: 1.5x each
 #: config's measured on an H100 (PERF.md §5).  JAX's init draws stacked
@@ -3320,11 +3333,16 @@ def fan_in_weights(model) -> str:
     """Scale each of the model's block matrices in place from the std JAX's
     init draws a stacked leaf with (1/sqrt(units), or 1/sqrt(layers) for a
     transformer's stack) to 1/sqrt(its d_in) (the next-to-last axis: a
-    matrix's rows, or each expert's of MoE's (E, d_in, d_out) stack).
+    matrix's rows, or each expert's of MoE's (E, d_in, d_out) stack);
+    Griffin's tail layers, drawn at 1/sqrt(d_in), are left as they are.
     Returns a label for the printed line."""
     import math
     if hasattr(model, "blocks"):
-        n_stack, blocks = model.n_units, model.blocks
+        # Griffin's tail layers are not stacked: JAX draws them at std
+        # 1/sqrt(d_in) already
+        n_stack = model.n_units
+        blocks = model.blocks[:len(model.blocks)
+                              - getattr(model, "n_tail", 0)]
     else:
         n_stack, blocks = model.cfg.num_layers, model.layers
     with torch.no_grad():
@@ -3692,6 +3710,11 @@ REC_BF16_TOL = dict(recurrentgemma_2b=0.0914, xlstm_a=0.0, xlstm_b=0.0,
 #: one since phase 19 joined (3 until then; 6.6 s each on a slow host,
 #: measured on one H100 80GB HBM3, 700.00 W)
 REC_PREFILL_RUNS = 1
+#: 15b-d: the configs whose prefill is also traced under the profiler (the
+#: decode step of every one is): not xlstm-350m's since phase 19 serves it
+#: (its 309 065 launches, idle 0.73-0.83, PERF.md §5; the trace and its
+#: parse took about 30 s of a 1 444.4 s smoke)
+REC_PROFILED_PREFILL = ("recurrentgemma_2b", "llava_next_34b")
 
 
 def init_peak_bytes(layout, itemsize: int) -> int:
@@ -3783,8 +3806,9 @@ def recurrent_serve(dev, card: str, arch: str) -> None:
                              f"are outside their bound of the prefill's")
 
     nbytes = lm_decode_bytes(model, cache)
+    # the greedy run and the teacher-forced checks warmed the prefill
     pre = median_ms(lambda: model.prefill(batch, max_len=max_len),
-                    runs=REC_PREFILL_RUNS, warmup=1)
+                    runs=REC_PREFILL_RUNS, warmup=0)
     mm, f32 = lm_prefill_work(cfg, B, n_img + S)
     t_mm, t_f32 = mm / BF16_OPS_PER_S * 1e3, f32 / F32_OPS_PER_S * 1e3
     dec = float(np.median(step_ms))
@@ -3807,9 +3831,9 @@ def recurrent_serve(dev, card: str, arch: str) -> None:
     tok = toks[:, -1:]
     drain_device_share(lambda: (lambda: model.decode_step(tok, cache)),
                        f"lm 15 {cfg.name} decode step", card)
-    drain_device_share(lambda: (lambda: model.prefill(batch,
-                                                      max_len=max_len)),
-                       f"lm 15 {cfg.name} prefill", card)
+    if arch in REC_PROFILED_PREFILL:
+        drain_device_share(lambda: (lambda: model.prefill(
+            batch, max_len=max_len)), f"lm 15 {cfg.name} prefill", card)
     del model, cache, logits, batch
     free_card()
 
@@ -4854,10 +4878,15 @@ def phase_train_sharded(dev, card: str) -> dict[str, int]:
 # 19: sharded serving of the transformer family
 # ---------------------------------------------------------------------------
 
-#: 19a: the transformer family's SMOKE configs
+#: 19a: the transformer family's SMOKE configs, then the recurrent
+#: families' (`SERVE_RECURRENT`)
 SERVE_SHARD_IDS = ("tinyllama_1_1b", "gemma_2b", "granite_8b",
                    "h2o_danube_3_4b", "hubert_xlarge", "llava_next_34b",
-                   "moonshot_v1_16b_a3b", "deepseek_v2_236b")
+                   "moonshot_v1_16b_a3b", "deepseek_v2_236b",
+                   "recurrentgemma_2b", "xlstm_350m")
+#: 19a: the recurrent families, whose stacked block matrices the CPU test
+#: rescales to std 1/sqrt(d_in) (its `RECURRENT`: `fan_in_weights`)
+SERVE_RECURRENT = ("recurrentgemma_2b", "xlstm_350m")
 #: 19a: the global batch, the prompt, max_len and the greedy decode steps
 #: (tests/test_torch_serve_sharded.py's: MLA's 36 slots split 18 / 18, so
 #: that the last two steps land on the second model rank's slots)
@@ -4889,20 +4918,36 @@ SERVE_PARITY_TOL = {
     ("MULTI_POD_RULES", "llava_next_34b"): (8.36e-6, 3.96e-6),
     ("MULTI_POD_RULES", "moonshot_v1_16b_a3b"): (1.09e-5, 1.26e-6),
     ("MULTI_POD_RULES", "deepseek_v2_236b"): (1.55e-5, 9.48e-6),
+    ("SINGLE_POD_RULES", "recurrentgemma_2b"): (2.05e-6, 1.46e-6),
+    ("SINGLE_POD_RULES", "xlstm_350m"): (4.71e-6, 3.55e-6),
+    ("MULTI_POD_RULES", "recurrentgemma_2b"): (3.5e-6, 1.86e-6),
+    ("MULTI_POD_RULES", "xlstm_350m"): (5.29e-6, 3.68e-6),
 }
 #: 19a: the CPU test's seeds: its weights', and its first case's batch
-#: (its cases in order: the 8 configs on the single-pod mesh, then on the
-#: multi-pod one, each the next seed)
+#: (its cases in order: the 8 transformer configs on the single-pod mesh,
+#: then on the multi-pod one, each the next seed; its recurrent cases
+#: from its case `SERVE_PARITY_RECURRENT_AT` on: both configs on the
+#: single-pod mesh, then on the multi-pod one)
 SERVE_PARITY_SEEDS = (1, 10)
-#: 19b / 19c: (data, model) ranks, the global batch (two rows a data
-#: rank), the prompt, max_len and the greedy decode steps
+SERVE_PARITY_RECURRENT_AT = 21
+#: 19b-e: (data, model) ranks, the global batch (two rows a data rank),
+#: the prompt, max_len and the greedy decode steps; recurrentgemma's
+#: 2 048-token prompt fills its 2 048-slot ring, so every step wraps it
 SERVE_MAIN = ((2, 2), 4, 2048, 2056, 8)
+#: 19e: xlstm-350m's prompt and max_len (one mLSTM chunk of 256: its
+#: prefill dispatches its sLSTM scan and mLSTM final state a position and
+#: unit).  Cut from 512 for time: with 512 the whole smoke took 1 444.4 s
+#: wall, 165.2 s of it waiting for 18's prediction, whose 19e prefill
+#: plan alone took 137.9-179.3 s of one core; 19e's references took 20.0
+#: s and its sharded prefill 6.6-7.7 s (NVIDIA H100 80GB HBM3, 700.00 W;
+#: PERF.md §6)
+SERVE_XLSTM_S = (256, 264)
 #: 19c: deepseek-v2 at full width at this many of its 60 layers, as phase
 #: 14 runs it (`LM_DEPTH`: the whole model is 479 GB in bf16)
 SERVE_MLA_LAYERS = 2
-#: 19b / 19c: the weights' seed
+#: 19b-e: the weights' seed
 SERVE_SEED = 0
-#: 19b / 19c: the bf16 yardstick's margin over the single-process bf16
+#: 19b-e: the bf16 yardstick's margin over the single-process bf16
 #: steps' own gap to the float32 steps (PERF.md §6, written before the
 #: first run on the card)
 SERVE_BF16_MARGIN = 1.5
@@ -4932,25 +4977,46 @@ def serve_parity_batch(cfg, seed: int) -> dict:
 
 
 def serve_parity_model(dev, arch: str):
-    """The CPU test's model of `arch`: drawn on the host, copied to
-    `dev`."""
+    """The CPU test's model of `arch`: drawn on the host (a recurrent
+    family's stacked block matrices rescaled, `SERVE_RECURRENT`), copied
+    to `dev`."""
     from repro_torch.models import build_model
-    return copy_to(build_model(serve_parity_cfg(arch)).init(
-        torch.Generator().manual_seed(SERVE_PARITY_SEEDS[0]),
-        device="cpu"), dev)
+    model = build_model(serve_parity_cfg(arch)).init(
+        torch.Generator().manual_seed(SERVE_PARITY_SEEDS[0]), device="cpu")
+    if arch in SERVE_RECURRENT:
+        fan_in_weights(model)
+    return copy_to(model, dev)
 
 
 def serve_parity_cases() -> list[tuple]:
     """(rules, arch, the batch's seed) of each 19a case, in the CPU
-    test's order."""
-    return [(rules, arch, SERVE_PARITY_SEEDS[1] + i * len(SERVE_SHARD_IDS)
-             + j) for i, (_, _, rules) in enumerate(SHARD_MESHES)
-            for j, arch in enumerate(SERVE_SHARD_IDS)]
+    test's order (its seeds, `SERVE_PARITY_SEEDS`)."""
+    base = SERVE_PARITY_SEEDS[1]
+    dense = [a for a in SERVE_SHARD_IDS if a not in SERVE_RECURRENT]
+    cases = [(rules, arch, base + i * len(dense) + j)
+             for i, (_, _, rules) in enumerate(SHARD_MESHES)
+             for j, arch in enumerate(dense)]
+    return cases + [
+        (rules, arch, base + SERVE_PARITY_RECURRENT_AT
+         + i * len(SERVE_RECURRENT) + j)
+        for i, (_, _, rules) in enumerate(SHARD_MESHES)
+        for j, arch in enumerate(SERVE_RECURRENT)]
 
 
-def _np_cache(cache) -> dict:
-    return {f"{i}/{k}": v.cpu().numpy().copy() for i, c in enumerate(cache)
-            for k, v in c.items()}
+def _np_cache(cache, cfg) -> dict:
+    """A decode cache's leaves in JAX's layout (`convert.cache_to_numpy`:
+    stacked layers, a recurrent family's nested states and ``next``), by
+    path."""
+    from repro_torch.models.convert import cache_to_numpy
+
+    def paths(tree, prefix=""):
+        if isinstance(tree, (dict, list)):
+            items = tree.items() if isinstance(tree, dict) else \
+                enumerate(tree)
+            return {k: v for key, sub in items
+                    for k, v in paths(sub, f"{prefix}/{key}").items()}
+        return {prefix: np.asarray(tree)}
+    return paths(cache_to_numpy(cache, cfg))
 
 
 def serve_parity_ranks(dev, inputs: dict) -> list:
@@ -4984,13 +5050,13 @@ def serve_parity_ranks(dev, inputs: dict) -> list:
         got = {"rows": (rows.start, rows.stop),
                "logits": [logits.cpu().numpy()]}
         if not enc:
-            got["cache0"] = _np_cache(place.gather_cache(cache))
+            got["cache0"] = _np_cache(place.gather_cache(cache), model.cfg)
             decode = make_serve_step(model, "decode", mesh, rules)
             for tok in tokens:
                 logits, cache = decode(
                     blocks, torch.from_numpy(tok[rows]).to(dev), cache)
                 got["logits"].append(logits.cpu().numpy())
-            got["cache"] = _np_cache(place.gather_cache(cache))
+            got["cache"] = _np_cache(place.gather_cache(cache), model.cfg)
         out[(rules_name, arch)] = got
         del model, blocks, cache
     every = [None] * dist.get_world_size()
@@ -5027,13 +5093,13 @@ def serve_parity_refs(dev) -> tuple[dict, dict]:
         ref = {"logits": [logits.cpu().numpy()]}
         tokens = []
         if not model.cfg.encoder_only:
-            ref["cache0"] = _np_cache(cache)
+            ref["cache0"] = _np_cache(cache, model.cfg)
             for _ in range(steps):
                 tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
                 tokens.append(tok.cpu().numpy())
                 logits, cache = model.decode_step(tok, cache)
                 ref["logits"].append(logits.cpu().numpy())
-            ref["cache"] = _np_cache(cache)
+            ref["cache"] = _np_cache(cache, model.cfg)
         key = (rules_name, arch)
         refs[key], inputs[key] = ref, (batch, tokens)
         del model, cache
@@ -5042,7 +5108,7 @@ def serve_parity_refs(dev) -> tuple[dict, dict]:
 
 
 def serve_parity_check(card: str) -> None:
-    """19a: every transformer-family SMOKE's sharded prefill and
+    """19a: every SMOKE's sharded prefill and
     `SERVE_PARITY` decode steps on 8 ranks sharing the card (run in 17a's
     world, `serve_parity_ranks`), on the two test meshes, against the
     single-process steps on the card (`serve_parity_refs`): the logits and
@@ -5087,24 +5153,36 @@ def serve_parity_check(card: str) -> None:
 
 
 def serve_main_cfgs() -> list[tuple]:
-    """19b's and 19c's configs, by tag."""
+    """19b-e's configs, by tag."""
     import dataclasses
 
     from repro_torch.configs import get_arch
     return [("19b", get_arch("granite_8b").CONFIG),
             ("19c", dataclasses.replace(get_arch("deepseek_v2_236b").CONFIG,
-                                        num_layers=SERVE_MLA_LAYERS))]
+                                        num_layers=SERVE_MLA_LAYERS)),
+            ("19d", get_arch("recurrentgemma_2b").CONFIG),
+            ("19e", get_arch("xlstm_350m").CONFIG)]
+
+
+def serve_prompt(cfg) -> tuple[int, int]:
+    """19b-e's prompt length and max_len for `cfg` (`SERVE_MAIN`'s, xLSTM's
+    `SERVE_XLSTM_S`)."""
+    _, _, S, max_len, _ = SERVE_MAIN
+    return SERVE_XLSTM_S if cfg.family == "xlstm" else (S, max_len)
 
 
 def fan_in_blocks(model, blocks: dict) -> None:
     """`fan_in_weights` on a rank's blocks of `model`'s weights
-    (`ServePlacement`): each layer's block of a matrix scaled by its whole
-    matrix's factor, sqrt(layers / the whole matrix's d_in), in place."""
+    (`ServePlacement`): each stacked layer's (unit's) block of a matrix
+    scaled by its whole matrix's factor, sqrt(the stack / the whole
+    matrix's d_in), in place (Griffin's tail layers left as they are)."""
     import math
 
     from repro_torch.models.convert import port_layout
-    whole = port_layout(model.abstract_params(), model)["layers"]
-    n = model.cfg.num_layers
+    key = getattr(model, "BLOCKS", "layers")
+    whole = port_layout(model.abstract_params(), model)[key]
+    n = getattr(model, "n_units", model.cfg.num_layers)
+    stacked = len(whole) - getattr(model, "n_tail", 0)
 
     def walk(blk, like):
         for k, t in blk.items():
@@ -5113,25 +5191,27 @@ def fan_in_blocks(model, blocks: dict) -> None:
             elif t.dim() >= 2:
                 t.mul_(math.sqrt(n / like[k].shape[-2]))
     with torch.no_grad():
-        for blk, like in zip(blocks["layers"], whole):
+        for blk, like in zip(blocks[key][:stacked], whole):
             walk(blk, like)
 
 
 def serve_tokens(cfg) -> np.ndarray:
-    _, B, S, _, _ = SERVE_MAIN
+    _, B, _, _, _ = SERVE_MAIN
+    S = serve_prompt(cfg)[0]
     return np.random.default_rng(LM_SEED).integers(0, cfg.vocab, (B, S),
                                                    dtype=np.int32)
 
 
 def serve_main_refs(dev, cfg, prompt: np.ndarray):
-    """19b / 19c's single-process steps on the card from the seeded bf16
+    """19b-e's single-process steps on the card from the seeded bf16
     weights: the greedy bf16 prefill and steps (their logits, tokens,
     prefill and step ms on the host clock, synchronised, and peak), then
     the float32 steps on those weights cast, fed the same tokens (their
     logits and peak)."""
     from repro_torch.models import build_model
 
-    _, _, _, max_len, steps = SERVE_MAIN
+    _, _, _, _, steps = SERVE_MAIN
+    max_len = serve_prompt(cfg)[1]
     model = build_model(cfg).init(
         torch.Generator(device=dev).manual_seed(SERVE_SEED), device=dev)
     fan_in_weights(model)
@@ -5176,7 +5256,17 @@ def serve_main_refs(dev, cfg, prompt: np.ndarray):
 def serve_share_bytes(model, mesh, rules, B: int, max_len: int) -> int:
     """A rank's bytes of the weights and a decode cache under JAX's
     ``param_specs`` and ``cache_specs`` (the cache in JAX's stacked
-    layout)."""
+    layout); for a recurrent family, whose specs replicate its states over
+    "model", the cache block the placement reckons instead
+    (`ServePlacement.init_cache`: the state follows the compute)."""
+    if model.cfg.family != "transformer":
+        from repro_torch.sharding.placement import (ServePlacement,
+                                                    state_bytes)
+        block = ServePlacement(model, mesh, rules).init_cache(
+            B, max_len, device="meta")
+        return (share_bytes(model.abstract_params(),
+                            model.param_specs(rules), mesh)
+                + state_bytes(block))
     cache = model.init_cache(B, max_len, device="meta")
     stacked = {k: torch.empty((len(cache), *cache[0][k].shape),
                               dtype=cache[0][k].dtype, device="meta")
@@ -5187,7 +5277,7 @@ def serve_share_bytes(model, mesh, rules, B: int, max_len: int) -> int:
 
 
 def serve_main_world(dev, cases: list, card: str) -> list:
-    """19b and 19c in one rank of the world of 4, one case after another:
+    """19b-e in one rank of the world of 4, one case after another:
     for each (cfg, prompt, tokens), the rank's blocks drawn leaf by leaf
     (`ServePlacement.draw`), one rank at a time; the sharded prefill and
     the decode steps fed the single-process steps' tokens, each timed on
@@ -5207,7 +5297,8 @@ def serve_main_world(dev, cases: list, card: str) -> list:
     out = []
     for cfg, prompt, tokens in cases:
         kernels.reset_launches()
-        shape, B, _, max_len, _ = SERVE_MAIN
+        shape, B, _, _, _ = SERVE_MAIN
+        max_len = serve_prompt(cfg)[1]
         mesh = Mesh(shape, ("data", "model"))
         model = build_model(cfg)
         place = ServePlacement(model, mesh, rules)
@@ -5295,11 +5386,14 @@ def serve_main_world(dev, cases: list, card: str) -> list:
 
 
 def serve_main(dev, card: str, cfg, tag: str, plans: dict):
-    """19b (granite-8b whole) and 19c (deepseek-v2 at full width,
-    `SERVE_MLA_LAYERS` layers): `cfg` in bf16, tensor-parallel (MoE
-    expert-parallel, MLA's latent split over its slots) on (data 2, model
-    2), 4 ranks sharing the card, a prefill of `SERVE_MAIN`'s prompts and
-    its greedy decode steps against the single-process steps: the
+    """19b (granite-8b whole), 19c (deepseek-v2 at full width,
+    `SERVE_MLA_LAYERS` layers), 19d (recurrentgemma-2b whole, its 2 048-slot
+    rings wrapped at every step) and 19e (xlstm-350m whole, a prompt of
+    `SERVE_XLSTM_S`): `cfg` in bf16, tensor-parallel (MoE expert-parallel,
+    MLA's latent split over its slots, the recurrent states on the rank's
+    columns or heads) on (data 2, model 2), 4 ranks sharing the card, a
+    prefill of `SERVE_MAIN`'s prompts and its greedy decode steps against
+    the single-process steps: the
     sharded steps' largest logit gap to the float32 single-process steps
     within `SERVE_BF16_MARGIN` x the bf16 single-process steps' own, and
     the greedy tokens equal wherever the single-process step's top-2
@@ -5311,7 +5405,8 @@ def serve_main(dev, card: str, cfg, tag: str, plans: dict):
     from repro_torch.models import build_model
 
     t0 = time.perf_counter()
-    (dp, tp), B, S, max_len, steps = SERVE_MAIN
+    (dp, tp), B, _, _, steps = SERVE_MAIN
+    S, max_len = serve_prompt(cfg)
     prompt = serve_tokens(cfg)
     n = build_model(cfg).param_count()
     ref = serve_main_refs(dev, cfg, prompt)
@@ -5324,7 +5419,7 @@ def serve_main(dev, card: str, cfg, tag: str, plans: dict):
     context = total - free - torch.cuda.memory_reserved()
     need = dp * tp * (plan + context)
     print(f"serve sharded {tag} plan: {cfg.name} at {cfg.num_layers} "
-          f"layers, {n} parameters, bf16, block matrices rescaled to std "
+          f"layers, {n} parameters, bf16, stacked block matrices rescaled to std "
           f"1/sqrt(d_in); prompts (B, S) = ({B}, {S}), max_len {max_len}, "
           f"{steps} greedy steps; single-process bf16 peak "
           f"{ref['peak'] / 2**30:.3f} GiB (float32 "
@@ -5338,6 +5433,9 @@ def serve_main(dev, card: str, cfg, tag: str, plans: dict):
         raise SystemExit(f"FAIL serve sharded {tag}: the plan does not fit "
                          f"the card; cut the depth")
     t_prep = time.perf_counter() - t0
+
+    share_of = ("" if cfg.family == "transformer" else
+                " (the weights'; the cache block the placement reckons)")
 
     def report(every: list, t_world: float) -> dict[str, int]:
         SEEN[tag] = {"decode": every[0]["steps"][0][1],
@@ -5412,19 +5510,20 @@ def serve_main(dev, card: str, cfg, tag: str, plans: dict):
                   f"collectives {np.median(share):.4f} of a step (median), a "
                   f"step's collectives: {kinds}; at rest {w['rest']} bytes "
                   f"(blocks {w['blocks']}, cache {w['cache']}; the specs' "
-                  f"share {w['share']}), allocated {w['allocated']}; peak "
+                  f"share{share_of} {w['share']}), allocated "
+                  f"{w['allocated']}; peak "
                   f"{w['prefill_peak'] / 2**30:.3f} GiB in the prefill, "
                   f"{w['decode_peak'] / 2**30:.3f} GiB in the steps; {card}")
             if w["rest"] != w["share"]:
                 bad.append(f"rank {w['rank']} holds {w['rest']} bytes at "
                            f"rest, "
-                           f"not the specs' share {w['share']}")
+                           f"not the specs' share{share_of} {w['share']}")
         print(f"serve sharded {tag}: rank 0's prefill peak "
               f"{every[0]['prefill_peak']} bytes against the plan {plan} "
               f"({every[0]['prefill_peak'] / plan - 1:+.4f} of it); "
               f"references "
               f"{t_ref:.1f} s, {tag}'s single-process steps and plan "
-              f"{t_prep:.1f} s, the world of {dp * tp} for 19b-c "
+              f"{t_prep:.1f} s, the world of {dp * tp} for 19b-e "
               f"{t_world:.1f} s wall (spawn included); {card}")
         if bad:
             raise SystemExit(f"FAIL serve sharded {tag}: {bad}")
@@ -5434,11 +5533,12 @@ def serve_main(dev, card: str, cfg, tag: str, plans: dict):
 
 
 def phase_serve_sharded(dev, card: str, pred: dict) -> dict[str, int]:
-    """19: sharded serving of the transformer family; 19a parity on the
-    two test meshes (run in 17a's world: `serve_parity_check`), 19b
-    granite-8b whole and 19c deepseek-v2 at full width on 4 ranks in one
-    world, each planned by the dry run's prefill peak (`pred`,
-    `dryrun_predict`'s).  No Viterbi kernel may launch."""
+    """19: sharded serving of every family; 19a parity on the two test
+    meshes (run in 17a's world: `serve_parity_check`), 19b granite-8b
+    whole, 19c deepseek-v2 at full width, 19d recurrentgemma-2b whole and
+    19e xlstm-350m whole on 4 ranks in one world, each planned by the dry
+    run's prefill peak (`pred`, `dryrun_predict_serve`'s).  No Viterbi
+    kernel may launch."""
     from repro_torch.launch.mesh import run_spmd
 
     t0 = time.perf_counter()
@@ -5507,13 +5607,26 @@ def dryrun_predict() -> dict:
             "train_s": t1 - t0, "viterbi_s": time.perf_counter() - t1}
 
 
-def dryrun_predict_serve() -> dict:
-    """18(d) and 19's plans, in a host process of its own beside
-    `dryrun_predict`: the dry run's counts (`dryrun.serve_cell`) of 19b's
-    decode step (granite-8b, `SERVE_MAIN`'s mesh, batch and max_len) and
-    of 19b's and 19c's prefills (their plans: rank 0's peak), as rank 0 of
-    a fake world of 4 on fake tensors."""
-    from repro_torch.configs import get_arch
+#: 18(d-e): the 19 cases whose decode step the dry run predicts
+DRYRUN_DECODE_TAGS = ("19b", "19d", "19e")
+
+
+#: 18: the 19 cases whose predictions each host process makes
+#: (`dryrun_predict_serve`): xlstm-350m's prefill plan alone took 137.9 s
+#: of one core at a prompt of 512 (its sLSTM scan and mLSTM final state on
+#: fake tensors a position and unit), the other three 17.4 s (a probe on
+#: the card's host, NVIDIA H100 80GB HBM3, 700.00 W)
+DRYRUN_SERVE_SPLIT = (("19b", "19c", "19d"), ("19e",))
+
+
+def dryrun_predict_serve(tags=None) -> dict:
+    """18(d-e) and 19's plans, in a host process of its own beside
+    `dryrun_predict`: the dry run's counts (`dryrun.serve_cell`) of the
+    decode steps of `DRYRUN_DECODE_TAGS` (granite-8b, recurrentgemma-2b,
+    xlstm-350m; `SERVE_MAIN`'s mesh and batch, each case's max_len) and
+    of 19b-e's prefills (their plans: rank 0's peak), as rank 0 of a fake
+    world of 4 on fake tensors; of the cases `tags` (None: all of them).
+    `merged_predictions` joins the parts."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import fake_world
     from repro_torch.models import build_model
@@ -5521,19 +5634,37 @@ def dryrun_predict_serve() -> dict:
 
     torch.set_num_threads(1)
     t0 = time.perf_counter()
-    (dp, tp), B, S, max_len, _ = SERVE_MAIN
+    (dp, tp), B, _, _, _ = SERVE_MAIN
     mesh = fake_world(dp * tp, shape=(dp, tp), axes=("data", "model"))
-    cost, blocks_b, cache_b, tok_b = dryrun.serve_cell(
-        build_model(get_arch("granite_8b").CONFIG), mesh, SINGLE_POD_RULES,
-        "decode", None, max_len, B)
-    prompt = {"tokens": torch.empty((B, S), dtype=torch.int32,
-                                    device="meta")}
-    plans = {tag: dryrun.serve_cell(
-        build_model(cfg), mesh, SINGLE_POD_RULES, "prefill", prompt, S, B,
-        max_len)[0].peak for tag, cfg in serve_main_cfgs()}
-    return {"coll": cost.collective_rows(), "peak": cost.peak,
-            "args": blocks_b + cache_b + tok_b, "cache": cache_b,
-            "s": time.perf_counter() - t0, "plans": plans}
+    decode, plans, took = {}, {}, {}
+    for tag, cfg in serve_main_cfgs():
+        if tags is not None and tag not in tags:
+            continue
+        t = time.perf_counter()
+        S, max_len = serve_prompt(cfg)
+        if tag in DRYRUN_DECODE_TAGS:
+            cost, blocks_b, cache_b, tok_b = dryrun.serve_cell(
+                build_model(cfg), mesh, SINGLE_POD_RULES, "decode", None,
+                max_len, B)
+            decode[tag] = {"coll": cost.collective_rows(), "peak": cost.peak,
+                           "args": blocks_b + cache_b + tok_b,
+                           "cache": cache_b}
+        prompt = {"tokens": torch.empty((B, S), dtype=torch.int32,
+                                        device="meta")}
+        plans[tag] = dryrun.serve_cell(
+            build_model(cfg), mesh, SINGLE_POD_RULES, "prefill", prompt, S,
+            B, max_len)[0].peak
+        took[tag] = time.perf_counter() - t
+    return {"decode": decode, "plans": plans, "took": took,
+            "s": time.perf_counter() - t0}
+
+
+def merged_predictions(parts: list) -> dict:
+    """`dryrun_predict_serve`'s parts as one (``s`` the longest part's)."""
+    return {"decode": {k: v for p in parts for k, v in p["decode"].items()},
+            "plans": {k: v for p in parts for k, v in p["plans"].items()},
+            "took": {k: v for p in parts for k, v in p["took"].items()},
+            "s": max(p["s"] for p in parts)}
 
 
 def phase_dryrun(card: str, pred: dict) -> None:
@@ -5546,7 +5677,8 @@ def phase_dryrun(card: str, pred: dict) -> None:
     ranks, 11a's counted launches of that decode; (d) per (collective,
     axis) the calls and bytes of 19b's first decode step on rank 0,
     exactly, and rank 0's predicted decode peak within `DRYRUN_PEAK_TOL`
-    of 19b's ``max_memory_allocated`` over its steps.  Prints the
+    of 19b's ``max_memory_allocated`` over its steps; (e) the same for
+    19d's and 19e's decode steps.  Prints the
     predicted flops beside 17b's step time as a share of the bf16
     peak."""
     t0 = time.perf_counter()
@@ -5571,25 +5703,29 @@ def phase_dryrun(card: str, pred: dict) -> None:
     if abs(off) > DRYRUN_PEAK_TOL:
         bad.append("18b peak")
     serve = pred["serve"]
-    measured = {k: (v[1], v[2]) for k, v in SEEN["19b"]["decode"].items()
-                if v[1]}
-    for k in sorted(set(measured) | set(serve["coll"])):
-        m, p = measured.get(k, (0, 0)), tuple(serve["coll"].get(k, (0, 0)))
-        print(f"dryrun 18d {k}: predicted {p[0]} calls, {p[1]} bytes a "
-              f"decode step; 19b rank 0's first step {m[0]} calls, {m[1]} "
-              f"bytes{'' if m == p else ' (DIFFER)'}")
-        if m != p:
-            bad.append(f"18d {k}")
-    peak = SEEN["19b"]["peak"]
-    off = serve["peak"] / peak - 1.0
-    print(f"dryrun 18d rank 0's peak in a decode step: predicted "
-          f"{serve['peak']} bytes ({serve['peak'] / 2**30:.4f} GiB; "
-          f"arguments {serve['args']} bytes, of them the cache "
-          f"{serve['cache']}), 19b's max_memory_allocated over its steps "
-          f"{peak} bytes ({peak / 2**30:.4f} GiB): {off:+.4f} of it (bound "
-          f"+-{DRYRUN_PEAK_TOL}); predicted in {serve['s']:.1f} s; {card}")
-    if abs(off) > DRYRUN_PEAK_TOL:
-        bad.append("18d peak")
+    for tag in DRYRUN_DECODE_TAGS:
+        part = "18d" if tag == "19b" else "18e"
+        step = serve["decode"][tag]
+        measured = {k: (v[1], v[2]) for k, v in SEEN[tag]["decode"].items()
+                    if v[1]}
+        for k in sorted(set(measured) | set(step["coll"])):
+            m, p = measured.get(k, (0, 0)), tuple(step["coll"].get(k, (0, 0)))
+            print(f"dryrun {part} {tag} {k}: predicted {p[0]} calls, {p[1]} "
+                  f"bytes a decode step; {tag} rank 0's first step {m[0]} "
+                  f"calls, {m[1]} bytes{'' if m == p else ' (DIFFER)'}")
+            if m != p:
+                bad.append(f"{part} {tag} {k}")
+        peak = SEEN[tag]["peak"]
+        off = step["peak"] / peak - 1.0
+        print(f"dryrun {part} {tag} rank 0's peak in a decode step: "
+              f"predicted {step['peak']} bytes ({step['peak'] / 2**30:.4f} "
+              f"GiB; arguments {step['args']} bytes, of them the cache "
+              f"{step['cache']}), {tag}'s max_memory_allocated over its "
+              f"steps {peak} bytes ({peak / 2**30:.4f} GiB): {off:+.4f} of "
+              f"it (bound +-{DRYRUN_PEAK_TOL}); predicted in "
+              f"{serve['took'][tag]:.1f} s with its prefill plan; {card}")
+        if abs(off) > DRYRUN_PEAK_TOL:
+            bad.append(f"{part} {tag} peak")
     want = {k: v for k, v in SEEN["11a decode_2d"].items() if v}
     got = {k: n * SHARD_RANKS for k, n in pred["launches"].items()}
     print(f"dryrun 18c one 2-D decode (T,K)=({TP_T},{SERVE_K}) on "
@@ -5627,13 +5763,17 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # 18's prediction runs in two host processes beside the build
-    # and the bitwise kernel checks, which time nothing, and is done before
-    # the first phase that reads a clock
-    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
-            "spawn")) as pool:
+    # 18's prediction runs in three host processes, each on a core of its
+    # own, beside the build, the bitwise kernel checks and phases 2 and
+    # 4-13, and is collected before phase 3's timings (19e's part takes
+    # 90-180 s of one core, `DRYRUN_SERVE_SPLIT`)
+    pool = ProcessPoolExecutor(1 + len(DRYRUN_SERVE_SPLIT),
+                               mp_context=multiprocessing.get_context(
+                                   "spawn"))
+    try:
         pending = pool.submit(dryrun_predict)
-        pending_serve = pool.submit(dryrun_predict_serve)
+        pending_serve = [pool.submit(dryrun_predict_serve, tags)
+                         for tags in DRYRUN_SERVE_SPLIT]
         for name, log in build.build_all().items():
             print(f"built {name} "
                   f"({build.library_path(build.CSRC / (name + '.cu'))})")
@@ -5647,11 +5787,9 @@ def main() -> int:
         errs |= e | phase_beam_passes(dev)
         for name, e in phase_stream_kernels(dev).items():
             errs[name] = max(errs.get(name, 0.0), e)
-        t_wait = time.perf_counter()
-        predicted = {**pending.result(timeout=900),
-                     "serve": pending_serve.result(timeout=900)}
-        print(f"dryrun 18 prediction ready, "
-              f"{time.perf_counter() - t_wait:.1f} s waited for it")
+    except BaseException:
+        pool.shutdown(wait=False, cancel_futures=True)
+        raise
     launches = phase_serve(dev)
     for phase in (phase_lexicon, phase_map_matching, phase_flash_bs_serve,
                   phase_flash_bs_lexicon, phase_paper_workload,
@@ -5666,7 +5804,17 @@ def main() -> int:
     resources = phase_gate(dev, card)
     for name, n in op_launches.items():
         launches[name] += n
+    t_wait = time.perf_counter()
+    predicted = {**pending.result(timeout=900),
+                 "serve": merged_predictions(
+                     [p.result(timeout=900) for p in pending_serve])}
+    pool.shutdown()
+    print(f"dryrun 18 prediction ready, "
+          f"{time.perf_counter() - t_wait:.1f} s waited for it")
+    t_timing = time.perf_counter()
     timing = phase_timing(dev, card) | phase_stream_timing(dev, card)
+    print(f"timing phases: {time.perf_counter() - t_timing:.1f} s wall; "
+          f"{time.perf_counter() - t_start:.1f} s since the start")
     for phase in (phase_lm, phase_recurrent):
         for name, n in phase(dev, card).items():
             launches[name] += n

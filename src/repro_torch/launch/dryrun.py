@@ -26,9 +26,9 @@ one sequence, whose batch the rules replicate) and, for a decode cell, its
 block of the cache, and runs the sharded serving step
 (`launch.steps.make_serve_step`) under `OpCost` (`serve_cell`); its row
 also reports ``cache_bytes_per_device``, and ``arg_bytes_per_device`` is
-blocks + cache + inputs.  The Griffin and xLSTM families have no sharded
-serving step yet: their prefill and decode cells fail with the reason
-`SERVE_REASON`, so ``--all`` exits 1 until they do.
+blocks + cache + inputs.  Every family serves so: Griffin's and xLSTM's
+cache is a `models.hybrid.StateCache`, a rank's block of their recurrent
+states (`ServePlacement`).
 
 A host read of a fake tensor fails the row with the op's name and line
 (`op_cost.HostRead`): a sync on the card's path.  ``skip`` is kept for the
@@ -70,11 +70,6 @@ from .mesh import fake_world, make_production_mesh
 from .model_flops import useful_flops
 from .op_cost import OpCost
 from .steps import make_serve_step
-
-#: why a prefill or decode cell of the recurrent families fails
-SERVE_REASON = ("no sharded serving step for the griffin / xlstm family in "
-                "the port")
-
 
 #: the device the fake tensors name: the CPU, whose autograd runs on the
 #: calling thread (with `op_cost` watching) in any build; the step takes the
@@ -156,7 +151,9 @@ def serve_cell(model, mesh, rules, kind: str, inputs: dict, S: int,
             cache = place.init_cache(B, S, dev)
             call = (blocks, mine, cache)
         cost = OpCost(mesh)
-        cost.track(blocks, mine, cache)
+        # a StateCache's entries and its `next` (a list subclass is one
+        # leaf to the pytree walk)
+        cost.track(blocks, mine, list(cache), getattr(cache, "next", None))
         with cost:
             step(*call)
     return cost, state_bytes(blocks), state_bytes(cache), state_bytes(mine)
@@ -205,11 +202,6 @@ def run_cell(arch_id: str, shape: str, multi_pod: bool,
             print(f"SKIP  {arch_id:24s} {shape:12s} {mesh_name}: {reason}")
         return {**base, "status": "skip", "reason": reason}
     model = build_model(arch_mod.CONFIG)
-    if kind != "train" and model.cfg.family != "transformer":
-        if verbose:
-            print(f"FAIL  {arch_id:24s} {shape:12s} {mesh_name}: "
-                  f"{SERVE_REASON}")
-        return {**base, "status": "fail", "error": SERVE_REASON}
     shape_mesh = make_production_mesh(multi_pod=multi_pod)
     mesh = fake_world(shape_mesh.size, multi_pod=multi_pod)
     rules = MULTI_POD_RULES if multi_pod else SINGLE_POD_RULES

@@ -3,12 +3,14 @@ shardings, as `repro.launch.steps`; and the sharded serving steps.
 
 `make_serve_step(model, kind, mesh, rules)` is the port's counterpart of
 JAX's ``jit(model.prefill)`` / ``jit(model.decode_step)`` with in / out
-shardings: each rank runs the step on its blocks of the weights, its rows
-of the batch and its block of the cache (`sharding.placement.
-ServePlacement`), tensor-parallel over "model" (`sharding.tensor_parallel`;
-heads that do not split in head groups, as the train step), MoE routed over
-the data axes as one batch (`models.moe.global_routing`), and every rank
-returns the logits whole (JAX's ``P(batch, None, None)``, of its rows).
+shardings, for every family (the transformer's, Griffin, xLSTM): each rank
+runs the step on its blocks of the weights, its rows of the batch and its
+block of the cache (`sharding.placement.ServePlacement`: a recurrent
+state on the columns or heads the rank computes), tensor-parallel over
+"model" (`sharding.tensor_parallel`; heads that do not split in head
+groups, as the train step), MoE routed over the data axes as one batch
+(`models.moe.global_routing`), and every rank returns the logits whole
+(JAX's ``P(batch, None, None)``, of its rows).
 
 Given an arch module and a shape name, `build_cell` constructs
   * the step: the train step (`train.make_train_step`, taking the port's
@@ -55,27 +57,25 @@ class Cell:
 
 
 def make_serve_step(model, kind: str, mesh, rules=SINGLE_POD_RULES):
-    """The sharded serving step of `model` on `mesh` (a `core.mesh.Mesh`)
-    under `rules` (`serve_rules`'s for one sequence: the batch replicated):
+    """The sharded serving step of `model` (any family: the transformer's,
+    Griffin, xLSTM) on `mesh` (a `core.mesh.Mesh`) under `rules`
+    (`serve_rules`'s for one sequence: the batch replicated):
     ``prefill(blocks, batch, max_len=None) -> (logits, cache)`` for
     ``kind="prefill"``, ``decode(blocks, tokens, cache) -> (logits,
     cache)`` for ``"decode"``.  `blocks` are the rank's blocks of the
     weights, `batch` / `tokens` its rows and `cache` its block
-    (`ServePlacement`); the logits come back whole on every rank of
+    (`ServePlacement`: a layer list, or a recurrent family's
+    `hybrid.StateCache`); the logits come back whole on every rank of
     "model" (its rows), the cache as the rank's block, updated in place by
     a decode step.  The blocks are loaded under `tensor_parallel.
     model_parallel` (again only when another tree is passed) and the step
     runs under it and `moe.global_routing` over the batch's axes (the
-    model's steps run under `torch.no_grad`).  Every
-    subgroup the step uses (the data group, the head groups' runs) is made
-    here, on every rank in one order.  ValueError for a mesh without
-    "model" and for a family with no sharded serving step (Griffin,
-    xLSTM): the step never falls back to a replicated or single-process
-    one."""
+    model's steps run under `torch.no_grad`).  Every subgroup the step
+    uses (the data group, the head groups' runs of the attention heads,
+    kv heads or mLSTM heads) is made here, on every rank in one order.
+    ValueError for a mesh without "model": the step never falls back to a
+    replicated or single-process one."""
     cfg = model.cfg
-    if cfg.family != "transformer":
-        raise ValueError(f"no sharded serving step for the {cfg.family} "
-                         f"family in the port")
     if "model" not in mesh.shape:
         raise ValueError(f"the sharded serving step computes on the blocks "
                          f"over \"model\": {mesh} has no such axis")

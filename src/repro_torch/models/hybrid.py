@@ -26,7 +26,14 @@ run Megatron compute over "model": the embedding lookup and the cross
 entropy vocab-parallel; Griffin's attention on the rank's heads, its MLP
 and RG-LRU block on its ff columns (`models.rglru`); xLSTM's mLSTM on the
 rank's heads, its sLSTM's recurrence whole on every rank beside a
-tensor-parallel MLP (`models.xlstm`).
+tensor-parallel MLP (`models.xlstm`).  Their prefill and decode steps run
+so too (the sharded serving step, `launch.steps.make_serve_step`): the
+logits of the rank's vocab columns gathered whole over "model" once a
+step (`tensor_parallel.gather_vocab`), and the cache the rank's block,
+built by `init_cache` under the context: Griffin's rec states on its
+d_rnn columns, its attention rings with MQA's one kv head whole; xLSTM's
+mLSTM states on its heads (its head group's where they do not split), its
+mLSTM conv tail on its span of u, its sLSTM state whole.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import math
 import torch
 from torch import nn
 
-from ..core.device import resolve_device
+from ..core.device import host_metadata, resolve_device
 from ..core.mesh import PartitionSpec as P
 from ..sharding import tensor_parallel
 from . import rglru as rg
@@ -146,8 +153,11 @@ class _RecurrentLM(nn.Module):
         return self
 
     def _load_form(self, layout: Layout) -> dict:
-        """The shape tree of a layout in `load`'s form."""
-        return _shape_tree(self.layer_trees(abstract_params(layout)))
+        """The shape tree of a layout in `load`'s form, from meta tensors
+        made with every dispatch mode set aside (`host_metadata`: in the
+        dry run they would be fake tensors, counted as live memory)."""
+        with host_metadata():
+            return _shape_tree(self.layer_trees(abstract_params(layout)))
 
     def tree(self) -> dict:
         return {self.BLOCKS: [b.tree() for b in self.blocks],
@@ -171,7 +181,11 @@ class _RecurrentLM(nn.Module):
                                          self.embed)
 
     def _logits(self, x):
-        return (rms_norm(x, self.ln_out) @ self.embed.T).float()
+        """The float32 logits of `x` on the tied head, whole over the
+        vocabulary: under `tensor_parallel.model_parallel` the rank's vocab
+        columns gathered over "model" (`tensor_parallel.gather_vocab`)."""
+        return tensor_parallel.gather_vocab(
+            (rms_norm(x, self.ln_out) @ self.embed.T).float())
 
     def _ce(self, x, batch, mask_count=None):
         """JAX's loss head: the output norm, then the chunked cross entropy
@@ -295,7 +309,9 @@ class GriffinLM(_RecurrentLM):
     def prefill(self, batch, max_len: int | None = None):
         """``batch["tokens"]`` (B, S) -> (logits (B, 1, vocab) float32 of
         the last position, the cache: each rec layer's {h, conv}, each
-        attention layer's window ring with room for `max_len` (None: S))."""
+        attention layer's window ring with room for `max_len` (None: S)).
+        Under `tensor_parallel.model_parallel` the cache is the rank's block
+        (`init_cache`'s shapes) and its attention runs on its head group."""
         acfg = self.cfg.attn_config()
         x = self._embed(batch["tokens"])
         S = x.shape[1]
@@ -334,9 +350,12 @@ class GriffinLM(_RecurrentLM):
 
     def init_cache(self, batch: int, max_len: int, device=None) -> StateCache:
         """An empty cache on `device` (None: ``cuda``; ``"meta"`` gives its
-        shapes without memory)."""
+        shapes without memory).  Under `tensor_parallel.model_parallel` a
+        rank's block of it for its `batch` rows: each rec layer's state on
+        the rank's d_rnn columns, each attention ring on its kv heads (MQA's
+        one kv head whole)."""
         cfg, dev = self.cfg, resolve_device(device)
-        acfg = cfg.attn_config()
+        acfg = tensor_parallel.local_attn(cfg.attn_config())
         entries = [rg.init_state(self.rcfg, batch, cfg.dtype, dev)
                    if kind == "rec" else
                    gqa_init_cache(acfg, batch, max_len, cfg.dtype, dev)
@@ -423,12 +442,17 @@ class XLSTMLM(_RecurrentLM):
         return x, {"m": m_new, "s": s_new}
 
     def _fresh_state(self, batch: int, device) -> dict:
+        """A unit's empty state; under `tensor_parallel.model_parallel`
+        the rank's block: the mLSTM's (C, n, m) of the heads it computes
+        (`tensor_parallel.heads`) and its conv tail's span of u (the columns
+        `tensor_parallel.fused` gives it), the sLSTM's whole."""
         cfg, W = self.cfg, self.xcfg.conv_width
         hd = cfg.d_model * 2 // cfg.num_heads  # mLSTM runs at 2x width
+        H = tensor_parallel.heads(cfg.num_heads)[1]
+        u = tensor_parallel.span(cfg.d_model * 2, "the mLSTM's u")[1]
         return {
-            "m": {"rec": xl.init_mlstm_state(batch, cfg.num_heads, hd,
-                                             device=device),
-                  "conv": torch.zeros((batch, W - 1, cfg.d_model * 2),
+            "m": {"rec": xl.init_mlstm_state(batch, H, hd, device=device),
+                  "conv": torch.zeros((batch, W - 1, u),
                                       dtype=cfg.dtype, device=device)},
             "s": {"rec": xl.init_slstm_state(batch, cfg.d_model,
                                              device=device),
@@ -462,7 +486,9 @@ class XLSTMLM(_RecurrentLM):
         the last position, the cache).  Each unit starts from a fresh state
         (the conv tails from zeros), as JAX's; `max_len` is not needed (the
         state does not grow).  Above 256 positions S must be a multiple of
-        256 (`xlstm.mlstm_chunked`)."""
+        256 (`xlstm.mlstm_chunked`).  Under
+        `tensor_parallel.model_parallel` the cache is the rank's block
+        (`_fresh_state`'s shapes)."""
         x = self._tokens(batch["tokens"])
         B, S = x.shape[:2]
         entries = []
@@ -489,7 +515,9 @@ class XLSTMLM(_RecurrentLM):
 
     def init_cache(self, batch: int, max_len: int, device=None) -> StateCache:
         """An empty cache on `device` (None: ``cuda``; ``"meta"`` gives its
-        shapes); `max_len` is not needed (the state does not grow)."""
+        shapes); `max_len` is not needed (the state does not grow).  Under
+        `tensor_parallel.model_parallel` a rank's block of it for its
+        `batch` rows (`_fresh_state`)."""
         dev = resolve_device(device)
         return StateCache([self._fresh_state(batch, dev)
                            for _ in range(self.n_units)],

@@ -24,7 +24,9 @@ them), W_r and W_i (ff their input axis) through `tensor_parallel.
 row_products` (partial products summed over "model" in one collective,
 rounded once, cut to the rank's columns), their biases and Lambda as the
 rank's span (`tensor_parallel.own`), and W_out row-parallel.  The widths
-come from the blocks' shapes alone.  Decode runs outside the context.
+come from the blocks' shapes alone.  A decode step runs the same way on
+the rank's columns of the state (`init_state` builds that block under the
+context: the sharded serving step).
 """
 
 from __future__ import annotations
@@ -139,9 +141,13 @@ def block_forward(params, x, cfg: RGLRUConfig, state=None):
 
 def init_state(cfg: RGLRUConfig, batch: int, dtype=torch.bfloat16,
                device=None):
-    return {"h": torch.zeros((batch, cfg.d_rnn), dtype=torch.float32,
+    """An empty state {h, conv tail}: its d_rnn columns, or under
+    `tensor_parallel.model_parallel` the rank's span of them (the columns
+    `column` gives it of u)."""
+    r = tensor_parallel.span(cfg.d_rnn, "d_rnn")[1]
+    return {"h": torch.zeros((batch, r), dtype=torch.float32,
                              device=device),
-            "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.d_rnn),
+            "conv": torch.zeros((batch, cfg.conv_width - 1, r),
                                 dtype=dtype, device=device)}
 
 

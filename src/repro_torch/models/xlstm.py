@@ -34,7 +34,10 @@ partitioner runs it on the rank's share:
   * the sLSTM's conv, scan and norm whole on every rank, its gate weights
     gathered whole (`tensor_parallel.whole`), its MLP tensor-parallel
     (`fused`, then `row`).
-The widths come from the blocks' shapes.  Decode runs outside the context.
+The widths come from the blocks' shapes.  A decode step runs the same way
+on the rank's block of the state: the mLSTM's (C, n, m) of its heads and
+its conv tail's span of u, the sLSTM's state whole (`models.hybrid`
+builds it under the context: the sharded serving step).
 """
 
 from __future__ import annotations

@@ -40,6 +40,7 @@ import torch
 from ..checkpointing.elastic import _block
 from ..core.mesh import axes_of
 from ..models.convert import jax_pieces, port_layout
+from ..models.hybrid import StateCache
 from . import tensor_parallel
 from .rules import SINGLE_POD_RULES
 
@@ -261,18 +262,29 @@ class ServePlacement(_Blocks):
     ``model.param_specs(rules)`` (the train step's blocks, no optimizer
     moments); the rows of a batch over the data axes, or every row where
     the rules replicate the batch (``"batch": None``, JAX's rule for the
-    one-sequence cells, `serve_rules`); and the rank's block of the cache,
-    the layer list of `models.transformer.TransformerLM.init_cache`:
+    one-sequence cells, `serve_rules`); and the rank's block of the cache
+    (the state follows the compute: a rank holds what its blocks read):
       * its rows, as the batch's;
-      * the kv columns of the kv heads the rank computes on
-        (`tensor_parallel.heads`: its own, or its head group's whole heads
-        where they do not split over "model", not JAX's even column cut);
-        MQA's single kv head whole, as JAX's ``kv_axis = None``;
-      * MLA's latent and its ``pos`` as the rank's contiguous share of the
-        slots (JAX's ``"pos": spec("heads")``);
-      * ``pos`` of a GQA cache and ``next`` whole.
-    Cutting needs only the mesh's shape and this rank's coordinates;
-    `gather_cache` runs `Mesh.all_gather`."""
+      * the transformer's layer list (`TransformerLM.init_cache`): the kv
+        columns of the kv heads the rank computes on (`tensor_parallel.
+        heads`: its own, or its head group's whole heads where they do not
+        split over "model", not JAX's even column cut); MQA's single kv
+        head whole, as JAX's ``kv_axis = None``; MLA's latent and its
+        ``pos`` as the rank's contiguous share of the slots (JAX's
+        ``"pos": spec("heads")``); ``pos`` of a GQA cache and ``next``
+        whole;
+      * Griffin's `hybrid.StateCache` (a dict a layer): a rec layer's
+        ``h`` and conv tail on the rank's span of the d_rnn columns (those
+        `tensor_parallel.column` gives it of u), an attention layer's ring
+        as a GQA cache's (MQA: its one kv head whole);
+      * xLSTM's `StateCache` (a dict a unit): the mLSTM's C, n and m of the
+        heads the rank computes (its head group's where they do not split),
+        its conv tail on the rank's span of u (`tensor_parallel.fused`'s
+        columns, not its heads'), the sLSTM's state and conv tail whole;
+        and the cache's ``next`` whole.
+    JAX's ``cache_specs`` split the recurrent states over the batch only:
+    there a rank holds every column.  Cutting needs only the mesh's shape
+    and this rank's coordinates; `gather_cache` runs `Mesh.all_gather`."""
 
     def __init__(self, model, mesh, rules=SINGLE_POD_RULES):
         self.model, self.mesh = model, mesh
@@ -321,74 +333,91 @@ class ServePlacement(_Blocks):
         i = self.mesh.index(self.data_axes)
         return slice(i * n // d, (i + 1) * n // d)
 
-    def _kv_columns(self) -> slice:
-        """This rank's kv columns of a GQA cache (all of them for MQA)."""
+    # -- the cache's block ------------------------------------------------
+    def _cuts(self, entry: dict) -> dict:
+        """How each leaf of a cache entry (a layer's or a unit's dict) lies:
+        a tree of (rows, dim, nheads): whether its first axis is the rows;
+        its axis cut over "model" (None: whole over "model"); the heads
+        that axis holds, cut to the ones the rank computes
+        (`tensor_parallel.heads`; 1: whole), or None: the rank's span."""
         cfg = self.model.cfg
-        n = cfg.num_kv_heads * cfg.hd
-        if cfg.num_kv_heads == 1:
-            return slice(0, n)
-        with tensor_parallel.model_parallel(self.mesh):
-            lo, k, _ = tensor_parallel.heads(cfg.num_kv_heads)
-        return slice(lo * cfg.hd, (lo + k) * cfg.hd)
+        rows_only = (True, None, None)
+        if "latent" in entry:                       # MLA: the slots split
+            return {"latent": (True, 1, None), "pos": (False, 0, None),
+                    "next": (False, None, None)}
+        if "k" in entry:                            # GQA / MQA: the kv heads
+            kv = (True, 2, cfg.num_kv_heads)
+            return {"k": kv, "v": kv, "pos": (False, None, None),
+                    "next": (False, None, None)}
+        if "h" in entry:                            # an RG-LRU layer
+            return {"h": (True, 1, None), "conv": (True, 2, None)}
+        heads = (True, 1, cfg.num_heads)            # an xLSTM unit
+        return {"m": {"rec": {k: heads for k in entry["m"]["rec"]},
+                      "conv": (True, 2, None)},
+                "s": {"rec": {k: rows_only for k in entry["s"]["rec"]},
+                      "conv": rows_only}}
 
-    def _slots(self, n: int) -> slice:
+    def _over_cache(self, fn, cache: list) -> list:
+        """`fn(t, cut)` over every leaf of every entry of `cache` (and its
+        ``next`` whole, for a `hybrid.StateCache`)."""
+        def walk(entry, cuts):
+            return {k: (walk(v, cuts[k]) if isinstance(v, dict)
+                        else fn(v, cuts[k])) for k, v in entry.items()}
+        out = [walk(c, self._cuts(c)) for c in cache]
+        if isinstance(cache, StateCache):
+            return StateCache(out, fn(cache.next, (False, None, None)))
+        return out
+
+    def _columns(self, n: int, nheads) -> slice:
+        """This rank's entries of an axis of `n` cut over "model": its span,
+        or with `nheads` those of the heads it computes among that many
+        (`tensor_parallel.heads`; one head is whole)."""
         with tensor_parallel.model_parallel(self.mesh):
-            lo, k = tensor_parallel.span(n, "MLA's cache slots")
+            if nheads is None:
+                lo, k = tensor_parallel.span(n, "a cache axis")
+            elif nheads == 1:
+                lo, k = 0, n
+            else:
+                first, count, _ = tensor_parallel.heads(nheads)
+                lo, k = first * n // nheads, count * n // nheads
         return slice(lo, lo + k)
 
     def shard_cache(self, cache: list) -> list:
         """This rank's block (copies) of a whole decode cache."""
-        out = []
-        for c in cache:
-            rows = self.rows(len(c["latent" if "latent" in c else "k"]))
-            if "latent" in c:
-                at = self._slots(c["latent"].shape[1])
-                one = {"latent": c["latent"][rows, at], "pos": c["pos"][at]}
-            else:
-                cols = self._kv_columns()
-                one = {"k": c["k"][rows, :, cols], "v": c["v"][rows, :, cols],
-                       "pos": c["pos"]}
-            one["next"] = c["next"]
-            out.append({k: v.clone() for k, v in one.items()})
-        return out
+        def cut(t, how):
+            has_rows, dim, nheads = how
+            if has_rows:
+                t = t[self.rows(len(t))]
+            if dim is not None:
+                at = self._columns(t.shape[dim], nheads)
+                t = t.narrow(dim, at.start, at.stop - at.start)
+            return t.clone()
+        return self._over_cache(cut, cache)
 
     def gather_cache(self, cache: list) -> list:
-        """The whole decode cache of the ranks' blocks (each rank of the
-        mesh calls this and gets all of it)."""
+        """The whole decode cache of the ranks' blocks, in the port's
+        layout (each rank of the mesh calls this and gets all of it)."""
         mesh = self.mesh
         m = mesh.axis_size("model")
-        cfg = self.model.cfg
-        run = (1 if cfg.num_kv_heads == 1 else
-               m // math.gcd(cfg.num_kv_heads, m))
 
-        def rows(t):
-            if self.data_axes is None:
-                return t
-            return mesh.all_gather(t, self.data_axes, 0)
-        out = []
-        for c in cache:
-            if "latent" in c:
-                one = {"latent": rows(mesh.all_gather(c["latent"], "model",
-                                                      1)),
-                       "pos": mesh.all_gather(c["pos"], "model", 0)}
-            else:
-                one = {"pos": c["pos"]}
-                for k in ("k", "v"):
-                    t = c[k]
-                    if cfg.num_kv_heads > 1:
-                        # one rank of each head group's run, in order
-                        every = mesh.all_gather(t, "model", 2)
-                        w = t.shape[2]
-                        t = torch.cat([every[..., j * w:(j + 1) * w]
-                                       for j in range(0, m, run)], dim=2)
-                    one[k] = rows(t)
-            one["next"] = c["next"]
-            out.append(one)
-        return out
+        def gather(t, how):
+            has_rows, dim, nheads = how
+            if dim is not None and nheads != 1:
+                every = mesh.all_gather(t, "model", dim)
+                run = 1 if nheads is None else m // math.gcd(nheads, m)
+                if run > 1:     # one rank of each head group's run, in order
+                    w = t.shape[dim]
+                    every = torch.cat([every.narrow(dim, j * w, w)
+                                       for j in range(0, m, run)], dim=dim)
+                t = every
+            if has_rows and self.data_axes is not None:
+                t = mesh.all_gather(t, self.data_axes, 0)
+            return t
+        return self._over_cache(gather, cache)
 
     def init_cache(self, batch: int, max_len: int, device=None) -> list:
         """This rank's block of an empty cache for a global `batch` of
-        rows (`TransformerLM.init_cache` under the context)."""
+        rows (the model's `init_cache` under the context)."""
         n = len(range(batch)[self.rows(batch)])
         with tensor_parallel.model_parallel(self.mesh):
             return self.model.init_cache(n, max_len, device)
@@ -430,6 +459,8 @@ def state_bytes(tree) -> int:
     """Bytes of a tree's tensors (meta tensors counted as if allocated)."""
     if isinstance(tree, dict):
         return sum(state_bytes(v) for v in tree.values())
+    if isinstance(tree, StateCache):
+        return sum(state_bytes(v) for v in tree) + state_bytes(tree.next)
     if isinstance(tree, (list, tuple)):
         return sum(state_bytes(v) for v in tree)
     return tree.numel() * tree.element_size()

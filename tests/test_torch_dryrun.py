@@ -26,12 +26,15 @@ Tolerances:
     test mesh) on a fake world of 8 against rank 0 of a real 8-rank gloo
     decode step of the same cell (`launch.steps.make_serve_step`): the
     collectives, the kernel launches (none), the flops, the fused and
-    eager bytes;
+    eager bytes; the same for Griffin's and xLSTM's SMOKE decode cells on
+    a rank's block of their recurrent states (and their cache bytes);
   * serving rows: tinyllama-1.1b's decode_32k on 16 x 16 ``ok``, fitting,
     its cache bytes a rank those reckoned by hand (8 rows, 32 768 slots,
     the 64 columns of one of its 4 kv heads, 22 layers, keys and values in
-    bf16: 1.48 GB); recurrentgemma's decode_32k ``fail`` with
-    `SERVE_REASON` (no sharded serving step for Griffin / xLSTM yet);
+    bf16: 1.48 GB); recurrentgemma-2b's and xlstm-350m's decode_32k
+    ``ok``, their cache bytes a rank reckoned by hand (the rec states on
+    the rank's d_rnn columns and the MQA rings whole: 134.51 MB; one
+    mLSTM head a rank and the sLSTM state whole: 103.10 MB);
     tinyllama's long_500k ``skip`` with its `SKIPS` reason;
     `render` of a two-row JSONL gives both rows.
 """
@@ -39,6 +42,7 @@ Tolerances:
 import concurrent.futures as cf
 import dataclasses
 import json
+import math
 import multiprocessing as mp
 
 import numpy as np
@@ -55,7 +59,7 @@ from repro_torch.launch.op_cost import ALLOC_ROUND, OpCost
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig
 from repro_torch.sharding.placement import (ServePlacement, data_axes,
-                                            shard_train_state)
+                                            shard_train_state, state_bytes)
 from repro_torch.sharding.rules import SINGLE_POD_RULES
 from repro_torch.train import (TrainConfig, abstract_train_state,
                                init_train_state, train_state_specs)
@@ -79,9 +83,12 @@ def _smoke_cfg():
 SERVE_ARCH, SERVE_LEN = "deepseek_v2_236b", 24
 
 
-def _serve_cfg():
-    return dataclasses.replace(get_arch(SERVE_ARCH).SMOKE,
-                               dtype=torch.float32)
+def _serve_cfg(arch=SERVE_ARCH):
+    return dataclasses.replace(get_arch(arch).SMOKE, dtype=torch.float32)
+
+
+#: the recurrent families' SMOKE decode cells, beside deepseek-v2's
+RECURRENT = ("recurrentgemma_2b", "xlstm_350m")
 
 
 def _smoke_batch_meta() -> dict:
@@ -111,10 +118,18 @@ def _fake_side() -> dict:
                              SINGLE_POD_RULES, "decode", None, SERVE_LEN,
                              B)[0]
     out["serve_smoke"] = _counts(cost)
+    for arch in RECURRENT:
+        cost, _, cache_b, _ = dryrun.serve_cell(
+            build_model(_serve_cfg(arch)), mesh, SINGLE_POD_RULES, "decode",
+            None, SERVE_LEN, B)
+        out[f"serve_smoke/{arch}"] = {**_counts(cost), "cache": cache_b}
     out["train_4k"] = dryrun.run_cell("tinyllama_1_1b", "train_4k", False,
                                       verbose=False)
     out["decode_32k"] = dryrun.run_cell("tinyllama_1_1b", "decode_32k",
                                         False, verbose=False)
+    for arch in RECURRENT:
+        out[f"decode_32k/{arch}"] = dryrun.run_cell(arch, "decode_32k",
+                                                    False, verbose=False)
     mesh = fake_world(256)
     K, T = dryrun_viterbi.FLASH_2D
     cost = dryrun_viterbi.flash_2d_cell(mesh, K, T, "row")
@@ -145,17 +160,19 @@ def _real_world(device):
     with cost:
         step(state, mine)
     out = {"train": _counts(cost)}
-    model = build_model(_serve_cfg()).init(torch.Generator().manual_seed(1),
-                                           device="cpu")
-    place = ServePlacement(model, mesh, SINGLE_POD_RULES)
-    blocks = place.shard(model.tree())
-    cache = place.init_cache(B, SERVE_LEN, "cpu")
-    tokens = torch.zeros((B // 4, 1), dtype=torch.int32)
-    step = make_serve_step(model, "decode", mesh, SINGLE_POD_RULES)
-    cost = OpCost(mesh)
-    with cost:
-        step(blocks, tokens, cache)
-    out["serve"] = _counts(cost)
+    for arch in (SERVE_ARCH,) + RECURRENT:
+        model = build_model(_serve_cfg(arch)).init(
+            torch.Generator().manual_seed(1), device="cpu")
+        place = ServePlacement(model, mesh, SINGLE_POD_RULES)
+        blocks = place.shard(model.tree())
+        cache = place.init_cache(B, SERVE_LEN, "cpu")
+        tokens = torch.zeros((B // 4, 1), dtype=torch.int32)
+        step = make_serve_step(model, "decode", mesh, SINGLE_POD_RULES)
+        cost = OpCost(mesh)
+        with cost:
+            step(blocks, tokens, cache)
+        out["serve" if arch == SERVE_ARCH else f"serve/{arch}"] = {
+            **_counts(cost), "cache": state_bytes(cache)}
     return out
 
 
@@ -273,13 +290,32 @@ def test_fake_serve_cell_counts_equal_a_real_ranks(sides):
     query gathers, the softmax's max and sums over "model", MoE's counts
     over "data"), kernel launches (none), flops and bytes, exactly."""
     fake, real = sides
-    real = real["serve"]
+    real = dict(real["serve"])
+    del real["cache"]
     assert fake["serve_smoke"] == real
     assert real["launches"] == {}
     kinds = {k.split(" over ")[0] + " over " + k.split(" over ")[1]
              for k in real["coll"]}
     assert {"all_gather over model", "all_reduce_max over model",
             "all_reduce_sum over model", "all_gather over data"} <= kinds
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_fake_recurrent_serve_cell_counts_equal_a_real_ranks(sides, arch):
+    """Griffin's and xLSTM's SMOKE decode cells on a fake world of 8 and
+    rank 0 of a real gloo world of 8 running the same decode step on a
+    rank's block of the recurrent state: the same collectives (calls and
+    bytes by kind and axis), kernel launches (none), flops, fused and
+    eager bytes and cache bytes, exactly; one gather over "model" (the
+    logits) for Griffin, 1 + 3 a unit for xLSTM (the two `fused`
+    exchanges, the sLSTM gates' `whole`)."""
+    fake, real = sides
+    real = real[f"serve/{arch}"]
+    assert fake[f"serve_smoke/{arch}"] == real
+    assert real["launches"] == {}
+    cfg = _serve_cfg(arch)
+    gathers = 1 + (3 * cfg.num_layers // 2 if arch == "xlstm_350m" else 0)
+    assert real["coll"]["all_gather over model"][0] == gathers
 
 
 def test_tinyllama_train_4k_places_and_fits(sides):
@@ -437,30 +473,66 @@ def _reckoned_cache_bytes(arch: str, rows: int, slots: int) -> int:
     return cfg.num_layers * (2 * rows * slots * cfg.hd * 2 + 4 * slots + 4)
 
 
+def _reckoned_recurrent_bytes(arch: str, rows: int, slots: int,
+                              m: int = 16) -> int:
+    """A rank's recurrent cache bytes at decode among `m` model ranks, by
+    hand (the state follows the compute; float32 states, bf16 conv tails
+    and rings, int32 positions, and the cache's ``next``).  Griffin: each
+    rec layer's h and 3-row conv tail on d_rnn / m columns; each
+    attention layer's ring of min(window, slots) slots of MQA's one kv
+    head (hd columns), keys and values, its positions and ``next``.
+    xLSTM: each unit's mLSTM C (hd x hd), n (hd) and m of the heads of its
+    head group (H / gcd(H, m)), its conv tail on 2 d / m columns, the
+    sLSTM's c, n, m, h (d each) and conv tail (3 x d) whole."""
+    cfg = get_arch(arch).CONFIG
+    if cfg.family == "griffin":
+        n_attn = cfg.num_layers // 3
+        cols = cfg.d_rnn // m
+        rec = rows * cols * 4 + rows * 3 * cols * 2
+        C = min(cfg.window, slots)
+        attn = 2 * rows * C * cfg.hd * 2 + 4 * C + 4
+        return (cfg.num_layers - n_attn) * rec + n_attn * attn + 4
+    d, H = cfg.d_model, cfg.num_heads
+    h, hd = H // math.gcd(H, m), 2 * d // H
+    mlstm = rows * h * (hd * hd + hd + 1) * 4 + rows * 3 * (2 * d // m) * 2
+    slstm = rows * 4 * d * 4 + rows * 3 * d * 2
+    return cfg.num_layers // 2 * (mlstm + slstm) + 4
+
+
 @pytest.mark.parametrize("case", ["tinyllama-decode_32k-ok",
-                                  "recurrentgemma-decode_32k-fail",
+                                  "recurrentgemma-decode_32k-ok",
+                                  "xlstm-decode_32k-ok",
                                   "tinyllama-long_500k-skip"])
-def test_serving_cells_fail_and_skips_skip(sides, case):
+def test_serving_cells_run_and_skips_skip(sides, case):
     """The serving rows: tinyllama-1.1b's decode_32k on 16 x 16 runs the
     sharded decode step (``ok``), fits, and holds a rank's cache of the
     bytes reckoned by hand (1.48 GB: 8 of the 128 rows, the 64 columns of
-    one of its 4 kv heads, and the slots' positions); recurrentgemma's decode_32k reads ``fail``
-    with `SERVE_REASON` (no sharded serving step for Griffin / xLSTM),
-    not ``skip``; an arch's `SKIPS` cell reads ``skip`` with its
-    reason."""
+    one of its 4 kv heads, and the slots' positions); so do
+    recurrentgemma-2b's (134.51 MB: the rec states on 160 of the 2 560
+    d_rnn columns, the 2 048-slot MQA rings whole) and xlstm-350m's
+    (103.10 MB: one mLSTM head of hd 512 a rank, the sLSTM state whole),
+    each with one gather over "model" (the logits) and, for xLSTM, 3 a
+    unit; an arch's `SKIPS` cell reads ``skip`` with its reason."""
     if case.endswith("-ok"):
-        row = sides[0]["decode_32k"]
+        arch = {"tinyllama": "tinyllama_1_1b",
+                "recurrentgemma": "recurrentgemma_2b",
+                "xlstm": "xlstm_350m"}[case.split("-")[0]]
+        row = sides[0]["decode_32k" if arch == "tinyllama_1_1b"
+                       else f"decode_32k/{arch}"]
         assert row["status"] == "ok", row
-        want = _reckoned_cache_bytes("tinyllama_1_1b", 8, 32_768)
-        assert row["cache_bytes_per_device"] == want == 1_479_278_680
+        want, gathers = {
+            "tinyllama_1_1b": (_reckoned_cache_bytes(arch, 8, 32_768), 1),
+            "recurrentgemma_2b": (_reckoned_recurrent_bytes(arch, 8,
+                                                            32_768), 1),
+            "xlstm_350m": (_reckoned_recurrent_bytes(arch, 8, 32_768),
+                           1 + 3 * 12)}[arch]
+        assert row["cache_bytes_per_device"] == want == {
+            "tinyllama_1_1b": 1_479_278_680,
+            "recurrentgemma_2b": 134_513_700,
+            "xlstm_350m": 103_096_708}[arch]
         assert row["fits"] and row["arg_bytes_per_device"] == (
             row["state_bytes_per_device"] + want + 8 * 4)
-        assert row["collectives"]["all_gather over model"][0] == 1
-    elif case.endswith("-fail"):
-        row = dryrun.run_cell("recurrentgemma_2b", "decode_32k", False,
-                              verbose=False)
-        assert (row["status"], row["error"]) == ("fail", dryrun.SERVE_REASON)
-        assert "griffin / xlstm" in row["error"]
+        assert row["collectives"]["all_gather over model"][0] == gathers
     else:
         row = dryrun.run_cell("tinyllama_1_1b", "long_500k", True,
                               verbose=False)
